@@ -1,6 +1,6 @@
 """Command-line application: the `render` subcommand.
 
-    python -m gpu_raytracer_tpu_torch render [--demo | --courtyard N] \
+    python -m gpu_raytracer_tpu_torch render [--demo | --courtyard N [--textured]] \
         [--width W --height H] [--shadows] [--device cuda|cpu] -o out.png
 
 `--device cuda` (the default) renders through the CUDA kernels and fails
@@ -22,12 +22,11 @@ def _load_scene(args, config, device):
 
     if args.gltf:
         raise NotImplementedError("glTF scenes are not ported yet")
-    if args.textured:
-        raise NotImplementedError("the textured courtyard is not ported yet")
     if args.courtyard:
         from .utils.procgen import make_courtyard_scene
 
-        return make_courtyard_scene(args.courtyard, seed=0, config=config, device=device)
+        return make_courtyard_scene(args.courtyard, seed=0, config=config,
+                                    textured=args.textured, device=device)
     return build_default_scene(config, device=device)
 
 

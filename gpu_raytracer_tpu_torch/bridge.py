@@ -5,7 +5,10 @@ under the same field names) becomes this package's `Scene` on any device:
 the scene tables are this system's "weights carried across". The keys are
 "<group>.<field>" for nested dataclasses ("bvh.q_child", "camera.fov") and
 the plain field name for top-level tensors ("tri_v0"); integer metadata
-(`bvh.leaf_align`, `bvh.max_leaf`, `bvh.depth`, ...) travels as 0-d arrays.
+(`bvh.leaf_align`, `bvh.max_leaf`, `bvh.depth`, `textures.n_levels`, ...)
+travels as 0-d arrays, tuples (`materials.present_slots`) as tuples. Textured
+scenes carry their atlas (`textures.*`, texels as unsigned values in int64);
+the per-slot uv-density code is derived from the carried triangle tables.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from .models.geometry import Mesh, Spheres, Textures
 from .models.light import Lights
 from .models.material import Materials
 from .models.scene import Scene
+from .ops.texture import uv_density_code
 
 GROUPS = {"camera": Camera, "spheres": Spheres, "mesh": Mesh,
           "materials": Materials, "lights": Lights, "textures": Textures,
@@ -65,7 +69,8 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], device) -> Scene:
                 kw[f.name] = _meta(v)
         groups[name] = cls(**kw)
     top = {k: _tensor(k, arrays[k]) for k in TOP_LEVEL}
-    return Scene(**groups, **top).to(device)
+    den = uv_density_code(top["tri_e1"], top["tri_e2"], top["tri_uv"])
+    return Scene(**groups, **top, tri_den=den).to(device)
 
 
 def scene_to_arrays(scene: Scene) -> dict[str, np.ndarray]:

@@ -2,9 +2,9 @@
 
 The same fields and defaults as the JAX package's `RaytracerConfig`, so a
 configuration means the same thing to both packages. Fields that only the
-TPU kernels read (`use_pallas`, the texture and path-tracing knobs) are kept
-for that parity; the parts of the port that exist so far read
-`bvh_leaf_size` and `bvh_width`.
+TPU kernels read (`use_pallas`, the path-tracing knobs) are kept for that
+parity; the parts of the port that exist so far read `bvh_leaf_size`,
+`bvh_width`, `texture_mips` and `texture_trilinear`.
 """
 
 from __future__ import annotations

@@ -1,0 +1,183 @@
+// Device functions shared by the primary-render kernels: K2 (render_primary.cu)
+// and K3 (render_deferred.cu). One pixel per thread.
+//
+// Camera ray from the pixel coordinates, the exhaustive sphere pass, K1's
+// closest hit pruned at the sphere's t (strict <: the sphere wins a tie), the
+// hit point, normal and material, one light's intensity with the f16
+// attenuation round trip and, with shadows, its any-hit shadow ray through K1
+// plus the sphere occluders, and the per-channel dispersion blend.
+//
+// Every formula follows the plain PyTorch version (ops/camera_rays.py,
+// ops/trace.py, ops/shading.py, engine/renderer.py::_shadow_mask) operation
+// for operation, in the same order: IEEE division and sqrt (no rsqrt, no
+// reciprocal multiply), three-term dot products added left to right, and
+// __float2half_rn for the attenuation. Built with -fmad=false the kernels then
+// round like the plain version.
+#pragma once
+
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include "traverse.cuh"
+
+namespace rt {
+
+constexpr float kPi = 3.14159265358979323846f;
+constexpr int kMatWords = 16;    // albedo3 emission3 metallic ior transmission pad7
+constexpr int kLightWords = 16;  // position3 type color3 intensity direction3 pad5
+constexpr int kSphereWords = 8;  // center3 radius material(int bits) pad3
+
+__device__ __forceinline__ float max0(float x) { return x > 0.0f ? x : 0.0f; }
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by,
+                                      float bz) {
+  return ax * bx + ay * by + az * bz;
+}
+
+// Camera ray through the pixel centre (unnormalised right / true_up basis in
+// cam[6..11], tan(fov/2) in cam[12]).
+__device__ __forceinline__ Ray camera_ray(const float* __restrict__ cam, int px, int py,
+                                          int width, int height) {
+  const float w = static_cast<float>(width), h = static_cast<float>(height);
+  const float u = (static_cast<float>(px) + 0.5f) / w;
+  const float v = (static_cast<float>(py) + 0.5f) / h;
+  const float fov_scale = cam[12];
+  const float cx = (u * 2.0f - 1.0f) * (w / h) * fov_scale;
+  const float cy = (1.0f - v * 2.0f) * fov_scale;
+  float dx = cam[3] + cam[6] * cx + cam[9] * cy;
+  float dy = cam[4] + cam[7] * cx + cam[10] * cy;
+  float dz = cam[5] + cam[8] * cx + cam[11] * cy;
+  const float dlen = sqrtf(dot3(dx, dy, dz, dx, dy, dz));
+  dx = dx / dlen;
+  dy = dy / dlen;
+  dz = dz / dlen;
+  return make_ray(cam[0], cam[1], cam[2], dx, dy, dz);
+}
+
+// Sphere t along the ray (the near root when it is past MIN_T), and whether it
+// lies in (MIN_T, max_t).
+__device__ __forceinline__ bool sphere_hit(const float* __restrict__ s, const Ray& r,
+                                           float max_t, float& t) {
+  const float ocx = r.ox - s[0], ocy = r.oy - s[1], ocz = r.oz - s[2];
+  const float rad = s[3];
+  const float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  const float b = 2.0f * dot3(ocx, ocy, ocz, r.dx, r.dy, r.dz);
+  const float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad;
+  const float disc = b * b - 4.0f * a * c;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float t1 = (-b - sq) / (2.0f * a);
+  const float t2 = (-b + sq) / (2.0f * a);
+  t = t1 > kMinT ? t1 : t2;
+  return disc >= 0.0f && t > kMinT && t < max_t;
+}
+
+// The closest hit of a camera ray: point, unit normal, material.
+struct Surface {
+  float t;
+  float px, py, pz;
+  float nx, ny, nz;
+  int mat;
+  int slot;   // winning triangle slot, -1 for a sphere
+};
+
+// Spheres exhaustively (first closest wins), then the triangles pruned at the
+// sphere t. Returns false on a miss.
+template <int STACK>
+__device__ __forceinline__ bool closest_surface(const Node4* __restrict__ nodes,
+                                                const float4* __restrict__ tris,
+                                                const float* __restrict__ spheres,
+                                                int n_spheres, const Ray& ray, Surface& s) {
+  float sph_t = kMissT;
+  int sph_i = -1;
+  for (int k = 0; k < n_spheres; ++k) {
+    float t;
+    if (sphere_hit(spheres + k * kSphereWords, ray, kMissT, t) && t < sph_t) {
+      sph_t = t;
+      sph_i = k;
+    }
+  }
+  const TriHit tri = traverse_bvh4<STACK, false>(nodes, tris, ray, sph_t);
+  const bool use_tri = tri.slot >= 0;
+  if (!use_tri && sph_i < 0) return false;
+  s.t = use_tri ? tri.t : sph_t;
+  s.slot = tri.slot;
+  s.px = ray.ox + ray.dx * s.t;
+  s.py = ray.oy + ray.dy * s.t;
+  s.pz = ray.oz + ray.dz * s.t;
+  if (use_tri) {
+    tri_attributes(tris, tri.slot, s.nx, s.ny, s.nz, s.mat);
+  } else {
+    const float* sp = spheres + sph_i * kSphereWords;
+    const float snx = s.px - sp[0], sny = s.py - sp[1], snz = s.pz - sp[2];
+    const float slen = sqrtf(dot3(snx, sny, snz, snx, sny, snz));
+    s.nx = snx / slen;
+    s.ny = sny / slen;
+    s.nz = snz / slen;
+    s.mat = __float_as_int(sp[4]);
+  }
+  return true;
+}
+
+// Intensity of light row L at the surface, times 0 when a shadow ray finds a
+// blocker (only traced where the light contributes), before the > 0 gate.
+template <int STACK>
+__device__ __forceinline__ float light_intensity(const float* __restrict__ L, const Surface& s,
+                                                 bool shadows, const Node4* __restrict__ nodes,
+                                                 const float4* __restrict__ tris,
+                                                 const float* __restrict__ spheres,
+                                                 int n_spheres) {
+  const float type = L[3];
+  const float intensity = L[7];
+  const float ldx = L[8], ldy = L[9], ldz = L[10];
+  const float dir_I = max0(dot3(s.nx, s.ny, s.nz, -ldx, -ldy, -ldz)) * intensity;
+  const float tlx = L[0] - s.px, tly = L[1] - s.py, tlz = L[2] - s.pz;
+  const float dist = sqrtf(dot3(tlx, tly, tlz, tlx, tly, tlz));
+  const float plx = tlx / dist, ply = tly / dist, plz = tlz / dist;
+  const float atten = __half2float(__float2half_rn(1.0f / (1.0f + dist * dist * 0.01f)));
+  const float point_I = max0(dot3(s.nx, s.ny, s.nz, plx, ply, plz)) * intensity * atten;
+  const float spot_I = point_I * max0(dot3(-ldx, -ldy, -ldz, plx, ply, plz));
+  float I = dir_I * (type == 0.0f ? 1.0f : 0.0f) + point_I * (type == 1.0f ? 1.0f : 0.0f) +
+            spot_I * (type == 2.0f ? 1.0f : 0.0f);
+  if (shadows && I > 0.0f) {
+    const bool directional = type == 0.0f;
+    const float sdx = directional ? -ldx : plx;
+    const float sdy = directional ? -ldy : ply;
+    const float sdz = directional ? -ldz : plz;
+    const float smax = directional ? 3.0e38f : dist - 1e-3f;
+    const Ray sray = make_ray(s.px + s.nx * 1e-3f, s.py + s.ny * 1e-3f, s.pz + s.nz * 1e-3f,
+                              sdx, sdy, sdz);
+    bool blocked = false;
+    for (int k = 0; k < n_spheres && !blocked; ++k) {
+      float st;
+      blocked = sphere_hit(spheres + k * kSphereWords, sray, smax, st);
+    }
+    if (!blocked) blocked = traverse_bvh4<STACK, true>(nodes, tris, sray, smax).slot >= 0;
+    I = I * (blocked ? 0.0f : 1.0f);
+  }
+  return I;
+}
+
+// Transmission blend of channel c with the wavelength-dependent IOR
+// (offsets -0.018, 0, +0.035; transmitted base 0.2, 0.2, 0.3).
+__device__ __forceinline__ float dispersion_blend(float lit, float ior, float trans_raw, int c) {
+  const float trans = fminf(fmaxf(trans_raw, 0.0f), 1.0f);
+  const float offset = c == 0 ? -0.018f : c == 1 ? 0.0f : 0.035f;
+  const float base = c == 2 ? 0.3f : 0.2f;
+  const float dispersion = (ior + offset - 1.0f) / (ior - 1.0f);
+  const float transmitted = base * dispersion;
+  const float blended = lit * (1.0f - trans) + transmitted * trans;
+  return trans > 0.0f ? blended : lit;
+}
+
+// Stack capacities compiled for every traversing kernel (ops/cuda/traverse.py
+// STACK_SIZES): expands LAUNCH(S) once per capacity in a switch on `stack`.
+#define RT_SWITCH_STACK(stack, LAUNCH)                      \
+  switch (stack) {                                          \
+    case 16: LAUNCH(16); break;                             \
+    case 32: LAUNCH(32); break;                             \
+    case 64: LAUNCH(64); break;                             \
+    case 128: LAUNCH(128); break;                           \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+}  // namespace rt

@@ -10,12 +10,11 @@
 // magenta for an invalid material, the sky colour for a miss.
 //
 // Every formula follows the plain PyTorch version (engine/renderer.py::
-// render_chunk and ops/shading.py) operation for operation, in the same order:
-// IEEE division and sqrt (no rsqrt, no reciprocal multiply), three-term dot
-// products added left to right, the light sum accumulated in light order, and
-// __float2half_rn for the attenuation. Built with -fmad=false the kernel then
-// rounds like the plain version; the two differ only where two triangles share
-// the exact same t (see traverse.cuh).
+// render_chunk and ops/shading.py) operation for operation, in the same order
+// (render_common.cuh holds the parts shared with the deferred trace, K3), and
+// the light sum accumulates in light order. Built with -fmad=false the kernel
+// then rounds like the plain version; the two differ only where two triangles
+// share the exact same t (see traverse.cuh).
 //
 // What bounds it on an H100: the traversals (one primary ray and, with
 // shadows, one shadow ray per light), which are latency- and divergence-bound
@@ -25,47 +24,11 @@
 // like read-only path, the BVH tables stay in L2. Fusing raygen, traversal
 // and shading keeps every intermediate in registers instead of the ~15 per-ray
 // arrays the plain pipeline writes to device memory between stages.
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
-#include "traverse.cuh"
+#include "render_common.cuh"
 
 namespace {
-
-constexpr float kPi = 3.14159265358979323846f;
-constexpr int kMatWords = 16;    // albedo3 emission3 metallic ior transmission pad7
-constexpr int kLightWords = 16;  // position3 type color3 intensity direction3 pad5
-constexpr int kSphereWords = 8;  // center3 radius material(int bits) pad3
-
-__device__ __forceinline__ float max0(float x) { return x > 0.0f ? x : 0.0f; }
-
-// per-channel IOR offsets and transmitted base colour
-__device__ __forceinline__ float dispersion_offset(int c) {
-  return c == 0 ? -0.018f : c == 1 ? 0.0f : 0.035f;
-}
-__device__ __forceinline__ float transmitted_base(int c) { return c == 2 ? 0.3f : 0.2f; }
-
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by,
-                                      float bz) {
-  return ax * bx + ay * by + az * bz;
-}
-
-// Sphere t along the ray (the near root when it is past MIN_T), and whether it
-// lies in (MIN_T, max_t).
-__device__ __forceinline__ bool sphere_hit(const float* __restrict__ s, const rt::Ray& r,
-                                           float max_t, float& t) {
-  const float ocx = r.ox - s[0], ocy = r.oy - s[1], ocz = r.oz - s[2];
-  const float rad = s[3];
-  const float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
-  const float b = 2.0f * dot3(ocx, ocy, ocz, r.dx, r.dy, r.dz);
-  const float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad;
-  const float disc = b * b - 4.0f * a * c;
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-  const float t1 = (-b - sq) / (2.0f * a);
-  const float t2 = (-b + sq) / (2.0f * a);
-  t = t1 > rt::kMinT ? t1 : t2;
-  return disc >= 0.0f && t > rt::kMinT && t < max_t;
-}
 
 template <int STACK>
 __global__ void __launch_bounds__(128)
@@ -79,117 +42,40 @@ render_primary_kernel(const rt::Node4* __restrict__ nodes, const float4* __restr
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
-  // ---- camera ray (pixel centre; unnormalised right / true_up basis) ----
-  const float w = static_cast<float>(width), h = static_cast<float>(height);
-  const float u = (static_cast<float>(px[i]) + 0.5f) / w;
-  const float v = (static_cast<float>(py[i]) + 0.5f) / h;
-  const float fov_scale = cam[12];
-  const float cx = (u * 2.0f - 1.0f) * (w / h) * fov_scale;
-  const float cy = (1.0f - v * 2.0f) * fov_scale;
-  float dx = cam[3] + cam[6] * cx + cam[9] * cy;
-  float dy = cam[4] + cam[7] * cx + cam[10] * cy;
-  float dz = cam[5] + cam[8] * cx + cam[11] * cy;
-  const float dlen = sqrtf(dot3(dx, dy, dz, dx, dy, dz));
-  dx = dx / dlen;
-  dy = dy / dlen;
-  dz = dz / dlen;
-  const rt::Ray ray = rt::make_ray(cam[0], cam[1], cam[2], dx, dy, dz);
-
-  // ---- spheres, exhaustive, first closest wins ----
-  float sph_t = rt::kMissT;
-  int sph_i = -1;
-  for (int k = 0; k < n_spheres; ++k) {
-    float t;
-    if (sphere_hit(spheres + k * kSphereWords, ray, rt::kMissT, t) && t < sph_t) {
-      sph_t = t;
-      sph_i = k;
-    }
-  }
-
-  // ---- triangles, pruned at the sphere t (strict <: the sphere wins a tie) ----
-  const rt::TriHit tri = rt::traverse_bvh4<STACK, false>(nodes, tris, ray, sph_t);
-  const bool use_tri = tri.slot >= 0;
-  if (!use_tri && sph_i < 0) {
+  const rt::Ray ray = rt::camera_ray(cam, px[i], py[i], width, height);
+  rt::Surface s;
+  if (!rt::closest_surface<STACK>(nodes, tris, spheres, n_spheres, ray, s)) {
     rgb[3 * i] = sky_r;
     rgb[3 * i + 1] = sky_g;
     rgb[3 * i + 2] = sky_b;
     return;
   }
-  const float t = use_tri ? tri.t : sph_t;
-  const float phx = ray.ox + ray.dx * t;
-  const float phy = ray.oy + ray.dy * t;
-  const float phz = ray.oz + ray.dz * t;
-  float nx, ny, nz;
-  int mat;
-  if (use_tri) {
-    rt::tri_attributes(tris, tri.slot, nx, ny, nz, mat);
-  } else {
-    const float* s = spheres + sph_i * kSphereWords;
-    const float snx = phx - s[0], sny = phy - s[1], snz = phz - s[2];
-    const float slen = sqrtf(dot3(snx, sny, snz, snx, sny, snz));
-    nx = snx / slen;
-    ny = sny / slen;
-    nz = snz / slen;
-    mat = __float_as_int(s[4]);
-  }
 
   // ---- material ----
-  const int mid = min(max(mat, 0), n_mats - 1);
-  const float* m = mats + mid * kMatWords;
+  const int mid = min(max(s.mat, 0), n_mats - 1);
+  const float* m = mats + mid * rt::kMatWords;
   const float alb[3] = {m[0], m[1], m[2]};
   const float is_metal = m[6] > 0.5f ? 1.0f : 0.0f;
-  const float brdf = is_metal * 0.5f + (1.0f - is_metal) / kPi;
+  const float brdf = is_metal * 0.5f + (1.0f - is_metal) / rt::kPi;
 
-  // ---- direct lighting ----
+  // ---- direct lighting, accumulated in light order ----
   float sum[3] = {0.0f, 0.0f, 0.0f};
   for (int li = 0; li < n_lights; ++li) {
-    const float* L = lights + li * kLightWords;
-    const float type = L[3];
-    const float intensity = L[7];
-    const float ldx = L[8], ldy = L[9], ldz = L[10];
-    const float dir_I = max0(dot3(nx, ny, nz, -ldx, -ldy, -ldz)) * intensity;
-    const float tlx = L[0] - phx, tly = L[1] - phy, tlz = L[2] - phz;
-    const float dist = sqrtf(dot3(tlx, tly, tlz, tlx, tly, tlz));
-    const float plx = tlx / dist, ply = tly / dist, plz = tlz / dist;
-    const float atten = __half2float(__float2half_rn(1.0f / (1.0f + dist * dist * 0.01f)));
-    const float point_I = max0(dot3(nx, ny, nz, plx, ply, plz)) * intensity * atten;
-    const float spot_I = point_I * max0(dot3(-ldx, -ldy, -ldz, plx, ply, plz));
-    float I = dir_I * (type == 0.0f ? 1.0f : 0.0f) + point_I * (type == 1.0f ? 1.0f : 0.0f) +
-              spot_I * (type == 2.0f ? 1.0f : 0.0f);
-    if (shadows && I > 0.0f) {
-      const bool directional = type == 0.0f;
-      const float sdx = directional ? -ldx : plx;
-      const float sdy = directional ? -ldy : ply;
-      const float sdz = directional ? -ldz : plz;
-      const float smax = directional ? 3.0e38f : dist - 1e-3f;
-      const rt::Ray sray = rt::make_ray(phx + nx * 1e-3f, phy + ny * 1e-3f,
-                                        phz + nz * 1e-3f, sdx, sdy, sdz);
-      bool blocked = false;
-      for (int k = 0; k < n_spheres && !blocked; ++k) {
-        float st;
-        blocked = sphere_hit(spheres + k * kSphereWords, sray, smax, st);
-      }
-      if (!blocked) blocked = rt::traverse_bvh4<STACK, true>(nodes, tris, sray, smax).slot >= 0;
-      I = I * (blocked ? 0.0f : 1.0f);
-    }
+    const float* L = lights + li * rt::kLightWords;
+    const float I = rt::light_intensity<STACK>(L, s, shadows != 0, nodes, tris, spheres,
+                                               n_spheres);
     const float gate = I > 0.0f ? 1.0f : 0.0f;
 #pragma unroll
     for (int c = 0; c < 3; ++c) sum[c] = sum[c] + alb[c] * brdf * (I * gate) * L[4 + c];
   }
 
   // ---- ambient + lights + emission, transmission blend with dispersion ----
-  const float ior = m[7];
-  const float trans = fminf(fmaxf(m[8], 0.0f), 1.0f);
-  const bool invalid = mat < 0 || mat >= n_mats;
+  const bool invalid = s.mat < 0 || s.mat >= n_mats;
   const float magenta[3] = {1.0f, 0.0f, 1.0f};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float lit = alb[c] * 0.1f + sum[c] + m[3 + c];
-    const float dispersion = (ior + dispersion_offset(c) - 1.0f) / (ior - 1.0f);
-    const float transmitted = transmitted_base(c) * dispersion;
-    const float blended = lit * (1.0f - trans) + transmitted * trans;
-    const float col = trans > 0.0f ? blended : lit;
-    rgb[3 * i + c] = invalid ? magenta[c] : col;
+    rgb[3 * i + c] = invalid ? magenta[c] : rt::dispersion_blend(lit, m[7], m[8], c);
   }
 }
 
@@ -214,13 +100,7 @@ extern "C" int rt_render_primary(const void* nodes, const void* tris, int stack,
       static_cast<const float*>(lights), n_lights, static_cast<const float*>(spheres),       \
       n_spheres, static_cast<const int*>(px), static_cast<const int*>(py), n, width, height, \
       shadows, sky_r, sky_g, sky_b, static_cast<float*>(rgb))
-  switch (stack) {
-    case 16: RT_LAUNCH(16); break;
-    case 32: RT_LAUNCH(32); break;
-    case 64: RT_LAUNCH(64); break;
-    case 128: RT_LAUNCH(128); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  RT_SWITCH_STACK(stack, RT_LAUNCH)
 #undef RT_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

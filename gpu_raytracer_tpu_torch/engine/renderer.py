@@ -2,9 +2,16 @@
 
 `render_chunk` is the plain pipeline (raygen -> trace -> shadow mask ->
 shade) and the plain version of the fused CUDA render kernel
-(ops/cuda/render.py). `Renderer` runs on one device, chosen by `device`:
-on a CUDA device every frame goes through the fused kernel, on the CPU
-through `render_chunk`. Nothing falls back from one to the other.
+(ops/cuda/render.py). `render_gbuffer` + `shade_deferred` is the plain
+version of the two-phase textured render: the deferred trace kernel writes
+a per-ray G-buffer (light sum, material, uv, mip footprint) and the texture
+shade kernel (ops/cuda/texshade.py) turns it into RGB.
+
+`Renderer` runs on one device, chosen by `device`. On a CUDA device an
+untextured frame is one fused-render launch and a textured frame a deferred
+trace launch then a texture shade launch; on the CPU every frame goes
+through `render_chunk`, as the JAX package's CPU route does. Nothing falls
+back from one to the other.
 """
 
 from __future__ import annotations
@@ -16,9 +23,10 @@ from ..config import DEFAULT_CONFIG, RaytracerConfig
 from ..models.camera import Camera
 from ..models.scene import Scene
 from ..ops.camera_rays import generate_rays
-from ..ops.cuda.render import MAX_LIGHTS, pack_render_tables, render_primary
+from ..ops.cuda.render import MAX_LIGHTS, pack_render_tables, render_deferred, render_primary
+from ..ops.cuda.texshade import pack_shade_tables, texture_shade
 from ..ops.linalg import dot, normalize
-from ..ops.shading import shade
+from ..ops.shading import hit_footprint, light_sum, shade, shade_deferred
 from ..ops.trace import Hit, occluded, trace
 
 TILE = 64  # tile edge of the tile-major pixel order
@@ -65,18 +73,55 @@ def _shadow_mask(scene: Scene, hit: Hit) -> torch.Tensor:
 
 def render_chunk(scene: Scene, px: torch.Tensor, py: torch.Tensor,
                  width: int, height: int, shadows: bool = False,
-                 sky=(0.0, 0.0, 0.0)) -> torch.Tensor:
-    """Trace + shade one pixel batch -> RGB [n,3] in the given order."""
+                 sky=(0.0, 0.0, 0.0), trilinear: bool = False) -> torch.Tensor:
+    """Trace + shade one pixel batch -> RGB [n,3] in the given order.
+    Pyramid atlases sample the mip level of each hit's footprint."""
     orig, dirn = generate_rays(scene.camera, width, height, px, py)
     hit = trace(scene, orig, dirn)
     mask = _shadow_mask(scene, hit) if shadows else None
-    return shade(scene, hit, shadow_mask=mask, sky_color=sky)
+    lam = hit_footprint(scene, hit, height) if scene.textures.n_levels > 1 else None
+    return shade(scene, hit, shadow_mask=mask, sky_color=sky, lam=lam, trilinear=trilinear)
+
+
+GBUFFER_WORDS = 8   # S rgb, material id (int32 bits), u, v, footprint, 0
+
+
+def render_gbuffer(scene: Scene, px: torch.Tensor, py: torch.Tensor,
+                   width: int, height: int, shadows: bool = False) -> torch.Tensor:
+    """The deferred trace of one pixel batch -> G-buffer [n,8] f32: the
+    shadowed light sum S, the material id (int32 bits, -1 a miss), the hit
+    uv and the mip footprint; zeros on a miss. The plain version of the
+    deferred trace kernel (ops/cuda/render.py::render_deferred)."""
+    orig, dirn = generate_rays(scene.camera, width, height, px, py)
+    hit = trace(scene, orig, dirn)
+    mask = _shadow_mask(scene, hit) if shadows else None
+    mat = hit.material_id.to(torch.int32).view(torch.float32)[:, None]
+    lam = hit_footprint(scene, hit, height)[:, None]
+    return torch.cat([light_sum(scene, hit, mask), mat, hit.uv, lam,
+                      torch.zeros_like(lam)], dim=1)
+
+
+def split_gbuffer(gbuf: torch.Tensor):
+    """G-buffer [n,8] -> (S [n,3], material id [n] int64, uv [n,2], footprint [n])."""
+    mat = gbuf[:, 3].contiguous().view(torch.int32).long()
+    return gbuf[:, 0:3], mat, gbuf[:, 4:6], gbuf[:, 6]
+
+
+def render_deferred_chunk(scene: Scene, px: torch.Tensor, py: torch.Tensor,
+                          width: int, height: int, shadows: bool = False,
+                          sky=(0.0, 0.0, 0.0), trilinear: bool = False) -> torch.Tensor:
+    """The two-phase textured render of one pixel batch -> RGB [n,3]: the
+    plain version of the deferred trace kernel followed by the texture
+    shade kernel."""
+    S, mat, uv, lam = split_gbuffer(render_gbuffer(scene, px, py, width, height, shadows))
+    return shade_deferred(scene, S, mat, uv, sky_color=sky, lam=lam, trilinear=trilinear)
 
 
 class Renderer:
     """Whole-frame renderer on one device (`device` defaults to the
     scene's). Frames come out in tile-major ray order (`render_device`) or
-    as [H,W,3] images (`render`, `render_u8`)."""
+    as [H,W,3] images (`render`, `render_u8`). Textured scenes sample with
+    `config.texture_trilinear`."""
 
     def __init__(self, scene: Scene, width: int, height: int,
                  config: RaytracerConfig = DEFAULT_CONFIG,
@@ -88,9 +133,8 @@ class Renderer:
             raise NotImplementedError(
                 f"{scene.lights.count} lights: single-sample light selection "
                 f"above {MAX_LIGHTS} lights is not ported yet")
-        if scene.textures.textured:
-            raise NotImplementedError("textured rendering is not ported yet")
         self.scene = scene.to(self.device)
+        self.textured = scene.textures.textured
         self.width = width
         self.height = height
         self.config = config
@@ -101,6 +145,8 @@ class Renderer:
         self.px = torch.from_numpy(px).to(self.device)
         self.py = torch.from_numpy(py).to(self.device)
         self.tables = pack_render_tables(self.scene)
+        self.shade_tables = (pack_shade_tables(self.scene)
+                             if self.textured and self.device.type != "cpu" else None)
 
     def set_camera(self, camera: Camera) -> None:
         self.scene = self.scene.with_camera(camera)
@@ -108,8 +154,15 @@ class Renderer:
 
     def render_rays(self, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
         """Trace + shade one pixel batch on the renderer's device -> RGB [n,3]."""
-        return render_primary(self.tables, px, py, self.width, self.height,
-                              shadows=self.shadows, sky=self.sky)
+        W, H = self.width, self.height
+        if not self.textured:
+            return render_primary(self.tables, px, py, W, H, shadows=self.shadows, sky=self.sky)
+        trilinear = self.config.texture_trilinear
+        if self.device.type == "cpu":
+            return render_chunk(self.scene, px, py, W, H, shadows=self.shadows, sky=self.sky,
+                                trilinear=trilinear)
+        gbuf = render_deferred(self.tables, px, py, W, H, shadows=self.shadows)
+        return texture_shade(self.shade_tables, gbuf, sky=self.sky, trilinear=trilinear)
 
     def render_device(self) -> torch.Tensor:
         """The full frame, left on the device: f32 [W*H,3] in tile-major ray order."""

@@ -105,30 +105,148 @@ def triangle_aabbs(vertices: np.ndarray, indices: np.ndarray):
     return tri.min(axis=1), tri.max(axis=1)
 
 
+# Payload texels per 128-texel atlas row: lane 127 of each row is a guard
+# texel repeating the wrap neighbour of lane 126's texel (see Textures).
+TEX_CHUNK = 127
+
+# The JAX package's atlas budget (its texture kernel keeps the atlas resident
+# in 4096 rows of TPU on-chip memory): `make_courtyard_scene` passes it to
+# `Textures.from_images` so both packages build the same atlas. Kept for that
+# parity only; the CUDA kernels read the atlas from device memory and set no
+# limit on its size.
+JAX_ATLAS_BUDGET_ROWS = 4096
+
+
+def _wrap_coords(x: np.ndarray, size: int, mode: int) -> np.ndarray:
+    """Sampler wrap of integer texel coordinates to [0, size):
+    0 = REPEAT, 1 = CLAMP_TO_EDGE, 2 = MIRRORED_REPEAT."""
+    if mode == 1:
+        return np.clip(x, 0, size - 1)
+    if mode == 2:
+        per = np.mod(x, 2 * size)
+        return np.where(per < size, per, 2 * size - 1 - per)
+    return np.mod(x, size)
+
+
+def _downsample2x(img: np.ndarray) -> np.ndarray:
+    """2x2 box-filter mip reduction of [H,W,4] u8, edge-clamped, rounding
+    half up."""
+    h, w = img.shape[:2]
+    h2, w2 = max(h // 2, 1), max(w // 2, 1)
+    y0 = np.minimum(np.arange(h2) * 2, h - 1)
+    y1 = np.minimum(y0 + 1, h - 1)
+    x0 = np.minimum(np.arange(w2) * 2, w - 1)
+    x1 = np.minimum(x0 + 1, w - 1)
+    acc = (img[y0][:, x0].astype(np.uint16) + img[y0][:, x1]
+           + img[y1][:, x0] + img[y1][:, x1])
+    return ((acc + 2) // 4).astype(np.uint8)
+
+
+def _atlas_block(img: np.ndarray, mode: int) -> np.ndarray:
+    """Guard-band atlas block of one RGBA8 image -> [h+1, srows, 128] u32.
+    Lane l of chunk k of texture row y holds texel (wrap_x(127k + l),
+    wrap_y(y)): the guard lanes, the tail padding and the extra guard row
+    all come from the same formula."""
+    h, w = img.shape[:2]
+    srows = -(-w // TEX_CHUNK)
+    xs = _wrap_coords(np.arange(srows)[:, None] * TEX_CHUNK + np.arange(128), w, mode)
+    ys = _wrap_coords(np.arange(h + 1), h, mode)
+    texels = np.ascontiguousarray(img).reshape(h, w, 4).view("<u4")[:, :, 0]
+    return texels[ys[:, None, None], xs[None, :, :]]
+
+
+def _level_rows(img: np.ndarray) -> int:
+    h, w = img.shape[:2]
+    return (h + 1) * (-(-w // TEX_CHUNK))
+
+
 @dataclass
 class Textures:
-    """Texture atlas metadata. The port renders untextured scenes only, so
-    the one constructor is `empty()` (the JAX package's layout, one zero
-    entry per field)."""
+    """Texture atlas: the JAX package's guard-band layout, field for field.
 
-    width: torch.Tensor
-    height: torch.Tensor
-    format: torch.Tensor
-    offset: torch.Tensor
-    size: torch.Tensor
-    wrap: torch.Tensor
-    data_u32: torch.Tensor
-    srows: torch.Tensor
-    offset_row: torch.Tensor
-    levels: torch.Tensor
-    n_levels: int = 1
+    The atlas is a stack of 128-texel rows. Each texture row is split into
+    `srows` chunks of 127 texels; lane 127 of a chunk repeats the wrap
+    neighbour of the next texel column, and one extra row per texture (and
+    per mip level) repeats the vertical wrap row. Texel (x, y) lies at
+    address (offset_row + y*srows + x//127)*128 + x%127, and the four
+    bilinear taps are always a, a+1, a + srows*128 and a + srows*128 + 1.
+    Texels are little-endian RGBA8 packed into one unsigned 32-bit value.
+    Mip level l+1 of a texture follows level l, laid out as a texture of its
+    own size (w_{l+1} = max(w_l//2, 1), likewise h), so every level's
+    address derives from level 0's metadata. Unsigned 32-bit columns are
+    int64 tensors holding the unsigned value."""
+
+    width: torch.Tensor       # [N] level-0 texel width
+    height: torch.Tensor      # [N] level-0 texel height
+    format: torch.Tensor      # [N] 3 = RGBA8
+    offset: torch.Tensor      # [N] byte offset of the texture's first atlas row
+    size: torch.Tensor        # [N] atlas bytes of all its levels
+    wrap: torch.Tensor        # [N] 0 REPEAT, 1 CLAMP_TO_EDGE, 2 MIRRORED_REPEAT
+    data_u32: torch.Tensor    # [R*128] texels, R whole atlas rows
+    srows: torch.Tensor       # [N] atlas rows per texture row, ceil(w/127)
+    offset_row: torch.Tensor  # [N] atlas row of texel (0, 0)
+    levels: torch.Tensor      # [N] mip chain length
+    n_levels: int = 1         # longest chain (1 = no mips)
 
     @property
     def textured(self) -> bool:
         return self.data_u32.numel() > 1
+
+    @property
+    def count(self) -> int:
+        return self.width.shape[0]
+
+    @property
+    def num_rows(self) -> int:
+        return self.data_u32.shape[0] // 128
 
     @staticmethod
     def empty() -> "Textures":
         z = lambda: torch.zeros((1,), dtype=torch.int64)
         return Textures(z(), z(), z(), z(), z(), z(), z(), z(), z(),
                         levels=torch.ones((1,), dtype=torch.int64))
+
+    @staticmethod
+    def from_images(images: list[np.ndarray], wrap: list[int] | None = None,
+                    mips: int = 1, budget_rows: int | None = None) -> "Textures":
+        """images: [H,W,4] uint8 arrays; wrap: per-texture wrap modes
+        (REPEAT by default); mips: most mip levels to build (1 = none);
+        budget_rows: if set, drop the finest level of the single most
+        row-expensive chain until the atlas fits that many rows."""
+        if not images:
+            return Textures.empty()
+        wrap = list(wrap) if wrap is not None else [0] * len(images)
+        chains = []
+        for img in images:
+            img = np.ascontiguousarray(np.asarray(img, np.uint8))
+            if img.ndim != 3 or img.shape[2] != 4:
+                raise ValueError(f"textures must be RGBA8 [H,W,4], got {img.shape}")
+            chain = [img]
+            while len(chain) < mips and max(chain[-1].shape[:2]) > 1:
+                chain.append(_downsample2x(chain[-1]))
+            chains.append(chain)
+        if budget_rows is not None:
+            while sum(_level_rows(lv) for c in chains for lv in c) > budget_rows:
+                droppable = [i for i, c in enumerate(chains) if len(c) > 1]
+                if not droppable:
+                    break
+                worst = max(droppable, key=lambda i: _level_rows(chains[i][0]))
+                chains[worst] = chains[worst][1:]
+
+        meta = {k: [] for k in ("width", "height", "offset", "size", "srows",
+                                "offset_row", "levels")}
+        blocks, row = [], 0
+        for chain, mode in zip(chains, wrap):
+            h, w = chain[0].shape[:2]
+            tex_rows = sum(_level_rows(lv) for lv in chain)
+            for k, v in (("width", w), ("height", h), ("offset", row * 512),
+                         ("size", tex_rows * 512), ("srows", -(-w // TEX_CHUNK)),
+                         ("offset_row", row), ("levels", len(chain))):
+                meta[k].append(v)
+            blocks += [_atlas_block(lv, mode).reshape(-1) for lv in chain]
+            row += tex_rows
+        t = lambda x: torch.from_numpy(np.asarray(x, np.uint32).astype(np.int64))
+        return Textures(**{k: t(v) for k, v in meta.items()},
+                        format=t([3] * len(images)), wrap=t(wrap),
+                        data_u32=t(np.concatenate(blocks)),
+                        n_levels=max(len(c) for c in chains))

@@ -18,6 +18,15 @@ from ..ops.f16 import pack_f16_pair
 
 NO_TEXTURE = np.uint32(0xFFFFFFFF)
 
+# Fixed texture slots of Materials.texture_indices, as the JAX package
+# assigns them.
+TEX_BASE_COLOR = 0          # baseColorTexture / spec-gloss diffuseTexture
+TEX_METALLIC_ROUGHNESS = 1  # metallicRoughnessTexture (B = metallic, G = roughness)
+TEX_NORMAL = 2              # normalTexture
+TEX_OCCLUSION = 3           # occlusionTexture (R)
+TEX_EMISSIVE = 4            # emissiveTexture
+TEX_SG_SPECGLOSS = 5        # spec-gloss specularGlossinessTexture
+
 
 @dataclass
 class Materials:

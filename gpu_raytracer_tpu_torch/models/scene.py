@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, RaytracerConfig
+from ..ops.texture import uv_density_code
 from .bvh import Bvh, BvhBuildResult, align_leaves, build_bvh
 from .camera import Camera
 from .geometry import Mesh, Spheres, Textures, dedup_triangles
@@ -54,6 +55,9 @@ class Scene:
     tri_mat: torch.Tensor   # [Tp] i32
     tri_uv: torch.Tensor    # [Tp,3,2] f32 per-corner texture coordinates
     tri_src: torch.Tensor   # [Tp] i32 original triangle id behind each slot (-1 pad)
+    # [Tp] i32 per-slot 14-bit uv-density code (ops/texture.py), computed
+    # once when the scene is built; the mip footprint of a hit decodes it
+    tri_den: torch.Tensor
 
     @property
     def num_triangles(self) -> int:
@@ -170,8 +174,6 @@ def prepare_scene(camera: Camera, spheres: Spheres, mesh: Mesh,
                   device="cpu") -> Scene:
     """Build the BVH on the host, reorder triangles into leaf order,
     precompute edges, and move the scene to `device`."""
-    if textures is not None and textures.textured:
-        raise NotImplementedError("textured scenes are not ported yet")
     if config.bvh_spatial_splits:
         raise NotImplementedError("the spatial-split (SBVH) builder is not ported yet")
 
@@ -198,9 +200,11 @@ def prepare_scene(camera: Camera, spheres: Spheres, mesh: Mesh,
         canon = _canonical_tri_order(vertices, indices, material_id, muv)
         indices = indices[canon]
         material_id = material_id[canon]
-    # 8-slot leaf rows (12 for very large scenes, as the JAX package packs)
+    # 8-slot leaf rows; 12 for very large or wide-leaf untextured scenes,
+    # as the JAX package packs (its 12-slot rows carry no uvs)
+    textured = textures is not None and textures.textured
     big = indices.shape[0] > 1_200_000
-    align = 12 if (big or config.bvh_leaf_size > 8) else 8
+    align = 12 if ((big or config.bvh_leaf_size > 8) and not textured) else 8
     bvh_result = align_leaves(build_bvh(vertices, indices, leaf_size=align), align)
     v0, e1, e2, mat, tuv, src = _expand_triangles(
         vertices, indices, material_id, muv, bvh_result.tri_order,
@@ -214,7 +218,8 @@ def prepare_scene(camera: Camera, spheres: Spheres, mesh: Mesh,
                   textures=textures if textures is not None else Textures.empty(),
                   bvh=bvh_result.to_tensors(width=config.bvh_width),
                   tri_v0=t(v0), tri_e1=t(e1), tri_e2=t(e2), tri_mat=t(mat),
-                  tri_uv=t(tuv), tri_src=t(src.astype(np.int32)))
+                  tri_uv=t(tuv), tri_src=t(src.astype(np.int32)),
+                  tri_den=uv_density_code(t(e1), t(e2), t(tuv)))
     return scene.to(device)
 
 

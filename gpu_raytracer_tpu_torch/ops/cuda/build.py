@@ -3,6 +3,8 @@
 The sources are compiled once per content hash by `nvcc` into a shared
 library with a plain C interface under `build/cuda/<hash>/` (git-ignored),
 at first use, and loaded with ctypes. Nothing here runs at import time.
+Each source compiles in its own `nvcc` process, all started together, and
+one more links the objects.
 
 Flags: `sm_90a` (Hopper), `-fmad=false` so that `a*b + c` rounds like the
 plain PyTorch version (each PyTorch op rounds on its own; FMA contraction
@@ -25,10 +27,11 @@ from dataclasses import dataclass
 PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG), "build", "cuda")
-SOURCES = ("traverse.cu", "render_primary.cu")
-HEADERS = ("traverse.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("traverse.cu", "render_primary.cu", "render_deferred.cu", "texshade.cu")
+HEADERS = ("traverse.cuh", "render_common.cuh", "texsample.cuh")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 LIB_NAME = "librt_kernels.so"
 
 _p = ctypes.c_void_p
@@ -43,6 +46,13 @@ ARGTYPES = {
     # sky_r, sky_g, sky_b, rgb_out, stream
     "rt_render_primary": [_p, _p, _i, _p, _p, _i, _p, _i, _p, _i, _p, _p, _i,
                           _i, _i, _i, _f, _f, _f, _p, _p],
+    # nodes, tris, attrs, stack, camera, lights, n_lights, spheres, n_spheres,
+    # px, py, n, width, height, shadows, pix_scale, gbuf_out, stream
+    "rt_render_deferred": [_p, _p, _p, _i, _p, _p, _i, _p, _i, _p, _p, _i, _i, _i, _i,
+                           _f, _p, _p],
+    # gbuf, n, materials, n_mats, maps, atlas, present, n_levels, trilinear,
+    # sky_r, sky_g, sky_b, rgb_out, stream
+    "rt_texture_shade": [_p, _i, _p, _i, _p, _p, _i, _i, _i, _f, _f, _f, _p, _p],
 }
 
 
@@ -62,8 +72,13 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found ($CUDA_HOME/bin, /usr/local/cuda/bin, PATH)")
 
 
-def nvcc_command(out_path: str, nvcc: str = "nvcc") -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", out_path, *(os.path.join(CSRC, s) for s in SOURCES)]
+def nvcc_commands(out_path: str, nvcc: str = "nvcc"):
+    """-> (one compile command per source, the link command). Objects go
+    beside `out_path`."""
+    objs = [f"{out_path}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+                for s, o in zip(SOURCES, objs)]
+    return compiles, [nvcc, *ARCH_FLAGS, "-shared", "-o", out_path, *objs]
 
 
 def source_hash() -> str:
@@ -84,15 +99,22 @@ def load_kernels() -> KernelLibrary:
     if not os.path.exists(path):
         os.makedirs(out_dir, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = nvcc_command(tmp, find_nvcc())
+        compiles, link = nvcc_commands(tmp, find_nvcc())
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in compiles]
+        runs = [(c, p.communicate()[0], p.returncode) for c, p in zip(compiles, procs)]
+        if all(rc == 0 for _, _, rc in runs):
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            runs.append((link, proc.stdout, proc.returncode))
         seconds = time.perf_counter() - t0
-        log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        log = "".join(" ".join(c) + "\n" + out for c, out, _ in runs)
         with open(log_path, "w") as f:
             f.write(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        failed = [rc for _, _, rc in runs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
         os.replace(tmp, path)
     with open(log_path) as f:
         log = f.read()

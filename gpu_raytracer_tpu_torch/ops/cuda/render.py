@@ -1,10 +1,17 @@
-"""K2: the fused primary render, one pixel per thread (CUDA).
+"""K2 (fused primary render) and K3 (deferred trace), one pixel per thread (CUDA).
 
-Replaces the TPU kernel `gpu_raytracer_tpu/ops/pallas/render.py`
+K2 replaces the TPU kernel `gpu_raytracer_tpu/ops/pallas/render.py`
 (`pallas_render_primary` -> `_kernel`, untextured branch). Kernel source:
 csrc/render_primary.cu, which calls K1's device function (csrc/traverse.cuh)
 for the primary ray and for one shadow ray per light. Its plain version is
 `engine/renderer.py::render_chunk`.
+
+K3 replaces `pallas_render_deferred` -> `_kernel_deferred` of the same file:
+the first phase of the textured render. Kernel source:
+csrc/render_deferred.cu, which shares K2's camera ray, sphere pass and
+per-light shadowed intensity (csrc/render_common.cuh) and writes one
+32-byte G-buffer record per ray (S rgb, material id, uv, mip footprint, 0).
+Its plain version is `engine/renderer.py::render_gbuffer`.
 
 The small per-scene rows are packed here with the same PyTorch ops the
 plain path evaluates, on the scene's device, so both read identical values:
@@ -27,6 +34,7 @@ import torch
 from ...models.scene import Scene
 from ..f16 import unpack_f16_high, unpack_f16_low
 from ..linalg import cross, normalize
+from ..shading import pixel_footprint_scale
 from .build import check, load_kernels
 from .traverse import TraceTables, pack_trace_tables
 
@@ -40,6 +48,7 @@ class RenderTables:
     materials: torch.Tensor   # [M,16] f32
     lights: torch.Tensor      # [L,16] f32
     spheres: torch.Tensor     # [S,8] f32
+    fov_scale: float          # the camera's tan(fov/2), read from the device once
 
     @property
     def scene(self) -> Scene:
@@ -50,19 +59,25 @@ def _pad(x: torch.Tensor, words: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((x.shape[0], words - x.shape[1]))], dim=1).contiguous()
 
 
+def material_rows(scene: Scene) -> torch.Tensor:
+    """[M,16] f32: albedo, emission, metallic, IOR, transmission, 7 pad."""
+    m = scene.materials
+    return _pad(torch.cat(
+        [m.albedo, m.emission, unpack_f16_low(m.metallic_roughness_f16)[:, None],
+         unpack_f16_low(m.ior_transmission_f16)[:, None],
+         unpack_f16_high(m.ior_transmission_f16)[:, None]], dim=1), 16)
+
+
 def pack_render_tables(scene: Scene) -> RenderTables:
     dev = scene.device
     cam = scene.camera
     right = cross(cam.direction, cam.up)
     true_up = cross(right, cam.direction)
-    fov = torch.tensor([cam.fov_scale()], dtype=torch.float32, device=dev)
+    fov_scale = cam.fov_scale()
+    fov = torch.tensor([fov_scale], dtype=torch.float32, device=dev)
     camera = torch.cat([cam.position, cam.direction, right, true_up, fov,
                         torch.zeros(3, device=dev)]).contiguous()
-    m = scene.materials
-    materials = _pad(torch.cat(
-        [m.albedo, m.emission, unpack_f16_low(m.metallic_roughness_f16)[:, None],
-         unpack_f16_low(m.ior_transmission_f16)[:, None],
-         unpack_f16_high(m.ior_transmission_f16)[:, None]], dim=1), 16)
+    materials = material_rows(scene)
     L = scene.lights
     lights = _pad(torch.cat(
         [L.position, L.light_type.to(torch.float32)[:, None], L.color,
@@ -70,7 +85,25 @@ def pack_render_tables(scene: Scene) -> RenderTables:
     S = scene.spheres
     mat_bits = S.material_id.to(torch.int32).view(torch.float32)[:, None]
     spheres = _pad(torch.cat([S.center, S.radius[:, None], mat_bits], dim=1), 8)
-    return RenderTables(pack_trace_tables(scene), camera, materials, lights, spheres)
+    return RenderTables(pack_trace_tables(scene), camera, materials, lights, spheres, fov_scale)
+
+
+def _check_pixels(tables: RenderTables, px: torch.Tensor, py: torch.Tensor, name: str) -> int:
+    """Validate the pixel coordinates -> N; raise for a device that is
+    neither the CPU nor CUDA, or for more lights than the kernels loop over."""
+    N = px.shape[0]
+    for arg, x in (("px", px), ("py", py)):
+        if x.dtype != torch.int32 or tuple(x.shape) != (N,) or not x.is_contiguous():
+            raise ValueError(f"{arg}: want contiguous int32 ({N},), got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if x.device != tables.trace.device:
+            raise ValueError(f"{arg} is on {x.device}, the tables on {tables.trace.device}")
+    if px.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {px.device}")
+    n_lights = tables.lights.shape[0]
+    if px.device.type == "cuda" and n_lights > MAX_LIGHTS:
+        raise NotImplementedError(f"{n_lights} lights: more than {MAX_LIGHTS} is not ported yet")
+    return N
 
 
 def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
@@ -81,20 +114,10 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     plain version."""
     from ...engine.renderer import render_chunk
 
-    N = px.shape[0]
-    for name, x in (("px", px), ("py", py)):
-        if x.dtype != torch.int32 or tuple(x.shape) != (N,) or not x.is_contiguous():
-            raise ValueError(f"{name}: want contiguous int32 ({N},), got {x.dtype} "
-                             f"{tuple(x.shape)}")
-        if x.device != tables.trace.device:
-            raise ValueError(f"{name} is on {x.device}, the tables on {tables.trace.device}")
+    N = _check_pixels(tables, px, py, "render_primary")
     if px.device.type == "cpu":
         return render_chunk(tables.scene, px, py, width, height, shadows=shadows, sky=sky)
-    if px.device.type != "cuda":
-        raise ValueError(f"render_primary: unsupported device {px.device}")
     n_lights = tables.lights.shape[0]
-    if n_lights > MAX_LIGHTS:
-        raise NotImplementedError(f"{n_lights} lights: more than {MAX_LIGHTS} is not ported yet")
     k = load_kernels()
     rgb = torch.empty((N, 3), dtype=torch.float32, device=px.device)
     tr = tables.trace
@@ -111,3 +134,30 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
 
 
 render_primary.launches = 0
+
+
+def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
+                    width: int, height: int, shadows: bool = False) -> torch.Tensor:
+    """Deferred trace of pixels (px, py) [N] int32 -> G-buffer [N,8] f32
+    (engine/renderer.py::render_gbuffer's layout) in the given order. CUDA
+    tensors launch the kernel, CPU tensors take the plain version."""
+    from ...engine.renderer import GBUFFER_WORDS, render_gbuffer
+
+    N = _check_pixels(tables, px, py, "render_deferred")
+    if px.device.type == "cpu":
+        return render_gbuffer(tables.scene, px, py, width, height, shadows=shadows)
+    k = load_kernels()
+    gbuf = torch.empty((N, GBUFFER_WORDS), dtype=torch.float32, device=px.device)
+    tr = tables.trace
+    pix = pixel_footprint_scale(tables.fov_scale, height)
+    stream = torch.cuda.current_stream(px.device).cuda_stream
+    render_deferred.launches += 1
+    check(k.lib.rt_render_deferred(
+        tr.nodes.data_ptr(), tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack,
+        tables.camera.data_ptr(), tables.lights.data_ptr(), tables.lights.shape[0],
+        tables.spheres.data_ptr(), tables.spheres.shape[0], px.data_ptr(), py.data_ptr(),
+        N, width, height, int(shadows), pix, gbuf.data_ptr(), stream), "rt_render_deferred")
+    return gbuf
+
+
+render_deferred.launches = 0

@@ -17,6 +17,10 @@ The scene tables are laid out for the GPU here, once per scene:
   * tris [Tp,12] f32: three float4 per leaf-ordered triangle slot:
     (v0, material as int32 bits), (e1, 0), (e2, 0).
 
+  * attrs [Tp,8] f32: two float4 per slot, (uv0, uv1), (uv2, decoded uv
+    density, 0): what the deferred trace kernel reads once for the winner
+    of a textured scene (its uv and mip footprint).
+
 A single-leaf tree (no BVH4 overlay) becomes one node whose slot 0 is the
 leaf under an all-enclosing box. The per-thread stack holds at most
 3 x (BVH4 depth) + 1 entries; the host computes that bound and picks the
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from ...models.scene import Scene
+from ..texture import den_decode
 from ..trace import traverse_triangles
 from .build import check, load_kernels
 
@@ -43,6 +48,7 @@ class TraceTables:
     scene: Scene            # the scene the tables were packed from (plain path)
     nodes: torch.Tensor     # [Q,36] f32
     tris: torch.Tensor      # [Tp,12] f32
+    attrs: torch.Tensor     # [Tp,8] f32 winner attributes (uvs, density)
     depth: int              # BVH4 levels of internal nodes
     stack: int              # compiled stack capacity the kernels use
 
@@ -103,7 +109,9 @@ def pack_trace_tables(scene: Scene) -> TraceTables:
     zero = torch.zeros((scene.tri_v0.shape[0], 1), dtype=torch.float32, device=dev)
     tris = torch.cat([scene.tri_v0, _bits(scene.tri_mat[:, None]),
                       scene.tri_e1, zero, scene.tri_e2, zero], dim=1).contiguous()
-    return TraceTables(scene, nodes, tris, depth, stack_capacity(depth))
+    attrs = torch.cat([scene.tri_uv.reshape(-1, 6), den_decode(scene.tri_den)[:, None],
+                       zero], dim=1).contiguous()
+    return TraceTables(scene, nodes, tris, attrs, depth, stack_capacity(depth))
 
 
 def stack_capacity(depth: int) -> int:

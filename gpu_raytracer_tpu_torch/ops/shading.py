@@ -1,11 +1,20 @@
-"""Shading: Whitted-style direct lighting + material evaluation (untextured).
+"""Shading: Whitted-style direct lighting + material and texture evaluation.
 
+  * textures multiply the material factors: base colour the albedo,
+    emissive the emission, metallic-roughness's B channel the metallic,
+    occlusion's R channel the ambient term (only the slots some material
+    uses are sampled);
   * ambient 0.1 x albedo, per-light N.L, branchless light-type blend;
   * distance attenuation 1/(1 + 0.01 d^2) round-tripped through f16;
   * BRDF: metallic > 0.5 -> 0.5 albedo I, else (albedo / pi) I;
   * wavelength-dependent IOR dispersion (-0.018, 0, +0.035) and the
     transmission blend with (0.2, 0.2, 0.3), all three channels at once;
   * magenta for an invalid material, the sky colour for a miss.
+
+`shade_deferred` is the second half of the two-phase textured render: it
+takes a per-ray light sum S (shadowed, material-independent) and computes
+albedo*0.1*occ + (albedo*brdf)*S + emission, the same sum as
+`direct_lighting` refactored over the lights.
 
 Every division here is tensor by tensor: PyTorch's CUDA kernels turn a
 division by a Python scalar into a multiplication by its reciprocal, which
@@ -16,12 +25,16 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from ..models.material import (TEX_BASE_COLOR, TEX_EMISSIVE, TEX_METALLIC_ROUGHNESS,
+                               TEX_OCCLUSION)
 from ..models.scene import Scene
 from .f16 import f16_roundtrip, unpack_f16_high, unpack_f16_low
 from .linalg import dot, max0, normalize
-from .trace import Hit
+from .texture import den_decode, sample_texture
+from .trace import TRIANGLE, Hit
 
 MAGENTA = (1.0, 0.0, 1.0)
 DISPERSION = (-0.018, 0.0, 0.035)
@@ -32,19 +45,61 @@ def _f32(values, device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
-def direct_lighting(scene: Scene, hit: Hit,
-                    shadow_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-ray RGB [N,3] from ambient + punctual lights + emission.
-    shadow_mask: optional [N,L] (1 lit, 0 occluded), multiplied into each
-    light's intensity before the > 0 contribution gate."""
-    if scene.textures.textured:
-        raise NotImplementedError("textured shading is not ported yet")
+def material_textures(scene: Scene, mid: torch.Tensor, uv: torch.Tensor,
+                      lam: torch.Tensor | None = None, trilinear: bool = False):
+    """Material rows of clipped ids `mid` with their texture factors applied
+    -> (albedo [N,3], emission [N,3], metallic [N], occlusion [N] or None)."""
     m = scene.materials
-    L = scene.lights
-    mid = torch.clamp(hit.material_id, 0, m.count - 1)
     albedo = m.albedo[mid]
     emission = m.emission[mid]
     metallic = unpack_f16_low(m.metallic_roughness_f16[mid])
+    occlusion = None
+    if scene.textures.textured:
+        tex = scene.textures
+        ti = m.texture_indices[mid]
+        slots = m.present_slots
+        sample = lambda slot: sample_texture(tex, ti[:, slot], uv, lam=lam,
+                                             trilinear=trilinear)
+        if TEX_BASE_COLOR in slots:
+            albedo = albedo * sample(TEX_BASE_COLOR)[:, :3]
+        if TEX_EMISSIVE in slots:
+            emission = emission * sample(TEX_EMISSIVE)[:, :3]
+        if TEX_METALLIC_ROUGHNESS in slots:
+            metallic = metallic * sample(TEX_METALLIC_ROUGHNESS)[:, 2]
+        if TEX_OCCLUSION in slots:
+            occlusion = sample(TEX_OCCLUSION)[:, 0]
+    return albedo, emission, metallic, occlusion
+
+
+def pixel_footprint_scale(fov_scale: float, height: int) -> float:
+    """2 tan(fov/2) / height as an f32 value, a pixel's angular size, from
+    the camera's tan(fov/2) (`Camera.fov_scale()`)."""
+    f = np.float32
+    return float(f(2.0) * f(fov_scale) * f(1.0 / height))
+
+
+def hit_footprint(scene: Scene, hit: Hit, height: int) -> torch.Tensor:
+    """Mip footprint [N] of primary hits: t x pixel angular size x the
+    winner triangle's decoded uv density; 0 for sphere hits and misses
+    (level 0)."""
+    i = torch.clamp(hit.prim_id, 0, scene.tri_v0.shape[0] - 1)
+    pix = pixel_footprint_scale(scene.camera.fov_scale(), height)
+    lam = hit.t * pix * den_decode(scene.tri_den[i])
+    return torch.where(hit.hit & (hit.prim_kind == TRIANGLE), lam, torch.zeros_like(lam))
+
+
+def _brdf_scale(metallic: torch.Tensor) -> torch.Tensor:
+    """[N,1]: 0.5 for metals (metallic > 0.5), 1/pi otherwise."""
+    is_metal = (metallic > 0.5).to(torch.float32)[:, None]
+    pi = torch.tensor(math.pi, dtype=torch.float32, device=is_metal.device)
+    return is_metal * 0.5 + (1.0 - is_metal) / pi
+
+
+def light_intensity(scene: Scene, hit: Hit,
+                    shadow_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """[N,L] intensity of each light at the hit points, times the shadow
+    mask when given, before the > 0 contribution gate."""
+    L = scene.lights
     n = hit.normal
     p = hit.point
 
@@ -63,18 +118,45 @@ def direct_lighting(scene: Scene, hit: Hit,
     I = dir_I * (lt == 0) + point_I * (lt == 1) + spot_I * (lt == 2)
     if shadow_mask is not None:
         I = I * shadow_mask
+    return I
 
-    is_metal = (metallic > 0.5).to(torch.float32)[:, None]
-    pi = torch.tensor(math.pi, dtype=torch.float32, device=is_metal.device)
-    brdf_scale = is_metal * 0.5 + (1.0 - is_metal) / pi
+
+def light_sum(scene: Scene, hit: Hit, shadow_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """[N,3] material-independent light sum S = sum over lights, in light
+    order, of (I * gate) * colour; 0 on a miss."""
+    I = light_intensity(scene, hit, shadow_mask)
+    Ig = I * (I > 0.0).to(torch.float32)
+    color = scene.lights.color
+    S = Ig[:, 0, None] * color[0][None, :]
+    for li in range(1, scene.lights.count):
+        S = S + Ig[:, li, None] * color[li][None, :]
+    return torch.where(hit.hit[:, None], S, torch.zeros_like(S))
+
+
+def direct_lighting(scene: Scene, hit: Hit, shadow_mask: torch.Tensor | None = None,
+                    lam: torch.Tensor | None = None, trilinear: bool = False) -> torch.Tensor:
+    """Per-ray RGB [N,3] from ambient + punctual lights + emission.
+    shadow_mask: optional [N,L] (1 lit, 0 occluded), multiplied into each
+    light's intensity before the > 0 contribution gate. `lam` (a mip
+    footprint) and `trilinear` select the texture level."""
+    m = scene.materials
+    L = scene.lights
+    mid = torch.clamp(hit.material_id, 0, m.count - 1)
+    albedo, emission, metallic, occlusion = material_textures(
+        scene, mid, hit.uv, lam=lam, trilinear=trilinear)
+    I = light_intensity(scene, hit, shadow_mask)
+    brdf_scale = _brdf_scale(metallic)
     gate = (I > 0.0).to(torch.float32)
     per_light = (albedo[:, None, :] * brdf_scale[..., None]
                  * (I * gate)[..., None] * L.color[None, :, :])     # [N,L,3]
     # the light sum in light order, as the render kernel accumulates it
-    light_sum = per_light[:, 0]
+    light_total = per_light[:, 0]
     for li in range(1, L.count):
-        light_sum = light_sum + per_light[:, li]
-    return albedo * 0.1 + light_sum + emission
+        light_total = light_total + per_light[:, li]
+    ambient = albedo * 0.1
+    if occlusion is not None:
+        ambient = ambient * occlusion[:, None]
+    return ambient + light_total + emission
 
 
 def dispersion_blend(scene: Scene, mid: torch.Tensor,
@@ -97,12 +179,38 @@ def apply_dispersion(scene: Scene, hit: Hit, lighting: torch.Tensor) -> torch.Te
 
 
 def shade(scene: Scene, hit: Hit, shadow_mask: torch.Tensor | None = None,
-          sky_color=(0.0, 0.0, 0.0)) -> torch.Tensor:
+          sky_color=(0.0, 0.0, 0.0), lam: torch.Tensor | None = None,
+          trilinear: bool = False) -> torch.Tensor:
     """Shading for a traced batch -> RGB [N,3]: sky on a miss, magenta for
     an out-of-range material."""
-    color = apply_dispersion(scene, hit, direct_lighting(scene, hit, shadow_mask))
+    color = apply_dispersion(scene, hit, direct_lighting(scene, hit, shadow_mask,
+                                                         lam=lam, trilinear=trilinear))
     invalid = hit.hit & ((hit.material_id < 0)
                          | (hit.material_id >= scene.materials.count))
     dev = color.device
     color = torch.where(invalid[:, None], _f32(MAGENTA, dev)[None, :], color)
     return torch.where(hit.hit[:, None], color, _f32(sky_color, dev)[None, :])
+
+
+def shade_deferred(scene: Scene, light_sum: torch.Tensor, mat_id: torch.Tensor,
+                   uv: torch.Tensor, sky_color=(0.0, 0.0, 0.0),
+                   lam: torch.Tensor | None = None, trilinear: bool = False) -> torch.Tensor:
+    """Material and texture apply of the two-phase render -> RGB [N,3]:
+    light_sum [N,3], mat_id [N] (-1 a miss), uv [N,2], lam [N] the mip
+    footprint. The plain version of the texture shade kernel
+    (ops/cuda/texshade.py), in the JAX package's XLA order:
+    albedo*0.1*occ + (albedo*brdf)*S + emission."""
+    hit = mat_id >= 0
+    m = scene.materials
+    mid = torch.clamp(mat_id, 0, m.count - 1)
+    albedo, emission, metallic, occlusion = material_textures(
+        scene, mid, uv, lam=lam, trilinear=trilinear)
+    ambient = albedo * 0.1
+    if occlusion is not None:
+        ambient = ambient * occlusion[:, None]
+    color = ambient + albedo * _brdf_scale(metallic) * light_sum + emission
+    color = dispersion_blend(scene, mid, color)
+    dev = color.device
+    invalid = hit & (mat_id >= m.count)
+    color = torch.where(invalid[:, None], _f32(MAGENTA, dev)[None, :], color)
+    return torch.where(hit[:, None], color, _f32(sky_color, dev)[None, :])

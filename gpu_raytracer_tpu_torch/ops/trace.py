@@ -9,6 +9,11 @@ sphere wins.
 `traverse_triangles` is the plain version of the CUDA traversal kernel
 (ops/cuda/traverse.py): same inputs, same (t, slot, hit, normal, material)
 result, in the reference's left-first order.
+
+In a textured scene a hit also carries its texture coordinates: the
+winner triangle's corner uvs interpolated with its Möller-Trumbore
+barycentrics (recomputed once for the winner), or a sphere's
+equirectangular uv.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import torch
 from ..models.scene import Scene
 from .bvh_traverse import bvh_traverse_threaded
 from .intersect import MISS_T, closest_select, sphere_intersect, triangle_hit_pairwise
-from .linalg import cross, normalize
+from .linalg import cross, dot, normalize
+from .texture import interpolate_uv, sphere_uv
 
 SPHERE, TRIANGLE = 0, 1
 _BRUTE_BLOCK = 512  # triangles per brute-force block (bounds the [N,K] tile)
@@ -35,6 +41,18 @@ class Hit:
     point: torch.Tensor        # [N,3] f32
     normal: torch.Tensor       # [N,3] f32
     material_id: torch.Tensor  # [N] i64, -1 on a miss
+    uv: torch.Tensor           # [N,2] f32, 0 on a miss and in untextured scenes
+
+
+def mt_bary(orig, dirn, v0, e1, e2):
+    """Möller-Trumbore barycentrics (u, v), the weights of corners 1 and 2,
+    of known-hit triangles, one per ray (all [N,3])."""
+    h = cross(dirn, e2)
+    a = dot(e1, h)
+    f = 1.0 / torch.where(a == 0.0, torch.ones_like(a), a)
+    s = orig - v0
+    q = cross(s, e1)
+    return f * dot(s, h), f * dot(dirn, q)
 
 
 def _triangles_brute(scene: Scene, orig, dirn, max_t, any_hit: bool):
@@ -108,6 +126,13 @@ def trace(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor, max_t=None) -> H
     zeros3 = torch.zeros_like(normal)
     minus1 = torch.full_like(tri_i, -1)
     material_id = torch.where(use_tri, tri_m, sph.material_id[si])
+    uv = torch.zeros((orig.shape[0], 2), dtype=orig.dtype, device=orig.device)
+    if scene.textures.textured:
+        ti = torch.clamp(tri_i, min=0)
+        bu, bv = mt_bary(orig, dirn, scene.tri_v0[ti], scene.tri_e1[ti], scene.tri_e2[ti])
+        tri_uv = interpolate_uv(scene.tri_uv, ti, bu, bv)
+        uv = torch.where(use_tri[:, None], tri_uv, sphere_uv(sphere_normal))
+        uv = torch.where(hit[:, None], uv, torch.zeros_like(uv))
     return Hit(
         t=torch.where(hit, t, torch.full_like(t, MISS_T)),
         hit=hit,
@@ -116,6 +141,7 @@ def trace(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor, max_t=None) -> H
         point=torch.where(hit[:, None], point, zeros3),
         normal=torch.where(hit[:, None], normal, zeros3),
         material_id=torch.where(hit, material_id, minus1),
+        uv=uv,
     )
 
 

@@ -1,8 +1,10 @@
-"""Procedural benchmark scene: the untextured courtyard.
+"""Procedural benchmark scene: the courtyard, untextured or textured.
 
 A tiled floor heightfield, a grid of boxes and two lights, tuned to a
-target triangle count, with the camera inside. Deterministic per seed and
-identical to the JAX package's `make_courtyard_scene(textured=False)`.
+target triangle count, with the camera inside. The textured variant binds
+procedural RGBA8 maps (checker floor, brick and plaster boxes) with
+world-space planar uvs. Deterministic per seed and identical to the JAX
+package's `make_courtyard_scene`.
 """
 
 from __future__ import annotations
@@ -11,9 +13,9 @@ import numpy as np
 
 from ..config import DEFAULT_CONFIG, RaytracerConfig
 from ..models.camera import Camera
-from ..models.geometry import Mesh, Spheres
+from ..models.geometry import JAX_ATLAS_BUDGET_ROWS, Mesh, Spheres, Textures
 from ..models.light import LightBuilder
-from ..models.material import MaterialBuilder
+from ..models.material import NO_TEXTURE, TEX_BASE_COLOR, MaterialBuilder
 from ..models.scene import Scene, prepare_scene
 
 _BOX_FACES = np.asarray([
@@ -54,21 +56,104 @@ def _heightfield(nx, nz, x0, x1, z0, z1, fn):
     return verts, faces.astype(np.uint32)
 
 
+def make_checker_texture(size: int = 128, tiles: int = 8,
+                         c0=(230, 228, 220), c1=(60, 58, 54)) -> np.ndarray:
+    """Checkerboard RGBA8 image [size, size, 4]."""
+    ax = ((np.arange(size, dtype=np.int32) * tiles // size) & 1).astype(np.uint8)
+    cell = ax[:, None] ^ ax[None, :]
+    palette = np.asarray([(*c0, 255), (*c1, 255)], np.uint8)
+    return palette[cell]
+
+
+def make_brick_texture(size: int = 128, rows: int = 8, brick=(180, 96, 70),
+                       mortar=(200, 196, 188), seed: int = 0) -> np.ndarray:
+    """Running-bond brick RGBA8 image with per-brick tint noise."""
+    rng = np.random.default_rng(seed)
+    y = np.arange(size)[:, None]
+    x = np.arange(size)[None, :]
+    bh = size // rows
+    bw = bh * 2
+    row = y // bh
+    xs = x + (row % 2) * (bw // 2)              # running bond offset
+    col = xs // bw
+    row = np.broadcast_to(row, (size, size))
+    xs = np.broadcast_to(xs, (size, size))
+    col = np.broadcast_to(col, (size, size))
+    in_mortar = ((y % bh) < max(bh // 8, 1)) | ((xs % bw) < max(bw // 8, 1))
+    tint = rng.uniform(0.8, 1.15, (rows + 1, size // bw + 2, 1))
+    base = np.clip(np.asarray(brick, np.float32)
+                   * tint[row.reshape(-1), col.reshape(-1)].reshape(size, size, 1),
+                   0, 255).astype(np.uint8)
+    img = np.where(in_mortar[..., None], np.asarray(mortar, np.uint8), base)
+    return np.concatenate([img, np.full((size, size, 1), 255, np.uint8)], axis=-1)
+
+
+def make_noise_texture(size: int = 128, base=(200, 60, 45), seed: int = 1) -> np.ndarray:
+    """Smooth value-noise RGBA8 image (painted plaster)."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(0.6, 1.3, (size // 16 + 1, size // 16 + 1))
+    y = (np.arange(size, dtype=np.float32) / 16.0)[:, None]
+    x = (np.arange(size, dtype=np.float32) / 16.0)[None, :]
+    x0, y0 = x.astype(int), y.astype(int)
+    fx, fy = x - x0, y - y0
+    v = (coarse[y0, x0] * (1 - fx) * (1 - fy)
+         + coarse[y0, x0 + 1] * fx * (1 - fy)
+         + coarse[y0 + 1, x0] * (1 - fx) * fy
+         + coarse[y0 + 1, x0 + 1] * fx * fy)
+    img = np.clip(np.asarray(base, np.float32) * v[..., None], 0, 255).astype(np.uint8)
+    return np.concatenate([img, np.full((size, size, 1), 255, np.uint8)], axis=-1)
+
+
+def courtyard_source_images(seed: int = 0, texture_size: int = 128) -> list[np.ndarray]:
+    """The textured courtyard's level-0 images in texture-index order: the
+    floor map at `texture_size`, the two box maps at half of it (>= 128)."""
+    half = max(texture_size // 2, 128)
+    return [make_checker_texture(texture_size),     # 0: floor
+            make_brick_texture(half, seed=seed),    # 1: stone boxes
+            make_noise_texture(half, seed=seed)]    # 2: plaster boxes
+
+
+def courtyard_textures(seed: int, texture_size: int, mips: int = 1,
+                       budget_rows: int | None = None) -> Textures:
+    """The courtyard's atlas: `Textures.from_images` over
+    `courtyard_source_images`. Built on every call (about 2.5 s at
+    texture_size 4096 on one CPU core); nothing is cached on disk."""
+    return Textures.from_images(courtyard_source_images(seed, texture_size),
+                                mips=mips, budget_rows=budget_rows)
+
+
 def make_courtyard_scene(target_triangles: int = 100_000, seed: int = 0,
                          config: RaytracerConfig = DEFAULT_CONFIG,
                          lights: int = 2, textured: bool = False,
-                         device="cpu") -> Scene:
+                         texture_size: int = 128, device="cpu") -> Scene:
     """Sponza-scale procedural stand-in: boxes on a constant-spacing grid
-    (12 triangles each) and a rippled floor taking the rest of the budget."""
-    if textured:
-        raise NotImplementedError("the textured courtyard is not ported yet")
+    (12 triangles each) and a rippled floor taking the rest of the budget.
+    `textured=True` binds base-colour maps (floor at `texture_size` texels,
+    boxes at half) with `config.texture_mips` mip levels, uvs projected
+    from world space, (x + z, y) / 2."""
     rng = np.random.default_rng(seed)
     mats = MaterialBuilder()
-    m_stone = mats.add_diffuse((0.6, 0.55, 0.5))
-    m_floor = mats.add_diffuse((0.45, 0.42, 0.4))
-    m_metal = mats.add_metallic((0.7, 0.6, 0.3), 0.2)
-    m_glass = mats.add_glass((0.4, 0.5, 0.8), 1.5, 0.9)
-    m_red = mats.add_diffuse((0.7, 0.15, 0.1))
+
+    def base_map(index):
+        ti = np.full(8, NO_TEXTURE, np.uint32)
+        ti[TEX_BASE_COLOR] = index
+        return ti
+
+    if textured:
+        m_stone = mats.add(albedo=(0.9, 0.85, 0.8), metallic=0.0, roughness=1.0,
+                           texture_indices=base_map(1))
+        m_floor = mats.add(albedo=(0.95, 0.95, 0.95), metallic=0.0, roughness=1.0,
+                           texture_indices=base_map(0))
+        m_metal = mats.add(albedo=(0.7, 0.6, 0.3), metallic=1.0, roughness=0.2)
+        m_glass = mats.add_glass((0.4, 0.5, 0.8), 1.5, 0.9)
+        m_red = mats.add(albedo=(1.0, 1.0, 1.0), metallic=0.0, roughness=1.0,
+                         texture_indices=base_map(2))
+    else:
+        m_stone = mats.add_diffuse((0.6, 0.55, 0.5))
+        m_floor = mats.add_diffuse((0.45, 0.42, 0.4))
+        m_metal = mats.add_metallic((0.7, 0.6, 0.3), 0.2)
+        m_glass = mats.add_glass((0.4, 0.5, 0.8), 1.5, 0.9)
+        m_red = mats.add_diffuse((0.7, 0.15, 0.1))
 
     all_verts, all_faces, all_mats = [], [], []
     voffset = 0
@@ -109,8 +194,13 @@ def make_courtyard_scene(target_triangles: int = 100_000, seed: int = 0,
                            lambda x, z: 0.15 * np.sin(x * 0.8) * np.cos(z * 0.7))
     add(hv, hfc, np.full(hfc.shape[0], m_floor, np.uint32))
 
-    mesh = Mesh.from_arrays(np.concatenate(all_verts), np.concatenate(all_faces),
-                            np.concatenate(all_mats))
+    verts = np.concatenate(all_verts)
+    uv = None
+    if textured:
+        uv = np.stack([(verts[:, 0] + verts[:, 2]) * 0.5,
+                       verts[:, 1] * 0.5], axis=1).astype(np.float32)
+    mesh = Mesh.from_arrays(verts, np.concatenate(all_faces), np.concatenate(all_mats),
+                            uv=uv)
 
     lb = LightBuilder()
     lb.add_directional((0.3, -1.0, 0.2), (1.0, 0.98, 0.9), 1.5)
@@ -125,5 +215,10 @@ def make_courtyard_scene(target_triangles: int = 100_000, seed: int = 0,
     cam_z = float(np.floor(extent * 0.9 / spacing) * spacing)
     camera = Camera.create(position=(0.0, 2.5, cam_z),
                            direction=(0.0, -0.12, -1.0), fov=55.0)
+    textures = None
+    if textured:
+        textures = courtyard_textures(
+            seed, texture_size, mips=config.texture_mips,
+            budget_rows=JAX_ATLAS_BUDGET_ROWS if config.texture_mips > 1 else None)
     return prepare_scene(camera, Spheres.from_rows([]), mesh, mats.build(),
-                         lb.build(), config=config, device=device)
+                         lb.build(), textures=textures, config=config, device=device)

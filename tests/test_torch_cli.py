@@ -18,7 +18,8 @@ def _run(args, tmp_path):
                           capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
 
 
-@pytest.mark.parametrize("scene_args", [["--courtyard", "2000", "--shadows"], ["--demo"]])
+@pytest.mark.parametrize("scene_args", [["--courtyard", "2000", "--shadows"], ["--demo"],
+                                        ["--courtyard", "2000", "--textured"]])
 def test_render_writes_a_png(tmp_path, scene_args):
     out = tmp_path / "frame.png"
     proc = _run([*scene_args, "--width", "64", "--height", "48", "--device", "cpu",
@@ -32,5 +33,5 @@ def test_render_writes_a_png(tmp_path, scene_args):
 
 
 def test_render_refuses_unported_scenes(tmp_path):
-    proc = _run(["--courtyard", "500", "--textured", "--device", "cpu", "-o", "x.png"], tmp_path)
+    proc = _run(["--gltf", "scene.glb", "--device", "cpu", "-o", "x.png"], tmp_path)
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr

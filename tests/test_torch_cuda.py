@@ -3,20 +3,24 @@
 Marked `cuda`; they skip on machines without a CUDA device. Run them on a
 GPU machine with `python -m pytest -m cuda tests/test_torch_cuda.py`.
 Tolerance: bit equality of hit masks and materials, t within 1e-6
-relative, RGB within 1e-5, except where two triangles share the exact same
-t and the two traversal orders keep different ones (counted, and bounded)."""
+relative, RGB within 1e-5, the deferred G-buffer's light sum and uv within
+1e-5 and its mip footprint within 1e-5 relative, except where two triangles
+share the exact same t and the two traversal orders keep different ones
+(counted, and bounded)."""
 
 import numpy as np
 import pytest
 import torch
 
 import torch_bridge  # noqa: F401  (thread cap)
-from chip_smoke import k1_compare
+from chip_smoke import (gbuffer_compare, k1_compare, primary_ties, random_gbuffer,
+                        shade_compare, synthetic_textured_scene)
 
-from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_chunk
+from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_chunk, render_deferred_chunk
 from gpu_raytracer_tpu_torch.models.scene import build_default_scene
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
-from gpu_raytracer_tpu_torch.ops.cuda.render import render_primary
+from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred, render_primary
+from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
 from gpu_raytracer_tpu_torch.ops.cuda.traverse import pack_trace_tables, traverse
 from gpu_raytracer_tpu_torch.ops.trace import traverse_triangles
 from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
@@ -87,3 +91,45 @@ def test_render_kernel_matches_plain(cuda, name, shadows):
     diff = (got - want).abs().amax(dim=1)
     assert diff[~ties].max().item() <= 1e-5
     assert ties.sum().item() <= W * H * 1e-4
+
+
+TEXTURED = {"courtyard2000": lambda **kw: make_courtyard_scene(2000, seed=1, textured=True, **kw),
+            "synthetic": lambda **kw: synthetic_textured_scene(0, mips=4, **kw)}
+SKY = (0.1, 0.2, 0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shadows", [False, True])
+@pytest.mark.parametrize("name", sorted(TEXTURED))
+def test_deferred_kernels_match_plain(cuda, name, shadows):
+    """A textured frame is one K3 and one K4 launch; K3's G-buffer matches
+    the plain one, K4 the plain deferred shade (nearest and trilinear), and
+    the frame the plain two-phase render."""
+    scene = TEXTURED[name](device=cuda)
+    W, H = 160, 120
+    r = Renderer(scene, W, H, shadows=shadows, sky=SKY)
+    before = (render_deferred.launches, texture_shade.launches, render_primary.launches)
+    got = r.render_device()
+    after = (render_deferred.launches, texture_shade.launches, render_primary.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2])
+    ties = primary_ties(r.tables, W, H, r.px, r.py)
+    _, gbuf = gbuffer_compare(r.tables, r.px, r.py, W, H, shadows, ties)
+    for trilinear in (False, True):
+        shade_compare(r.shade_tables, gbuf, SKY, trilinear, keep=~ties)
+    want = render_deferred_chunk(r.scene, r.px, r.py, W, H, shadows=shadows, sky=SKY)
+    assert (got - want).abs().amax(dim=1)[~ties].max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mips1", "mips4", "degenerate_glass"])
+def test_texture_shade_kernel_on_random_gbuffers(cuda, case):
+    """Every wrap mode and map slot, miss and invalid-material lanes, mip
+    chains, and ior-1 glass whose dispersion is 0/0 (NaN in the same lanes)."""
+    mips = 4 if case == "mips4" else 1
+    scene = synthetic_textured_scene(1, mips=mips, degenerate_glass=case == "degenerate_glass",
+                                     device=cuda)
+    tables = pack_shade_tables(scene)
+    g = random_gbuffer(np.random.default_rng(2), 16_384, scene.materials.count, mips=mips > 1)
+    g = torch.from_numpy(g).to(cuda)
+    for trilinear in (False, True):
+        assert shade_compare(tables, g, SKY, trilinear) <= 1e-5

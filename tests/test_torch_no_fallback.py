@@ -30,10 +30,12 @@ def test_port_never_imports_jax():
         "from gpu_raytracer_tpu_torch.engine.renderer import Renderer\n"
         "from gpu_raytracer_tpu_torch.models.scene import build_default_scene\n"
         "from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene\n"
-        "from gpu_raytracer_tpu_torch.ops.cuda import build, render, traverse\n"
+        "from gpu_raytracer_tpu_torch.ops.cuda import build, render, texshade, traverse\n"
         "from gpu_raytracer_tpu_torch import bridge, __main__\n"
-        "img = Renderer(make_courtyard_scene(500), 16, 12, shadows=True, device='cpu').render()\n"
-        "assert img.shape == (12, 16, 3)\n"
+        "for textured in (False, True):\n"
+        "    scene = make_courtyard_scene(500, textured=textured)\n"
+        "    img = Renderer(scene, 16, 12, shadows=True, device='cpu').render()\n"
+        "    assert img.shape == (12, 16, 3)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib',"
         " 'gpu_raytracer_tpu.')) or m == 'gpu_raytracer_tpu')\n"
         "print('LOADED', bad)\n"
@@ -57,7 +59,8 @@ def test_wrappers_refuse_other_devices():
     reason to take the plain version."""
     meta = torch.device("meta")
     tables = TraceTables(scene=None, nodes=torch.empty((1, 36), device=meta),
-                         tris=torch.empty((8, 12), device=meta), depth=1, stack=16)
+                         tris=torch.empty((8, 12), device=meta),
+                         attrs=torch.empty((8, 8), device=meta), depth=1, stack=16)
     o = torch.empty((4, 3), device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
         traverse(tables, o, o, torch.empty(4, device=meta))
@@ -67,6 +70,39 @@ def test_wrappers_refuse_other_devices():
         render_primary(rt, px.to(meta), px.to(meta), 2, 2)
     with pytest.raises(ValueError):   # int64 coordinates
         render_primary(rt, px.long(), px.long(), 2, 2)
+
+
+def test_deferred_wrappers_refuse_other_devices_and_take_plain_on_cpu(monkeypatch):
+    """K3 and K4's wrappers: the plain versions for CPU tensors, an error
+    for other devices, malformed inputs or an atlas past int32 addresses."""
+    from gpu_raytracer_tpu_torch.engine.renderer import render_gbuffer, split_gbuffer
+    from gpu_raytracer_tpu_torch.ops.cuda import texshade
+    from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred
+    from gpu_raytracer_tpu_torch.ops.shading import shade_deferred
+
+    scene = make_courtyard_scene(500, textured=True)
+    rt, st = pack_render_tables(scene), texshade.pack_shade_tables(scene)
+    py, px = (a.reshape(-1).to(torch.int32).contiguous()
+              for a in torch.meshgrid(torch.arange(12), torch.arange(16), indexing="ij"))
+    gbuf = render_deferred(rt, px, py, 16, 12, shadows=True)
+    ref = render_gbuffer(scene, px, py, 16, 12, shadows=True)
+    assert torch.equal(gbuf.view(torch.int32), ref.view(torch.int32))   # a miss's id is NaN bits
+    S, mat, uv, lam = split_gbuffer(gbuf)
+    assert (mat >= 0).any() and (lam > 0).any()
+    assert torch.equal(texshade.texture_shade(st, gbuf),
+                       shade_deferred(scene, S, mat, uv, lam=lam))
+    meta = torch.device("meta")
+    with pytest.raises(ValueError):
+        render_deferred(rt, px.to(meta), py.to(meta), 16, 12)
+    with pytest.raises(ValueError):   # int64 coordinates
+        render_deferred(rt, px.long(), py.long(), 16, 12)
+    with pytest.raises(ValueError):
+        texshade.texture_shade(st, gbuf.to(meta))
+    with pytest.raises(ValueError):   # not the 8-word record
+        texshade.texture_shade(st, gbuf[:, :7].contiguous())
+    monkeypatch.setattr(texshade, "MAX_ATLAS_WORDS", scene.textures.data_u32.numel() - 1)
+    with pytest.raises(ValueError, match="int32"):
+        texshade.pack_shade_tables(scene)
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -83,13 +119,21 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 
 
 def test_nvcc_command_line():
-    cmd = build.nvcc_command("out.so", "nvcc")
-    line = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in line
-    assert "-fmad=false" in cmd and "-O3" in cmd and "-shared" in cmd
-    assert not any("fast_math" in a or "fast-math" in a for a in cmd)
-    assert all(os.path.exists(a) for a in cmd if a.endswith(".cu"))
-    assert {os.path.basename(a) for a in cmd if a.endswith(".cu")} == set(build.SOURCES)
+    """One compile per source, all for sm_90a without FMA contraction or
+    fast math, then one link of their objects into the shared library."""
+    compiles, link = build.nvcc_commands("out.so", "nvcc")
+    for cmd in compiles:
+        line = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in line
+        assert "-fmad=false" in cmd and "-O3" in cmd and "-c" in cmd
+        assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+        assert all(os.path.exists(a) for a in cmd if a.endswith(".cu"))
+    sources = [os.path.basename(a) for cmd in compiles for a in cmd if a.endswith(".cu")]
+    assert sorted(sources) == sorted(build.SOURCES)
+    objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert "-shared" in link and link[link.index("-o") + 1] == "out.so"
+    assert [a for a in link if a.endswith(".o")] == objs
+    assert all(os.path.exists(os.path.join(build.CSRC, h)) for h in build.HEADERS)
 
 
 def test_source_hash_follows_the_sources():
@@ -99,7 +143,7 @@ def test_source_hash_follows_the_sources():
 
 def test_wrapper_sources_have_no_fallback():
     """The kernel wrappers hold no try/except that could fall back."""
-    for name in ("traverse.py", "render.py", "build.py"):
+    for name in ("traverse.py", "render.py", "texshade.py", "build.py"):
         with open(os.path.join(REPO, "gpu_raytracer_tpu_torch", "ops", "cuda", name)) as f:
             src = f.read()
         assert "try:" not in src and "except" not in src, name
@@ -112,8 +156,6 @@ def test_unported_inputs_raise():
     scene = dataclasses.replace(build_default_scene(), lights=lb.build())
     with pytest.raises(NotImplementedError):
         Renderer(scene, 8, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_courtyard_scene(500, textured=True)
     with pytest.raises(NotImplementedError):
         make_courtyard_scene(500, config=RaytracerConfig(bvh_width=8))
     with pytest.raises(NotImplementedError):

@@ -18,7 +18,7 @@ torch.set_num_threads(2)
 
 __all__ = ["jax_scene_arrays", "port_scene_from_jax", "scene_to_arrays",
            "assert_arrays_equal", "canonical_binary_tree", "f16_attenuation_flips",
-           "rounding_sensitive_pixels"]
+           "rounding_sensitive_pixels", "mip_flip_pixels"]
 
 
 def jax_scene_arrays(scene) -> dict:
@@ -131,7 +131,7 @@ def _as_float64(obj):
 
 
 def rounding_sensitive_pixels(scene, width, height, shadows=False, sky=(0.0, 0.0, 0.0),
-                              tol=1e-6) -> np.ndarray:
+                              tol=1e-6, trilinear=False) -> np.ndarray:
     """[H,W] bool: pixels where single-precision rounding alone moves the
     plain render by more than `tol` from the same pipeline evaluated in
     float64 (sphere silhouettes, where b^2 - 4ac cancels, grazing hits).
@@ -142,7 +142,35 @@ def rounding_sensitive_pixels(scene, width, height, shadows=False, sky=(0.0, 0.0
     py, px = torch.meshgrid(torch.arange(height, dtype=torch.int32),
                             torch.arange(width, dtype=torch.int32), indexing="ij")
     px, py = px.reshape(-1), py.reshape(-1)
-    f32 = render_chunk(scene, px, py, width, height, shadows=shadows, sky=sky)
-    f64 = render_chunk(_as_float64(scene), px, py, width, height, shadows=shadows, sky=sky)
+    f32 = render_chunk(scene, px, py, width, height, shadows=shadows, sky=sky,
+                       trilinear=trilinear)
+    f64 = render_chunk(_as_float64(scene), px, py, width, height, shadows=shadows, sky=sky,
+                       trilinear=trilinear)
     dev = (f32.double() - f64).abs().amax(dim=1)
     return (dev > tol).numpy().reshape(height, width)
+
+
+def mip_flip_pixels(scene, hit, height, rel=1e-6) -> np.ndarray:
+    """[N] bool: textured hits whose nearest mip level of some sampled map
+    sits within `rel` of a level boundary, judged in float64: there
+    lam * w * sqrt(2) is so close to a power of two that a one-ulp change
+    of the hit distance (another f32 evaluation order of the traversal)
+    picks the neighbouring level."""
+    from gpu_raytracer_tpu_torch.ops.shading import hit_footprint
+
+    if scene.textures.n_levels <= 1:
+        return np.zeros(hit.t.shape[0], bool)
+    lam = hit_footprint(scene, hit, height).double()
+    m = scene.materials
+    mid = torch.clamp(hit.material_id, 0, m.count - 1)
+    tex = scene.textures
+    flips = torch.zeros_like(hit.hit)
+    for slot in m.present_slots:
+        ti = m.texture_indices[mid, slot]
+        valid = ti != 0xFFFFFFFF
+        w = tex.width[torch.clamp(torch.where(valid, ti, 0), max=tex.count - 1)].double()
+        x = lam * w * np.sqrt(2.0)
+        lo = torch.floor(torch.log2(x * (1.0 - rel)))
+        hi = torch.floor(torch.log2(x * (1.0 + rel)))
+        flips |= valid & (x > 0) & (lo != hi)
+    return (flips & hit.hit).numpy()
