@@ -21,8 +21,22 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      G-buffer and on random G-buffers over a synthetic scene with every wrap
      mode, map slot and mip chains, nearest and trilinear;
   9. the textured main path, Renderer.render_device() at 1920x1080 (K3 then
-     K4), timed, with the launch counts of that run.
-The line before the last is the per-kernel JSON summary, the last line
+     K4), timed, with the launch counts of that run;
+ 10. K6 (the path tracer's bounce) against the plain bounce on the
+     1024x1024 camera pool (depth 0) and on the depth-2 pool of the main
+     path (spectral, shadows, one sampled light, roulette);
+ 11. the same on the textured courtyard and on a textured synthetic scene
+     with live spheres (glass, metal, split lanes; mip chains), texture LOD
+     bias 0 and 1, and on glass of IOR 1 (NaN lanes); then K5 (the material
+     sampler, a device function of K6) launched on its own against its
+     plain version;
+ 12. the main path, PathTracer.step() at 1024x1024 on both courtyards
+     (spectral, shadows, QMC anti-aliasing, depth 4): ms per sample, the
+     launch counts of that run (K6 five times per step, no other kernel),
+     the per-stage breakdown, the plain step on the card, the 4-spp image
+     against the plain path's, the K6 roofline bound, and the time per
+     sample with the coherence sort skipped (a reading, not an option).
+The card line, then the per-kernel JSON summary, then the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -65,12 +79,13 @@ def ptxas_summary(nvcc_log: str) -> dict:
     from nvcc's -Xptxas -v report."""
     out, name = {}, None
     for line in nvcc_log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(traverse_kernel|render_primary_kernel|"
-                      r"render_deferred_kernel|texshade_kernel)(?:ILi(\d+)E(?:Lb(\d))?)?", line)
+        m = re.search(r"Compiling entry function '\S*?\d(traverse_kernel|traverse_work_kernel|"
+                      r"render_primary_kernel|render_deferred_kernel|texshade_kernel|"
+                      r"bounce_kernel|sample_materials_kernel)(?:I((?:L[bi]\d+E)+)E)?", line)
         if m:
             name = m.group(1)
-            if m.group(2):
-                name += f"<{m.group(2)}{', any_hit' if m.group(3) == '1' else ''}>"
+            if m.group(2):   # template arguments: stack, then the flags
+                name += f"<{', '.join(re.findall(r'L[bi](\d+)E', m.group(2)))}>"
             out[name] = {}
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
         if m and name:
@@ -523,14 +538,539 @@ def phase_textured_main(scene, width, height, device, card, ties):
     return out
 
 
-def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTURE_SIZE):
+# ---- the path tracer (phases 10-12) ----
+
+F32_MAX = 3.4028234663852886e38
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (HBM3 peak rate)
+FP32_FLOPS_PER_S = 67e12    # H100 SXM FP32 outside the tensor cores
+# FP32 operations per unit of work, counted from the kernel sources:
+NODE_FLOPS = 100     # one BVH4 node: 4 slab tests of 6 sub, 6 mul, 10 min/max, 1 max, 2 compares
+TRI_FLOPS = 54       # one Moller-Trumbore test (traverse.cuh leaf_test)
+SPHERE_FLOPS = 25    # one sphere test (render_common.cuh sphere_hit)
+SHADE_FLOPS = 120    # per hit: normal, one light's intensity, ambient, blend (K2, K3, K6)
+SAMPLE_FLOPS = 150   # per K6 continuation: ONB, cosine lobe, mirror, Fresnel, roulette
+TEXEL_FLOPS = 60     # one bilinear map sample (texsample.cuh bilinear + tap setup)
+MAX_DEPTH = 4        # config.max_bounce_depth: the path tracer's main path
+RR_START = 2         # config.russian_roulette_start
+PT_SIZE = 1024       # the path tracer's frame edge (the JAX benchmark's sections 2 and 4b)
+PT_STEPS = 8         # timed steps of the kernel path
+PT_PLAIN_STEPS = 4   # steps of the plain path on the card (timed; its 4-spp image)
+PT_IMAGE_SHARE = 0.999   # pixels of the 4-spp image within RGB_TOL of the plain path's
+SYNTH_SIZE = 256     # the synthetic textured scene's frame edge
+
+
+def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the FP32 operations over the FP32 peak."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def table_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def walk_flops(work) -> float:
+    """FP32 operations of K1 walks from traversal_work's (nodes, triangles)."""
+    w = work.sum(dim=0).tolist()
+    return float(w[0] * NODE_FLOPS + w[1] * TRI_FLOPS)
+
+
+def camera_pool(tables, width, height, sample=0, seed=0):
+    """The path tracer's depth-0 pool: one QMC-jittered full-RGB camera ray
+    per pixel, tile-major (engine/pathtracer.py::_sample_chunk)."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
+    from gpu_raytracer_tpu_torch.ops.sampler import qmc_jitter
+    from gpu_raytracer_tpu_torch.ops.wavefront import RGB_CHANNEL, camera_wavefront_rays
+
+    dev = tables.device
+    px, py = (torch.from_numpy(a).to(dev) for a in tiled_pixel_order(width, height))
+    lane = torch.arange(px.shape[0], dtype=torch.int64, device=dev)
+    jitter = qmc_jitter(lane, torch.full_like(lane, sample), seed)
+    return camera_wavefront_rays(tables.scene.camera, width, height, px, py, RGB_CHANNEL,
+                                 jitter=jitter, fov_scale=tables.render.fov_scale)
+
+
+def pools(tables, width, height, depths, tex_lod_bias=0.0):
+    """(depth, pool, uniforms, bounce arguments) of one path-tracer sample
+    at each of `depths`: the main path's pools, advanced by the plain bounce
+    and sorted between depths as the main path sorts them."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.wavefront import (_coherence_sort, _pool_uniforms, bounce,
+                                                       bounce_flags)
+
+    scene = tables.scene
+    r = camera_pool(tables, width, height)
+    N = r.count
+    rad = torch.zeros((N, 3), dtype=torch.float32, device=tables.device)
+    orig = torch.arange(N, dtype=torch.int32, device=tables.device)
+    for depth in range(max(depths) + 1):
+        if depth > 0:
+            r, rad, orig = _coherence_sort(scene, r, rad, orig)
+        u = _pool_uniforms(depth, N, orig, True)
+        flags = bounce_flags(scene, depth, MAX_DEPTH, RR_START, True, tex_lod_bias)
+        if depth in depths:
+            yield depth, r, u, flags
+        if depth < max(depths):
+            r = bounce(scene, r, u, **flags)[0]
+
+
+def bounce_compare(tables, r, u, flags):
+    """K6 against the plain bounce on one pool: integer fields and `active`
+    equal, float fields and radiance within RGB_TOL with NaN in the same
+    lanes, outside live lanes whose closest triangle the two traversal
+    orders pick differently at the exact same t (counted)."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce
+    from gpu_raytracer_tpu_torch.ops.wavefront import bounce
+
+    got, grad = fused_bounce(tables, r, u, **flags)
+    want, wrad = bounce(tables.scene, r, u, **flags)
+    far = torch.full((r.count,), F32_MAX, device=tables.device)
+    ties = k1_compare(tables.render.trace, r.origin, r.direction, far)[1] & r.active
+    keep = ~ties
+    n_ties = int(ties.sum())
+    for name in ("wavelength_channel", "ray_type", "bounce_depth", "active"):
+        a, b = getattr(got, name)[keep], getattr(want, name)[keep]
+        if not torch.equal(a, b):
+            raise AssertionError(f"K6 {name} differs on {(a != b).sum().item()} lanes "
+                                 f"outside {n_ties} ties ({flags})")
+    err = {}
+    for name, a, b in (("origin", got.origin, want.origin),
+                       ("direction", got.direction, want.direction),
+                       ("throughput", got.throughput, want.throughput),
+                       ("medium_ior", got.medium_ior, want.medium_ior),
+                       ("radiance", grad, wrad)):
+        a, b = a[keep], b[keep]
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"K6 {name}: NaN lanes differ from the plain bounce")
+        d = torch.nan_to_num((a - b).abs(), nan=0.0)
+        err[name] = d.max().item() if d.numel() else 0.0
+    if max(err.values()) > RGB_TOL:
+        raise AssertionError(f"K6 off the plain bounce by {err} ({flags})")
+    if n_ties > TIE_BUDGET * r.count:
+        raise AssertionError(f"{n_ties} tie lanes > {TIE_BUDGET:.2%} of the pool")
+    return dict(lanes=r.count, live=int(r.active.sum()), next_live=int(got.active.sum()),
+                ties=n_ties, max_abs_err=max(err.values()),
+                nan_lanes=int(torch.isnan(grad).any(dim=1).sum()))
+
+
+def phase_k6(tables, width, height, label, biases=(0.0,), depths=(0, 2)):
+    """K6 against the plain bounce on the main path's pools of one scene."""
+    out = {}
+    for bias in biases:
+        for depth, r, u, flags in pools(tables, width, height, depths, bias):
+            out[f"{label}_lod_bias{bias:g}_depth{depth}"] = bounce_compare(tables, r, u, flags)
+    return out
+
+
+def k5_compare(tables, mat_id, uv, lod):
+    """The standalone K5 launch against its plain version -> max |diff|."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import material_channels, sample_materials
+
+    got = sample_materials(tables, mat_id, uv, lod)
+    want = material_channels(tables.scene, mat_id, uv, lod)
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError("K5 NaN channels differ from the plain material sample")
+    err = torch.nan_to_num((got - want).abs(), nan=0.0).max().item()
+    if err > RGB_TOL:
+        raise AssertionError(f"K5 max |diff| {err:.3g} > {RGB_TOL} at lod {lod}")
+    return err
+
+
+def phase_k5(ttables, synth_tables, device, card, size):
+    """K5 on its own: on the textured courtyard's camera-ray hits (the main
+    path's depth-0 inputs) and on random ids and uvs of the synthetic scene
+    (every wrap mode and map slot, mip chains), at several levels."""
+    import numpy as np
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import material_channels, sample_materials
+    from gpu_raytracer_tpu_torch.ops.trace import trace
+
+    r = camera_pool(ttables, size, size)
+    hit = trace(ttables.scene, r.origin, r.direction)
+    mid = hit.material_id[hit.hit].to(torch.int32).contiguous()
+    uv = hit.uv[hit.hit].contiguous()
+    err = {f"courtyard_lod{lod:g}": k5_compare(ttables, mid, uv, lod) for lod in (0.0, 1.0)}
+    rng = np.random.default_rng(5)
+    n = 65_536
+    smid = torch.from_numpy(rng.integers(-1, synth_tables.scene.materials.count + 2, n)
+                            .astype(np.int32)).to(device)
+    suv = torch.from_numpy(rng.uniform(-1.5, 2.5, (n, 2)).astype(np.float32)).to(device)
+    for lod in (0.0, 1.0, 2.5):
+        err[f"synthetic_lod{lod:g}"] = k5_compare(synth_tables, smid, suv, lod)
+    sh = ttables.shade
+    n_maps = bin(sh.present).count("1")
+    bytes_moved = mid.shape[0] * (4 + 8 + 44) + table_bytes(sh.materials, sh.maps, sh.atlas)
+    bms, by = bound_ms(bytes_moved, mid.shape[0] * n_maps * TEXEL_FLOPS)
+    out = dict(max_abs_diff=err, hits=int(mid.shape[0]),
+               ms=timed(lambda: sample_materials(ttables, mid, uv), FRAMES, device),
+               plain_ms=timed(lambda: material_channels(ttables.scene, mid, uv), PLAIN_FRAMES,
+                              device),
+               bound_ms=bms, bound_by=by, card=card)
+    log(f"phase 11b K5: {json.dumps(out)}")
+    return out
+
+
+class _swap:
+    """Replace an attribute for the duration of a `with` block."""
+
+    def __init__(self, obj, name, value):
+        self.obj, self.name, self.value = obj, name, value
+
+    def __enter__(self):
+        self.old = getattr(self.obj, self.name)
+        setattr(self.obj, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.old)
+        return False
+
+
+def plain_bounces():
+    """Within the block the path tracer runs the plain bounce on the card."""
+    from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
+    from gpu_raytracer_tpu_torch.ops.wavefront import bounce
+
+    return _swap(bounce_mod, "fused_bounce",
+                 lambda tables, r, u, **flags: bounce(tables.scene, r, u, **flags))
+
+
+def recorded_bounces(record: list):
+    """Within the block every K6 call also appends its (pool, uniforms,
+    arguments) to `record`."""
+    from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
+
+    kernel = bounce_mod.fused_bounce
+
+    def rec(tables, r, u, **flags):
+        record.append((r, u, flags))
+        with _swap(bounce_mod, "fused_bounce", kernel):   # its launch counter
+            return kernel(tables, r, u, **flags)
+
+    return _swap(bounce_mod, "fused_bounce", rec)
+
+
+class StageTimer:
+    """Per-stage CUDA events of PathTracer steps, recorded by wrapping
+    module functions for the duration of a `with` block (the package has
+    no timing hook): the camera pool ends where the depth loop
+    (path_trace_pool) is entered; each coherence sort, uniforms block and
+    bounce ends where it returns (a depth's live count falls into its sort,
+    or at depth 0 its uniforms); the scatter back ends where the loop
+    returns, the accumulate with the step. Off the card it records
+    nothing."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.events, self.seen = [], {}
+
+    def mark(self, stage: str) -> None:
+        import torch
+
+        if not self.cuda:
+            return
+        if stage in ("sort", "uniforms", "bounce"):
+            n = self.seen.get(stage, 0)
+            self.seen[stage] = n + 1
+            stage = f"{stage}{n + 1 if stage == 'sort' else n}"
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((stage, ev))
+
+    def _wrap(self, module, name, stage_in=None, stage_out=None):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kw):
+            if stage_in:
+                self.mark(stage_in)
+            with _swap(module, name, fn):   # a kernel wrapper's launch counter stays its own
+                out = fn(*args, **kw)
+            self.mark(stage_out)
+            return out
+
+        return _swap(module, name, wrapper)
+
+    def __enter__(self):
+        import contextlib
+
+        from gpu_raytracer_tpu_torch.engine import pathtracer
+        from gpu_raytracer_tpu_torch.ops import wavefront
+        from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
+
+        self.stack = contextlib.ExitStack()
+        for swap in (self._wrap(pathtracer, "path_trace_pool", "camera", "unscramble"),
+                     self._wrap(wavefront, "_coherence_sort", stage_out="sort"),
+                     self._wrap(wavefront, "_pool_uniforms", stage_out="uniforms"),
+                     self._wrap(bounce_mod, "fused_bounce", stage_out="bounce")):
+            self.stack.enter_context(swap)
+        return self
+
+    def __exit__(self, *exc):
+        return self.stack.__exit__(*exc)
+
+    def step(self, tracer_) -> dict:
+        """One step -> {stage: ms} (empty off the card)."""
+        import torch
+
+        self.events, self.seen = [], {}
+        self.mark("begin")
+        tracer_.step()
+        self.mark("accumulate")
+        if not self.cuda:
+            return {}
+        torch.cuda.synchronize()
+        ev = self.events
+        return {stage: a.elapsed_time(b) for (_, a), (stage, b) in zip(ev, ev[1:])}
+
+
+def median_stages(runs) -> dict:
+    """Per-stage medians over steps (empty off the card: no events)."""
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+
+def device_profile(fn, steps: int, device) -> dict:
+    """Kernel time on the device per call of fn (torch.profiler), in all and
+    by kind of kernel, and the host's time to enqueue one call (median; the
+    device idle at its start, no synchronise inside)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    enqueue = []
+    for _ in range(steps):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize(device)
+    kinds = (("k6", "bounce_kernel"), ("sort", "sort"), ("sort", "radix"),
+             ("gather_scatter", "index"), ("elementwise", "elementwise"),
+             ("reduce", "reduce"))
+    by_kind = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        if t > 0:
+            kind = next((k for k, word in kinds if word in e.key.lower()), "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + t / steps / 1e3
+    return dict(device_ms=sum(by_kind.values()), k6_device_ms=by_kind.get("k6", 0.0),
+                host_enqueue_ms=statistics.median(enqueue), device_ms_by_kind=by_kind)
+
+
+def bounce_bound(tables, record):
+    """Bytes and FP32 operations of the recorded K6 launches of one step:
+    each pool field read once, the uniforms of live hits only (the kernel
+    reads no other), each output written once, the tables read once per
+    launch, and the work of the closest-hit and shadow walks that these
+    pools need (K1's own walk, counted on the card), spheres, shading and
+    sampling per lane."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traversal_work
+    from gpu_raytracer_tpu_torch.ops.trace import trace
+    from gpu_raytracer_tpu_torch.ops.wavefront import sampled_shadow_rays
+
+    scene, rt, sh = tables.scene, tables.render, tables.shade
+    tr = rt.trace
+    tbytes = table_bytes(tr.nodes, tr.tris, rt.materials, rt.lights, rt.spheres)
+    if sh is not None:
+        tbytes += table_bytes(tr.attrs, sh.maps, sh.atlas)
+    n_sph = rt.spheres.shape[0]
+    n_maps = bin(sh.present).count("1") if sh is not None else 0
+    total_bytes = total_flops = 0.0
+    walks = []
+    for r, u, flags in record:
+        N = r.count
+        # uniform columns a live hit reads: u6 picks the light, u0-u5 sample
+        # the continuation; a dead lane or a miss reads none
+        u_cols = (1 if flags["light_sample"] else 0) + (0 if flags["last"] else 6)
+        live = r.active
+        limit = torch.where(live, torch.full_like(r.medium_ior, F32_MAX),
+                            torch.zeros_like(r.medium_ior))
+        closest = traversal_work(tr, r.origin, r.direction, limit)
+        hit = trace(scene, r.origin, r.direction, max_t=limit)
+        hit_live = live & hit.hit
+        flops = walk_flops(closest)
+        n_live, n_hit = int(live.sum()), int(hit_live.sum())
+        n_shadow = 0
+        if flags["shadows"]:
+            if not flags["light_sample"]:
+                raise AssertionError("the main path samples one light per hit")
+            _, _, so, sd, smax = sampled_shadow_rays(scene, hit, hit_live, u[:, 6])
+            shadow = traversal_work(tr, so.contiguous(), sd.contiguous(), smax.contiguous(),
+                                    any_hit=True)
+            flops += walk_flops(shadow)
+            n_shadow = int((smax > 0).sum())
+        flops += (n_live + n_shadow) * n_sph * SPHERE_FLOPS
+        flops += n_hit * (SHADE_FLOPS + n_maps * TEXEL_FLOPS)
+        if not flags["last"]:
+            flops += n_hit * SAMPLE_FLOPS
+        total_flops += flops
+        # per lane 53 B of pool in and 65 B out; 4 B per uniform a live hit reads
+        total_bytes += N * (53 + 65) + n_hit * 4 * u_cols + tbytes
+        walks.append(dict(live=n_live, hits=n_hit, shadow_rays=n_shadow,
+                          nodes=int(closest[:, 0].sum()), tris=int(closest[:, 1].sum())))
+    ms, by = bound_ms(total_bytes, total_flops)
+    return dict(bound_ms=ms, bound_by=by, bytes=total_bytes, flops=total_flops, walks=walks)
+
+
+def _launch_counters():
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce, sample_materials
+    from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred, render_primary
+    from gpu_raytracer_tpu_torch.ops.cuda.texshade import texture_shade
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
+
+    return dict(k6=(fused_bounce, "launches"), k5=(fused_bounce, "material_launches"),
+                k5_standalone=(sample_materials, "launches"),
+                k2=(render_primary, "launches"), k3=(render_deferred, "launches"),
+                k4=(texture_shade, "launches"), k1_standalone=(traverse, "launches"))
+
+
+def reset_launches():
+    for fn, attr in _launch_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_launches() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _launch_counters().items()}
+
+
+def phase_pathtracer(scene, label, device, card, size):
+    """Phase 12 for one scene: the main path, PathTracer.step() at
+    PT_SIZE^2 (spectral, shadows, QMC-jittered anti-aliasing, depth 4):
+    ms per sample, launch counts, the per-stage breakdown, the plain path
+    on the card, the 4-spp image against it, and the sort-skipped reading."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
+    from gpu_raytracer_tpu_torch.ops import wavefront
+
+    def tracer():
+        return PathTracer(scene, size, size, spectral=True, shadows=True,
+                          antialias=True, sampler="qmc", device=device)
+
+    pt = tracer()
+    pt.step()
+    if device.type == "cuda":   # a step never waits for the device: this raises if it does
+        torch.cuda.set_sync_debug_mode("error")
+        pt.step()
+        torch.cuda.set_sync_debug_mode("default")
+    pt.reset()
+    reset_launches()
+    ms = timed(pt.step, PT_STEPS, device)
+    launches = read_launches()
+    frame = pt.image_device()
+    if frame.shape != (size, size, 3) or not torch.isfinite(frame).all():
+        raise AssertionError(f"{label}: frame {tuple(frame.shape)} not finite")
+    textured = pt.tables.shade is not None
+    want = dict(k6=PT_STEPS * (MAX_DEPTH + 1), k5=PT_STEPS * (MAX_DEPTH + 1) if textured else 0,
+                k5_standalone=0, k2=0, k3=0, k4=0, k1_standalone=0)
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    counts = pt.counters().rays_per_bounce[:MAX_DEPTH + 1]
+
+    cuda = device.type == "cuda"
+
+    def stages_of(tracer_, steps):
+        """Median per-stage milliseconds of `steps` steps, one at a time."""
+        with StageTimer(device) as timer:
+            return median_stages([timer.step(tracer_) for _ in range(steps)])
+
+    stages = stages_of(pt, PT_STEPS)
+    bound = None
+    if cuda:   # K1's own walk is counted on the card
+        record = []
+        with recorded_bounces(record):
+            pt.step()
+        bound = bounce_bound(pt.tables, record)
+        del record
+
+    profile = device_profile(pt.step, PT_STEPS, device) if cuda else {}
+    with _swap(wavefront, "_coherence_sort", lambda scene, r, rad, orig: (r, rad, orig)):
+        ms_unsorted = timed(pt.step, PT_STEPS, device)
+        unsorted_stages = stages_of(pt, PT_STEPS)
+        unsorted_profile = device_profile(pt.step, PT_STEPS, device) if cuda else {}
+
+    kern = tracer()
+    for _ in range(PT_PLAIN_STEPS):
+        kern.step()
+    plain = tracer()
+    with plain_bounces():
+        plain_stages = stages_of(plain, PT_PLAIN_STEPS)
+    plain_ms = sum(plain_stages.values())
+    diff = (kern.image_device() - plain.image_device()).abs().amax(dim=2)
+    share = (diff <= RGB_TOL).float().mean().item()
+    if share < PT_IMAGE_SHARE:
+        raise AssertionError(f"{label}: {share:.4%} of the 4-spp image within {RGB_TOL} "
+                             f"of the plain path < {PT_IMAGE_SHARE:.1%}")
+    k6 = lambda st: sum(v for k, v in st.items() if k.startswith("bounce"))
+    out = dict(ms_per_spp=ms, plain_ms_per_spp=plain_ms, ms_per_spp_unsorted=ms_unsorted,
+               launches=launches, active_per_depth=counts, stages_ms=stages,
+               unsorted_stages_ms=unsorted_stages, plain_stages_ms=plain_stages,
+               k6_ms_per_spp=k6(stages), k6_ms_per_spp_unsorted=k6(unsorted_stages),
+               k6_plain_ms_per_spp=k6(plain_stages), profile=profile,
+               unsorted_profile=unsorted_profile,
+               device_busy_share=profile["device_ms"] / ms if cuda else None,
+               image_share_within_tol=share,
+               image_max_abs_diff=diff.max().item(), mean=frame.mean().item(),
+               k6_bound=bound, card=card)
+    log(f"phase 12 path tracer {label} {size}x{size}: {json.dumps(out)}")
+    return out
+
+
+def frame_bounds(tables, width, height, shade=None):
+    """Bytes and FP32 operations of the phase 3-9 kernels on the 1080p
+    frame, shadows off (the times the kernels line reports): K1's closest
+    hit of every camera ray, counted on the card, plus each kernel's own
+    reads and writes and per-hit work."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traversal_work, traverse
+
+    tr = tables.trace
+    px, py = (torch.from_numpy(a).to(tr.device) for a in tiled_pixel_order(width, height))
+    o, d = primary_rays(tables.scene, width, height, px, py)
+    far = torch.full((px.shape[0],), F32_MAX, device=tr.device)
+    work = traversal_work(tr, o, d, far)
+    N = px.shape[0]
+    walk = walk_flops(work)
+    sph = N * tables.spheres.shape[0] * SPHERE_FLOPS
+    n_hit = int(traverse(tr, o, d, far)[2].sum())
+    tb = table_bytes(tr.nodes, tr.tris, tables.materials, tables.lights, tables.spheres)
+    out = dict(rays=N, hits=n_hit, nodes=int(work[:, 0].sum()), tris=int(work[:, 1].sum()))
+    out["K1"] = bound_ms(N * (28 + 24) + table_bytes(tr.nodes, tr.tris), walk)
+    out["K2"] = bound_ms(N * (8 + 12) + tb, walk + sph + n_hit * SHADE_FLOPS)
+    out["K3"] = bound_ms(N * (8 + 32) + tb + table_bytes(tr.attrs),
+                         walk + sph + n_hit * (SHADE_FLOPS + 30))
+    if shade is not None:
+        n_maps = bin(shade.present).count("1")
+        out["K4"] = bound_ms(N * (32 + 12) + table_bytes(shade.materials, shade.maps, shade.atlas),
+                             n_hit * (SHADE_FLOPS + n_maps * TEXEL_FLOPS))
+    return out
+
+def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTURE_SIZE,
+        pt_size=PT_SIZE, synth_size=SYNTH_SIZE):
     import torch
 
     from gpu_raytracer_tpu_torch.models.bvh_native import load_builder
     from gpu_raytracer_tpu_torch.models.scene import build_default_scene
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import pack_bounce_tables
     from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables
     from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
 
+    cuda = device.type == "cuda"
     t0 = time.perf_counter()
     scene = make_courtyard_scene(triangles, seed=0, device=device)
     build_s = time.perf_counter() - t0
@@ -562,32 +1102,81 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     k4_launches = tmain["no_shadows"]["k4_launches"] + tmain["shadows"]["k4_launches"]
     k3_err = max(v[e] for v in k3.values() if isinstance(v, dict)
                  for e in ("S", "uv", "lam_rel"))
+    del gbuf
+
+    btables = pack_bounce_tables(scene)
+    k6 = phase_k6(btables, pt_size, pt_size, "courtyard")
+    log(f"phase 10 K6 {pt_size}x{pt_size}: {json.dumps(k6)}")
+    tbtables = pack_bounce_tables(tscene)
+    k6t = phase_k6(tbtables, pt_size, pt_size, "textured_courtyard", biases=(0.0, 1.0))
+    synth = pack_bounce_tables(synthetic_textured_scene(0, mips=4, device=device))
+    k6t.update(phase_k6(synth, synth_size, synth_size, "synthetic", biases=(0.0, 1.0),
+                        depths=(0, 1, 2)))
+    degenerate = pack_bounce_tables(synthetic_textured_scene(1, degenerate_glass=True,
+                                                             device=device))
+    k6t.update(phase_k6(degenerate, synth_size, synth_size, "synthetic_ior1_glass",
+                        depths=(0, 1)))
+    log(f"phase 11 K6 textured: {json.dumps(k6t)}")
+    k5 = phase_k5(tbtables, synth, device, card, pt_size)
+    del btables, tbtables, synth, degenerate
+
+    pt = {label: phase_pathtracer(sc, label, device, card, pt_size)
+          for label, sc in (("courtyard", scene), ("textured_courtyard", tscene))}
+    k6_launches = sum(v["launches"]["k6"] for v in pt.values())
+    k5_launches = sum(v["launches"]["k5"] for v in pt.values())
+
+    fb = frame_bounds(tables, width, height) if cuda else {}
+    tfb = frame_bounds(ttables, width, height, shade=tshade) if cuda else {}
+    bound = lambda b: dict(bound_ms=b[0], bound_by=b[1]) if b else dict(bound_ms=None,
+                                                                           bound_by=None)
+    ptc = pt["courtyard"]
+    kb = ptc["k6_bound"] or {}
     kernels = [
-        dict(name="K1 bvh4_traverse (device function run by every K2 and K3 launch; "
+        dict(name="K1 bvh4_traverse (device function run by every K2, K3 and K6 launch; "
                   "standalone kernel checked in phase 3)",
              route="cuda", source="gpu_raytracer_tpu_torch/csrc/traverse.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/traverse.py:851",
-             launches=k2_launches + k3_launches,
+             launches=k2_launches + k3_launches + k6_launches,
              max_abs_err=max(k1["primary"]["t_abs"], k1["primary"]["normal_abs"],
                              k1["shadow"]["t_abs"], k1["shadow"]["normal_abs"]),
-             ms=k1["ms"], plain_ms=k1["plain_ms"]),
+             ms=k1["ms"], plain_ms=k1["plain_ms"], **bound(fb.get("K1")), library_ms=None),
         dict(name="K2 render_primary", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/render_primary.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:701",
              launches=k2_launches, max_abs_err=k2_err,
-             ms=main["no_shadows"]["ms"], plain_ms=main["no_shadows"]["plain_ms"]),
+             ms=main["no_shadows"]["ms"], plain_ms=main["no_shadows"]["plain_ms"],
+             **bound(fb.get("K2")), library_ms=None),
         dict(name="K3 render_deferred (G-buffer; max_abs_err is the largest of "
                   "S, uv and the footprint's relative error)", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/render_deferred.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:787",
-             launches=k3_launches, max_abs_err=k3_err, ms=k3["ms"], plain_ms=k3["plain_ms"]),
+             launches=k3_launches, max_abs_err=k3_err, ms=k3["ms"], plain_ms=k3["plain_ms"],
+             **bound(tfb.get("K3")), library_ms=None),
         dict(name="K4 texture_shade", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/texshade.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/texshade.py:463",
              launches=k4_launches,
              max_abs_err=max(k4["max_abs_diff"].values()),
-             ms=k4["ms"], plain_ms=k4["plain_ms"]),
+             ms=k4["ms"], plain_ms=k4["plain_ms"], **bound(tfb.get("K4")), library_ms=None),
+        dict(name="K5 sample_material (device function inside K6's textured launches; "
+                  "ms, plain_ms and the bound from its standalone launch on the textured "
+                  "courtyard's camera hits, csrc/materials.cu)", route="cuda",
+             source="gpu_raytracer_tpu_torch/csrc/texsample.cuh",
+             replaces="gpu_raytracer_tpu/ops/pallas/texshade.py:506",
+             launches=k5_launches, max_abs_err=max(k5["max_abs_diff"].values()),
+             ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5.get("bound_ms"),
+             bound_by=k5.get("bound_by"), library_ms=None),
+        dict(name=f"K6 bounce ({MAX_DEPTH + 1} launches per sample; ms (kernel device time, "
+                  f"torch.profiler), plain_ms and the bound are per sample of the untextured "
+                  f"courtyard at {pt_size}^2)",
+             route="cuda", source="gpu_raytracer_tpu_torch/csrc/bounce.cuh",
+             replaces="gpu_raytracer_tpu/ops/pallas/bounce.py:505",
+             launches=k6_launches,
+             max_abs_err=max(v["max_abs_err"] for v in list(k6.values()) + list(k6t.values())),
+             ms=ptc["profile"].get("k6_device_ms"), plain_ms=ptc["k6_plain_ms_per_spp"],
+             bound_ms=kb.get("bound_ms"), bound_by=kb.get("bound_by"), library_ms=None),
     ]
+    log(f"bounds 1080p: {json.dumps(dict(untextured=fb, textured=tfb))}")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
 

@@ -1,7 +1,10 @@
-"""Command-line application: the `render` subcommand.
+"""Command-line application: the `render` and `pathtrace` subcommands.
 
     python -m gpu_raytracer_tpu_torch render [--demo | --courtyard N [--textured]] \
         [--width W --height H] [--shadows] [--device cuda|cpu] -o out.png
+    python -m gpu_raytracer_tpu_torch pathtrace [scene flags] [--spp N] [--spectral] \
+        [--no-shadows] [--seed S] [--sampler qmc|rng] [--checkpoint F] [--resume F] \
+        [--linear] [--device cuda|cpu] -o out.png
 
 `--device cuda` (the default) renders through the CUDA kernels and fails
 without a CUDA device; `--device cpu` renders through the plain PyTorch path.
@@ -10,6 +13,7 @@ without a CUDA device; `--device cpu` renders through the plain PyTorch path.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -60,10 +64,31 @@ def cmd_render(args, config):
     print(f"wrote {args.output}")
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(prog="gpu_raytracer_tpu_torch")
-    sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("render", help="single-frame Whitted render")
+def cmd_pathtrace(args, config):
+    from .engine.pathtracer import PathTracer
+    from .utils.image import write_png
+
+    if args.adaptive:
+        raise NotImplementedError("--adaptive is not ported yet (ROADMAP queue 1 item 9)")
+    if args.denoise:
+        raise NotImplementedError("--denoise is not ported yet (ROADMAP queue 1 item 9)")
+    device = torch.device(args.device)
+    scene = _load_scene(args, config, "cpu")
+    pt = PathTracer(scene, args.width, args.height, config=config, spectral=args.spectral,
+                    shadows=not args.no_shadows, seed=args.seed, sampler=args.sampler,
+                    device=device)
+    if args.resume and os.path.exists(args.resume):
+        pt.load_checkpoint(args.resume)
+        print(f"resumed at {pt.samples} spp")
+    img = pt.render(args.spp, progress=True)
+    if args.checkpoint:
+        pt.save_checkpoint(args.checkpoint)
+        print(f"checkpoint -> {args.checkpoint}")
+    write_png(args.output, img, srgb=not args.linear)
+    print(f"wrote {args.output} ({pt.samples} spp)")
+
+
+def _add_scene_args(p):
     p.add_argument("--gltf", type=str, default=None, help="glTF/GLB scene file")
     p.add_argument("--demo", action="store_true", help="built-in demo scene (default)")
     p.add_argument("--courtyard", type=int, default=0, metavar="TRIS",
@@ -73,11 +98,37 @@ def main(argv=None):
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=720)
     p.add_argument("-o", "--output", type=str, default="out.png")
-    p.add_argument("--shadows", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the CUDA kernels) or cpu (the plain PyTorch path)")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="gpu_raytracer_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("render", help="single-frame Whitted render")
+    _add_scene_args(p)
+    p.add_argument("--shadows", action="store_true")
     add_config_args(p)
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("pathtrace", help="progressive path tracing")
+    _add_scene_args(p)
+    p.add_argument("--spp", type=int, default=16)
+    p.add_argument("--spectral", action="store_true",
+                   help="full-RGB rays that split to one wavelength at dispersive glass")
+    p.add_argument("--no-shadows", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--linear", action="store_true",
+                   help="write raw linear u8 instead of the default sRGB display encode")
+    p.add_argument("--denoise", action="store_true", help="not ported yet")
+    p.add_argument("--sampler", choices=("qmc", "rng"), default="qmc",
+                   help="qmc: low-discrepancy lattice sampling; rng: independent "
+                        "torch.Generator streams")
+    p.add_argument("--adaptive", type=int, default=0, metavar="K", help="not ported yet")
+    p.add_argument("--checkpoint", type=str, default=None)
+    p.add_argument("--resume", type=str, default=None)
+    add_config_args(p)
+    p.set_defaults(fn=cmd_pathtrace)
     args = parser.parse_args(argv)
     config = config_from_args(args) if hasattr(args, "tile_size") else RaytracerConfig()
     args.fn(args, config)

@@ -23,7 +23,8 @@
 namespace rt {
 
 constexpr float kPi = 3.14159265358979323846f;
-constexpr int kMatWords = 16;    // albedo3 emission3 metallic ior transmission pad7
+constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265358979323846);
+constexpr int kMatWords = 16;    // albedo3 emission3 metallic ior transmission roughness pad6
 constexpr int kLightWords = 16;  // position3 type color3 intensity direction3 pad5
 constexpr int kSphereWords = 8;  // center3 radius material(int bits) pad3
 
@@ -155,6 +156,43 @@ __device__ __forceinline__ float light_intensity(const float* __restrict__ L, co
     I = I * (blocked ? 0.0f : 1.0f);
   }
   return I;
+}
+
+// Texture coordinates of a surface (ops/trace.py::trace): for a triangle its
+// Moller-Trumbore barycentrics recomputed once for the winner in the plain
+// version's operation order (ops/trace.py::mt_bary) and its corner uvs from the
+// per-slot attribute table (uv0, uv1), (uv2, decoded uv density, 0) blended as
+// uv0 * (1 - u - v) + uv1 * u + uv2 * v, `density` set to the decoded density;
+// for a sphere equirectangular from the unit normal with atan2f / asinf,
+// `density` 0.
+__device__ __forceinline__ float2 surface_uv(const float4* __restrict__ tris,
+                                             const float4* __restrict__ attrs, const Ray& ray,
+                                             const Surface& s, float& density) {
+  if (s.slot < 0) {
+    density = 0.0f;
+    return make_float2(0.5f + atan2f(s.nz, s.nx) / kTwoPi,
+                       0.5f - asinf(fminf(fmaxf(s.ny, -1.0f), 1.0f)) / kPi);
+  }
+  const float4 a0 = __ldg(tris + 3 * s.slot + 0);
+  const float4 a1 = __ldg(tris + 3 * s.slot + 1);
+  const float4 a2 = __ldg(tris + 3 * s.slot + 2);
+  // h = d x e2, a = e1 . h, s = o - v0, q = s x e1
+  const float hx = ray.dy * a2.z - ray.dz * a2.y;
+  const float hy = ray.dz * a2.x - ray.dx * a2.z;
+  const float hz = ray.dx * a2.y - ray.dy * a2.x;
+  const float a = dot3(a1.x, a1.y, a1.z, hx, hy, hz);
+  const float f = 1.0f / (a == 0.0f ? 1.0f : a);
+  const float sx = ray.ox - a0.x, sy = ray.oy - a0.y, sz = ray.oz - a0.z;
+  const float qx = sy * a1.z - sz * a1.y;
+  const float qy = sz * a1.x - sx * a1.z;
+  const float qz = sx * a1.y - sy * a1.x;
+  const float bu = f * dot3(sx, sy, sz, hx, hy, hz);
+  const float bv = f * dot3(ray.dx, ray.dy, ray.dz, qx, qy, qz);
+  const float4 t0 = __ldg(attrs + 2 * s.slot);       // uv0, uv1
+  const float4 t1 = __ldg(attrs + 2 * s.slot + 1);   // uv2, density, 0
+  const float w0 = 1.0f - bu - bv;
+  density = t1.z;
+  return make_float2(t0.x * w0 + t0.z * bu + t1.x * bv, t0.y * w0 + t0.w * bu + t1.y * bv);
 }
 
 // Transmission blend of channel c with the wavelength-dependent IOR

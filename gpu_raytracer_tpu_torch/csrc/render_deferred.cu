@@ -29,8 +29,6 @@
 
 namespace {
 
-constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265358979323846);
-
 template <int STACK>
 __global__ void __launch_bounds__(128)
 render_deferred_kernel(const rt::Node4* __restrict__ nodes, const float4* __restrict__ tris,
@@ -60,36 +58,11 @@ render_deferred_kernel(const rt::Node4* __restrict__ nodes, const float4* __rest
     for (int c = 0; c < 3; ++c) S[c] = S[c] + (I * gate) * L[4 + c];
   }
 
-  float u, v, lam;
-  if (s.slot >= 0) {
-    const float4 a0 = __ldg(tris + 3 * s.slot + 0);
-    const float4 a1 = __ldg(tris + 3 * s.slot + 1);
-    const float4 a2 = __ldg(tris + 3 * s.slot + 2);
-    // h = d x e2, a = e1 . h, s = o - v0, q = s x e1
-    const float hx = ray.dy * a2.z - ray.dz * a2.y;
-    const float hy = ray.dz * a2.x - ray.dx * a2.z;
-    const float hz = ray.dx * a2.y - ray.dy * a2.x;
-    const float a = rt::dot3(a1.x, a1.y, a1.z, hx, hy, hz);
-    const float f = 1.0f / (a == 0.0f ? 1.0f : a);
-    const float sx = ray.ox - a0.x, sy = ray.oy - a0.y, sz = ray.oz - a0.z;
-    const float qx = sy * a1.z - sz * a1.y;
-    const float qy = sz * a1.x - sx * a1.z;
-    const float qz = sx * a1.y - sy * a1.x;
-    const float bu = f * rt::dot3(sx, sy, sz, hx, hy, hz);
-    const float bv = f * rt::dot3(ray.dx, ray.dy, ray.dz, qx, qy, qz);
-    const float4 t0 = __ldg(attrs + 2 * s.slot);       // uv0, uv1
-    const float4 t1 = __ldg(attrs + 2 * s.slot + 1);   // uv2, density, 0
-    const float w0 = 1.0f - bu - bv;
-    u = t0.x * w0 + t0.z * bu + t1.x * bv;
-    v = t0.y * w0 + t0.w * bu + t1.y * bv;
-    lam = s.t * pix_scale * t1.z;
-  } else {
-    u = 0.5f + atan2f(s.nz, s.nx) / kTwoPi;
-    v = 0.5f - asinf(fminf(fmaxf(s.ny, -1.0f), 1.0f)) / rt::kPi;
-    lam = 0.0f;
-  }
+  float density;
+  const float2 uv = rt::surface_uv(tris, attrs, ray, s, density);
+  const float lam = s.slot >= 0 ? s.t * pix_scale * density : 0.0f;
   gbuf[2 * i] = make_float4(S[0], S[1], S[2], __int_as_float(s.mat));
-  gbuf[2 * i + 1] = make_float4(u, v, lam, 0.0f);
+  gbuf[2 * i + 1] = make_float4(uv.x, uv.y, lam, 0.0f);
 }
 
 }  // namespace

@@ -1,9 +1,8 @@
 // Texture sampling device functions over the guard-band atlas, one ray per
 // thread: the device form of the plain sampler ops/texture.py, formula for
 // formula and in the same order. Used by the texture shade kernel (K4,
-// texshade.cu); written to be reused by the kernels that sample textures
-// inside a traversal (the textured primary render and the path tracer's
-// bounce).
+// texshade.cu) and, through `sample_material` (K5), by the path tracer's
+// bounce (K6, bounce.cuh); the textured primary render is to call it too.
 //
 // Atlas layout (models/geometry.py::Textures): 128-texel rows of 127 texels
 // plus one guard texel repeating the wrap neighbour, one guard row per
@@ -146,6 +145,75 @@ __device__ __forceinline__ float4 sample_map(const int* __restrict__ atlas, cons
   const float g = 1.0f - frac;
   return make_float4(r0.x * g + r1.x * frac, r0.y * g + r1.y * frac, r0.z * g + r1.z * frac,
                      r0.w * g + r1.w * frac);
+}
+
+// A texture sampled bilinearly at an explicit level `lod` (clamped to the
+// texture's chain and truncated), the path tracer's bounce LOD; level 0 of a
+// single-level atlas.
+__device__ __forceinline__ float4 sample_map_lod(const int* __restrict__ atlas, const TexMeta& m,
+                                                 float u, float v, float lod, int n_levels) {
+  if (n_levels <= 1) return bilinear(atlas, tex_level(m, 0), m.wrap, u, v);
+  const float l = fminf(fmaxf(lod, 0.0f), static_cast<float>(m.levels) - 1.0f);
+  return bilinear(atlas, tex_level(m, static_cast<int>(l)), m.wrap, u, v);
+}
+
+// K5: the material of a hit as the path tracer's bounce needs it.
+//
+// Replaces the TPU kernel's subroutine gpu_raytracer_tpu/ops/pallas/texshade.py
+// sample_materials_tiles (:506), which looks up material rows by one-hot matrix
+// products and samples the atlas tile by tile. Here one thread reads its
+// material row (ops/cuda/render.py material_rows: albedo, emission, metallic,
+// IOR, transmission, roughness) and samples, at the fixed level `lod`, each
+// map slot that some material uses and its own material holds: base colour
+// scales the albedo, emissive the emission, the metallic-roughness map's B the
+// metallic and its G the roughness, occlusion's R is the ambient factor
+// (1 without). Each map is sampled once. Its plain version is
+// ops/shading.py::sample_materials. Bound by the latency of the 4 texel loads
+// per sampled map (L2-resident atlas rows), like the texture shade kernel.
+struct MaterialSample {
+  float albedo[3];
+  float emission[3];
+  float metallic, roughness, ior, transmission, occlusion;
+};
+
+__device__ __forceinline__ MaterialSample sample_material(
+    const float* __restrict__ mats, const TexMeta* __restrict__ maps,
+    const int* __restrict__ atlas, int present, int n_levels, int mid, float u, float v,
+    float lod) {
+  const float* row = mats + mid * 16;
+  MaterialSample m;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    m.albedo[c] = row[c];
+    m.emission[c] = row[3 + c];
+  }
+  m.metallic = row[6];
+  m.ior = row[7];
+  m.transmission = row[8];
+  m.roughness = row[9];
+  m.occlusion = 1.0f;
+  if (maps == nullptr) return m;
+  for (int k = 0; k < kMapSlots; ++k) {
+    if (!((present >> k) & 1)) continue;
+    const TexMeta t = maps[mid * kMapSlots + k];
+    if (!t.has) continue;   // the plain sampler's factor is exactly 1
+    const float4 s = sample_map_lod(atlas, t, u, v, lod, n_levels);
+    if (k == kMapBaseColor) {
+      m.albedo[0] = m.albedo[0] * s.x;
+      m.albedo[1] = m.albedo[1] * s.y;
+      m.albedo[2] = m.albedo[2] * s.z;
+    } else if (k == kMapEmissive) {
+      m.emission[0] = m.emission[0] * s.x;
+      m.emission[1] = m.emission[1] * s.y;
+      m.emission[2] = m.emission[2] * s.z;
+    } else if (k == kMapMetallicRoughness) {
+      m.metallic = m.metallic * s.z;     // B channel
+      m.roughness = m.roughness * s.y;   // G channel
+    } else {
+      m.occlusion = s.x;                 // R channel
+    }
+  }
+  return m;
 }
 
 }  // namespace rt

@@ -35,6 +35,22 @@ traverse_kernel(const rt::Node4* __restrict__ nodes, const float4* __restrict__ 
   mat_out[i] = mat;
 }
 
+// The same walk with its work counted: (nodes, triangles) per ray. Used to
+// compute the roofline bound of the traversing kernels, never by the renderer.
+template <int STACK, bool ANY_HIT>
+__global__ void __launch_bounds__(128)
+traverse_work_kernel(const rt::Node4* __restrict__ nodes, const float4* __restrict__ tris,
+                     const float* __restrict__ orig, const float* __restrict__ dirn,
+                     const float* __restrict__ max_t, int n, int2* __restrict__ work_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const rt::Ray r = rt::make_ray(orig[3 * i], orig[3 * i + 1], orig[3 * i + 2],
+                                 dirn[3 * i], dirn[3 * i + 1], dirn[3 * i + 2]);
+  rt::Work w{0, 0};
+  rt::traverse_bvh4<STACK, ANY_HIT, true>(nodes, tris, r, max_t[i], &w);
+  work_out[i] = make_int2(w.nodes, w.tris);
+}
+
 template <int STACK>
 void launch(bool any_hit, dim3 grid, dim3 block, cudaStream_t s, const rt::Node4* nodes,
             const float4* tris, const float* o, const float* d, const float* m, int n,
@@ -75,5 +91,36 @@ extern "C" int rt_traverse(const void* nodes, const void* tris, int stack, const
     case 128: launch<128>(any_hit, grid, block, s, nd, tr, o, d, m, n, t, sl, nr, mt); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a stack capacity that was not compiled.
+extern "C" int rt_traverse_work(const void* nodes, const void* tris, int stack,
+                                const void* orig, const void* dirn, const void* max_t, int n,
+                                int any_hit, void* work_out, void* stream) {
+  if (n <= 0) return 0;
+  const dim3 block(128);
+  const dim3 grid((n + 127) / 128);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto nd = static_cast<const rt::Node4*>(nodes);
+  auto tr = static_cast<const float4*>(tris);
+  auto o = static_cast<const float*>(orig);
+  auto d = static_cast<const float*>(dirn);
+  auto m = static_cast<const float*>(max_t);
+  auto w = static_cast<int2*>(work_out);
+#define RT_LAUNCH(S)                                                             \
+  if (any_hit)                                                                   \
+    traverse_work_kernel<S, true><<<grid, block, 0, s>>>(nd, tr, o, d, m, n, w); \
+  else                                                                           \
+    traverse_work_kernel<S, false><<<grid, block, 0, s>>>(nd, tr, o, d, m, n, w);
+  switch (stack) {
+    case 16: RT_LAUNCH(16); break;
+    case 32: RT_LAUNCH(32); break;
+    case 64: RT_LAUNCH(64); break;
+    case 128: RT_LAUNCH(128); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RT_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

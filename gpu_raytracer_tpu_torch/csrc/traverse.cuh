@@ -78,12 +78,21 @@ __device__ __forceinline__ int leaf_code(int first, int count) {
   return -1 - ((first << 4) | count);
 }
 
+// The work of one walk, counted only by the COUNT instances (the roofline
+// bound's operation count): node records popped and slab-tested, triangles
+// intersected.
+struct Work {
+  int nodes, tris;
+};
+
 // One leaf against the ray: closest update with strict <, or the first
 // blocker in any-hit mode (returns true when the ray is done).
-template <bool ANY_HIT>
+template <bool ANY_HIT, bool COUNT = false>
 __device__ __forceinline__ bool leaf_test(const float4* __restrict__ tris, int first,
-                                          int count, const Ray& r, TriHit& best) {
+                                          int count, const Ray& r, TriHit& best,
+                                          Work* work = nullptr) {
   for (int j = 0; j < count; ++j) {
+    if (COUNT) ++work->tris;
     const int slot = first + j;
     const float4 a0 = __ldg(tris + 3 * slot + 0);
     const float4 a1 = __ldg(tris + 3 * slot + 1);
@@ -116,10 +125,10 @@ __device__ __forceinline__ bool leaf_test(const float4* __restrict__ tris, int f
 }
 
 // Closest hit (or any hit) of triangles strictly below max_t.
-template <int STACK, bool ANY_HIT>
+template <int STACK, bool ANY_HIT, bool COUNT = false>
 __device__ TriHit traverse_bvh4(const Node4* __restrict__ nodes,
                                 const float4* __restrict__ tris, const Ray& r,
-                                float max_t) {
+                                float max_t, Work* work = nullptr) {
   TriHit best{max_t, -1};
   Entry stack[STACK];
   int sp = 0;
@@ -129,9 +138,10 @@ __device__ TriHit traverse_bvh4(const Node4* __restrict__ nodes,
     if (e.ce >= best.t) continue;   // culled by a hit found since the push
     if (e.code < 0) {
       const int packed = -1 - e.code;
-      if (leaf_test<ANY_HIT>(tris, packed >> 4, packed & 15, r, best)) return best;
+      if (leaf_test<ANY_HIT, COUNT>(tris, packed >> 4, packed & 15, r, best, work)) return best;
       continue;
     }
+    if (COUNT) ++work->nodes;
     const float4* rec = reinterpret_cast<const float4*>(nodes + e.code);
     const float4 lo_x = __ldg(rec + 0), lo_y = __ldg(rec + 1), lo_z = __ldg(rec + 2);
     const float4 hi_x = __ldg(rec + 3), hi_y = __ldg(rec + 4), hi_z = __ldg(rec + 5);

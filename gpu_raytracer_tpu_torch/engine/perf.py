@@ -1,0 +1,100 @@
+"""Performance observability for the progressive path tracer: a frame
+counter with an FPS line every N frames, per-step times with P50/P95/P99
+and Mrays/s, and a wall-clock timer that waits for the device.
+
+Mrays/s keeps the reference's definition by default: one tile is
+128 x 128 pixels x 3 wavelength passes = 49,152 primary rays.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+RAYS_PER_TILE = 128 * 128 * 3
+
+
+def percentile(sorted_vals: list[float], p: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    idx = min(int(len(sorted_vals) * p), len(sorted_vals) - 1)
+    return sorted_vals[idx]
+
+
+@dataclass
+class ProgressiveTiming:
+    """Step times of a progressive pass and their summary."""
+
+    tile_times_ms: list = field(default_factory=list)
+    start_time: float = field(default_factory=time.perf_counter)
+    rays_per_tile: int = RAYS_PER_TILE
+
+    def record_tile(self, ms: float) -> None:
+        self.tile_times_ms.append(ms)
+
+    def summary(self) -> dict:
+        ts = sorted(self.tile_times_ms)
+        total_s = time.perf_counter() - self.start_time
+        n = len(ts)
+        tiles_per_s = n / total_s if total_s > 0 else 0.0
+        return {
+            "tiles": n,
+            "total_s": total_s,
+            "tiles_per_s": tiles_per_s,
+            "mrays_per_s": tiles_per_s * self.rays_per_tile / 1e6,
+            "p50_ms": percentile(ts, 0.50),
+            "p95_ms": percentile(ts, 0.95),
+            "p99_ms": percentile(ts, 0.99),
+        }
+
+    def print_summary(self) -> None:
+        s = self.summary()
+        print(f"=== Progressive pass complete: {s['tiles']} tiles in "
+              f"{s['total_s']:.2f}s ({s['tiles_per_s']:.1f} tiles/s, "
+              f"{s['mrays_per_s']:.1f} Mrays/s) ===")
+        print(f"    tile times p50={s['p50_ms']:.2f}ms "
+              f"p95={s['p95_ms']:.2f}ms p99={s['p99_ms']:.2f}ms")
+
+
+class PerformanceState:
+    """Frame counter + FPS print every `interval` frames."""
+
+    def __init__(self, interval: int = 60, verbose: bool = True):
+        self.interval = interval
+        self.verbose = verbose
+        self.frame_count = 0
+        self._window_start = time.perf_counter()
+        self.last_fps = 0.0
+
+    def update_frame_count(self) -> None:
+        self.frame_count += 1
+        if self.frame_count % self.interval == 0:
+            now = time.perf_counter()
+            dt = now - self._window_start
+            self.last_fps = self.interval / dt if dt > 0 else 0.0
+            self._window_start = now
+            if self.verbose:
+                print(f"FPS: {self.last_fps:.1f} "
+                      f"({1000.0 / max(self.last_fps, 1e-9):.2f} ms/frame)")
+
+
+class Timer:
+    """Context manager measuring wall milliseconds. Given a CUDA device it
+    synchronises the device on exit, so the time covers the work enqueued
+    inside the block, not only its enqueueing."""
+
+    def __init__(self, device: torch.device | None = None):
+        self.device = device
+        self.ms = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.ms = (time.perf_counter() - self._t0) * 1000.0
+        return False

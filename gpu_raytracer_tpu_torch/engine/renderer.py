@@ -7,7 +7,8 @@ version of the two-phase textured render: the deferred trace kernel writes
 a per-ray G-buffer (light sum, material, uv, mip footprint) and the texture
 shade kernel (ops/cuda/texshade.py) turns it into RGB.
 
-`Renderer` runs on one device, chosen by `device`. On a CUDA device an
+`Renderer` runs on one device, chosen by `device` (CUDA unless the caller
+asks for the CPU). On a CUDA device an
 untextured frame is one fused-render launch and a textured frame a deferred
 trace launch then a texture shade launch; on the CPU every frame goes
 through `render_chunk`, as the JAX package's CPU route does. Nothing falls
@@ -45,6 +46,16 @@ def tiled_pixel_order(width: int, height: int, tile: int = TILE):
             py.append(ty + gy[keep])
     return (np.concatenate(px).astype(np.int32),
             np.concatenate(py).astype(np.int32))
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """The device an entry point runs on: CUDA when `device` is None, and a
+    CUDA device must exist."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}(device={str(dev)!r}): no CUDA device is available; "
+                           f"pass device='cpu' for the plain PyTorch path")
+    return dev
 
 
 def _shadow_mask(scene: Scene, hit: Hit) -> torch.Tensor:
@@ -118,17 +129,15 @@ def render_deferred_chunk(scene: Scene, px: torch.Tensor, py: torch.Tensor,
 
 
 class Renderer:
-    """Whole-frame renderer on one device (`device` defaults to the
-    scene's). Frames come out in tile-major ray order (`render_device`) or
+    """Whole-frame renderer on one device (`device` defaults to CUDA; pass
+    "cpu" for the plain path). Frames come out in tile-major ray order (`render_device`) or
     as [H,W,3] images (`render`, `render_u8`). Textured scenes sample with
     `config.texture_trilinear`."""
 
     def __init__(self, scene: Scene, width: int, height: int,
                  config: RaytracerConfig = DEFAULT_CONFIG,
                  shadows: bool = False, sky=(0.0, 0.0, 0.0), device=None):
-        self.device = torch.device(device) if device is not None else scene.device
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Renderer(device='cuda'): no CUDA device is available")
+        self.device = resolve_device(device, "Renderer")
         if scene.lights.count > MAX_LIGHTS:
             raise NotImplementedError(
                 f"{scene.lights.count} lights: single-sample light selection "

@@ -27,8 +27,9 @@ from dataclasses import dataclass
 PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG), "build", "cuda")
-SOURCES = ("traverse.cu", "render_primary.cu", "render_deferred.cu", "texshade.cu")
-HEADERS = ("traverse.cuh", "render_common.cuh", "texsample.cuh")
+SOURCES = ("traverse.cu", "render_primary.cu", "render_deferred.cu", "texshade.cu",
+           "bounce.cu", "bounce_textured.cu", "materials.cu")
+HEADERS = ("traverse.cuh", "render_common.cuh", "texsample.cuh", "bounce.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -41,6 +42,8 @@ ARGTYPES = {
     # nodes, tris, stack, orig, dirn, max_t, n, any_hit,
     # t_out, slot_out, normal_out, mat_out, stream
     "rt_traverse": [_p, _p, _i, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p],
+    # nodes, tris, stack, orig, dirn, max_t, n, any_hit, work_out, stream
+    "rt_traverse_work": [_p, _p, _i, _p, _p, _p, _i, _i, _p, _p],
     # nodes, tris, stack, camera, materials, n_mats, lights, n_lights,
     # spheres, n_spheres, px, py, n, width, height, shadows,
     # sky_r, sky_g, sky_b, rgb_out, stream
@@ -53,6 +56,16 @@ ARGTYPES = {
     # gbuf, n, materials, n_mats, maps, atlas, present, n_levels, trilinear,
     # sky_r, sky_g, sky_b, rgb_out, stream
     "rt_texture_shade": [_p, _i, _p, _i, _p, _p, _i, _i, _i, _f, _f, _f, _p, _p],
+    # nodes, tris, attrs, stack, materials, n_mats, lights, n_lights, spheres,
+    # n_spheres, maps, atlas, present, n_levels, textured, tex_lod,
+    # origin, direction, throughput, medium, channel, ray_type, depth, active,
+    # u, n, nee, cont, and the same eight pool fields out, radiance, stream
+    "rt_bounce": [_p, _p, _p, _i, _p, _i, _p, _i, _p, _i, _p, _p, _i, _i, _i, _f,
+                  _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+                  _p, _p, _p, _p, _p, _p, _p, _p, _p, _p],
+    # materials, n_mats, maps, atlas, present, n_levels, mat_id, uv, lod, n,
+    # out, stream
+    "rt_sample_materials": [_p, _i, _p, _p, _i, _i, _p, _p, _f, _i, _p, _p],
 }
 
 

@@ -18,8 +18,9 @@ plain path evaluates, on the scene's device, so both read identical values:
 
   * camera [16] f32: position, forward, right = forward x up,
     true_up = right x forward, tan(fov/2), 3 pad;
-  * materials [M,16] f32: albedo, emission, metallic, IOR, transmission
-    (the f16 fields unpacked), 7 pad;
+  * materials [M,16] f32: albedo, emission, metallic, IOR, transmission,
+    roughness (the f16 fields unpacked; roughness only for the bounce
+    kernel), 6 pad;
   * lights [L,16] f32: position, type, colour, intensity, unit direction
     (NaN for a zero vector, silenced by max0 as in the plain path), 5 pad;
   * spheres [S,8] f32: centre, radius, material id as int32 bits, 3 pad.
@@ -60,12 +61,14 @@ def _pad(x: torch.Tensor, words: int) -> torch.Tensor:
 
 
 def material_rows(scene: Scene) -> torch.Tensor:
-    """[M,16] f32: albedo, emission, metallic, IOR, transmission, 7 pad."""
+    """[M,16] f32: albedo, emission, metallic, IOR, transmission, roughness
+    (read by the bounce kernel only), 6 pad."""
     m = scene.materials
     return _pad(torch.cat(
         [m.albedo, m.emission, unpack_f16_low(m.metallic_roughness_f16)[:, None],
          unpack_f16_low(m.ior_transmission_f16)[:, None],
-         unpack_f16_high(m.ior_transmission_f16)[:, None]], dim=1), 16)
+         unpack_f16_high(m.ior_transmission_f16)[:, None],
+         unpack_f16_high(m.metallic_roughness_f16)[:, None]], dim=1), 16)
 
 
 def pack_render_tables(scene: Scene) -> RenderTables:

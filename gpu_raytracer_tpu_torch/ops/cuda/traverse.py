@@ -166,3 +166,21 @@ def traverse(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
 
 
 traverse.launches = 0
+
+
+def traversal_work(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
+                   max_t: torch.Tensor, any_hit: bool = False) -> torch.Tensor:
+    """The work of K1's own walk for each ray -> [N,2] int32 (node records
+    slab-tested, triangles intersected): a measurement on the card, for
+    the operation count of the kernels' roofline bound. Only CUDA tensors:
+    the plain traversal walks the binary tree, a different count."""
+    N = _check_rays(tables, orig, dirn, max_t)
+    if orig.device.type != "cuda":
+        raise ValueError(f"traversal_work: counts the CUDA walk, got {orig.device}")
+    k = load_kernels()
+    work = torch.empty((N, 2), dtype=torch.int32, device=orig.device)
+    stream = torch.cuda.current_stream(orig.device).cuda_stream
+    check(k.lib.rt_traverse_work(tables.nodes.data_ptr(), tables.tris.data_ptr(), tables.stack,
+                                 orig.data_ptr(), dirn.data_ptr(), max_t.data_ptr(), N,
+                                 int(any_hit), work.data_ptr(), stream), "rt_traverse_work")
+    return work

@@ -24,6 +24,7 @@ would round differently from the CPU and from the CUDA render kernel.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -45,30 +46,75 @@ def _f32(values, device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
-def material_textures(scene: Scene, mid: torch.Tensor, uv: torch.Tensor,
-                      lam: torch.Tensor | None = None, trilinear: bool = False):
-    """Material rows of clipped ids `mid` with their texture factors applied
-    -> (albedo [N,3], emission [N,3], metallic [N], occlusion [N] or None)."""
+def _material_maps(scene: Scene, mid: torch.Tensor, uv: torch.Tensor,
+                   lam: torch.Tensor | None, trilinear: bool, lod: float | None):
+    """Material rows of clipped ids `mid` with their texture factors applied,
+    each used map sampled once -> (albedo [N,3], emission [N,3], metallic
+    [N], roughness [N], occlusion [N] or None)."""
     m = scene.materials
     albedo = m.albedo[mid]
     emission = m.emission[mid]
     metallic = unpack_f16_low(m.metallic_roughness_f16[mid])
+    roughness = unpack_f16_high(m.metallic_roughness_f16[mid])
     occlusion = None
     if scene.textures.textured:
         tex = scene.textures
         ti = m.texture_indices[mid]
         slots = m.present_slots
+        lod_t = (None if lod is None or tex.n_levels <= 1
+                 else torch.full(mid.shape, float(lod), dtype=uv.dtype, device=uv.device))
         sample = lambda slot: sample_texture(tex, ti[:, slot], uv, lam=lam,
-                                             trilinear=trilinear)
+                                             trilinear=trilinear, lod=lod_t)
         if TEX_BASE_COLOR in slots:
             albedo = albedo * sample(TEX_BASE_COLOR)[:, :3]
         if TEX_EMISSIVE in slots:
             emission = emission * sample(TEX_EMISSIVE)[:, :3]
         if TEX_METALLIC_ROUGHNESS in slots:
-            metallic = metallic * sample(TEX_METALLIC_ROUGHNESS)[:, 2]
+            mr = sample(TEX_METALLIC_ROUGHNESS)
+            metallic = metallic * mr[:, 2]      # B channel
+            roughness = roughness * mr[:, 1]    # G channel
         if TEX_OCCLUSION in slots:
             occlusion = sample(TEX_OCCLUSION)[:, 0]
+    return albedo, emission, metallic, roughness, occlusion
+
+
+def material_textures(scene: Scene, mid: torch.Tensor, uv: torch.Tensor,
+                      lam: torch.Tensor | None = None, trilinear: bool = False,
+                      lod: float | None = None):
+    """Material rows of clipped ids `mid` with their texture factors applied
+    -> (albedo [N,3], emission [N,3], metallic [N], occlusion [N] or None).
+    `lam` (a mip footprint) and `trilinear` select the level of primary
+    shading; `lod` samples every map at that explicit level instead (the
+    path tracer's bounce LOD)."""
+    albedo, emission, metallic, _, occlusion = _material_maps(scene, mid, uv, lam,
+                                                              trilinear, lod)
     return albedo, emission, metallic, occlusion
+
+
+@dataclass
+class MaterialSample:
+    """Per-ray material parameters at the hit (the path tracer's 11 channels)."""
+    albedo: torch.Tensor               # [N,3]
+    emission: torch.Tensor             # [N,3]
+    metallic: torch.Tensor             # [N]
+    roughness: torch.Tensor            # [N]
+    ior: torch.Tensor                  # [N]
+    transmission: torch.Tensor         # [N]
+    occlusion: torch.Tensor | None     # [N], None when no material has the map
+
+
+def sample_materials(scene: Scene, mid: torch.Tensor, uv: torch.Tensor,
+                     lod: float | None = None) -> MaterialSample:
+    """The bounce's material sample at clipped ids `mid` and hit uvs, every
+    map at the fixed level `lod` (None: level 0): the plain version of the
+    material sampler the bounce kernel calls (csrc/texsample.cuh
+    `sample_material`). The metallic-roughness map's B scales metallic and
+    its G roughness."""
+    albedo, emission, metallic, roughness, occlusion = _material_maps(
+        scene, mid, uv, None, False, lod)
+    packed = scene.materials.ior_transmission_f16[mid]
+    return MaterialSample(albedo, emission, metallic, roughness, unpack_f16_low(packed),
+                          unpack_f16_high(packed), occlusion)
 
 
 def pixel_footprint_scale(fov_scale: float, height: int) -> float:
@@ -139,11 +185,17 @@ def direct_lighting(scene: Scene, hit: Hit, shadow_mask: torch.Tensor | None = N
     shadow_mask: optional [N,L] (1 lit, 0 occluded), multiplied into each
     light's intensity before the > 0 contribution gate. `lam` (a mip
     footprint) and `trilinear` select the texture level."""
-    m = scene.materials
-    L = scene.lights
-    mid = torch.clamp(hit.material_id, 0, m.count - 1)
+    mid = torch.clamp(hit.material_id, 0, scene.materials.count - 1)
     albedo, emission, metallic, occlusion = material_textures(
         scene, mid, hit.uv, lam=lam, trilinear=trilinear)
+    return lit_by_all_lights(scene, hit, albedo, emission, metallic, occlusion, shadow_mask)
+
+
+def lit_by_all_lights(scene: Scene, hit: Hit, albedo, emission, metallic, occlusion,
+                      shadow_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """[N,3] ambient + every light in light order + emission, for material
+    parameters already sampled at the hits."""
+    L = scene.lights
     I = light_intensity(scene, hit, shadow_mask)
     brdf_scale = _brdf_scale(metallic)
     gate = (I > 0.0).to(torch.float32)

@@ -4,7 +4,8 @@ Marked `cuda`; they skip on machines without a CUDA device. Run them on a
 GPU machine with `python -m pytest -m cuda tests/test_torch_cuda.py`.
 Tolerance: bit equality of hit masks and materials, t within 1e-6
 relative, RGB within 1e-5, the deferred G-buffer's light sum and uv within
-1e-5 and its mip footprint within 1e-5 relative, except where two triangles
+1e-5 and its mip footprint within 1e-5 relative, the bounce's integer
+fields equal and its float fields within 1e-5, except where two triangles
 share the exact same t and the two traversal orders keep different ones
 (counted, and bounded)."""
 
@@ -13,12 +14,15 @@ import pytest
 import torch
 
 import torch_bridge  # noqa: F401  (thread cap)
-from chip_smoke import (gbuffer_compare, k1_compare, primary_ties, random_gbuffer,
+from chip_smoke import (bounce_compare, gbuffer_compare, k1_compare, k5_compare, plain_bounces,
+                        pools, primary_ties, random_gbuffer, read_launches, reset_launches,
                         shade_compare, synthetic_textured_scene)
 
+from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
 from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_chunk, render_deferred_chunk
 from gpu_raytracer_tpu_torch.models.scene import build_default_scene
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
+from gpu_raytracer_tpu_torch.ops.cuda.bounce import pack_bounce_tables
 from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred, render_primary
 from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
 from gpu_raytracer_tpu_torch.ops.cuda.traverse import pack_trace_tables, traverse
@@ -80,7 +84,7 @@ def test_traverse_kernel_axis_aligned_rays(cuda):
 def test_render_kernel_matches_plain(cuda, name, shadows):
     scene = SCENES[name](device=cuda)
     W, H = 160, 120
-    r = Renderer(scene, W, H, shadows=shadows, sky=(0.1, 0.2, 0.3))
+    r = Renderer(scene, W, H, shadows=shadows, sky=(0.1, 0.2, 0.3), device=cuda)
     launches = render_primary.launches
     got = r.render_device()
     assert render_primary.launches == launches + 1
@@ -107,7 +111,7 @@ def test_deferred_kernels_match_plain(cuda, name, shadows):
     the frame the plain two-phase render."""
     scene = TEXTURED[name](device=cuda)
     W, H = 160, 120
-    r = Renderer(scene, W, H, shadows=shadows, sky=SKY)
+    r = Renderer(scene, W, H, shadows=shadows, sky=SKY, device=cuda)
     before = (render_deferred.launches, texture_shade.launches, render_primary.launches)
     got = r.render_device()
     after = (render_deferred.launches, texture_shade.launches, render_primary.launches)
@@ -133,3 +137,74 @@ def test_texture_shade_kernel_on_random_gbuffers(cuda, case):
     g = torch.from_numpy(g).to(cuda)
     for trilinear in (False, True):
         assert shade_compare(tables, g, SKY, trilinear) <= 1e-5
+
+
+BOUNCE = {"courtyard2000": SCENES["courtyard2000"],
+          "textured_courtyard2000": TEXTURED["courtyard2000"],
+          "synthetic": TEXTURED["synthetic"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BOUNCE))
+def test_bounce_kernel_matches_plain(cuda, name):
+    """K6 against the plain bounce on 65,536-lane pools of the path tracer
+    (depths 0-2 and the last), texture LOD bias 0 and 1, and at depth 1
+    with shadows off, every light instead of one sampled light, no
+    roulette, the last-depth form, channel 1 and an all-dead half."""
+    tables = pack_bounce_tables(BOUNCE[name](device=cuda))
+    for bias in (0.0, 1.0):
+        for depth, r, u, flags in pools(tables, 256, 256, (0, 1, 2, 4), bias):
+            bounce_compare(tables, r, u, flags)
+            if depth != 1 or bias:
+                continue
+            for change in (dict(shadows=False), dict(light_sample=False), dict(do_rr=False),
+                           dict(last=True)):
+                bounce_compare(tables, r, u, dict(flags, **change))
+            chan1 = r.replace(wavelength_channel=torch.ones_like(r.wavelength_channel))
+            bounce_compare(tables, chan1, u, flags)
+            half = r.active.clone()
+            half[r.count // 2:] = False
+            bounce_compare(tables, r.replace(active=half), u, flags)
+
+
+@pytest.mark.cuda
+def test_material_sample_kernel_matches_plain(cuda):
+    tables = pack_bounce_tables(synthetic_textured_scene(0, mips=4, device=cuda))
+    rng = np.random.default_rng(4)
+    n = 16_384
+    mid = torch.from_numpy(rng.integers(-1, tables.scene.materials.count + 2, n)
+                           .astype(np.int32)).to(cuda)
+    uv = torch.from_numpy(rng.uniform(-1.5, 2.5, (n, 2)).astype(np.float32)).to(cuda)
+    for lod in (0.0, 1.0, 2.5, 9.0):
+        assert k5_compare(tables, mid, uv, lod) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["courtyard2000", "textured_courtyard2000"])
+def test_pathtracer_step_launches_the_bounce_kernel(cuda, name):
+    """A step is max_depth + 1 bounce launches and no other kernel, and
+    never synchronises with the device; its 4-spp image matches the plain
+    path's on 99.9% of the pixels."""
+    scene = BOUNCE[name](device=cuda)
+    pt = PathTracer(scene, 64, 64, device=cuda)
+    reset_launches()
+    pt.step()
+    n = pt.config.max_bounce_depth + 1
+    textured = name.startswith("textured")
+    assert read_launches() == dict(k6=n, k5=n if textured else 0, k5_standalone=0, k2=0,
+                                   k3=0, k4=0, k1_standalone=0)
+    torch.cuda.set_sync_debug_mode("error")   # a step never waits for the device
+    try:
+        pt.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for _ in range(2):
+        pt.step()
+    plain = PathTracer(scene, 64, 64, device=cuda)
+    with plain_bounces():
+        for _ in range(4):
+            plain.step()
+    got, want = pt.image_device(), plain.image_device()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().amax(dim=2) <= 1e-5).float().mean().item() >= 0.999
+    assert pt.counters().rays_per_bounce == plain.counters().rays_per_bounce

@@ -30,12 +30,16 @@ def test_port_never_imports_jax():
         "from gpu_raytracer_tpu_torch.engine.renderer import Renderer\n"
         "from gpu_raytracer_tpu_torch.models.scene import build_default_scene\n"
         "from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene\n"
-        "from gpu_raytracer_tpu_torch.ops.cuda import build, render, texshade, traverse\n"
+        "from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer\n"
+        "from gpu_raytracer_tpu_torch.ops.cuda import bounce, build, render, texshade, traverse\n"
         "from gpu_raytracer_tpu_torch import bridge, __main__\n"
         "for textured in (False, True):\n"
         "    scene = make_courtyard_scene(500, textured=textured)\n"
         "    img = Renderer(scene, 16, 12, shadows=True, device='cpu').render()\n"
         "    assert img.shape == (12, 16, 3)\n"
+        "    pt = PathTracer(scene, 16, 12, device='cpu')\n"
+        "    pt.step()\n"
+        "    assert pt.image().shape == (12, 16, 3) and pt.counters().rays_per_bounce[0] == 192\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib',"
         " 'gpu_raytracer_tpu.')) or m == 'gpu_raytracer_tpu')\n"
         "print('LOADED', bad)\n"
@@ -105,6 +109,70 @@ def test_deferred_wrappers_refuse_other_devices_and_take_plain_on_cpu(monkeypatc
         texshade.pack_shade_tables(scene)
 
 
+def _meta_bounce_inputs():
+    """Bounce tables and a 4-lane pool on the meta device."""
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import BounceTables
+    from gpu_raytracer_tpu_torch.ops.wavefront import WavefrontRays
+
+    meta = torch.device("meta")
+    trace = TraceTables(scene=None, nodes=torch.empty((1, 36), device=meta),
+                        tris=torch.empty((8, 12), device=meta),
+                        attrs=torch.empty((8, 8), device=meta), depth=1, stack=16)
+    rt = dataclasses.replace(pack_render_tables(build_default_scene()), trace=trace)
+    f = lambda *shape: torch.empty(shape, device=meta)
+    i = lambda: torch.empty(4, dtype=torch.int32, device=meta)
+    pool = WavefrontRays(origin=f(4, 3), direction=f(4, 3), ray_type=i(), bounce_depth=i(),
+                         throughput=f(4, 3), medium_ior=f(4), pixel=i(), inv_pdf=f(4),
+                         t_min=f(4), t_max=f(4), wavelength_channel=i(),
+                         active=torch.empty(4, dtype=torch.bool, device=meta))
+    return BounceTables(rt, None), pool, f(4, 7)
+
+
+def test_bounce_wrappers_refuse_other_devices():
+    """K6 and K5's wrappers: an error for a tensor neither on the CPU nor on
+    a CUDA device, or for malformed inputs."""
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce, sample_materials
+
+    tables, pool, u = _meta_bounce_inputs()
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_bounce(tables, pool, u, shadows=True, do_rr=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sample_materials(tables, torch.empty(4, dtype=torch.int32, device="meta"),
+                         torch.empty((4, 2), device="meta"))
+    cpu = pack_render_tables(build_default_scene())
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import BounceTables
+
+    with pytest.raises(ValueError, match="meta"):   # pool and tables on different devices
+        fused_bounce(BounceTables(cpu, None), pool, u, shadows=True, do_rr=True)
+    with pytest.raises(ValueError):   # int64 material ids
+        sample_materials(BounceTables(cpu, None), torch.zeros(4, dtype=torch.int64),
+                         torch.zeros((4, 2)))
+
+
+def test_bounce_on_cuda_raises_when_the_kernels_do_not_load(tmp_path, monkeypatch):
+    """On a CUDA pool K6's wrapper launches the kernel or raises: with no
+    nvcc the library does not build, and the plain bounce is never taken."""
+    from gpu_raytracer_tpu_torch.ops import wavefront
+    from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
+
+    tables, pool, u = _meta_bounce_inputs()
+    monkeypatch.setattr(type(tables), "device", property(lambda self: torch.device("cuda")))
+    monkeypatch.setattr(bounce_mod, "_check", lambda *args: None)
+    monkeypatch.setattr(wavefront, "bounce",
+                        lambda *a, **k: pytest.fail("the plain bounce was taken"))
+    monkeypatch.setattr(build, "BUILD_ROOT", str(tmp_path / "build"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "no-bin"))
+    build.load_kernels.cache_clear()
+    try:
+        launches = bounce_mod.fused_bounce.launches
+        with pytest.raises(RuntimeError, match="nvcc"):
+            bounce_mod.fused_bounce(tables, pool, u, shadows=True, do_rr=True)
+        assert bounce_mod.fused_bounce.launches == launches
+    finally:
+        build.load_kernels.cache_clear()
+
+
 def test_failed_build_raises(tmp_path, monkeypatch):
     """No nvcc: the kernel library does not load, and that is an error."""
     monkeypatch.setattr(build, "BUILD_ROOT", str(tmp_path / "build"))
@@ -143,7 +211,7 @@ def test_source_hash_follows_the_sources():
 
 def test_wrapper_sources_have_no_fallback():
     """The kernel wrappers hold no try/except that could fall back."""
-    for name in ("traverse.py", "render.py", "texshade.py", "build.py"):
+    for name in ("traverse.py", "render.py", "texshade.py", "bounce.py", "build.py"):
         with open(os.path.join(REPO, "gpu_raytracer_tpu_torch", "ops", "cuda", name)) as f:
             src = f.read()
         assert "try:" not in src and "except" not in src, name

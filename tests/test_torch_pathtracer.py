@@ -1,0 +1,130 @@
+"""The port's progressive path tracer (engine/pathtracer.py) against the JAX
+package's CPU `PathTracer`: the same scene (carried across by the bridge),
+the default arguments (spectral, shadows, QMC-jittered anti-aliasing, depth
+4 with Russian roulette from depth 2), four steps.
+
+Tolerance: the 4-spp image within 1e-5 of JAX's on at least 99% of the
+pixels, and the per-depth live-lane counts of the last step equal up to 1%
+of the pool. The rest are counted: JAX's CPU reference runs XLA's bounce,
+whose fused multiply-adds move some floats by an ulp, and a discrete
+decision (Fresnel, roulette, an absorbed metal lobe) that flips on such a
+lane sends that pixel down another path. With QMC sampling a lane's
+uniforms depend only on its pixel and sample, so the image does not depend
+on where the sorts move a lane.
+
+Checkpoints are `.npz` files with the same keys in both packages."""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_bridge import port_scene_from_jax
+
+from gpu_raytracer_tpu import build_default_scene as jax_default_scene
+from gpu_raytracer_tpu.engine.pathtracer import PathTracer as JaxPathTracer
+from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
+from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer, render_pathtraced
+from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+from gpu_raytracer_tpu_torch.models.scene import build_default_scene
+
+SPP = 4
+TOL = 1e-5
+MIN_SHARE = 0.99
+SCENES = {"default": (jax_default_scene, 32),
+          "courtyard3000": (lambda: jax_courtyard(3000, seed=0), 64),
+          "textured_courtyard3000": (lambda: jax_courtyard(3000, seed=0, textured=True), 64)}
+
+
+@pytest.fixture(scope="module")
+def traced():
+    """Per scene: (JAX tracer, port tracer), each after SPP steps."""
+    out = {}
+    for name, (make, size) in SCENES.items():
+        js = make()
+        jp = JaxPathTracer(js, size, size)
+        pp = PathTracer(port_scene_from_jax(js), size, size, device="cpu")
+        for _ in range(SPP):
+            jp.step()
+            pp.step()
+        out[name] = (jp, pp)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_image_matches_jax_pathtracer(traced, name):
+    jp, pp = traced[name]
+    got, want = pp.image(), jp.image()
+    assert got.shape == want.shape == (pp.height, pp.width, 3)
+    assert np.isfinite(got).all()
+    diff = np.abs(got - want).max(axis=2)
+    share = (diff <= TOL).mean()
+    assert share >= MIN_SHARE, f"{share:.4f} of the pixels within {TOL} (max {diff.max():.3g})"
+    assert pp.samples == jp.samples == SPP
+    np.testing.assert_array_equal(pp.image_device().numpy(), got)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_per_depth_counts_match_jax(traced, name):
+    jp, pp = traced[name]
+    got, want = pp.counters(), jp.counters()
+    assert got.rays_per_bounce[0] == want.rays_per_bounce[0] == pp.width * pp.height
+    for g, w in zip(got.rays_per_bounce, want.rays_per_bounce):
+        assert abs(g - w) <= (1.0 - MIN_SHARE) * pp.width * pp.height
+    assert got.active_bounce_depths == want.active_bounce_depths
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_checkpoints_load_in_the_other_package(traced, tmp_path, direction):
+    jp, pp = traced["default"]
+    path = str(tmp_path / "ckpt.npz")
+    src, make_dst = ((jp, lambda: PathTracer(build_default_scene(), 32, 32, device="cpu"))
+                     if direction == "jax_to_port"
+                     else (pp, lambda: JaxPathTracer(jax_default_scene(), 32, 32)))
+    src.save_checkpoint(path)
+    dst = make_dst()
+    dst.load_checkpoint(path)
+    assert dst.samples == SPP
+    np.testing.assert_array_equal(dst.image(), src.image())
+
+
+def test_samples_per_step_tiles_the_pool_chunk_major():
+    """One step of two samples per pixel traces the same two samples as two
+    steps of one (QMC: a lane's numbers follow its pixel and sample)."""
+    scene = build_default_scene()
+    one = PathTracer(scene, 16, 16, device="cpu")
+    two = PathTracer(scene, 16, 16, samples_per_step=2, device="cpu")
+    one.step()
+    one.step()
+    two.step()
+    assert one.samples == two.samples == 2
+    np.testing.assert_allclose(two.image(), one.image(), rtol=0, atol=1e-6)
+
+
+def test_rng_sampler_and_rgb_mode_run():
+    img = render_pathtraced(build_default_scene(), 16, 12, spp=2, sampler="rng",
+                            spectral=False, device="cpu")
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all() and img.max() > 0
+
+
+def test_set_camera_restarts_and_unported_modes_raise():
+    pt = PathTracer(build_default_scene(), 16, 16, device="cpu")
+    pt.step()
+    cam = pt.scene.camera
+    pt.set_camera(cam)
+    assert pt.samples == 0 and not pt.accum.any()
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        pt.set_camera(cam, temporal=True)
+    for call in (pt.step_interleaved, pt.gbuffer, pt.denoised_frame, pt.denoised_image,
+                 lambda: pt.fly_frame(cam)):
+        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+            call()
+
+
+@pytest.mark.parametrize("entry", [Renderer, PathTracer])
+def test_entry_points_default_to_cuda(entry):
+    """Without a device argument an entry point runs on CUDA, and raises
+    where there is none; the plain path is only taken when asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry(build_default_scene(), 16, 16)
