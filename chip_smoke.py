@@ -35,7 +35,28 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      launch counts of that run (K6 five times per step, no other kernel),
      the per-stage breakdown, the plain step on the card, the 4-spp image
      against the plain path's, the K6 roofline bound, and the time per
-     sample with the coherence sort skipped (a reading, not an option).
+     sample with the coherence sort skipped (a reading, not an option);
+ 13. the GLB round trip at scale: the textured 100k courtyard through
+     export_glb and scene_from_gltf (seconds, file size), both scenes
+     rendered at 1920x1080 by Renderer, max |frame(GLB) - frame(procedural)|
+     which must be 0.0;
+ 14. the 60k-triangle zoo (48 materials, 24 textures) through the same
+     writer and loader, base-colour maps only and with metallic-roughness,
+     occlusion and emissive maps, Renderer at 1920x1080 (K3 then K4):
+     median ms, shadows off and on, nearest mip and trilinear, each held
+     against the plain two-phase render on the centre crop;
+ 15. K2t (the textured fused render, render_primary on a textured scene)
+     on the textured courtyard and on both zoos at 1920x1080, shadows off
+     and on, against the plain render_chunk; its ms beside K3 + K4's on the
+     same frames, its launches (1 per frame), its distance to K3 + K4's
+     frame, its roofline bound;
+ 16. the 100k courtyard under 64 lights, untextured and textured: K2, K2t
+     and K3 with a seeded light_u against the plain single-sample version,
+     their ms beside the 2-light frame's, the mean of 8 draws against the
+     loop over every light (the kernel's, itself held to the plain loop on
+     the centre crop), and Renderer's own route (it draws light_u itself);
+ 17. PathTracer on the GLB-loaded zoo at 1024x1024, 2 samples: K6 five
+     times per sample, no host sync inside a step.
 The card line, then the per-kernel JSON summary, then the last line
 {"ok": true, "device": {...}}.
 """
@@ -61,6 +82,13 @@ T_REL_TOL = 1e-6       # K1 hit distance, relative
 GBUF_TOL = 1e-5        # K3 light sum and uv, absolute; mip footprint, relative
 FRAMES = 8             # timed frames of the kernel path
 PLAIN_FRAMES = 3       # timed frames of the plain path (seconds each)
+ZOO_TRIANGLES = 60_000     # bench.py section 4d
+ZOO_MATERIALS, ZOO_TEXTURES = 48, 24
+CROP = 256                 # centre crop edge for the plain side of the zoo frames
+MANY_LIGHTS = 64
+LIGHT_DRAWS = 8            # light_u draws averaged against the loop over every light
+LIGHT_MEAN_TOL = 0.08      # |sum(mean) - sum(exact)| / sum(exact)
+ZOO_PT_SAMPLES = 2
 
 
 def log(msg: str) -> None:
@@ -394,10 +422,15 @@ def shade_compare(shade, gbuf, sky, trilinear, keep=None):
 
 
 def mip_boundary_rays(shade, gbuf, rel: float = 1e-6) -> int:
-    """Hits whose nearest mip level of some sampled map sits within `rel`
-    of a level boundary (lam * w * sqrt2 near a power of two, judged in
-    float64): there a one-ulp change of the hit distance picks the other
-    level, so another evaluation order of the trace may differ there."""
+    return int(mip_boundary_mask(shade, gbuf, rel).sum())
+
+
+def mip_boundary_mask(shade, gbuf, rel: float = 1e-6):
+    """[N] bool: hits whose nearest mip level of some sampled map sits
+    within `rel` of a level boundary (lam * w * sqrt2 near a power of two,
+    judged in float64): there a one-ulp change of the hit distance picks
+    the other level, so another evaluation order of the trace may differ
+    there."""
     import torch
 
     from gpu_raytracer_tpu_torch.engine.renderer import split_gbuffer
@@ -413,7 +446,7 @@ def mip_boundary_rays(shade, gbuf, rel: float = 1e-6) -> int:
         lo = torch.floor(torch.log2(x * (1.0 - rel)))
         hi = torch.floor(torch.log2(x * (1.0 + rel)))
         near |= (meta[:, k, 0] > 0) & (x > 0) & (lo != hi)
-    return int((near & hit).sum())
+    return near & hit
 
 
 def primary_ties(tables, width, height, px, py):
@@ -933,7 +966,8 @@ def _launch_counters():
 
     return dict(k6=(fused_bounce, "launches"), k5=(fused_bounce, "material_launches"),
                 k5_standalone=(sample_materials, "launches"),
-                k2=(render_primary, "launches"), k3=(render_deferred, "launches"),
+                k2=(render_primary, "launches"), k2t=(render_primary, "textured_launches"),
+                k3=(render_deferred, "launches"),
                 k4=(texture_shade, "launches"), k1_standalone=(traverse, "launches"))
 
 
@@ -944,6 +978,9 @@ def reset_launches():
 
 def read_launches() -> dict:
     return {k: getattr(fn, attr) for k, (fn, attr) in _launch_counters().items()}
+
+
+ZERO_LAUNCHES = dict(k6=0, k5=0, k5_standalone=0, k2=0, k2t=0, k3=0, k4=0, k1_standalone=0)
 
 
 def phase_pathtracer(scene, label, device, card, size):
@@ -974,8 +1011,8 @@ def phase_pathtracer(scene, label, device, card, size):
     if frame.shape != (size, size, 3) or not torch.isfinite(frame).all():
         raise AssertionError(f"{label}: frame {tuple(frame.shape)} not finite")
     textured = pt.tables.shade is not None
-    want = dict(k6=PT_STEPS * (MAX_DEPTH + 1), k5=PT_STEPS * (MAX_DEPTH + 1) if textured else 0,
-                k5_standalone=0, k2=0, k3=0, k4=0, k1_standalone=0)
+    want = dict(ZERO_LAUNCHES, k6=PT_STEPS * (MAX_DEPTH + 1),
+                k5=PT_STEPS * (MAX_DEPTH + 1) if textured else 0)
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     counts = pt.counters().rays_per_bounce[:MAX_DEPTH + 1]
@@ -1029,14 +1066,370 @@ def phase_pathtracer(scene, label, device, card, size):
     return out
 
 
-def frame_bounds(tables, width, height, shade=None):
-    """Bytes and FP32 operations of the phase 3-9 kernels on the 1080p
-    frame, shadows off (the times the kernels line reports): K1's closest
-    hit of every camera ray, counted on the card, plus each kernel's own
-    reads and writes and per-hit work."""
+# ---- the glTF asset path, K2t and the many-light branch (phases 13-17) ----
+
+def frame_pixels(width, height, device):
     import torch
 
     from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
+
+    return tuple(torch.from_numpy(a).to(device) for a in tiled_pixel_order(width, height))
+
+
+def crop_pixels(width, height, edge, device):
+    """Pixel coordinates of the centre `edge` x `edge` crop of the frame."""
+    import torch
+
+    w, h = min(edge, width), min(edge, height)
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.int32) + (height - h) // 2,
+                            torch.arange(w, dtype=torch.int32) + (width - w) // 2, indexing="ij")
+    return xs.reshape(-1).contiguous().to(device), ys.reshape(-1).contiguous().to(device)
+
+
+def seeded_light_u(n: int, seed: int, device):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).random(n, dtype=np.float32)).to(device)
+
+
+def primary_compare(tables, shade, px, py, width, height, shadows, exclude, light_u=None,
+                    sky=(0.1, 0.2, 0.3)):
+    """The fused render (K2, or K2t with `shade` tables) against the plain
+    render_chunk on the same pixels -> (stats, the kernel's frame). `exclude`
+    marks the lanes left out of the bound (exact-t ties, mip-boundary lanes);
+    their count is bounded too."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.renderer import render_chunk
+    from gpu_raytracer_tpu_torch.ops.cuda.render import render_primary
+
+    got = render_primary(tables, px, py, width, height, shadows=shadows, sky=sky,
+                         light_u=light_u, shade=shade)
+    ref = render_chunk(tables.scene, px, py, width, height, shadows=shadows, sky=sky,
+                       light_u=light_u)
+    if got.shape != (px.shape[0], 3) or not torch.isfinite(got).all():
+        raise AssertionError(f"fused frame: shape {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+    diff = (got - ref).abs().amax(dim=1)
+    err = diff[~exclude].max().item()
+    n_ex = int(exclude.sum())
+    if err > RGB_TOL:
+        raise AssertionError(f"fused render max |diff| {err:.3g} > {RGB_TOL} outside {n_ex} "
+                             f"excluded lanes (textured={shade is not None}, "
+                             f"sampled={light_u is not None}, shadows={shadows})")
+    if n_ex > TIE_BUDGET * px.shape[0]:
+        raise AssertionError(f"{n_ex} tie or mip-boundary lanes > {TIE_BUDGET:.2%}")
+    return dict(err=err, err_with_excluded=diff.max().item(), excluded=n_ex,
+                mean=got.mean().item()), got
+
+
+def glb_round_trip(scene, images, tmp, name, device, wraps=None):
+    """scene -> export_glb -> scene_from_gltf on `device` -> (scene, stats)."""
+    from gpu_raytracer_tpu_torch.models.gltf import scene_from_gltf
+    from gpu_raytracer_tpu_torch.models.gltf_export import export_glb
+    from gpu_raytracer_tpu_torch.utils.jpeg import scan_decoder
+
+    path = os.path.join(tmp, f"{name}.glb")
+    t0 = time.perf_counter()
+    export_glb(scene, path, images=images, texture_wrap=wraps)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = scene_from_gltf(path, device=device)
+    load_s = time.perf_counter() - t0
+    tex = loaded.textures
+    stats = dict(export_s=export_s, load_s=load_s, glb_bytes=os.path.getsize(path),
+                 triangles=loaded.num_triangles, bvh_nodes=loaded.bvh.num_nodes,
+                 materials=loaded.materials.count, textures=tex.count,
+                 atlas_rows=tex.num_rows, atlas_bytes=tex.data_u32.numel() * 4,
+                 levels=sorted(set(tex.levels.tolist())), lights=loaded.lights.count,
+                 present_slots=list(loaded.materials.present_slots),
+                 jpeg_scan_decoder=scan_decoder())
+    return loaded, stats
+
+
+def phase_glb_round_trip(tscene, texture_size, tmp, width, height, device, card):
+    """Phase 13: the textured courtyard through the writer and the loader;
+    both scenes through Renderer; the two frames must be equal."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.utils.procgen import courtyard_source_images
+
+    loaded, out = glb_round_trip(tscene, courtyard_source_images(0, texture_size), tmp,
+                                 "courtyard", device)
+    if loaded.num_triangles != tscene.num_triangles:
+        raise AssertionError(f"GLB scene has {loaded.num_triangles} triangles, the "
+                             f"procedural one {tscene.num_triangles}")
+    reset_launches()
+    for shadows in (False, True):
+        want = Renderer(tscene, width, height, shadows=shadows, device=device).render_device()
+        r = Renderer(loaded, width, height, shadows=shadows, device=device)
+        got = r.render_device()
+        parity = (got - want).abs().max().item()
+        if parity != 0.0 or not torch.isfinite(got).all():
+            raise AssertionError(f"gltf_parity_vs_procedural {parity} (shadows={shadows}), "
+                                 f"must be 0.0")
+        out[f"gltf_parity_{'shadows' if shadows else 'no_shadows'}"] = parity
+        out[f"ms_{'shadows' if shadows else 'no_shadows'}"] = timed(r.render_device, FRAMES,
+                                                                    device)
+    out["launches"] = read_launches()
+    out["card"] = card
+    log(f"phase 13 GLB round trip {width}x{height}: {json.dumps(out)}")
+    return loaded, out
+
+
+def phase_zoo(multi_slot, triangles, tmp, width, height, crop, device, card):
+    """Phase 14 for one zoo: through the writer and the loader, then
+    Renderer at full size (K3 then K4), nearest mip and trilinear, shadows
+    off and on, timed, each held against the plain two-phase render on the
+    centre crop -> (the loaded scene, stats)."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.config import RaytracerConfig
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_deferred_chunk
+    from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables, render_deferred
+    from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
+    from gpu_raytracer_tpu_torch.utils.procgen import make_zoo_scene, zoo_source_images
+
+    t0 = time.perf_counter()
+    scene = make_zoo_scene(triangles, n_mats=ZOO_MATERIALS, n_texs=ZOO_TEXTURES, seed=0,
+                           multi_slot=multi_slot)
+    build_s = time.perf_counter() - t0
+    loaded, out = glb_round_trip(scene, zoo_source_images(ZOO_TEXTURES, 0), tmp,
+                                 f"zoo{int(multi_slot)}", device)
+    out["build_s"] = build_s
+    cpx, cpy = crop_pixels(width, height, crop, device)
+    # K4 alone on the full frame's G-buffer: against the plain deferred shade, and timed
+    px, py = frame_pixels(width, height, device)
+    shade, tables = pack_shade_tables(loaded), pack_render_tables(loaded)
+    out.update(bvh4_nodes=tables.trace.nodes.shape[0], bvh4_depth=tables.trace.depth)
+    gbuf = render_deferred(tables, px, py, width, height)
+    out["k3_ms"] = timed(lambda: render_deferred(tables, px, py, width, height), FRAMES, device)
+    for trilinear in (False, True):
+        name = "trilinear" if trilinear else "nearest"
+        out[f"k4_max_abs_err_{name}"] = shade_compare(shade, gbuf, (0.1, 0.2, 0.3), trilinear)
+        out[f"k4_ms_{name}"] = timed(lambda: texture_shade(shade, gbuf, trilinear=trilinear),
+                                     FRAMES, device)
+    del gbuf
+    for trilinear in (False, True):
+        config = RaytracerConfig(texture_trilinear=trilinear)
+        for shadows in (False, True):
+            r = Renderer(loaded, width, height, config=config, shadows=shadows,
+                         sky=(0.1, 0.2, 0.3), device=device)
+            first = r.render_device()
+            reset_launches()
+            ms = timed(r.render_device, FRAMES, device)
+            launches = read_launches()
+            if first.shape != (width * height, 3) or not torch.isfinite(first).all():
+                raise AssertionError("zoo frame not finite or misshapen")
+            if device.type == "cuda" and (launches["k3"] != FRAMES or launches["k4"] != FRAMES
+                                          or launches["k2"] or launches["k2t"]):
+                raise AssertionError(f"zoo frames launched {launches} in {FRAMES} frames")
+            ties = primary_ties(r.tables, width, height, cpx, cpy)
+            got = r.render_rays(cpx, cpy)
+            ref = render_deferred_chunk(r.scene, cpx, cpy, width, height, shadows=shadows,
+                                        sky=r.sky, trilinear=trilinear)
+            diff = (got - ref).abs().amax(dim=1)
+            err = diff[~ties].max().item()
+            if err > RGB_TOL or int(ties.sum()) > TIE_BUDGET * cpx.shape[0]:
+                raise AssertionError(f"zoo frame (multi_slot={multi_slot}, trilinear="
+                                     f"{trilinear}, shadows={shadows}) max |diff| {err:.3g} "
+                                     f"outside {int(ties.sum())} ties")
+            key = f"{'trilinear' if trilinear else 'nearest'}_{'shadows' if shadows else 'no_shadows'}"
+            out[key] = dict(ms=ms, mrays_per_s=width * height * 3 / (ms * 1e-3) / 1e6,
+                            max_abs_err_crop=err, crop_ties=int(ties.sum()),
+                            k3_launches=launches["k3"], k4_launches=launches["k4"],
+                            mean=first.mean().item())
+    out["card"] = card
+    log(f"phase 14 zoo multi_slot={multi_slot} {width}x{height}: {json.dumps(out)}")
+    return loaded, out
+
+
+def phase_k2t(scenes, width, height, device, card):
+    """Phase 15: K2t on each textured scene at full size, shadows off and on,
+    against the plain render_chunk; K3 + K4 on the same frames beside it."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.renderer import render_chunk
+    from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
+                                                         render_primary)
+    from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
+
+    px, py = frame_pixels(width, height, device)
+    sky = (0.1, 0.2, 0.3)
+    out, launches_total = {}, 0
+    for label, scene in scenes.items():
+        tables, shade = pack_render_tables(scene), pack_shade_tables(scene)
+        ties = primary_ties(tables, width, height, px, py)
+        near = mip_boundary_mask(shade, render_deferred(tables, px, py, width, height))
+        for shadows in (False, True):
+            stats, frame = primary_compare(tables, shade, px, py, width, height, shadows,
+                                           ties | near, sky=sky)
+            stats.update(tie_pixels=int(ties.sum()), mip_boundary_pixels=int(near.sum()))
+            two_phase = lambda: texture_shade(shade, render_deferred(
+                tables, px, py, width, height, shadows=shadows), sky=sky)
+            stats["max_abs_diff_to_k3_k4"] = (frame - two_phase()).abs().max().item()
+            fused = lambda: render_primary(tables, px, py, width, height, shadows=shadows,
+                                           sky=sky, shade=shade)
+            reset_launches()
+            stats["ms"] = timed(fused, FRAMES, device)
+            launches = read_launches()
+            if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, k2t=FRAMES):
+                raise AssertionError(f"K2t frames launched {launches} in {FRAMES} frames")
+            launches_total += launches["k2t"]
+            stats["k2t_launches"] = launches["k2t"]
+            stats["k3_k4_ms"] = timed(two_phase, FRAMES, device)
+            stats["plain_ms"] = timed(lambda: render_chunk(scene, px, py, width, height,
+                                                           shadows=shadows, sky=sky), 2, device)
+            out[f"{label}_{'shadows' if shadows else 'no_shadows'}"] = stats
+    out["card"] = card
+    log(f"phase 15 K2t {width}x{height}: {json.dumps(out)}")
+    return out, launches_total
+
+
+def phase_many_lights(triangles, texture_size, width, height, crop, device, card, ms_2_lights):
+    """Phase 16: 64 lights. K2, K2t and K3 with a seeded light_u against the
+    plain single-sample version on the full frame; their ms; the mean of
+    LIGHT_DRAWS draws against the loop over every light."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, render_chunk, render_gbuffer,
+                                                         split_gbuffer)
+    from gpu_raytracer_tpu_torch.ops.cuda.render import (MAX_LIGHTS, pack_render_tables,
+                                                         render_deferred, render_primary)
+    from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables
+    from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
+
+    px, py = frame_pixels(width, height, device)
+    cpx, cpy = crop_pixels(width, height, crop, device)
+    N = px.shape[0]
+    u = seeded_light_u(N, 64, device)
+    out = {}
+    for textured in (False, True):
+        label = "textured" if textured else "untextured"
+        scene = make_courtyard_scene(triangles, seed=0, lights=MANY_LIGHTS, textured=textured,
+                                     texture_size=texture_size, device=device)
+        if scene.lights.count != MANY_LIGHTS or MANY_LIGHTS <= MAX_LIGHTS:
+            raise AssertionError(f"{scene.lights.count} lights")
+        tables = pack_render_tables(scene)
+        shade = pack_shade_tables(scene) if textured else None
+        res = dict(scene=dict(
+            triangles=scene.num_triangles, bvh_nodes=scene.bvh.num_nodes,
+            bvh4_nodes=tables.trace.nodes.shape[0], lights=scene.lights.count,
+            materials=scene.materials.count, textures=scene.textures.count if textured else 0,
+            atlas_rows=scene.textures.num_rows if textured else 0,
+            light_table_bytes=table_bytes(tables.lights)))
+        ties = primary_ties(tables, width, height, px, py)
+        exclude = ties
+        if textured:
+            exclude = ties | mip_boundary_mask(shade, render_deferred(tables, px, py, width,
+                                                                      height))
+        for shadows in (False, True):
+            key = "shadows" if shadows else "no_shadows"
+            stats, _ = primary_compare(tables, shade, px, py, width, height, shadows, exclude,
+                                       light_u=u)
+            fused = lambda: render_primary(tables, px, py, width, height, shadows=shadows,
+                                           light_u=u, shade=shade)
+            stats["ms"] = timed(fused, FRAMES, device)
+            stats["ms_2_lights"] = ms_2_lights[label, shadows]
+            res[f"{'K2t' if textured else 'K2'}_{key}"] = stats
+            if textured:   # K3's sampled light sum against the plain G-buffer's
+                got = split_gbuffer(render_deferred(tables, px, py, width, height,
+                                                    shadows=shadows, light_u=u))
+                ref = split_gbuffer(render_gbuffer(scene, px, py, width, height,
+                                                   shadows=shadows, light_u=u))
+                if not torch.equal(got[1][~ties], ref[1][~ties]):
+                    raise AssertionError("K3 material ids differ under sampled lights")
+                err = (got[0] - ref[0]).abs().amax(dim=1)[~ties].max().item()
+                if err > GBUF_TOL:
+                    raise AssertionError(f"K3 sampled light sum off by {err:.3g}")
+                res[f"K3_{key}"] = dict(
+                    S_err=err, ms=timed(lambda: render_deferred(
+                        tables, px, py, width, height, shadows=shadows, light_u=u), FRAMES,
+                        device))
+        # the loop over every light: the kernel's against the plain one on the
+        # crop, then the mean of the draws against the kernel's on the frame
+        cties = primary_ties(tables, width, height, cpx, cpy)
+        loop_crop = render_primary(tables, cpx, cpy, width, height, shadows=True, shade=shade)
+        plain_crop = render_chunk(scene, cpx, cpy, width, height, shadows=True)
+        err = (loop_crop - plain_crop).abs().amax(dim=1)[~cties].max().item()
+        if err > RGB_TOL:
+            raise AssertionError(f"{MANY_LIGHTS}-light loop max |diff| {err:.3g} on the crop")
+        exact = render_primary(tables, px, py, width, height, shadows=True, shade=shade)
+        res["loop_ms_shadows"] = timed(lambda: render_primary(
+            tables, px, py, width, height, shadows=True, shade=shade), 2, device)
+        acc = torch.zeros_like(exact)
+        for k in range(LIGHT_DRAWS):
+            acc += render_primary(tables, px, py, width, height, shadows=True,
+                                  light_u=seeded_light_u(N, 100 + k, device), shade=shade)
+        rel = abs((acc / LIGHT_DRAWS).sum().item() - exact.sum().item()) / exact.sum().item()
+        if rel > LIGHT_MEAN_TOL:
+            raise AssertionError(f"mean of {LIGHT_DRAWS} sampled frames off the loop's sum by "
+                                 f"{rel:.3%} > {LIGHT_MEAN_TOL:.0%}")
+        res.update(loop_max_abs_err_crop=err, sampled_mean_rel_err=rel)
+        # Renderer's own route draws light_u itself; another frame number, other choices
+        r = Renderer(scene, width, height, shadows=True, device=device)
+        reset_launches()
+        f0 = r.render_device()
+        r.light_frame = 1
+        f1 = r.render_device()
+        launches = read_launches()
+        want = dict(ZERO_LAUNCHES, k3=2, k4=2) if textured else dict(ZERO_LAUNCHES, k2=2)
+        if device.type == "cuda" and (launches != want or torch.equal(f0, f1)):
+            raise AssertionError(f"Renderer under {MANY_LIGHTS} lights: launches {launches}, "
+                                 f"frames equal {torch.equal(f0, f1)}")
+        rel_r = abs(f0.sum().item() - exact.sum().item()) / exact.sum().item()
+        res.update(renderer_launches=launches, renderer_frame_rel_err=rel_r,
+                   renderer_ms=timed(r.render_device, FRAMES, device))
+        out[label] = res
+    out["card"] = card
+    log(f"phase 16 {MANY_LIGHTS} lights {width}x{height}: {json.dumps(out)}")
+    return out
+
+
+def phase_zoo_pathtrace(scene, size, device, card):
+    """Phase 17: the path tracer on the GLB-loaded zoo, ZOO_PT_SAMPLES samples."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
+
+    pt = PathTracer(scene, size, size, spectral=True, shadows=True, antialias=True,
+                    sampler="qmc", device=device)
+    pt.step()
+    if device.type == "cuda":   # a step never waits for the device: this raises if it does
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pt.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    pt.reset()
+    reset_launches()
+    ms = timed(pt.step, ZOO_PT_SAMPLES, device)
+    launches = read_launches()
+    n = ZOO_PT_SAMPLES * (MAX_DEPTH + 1)
+    if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, k6=n, k5=n):
+        raise AssertionError(f"zoo path tracer launched {launches}")
+    frame = pt.image_device()
+    if frame.shape != (size, size, 3) or not torch.isfinite(frame).all():
+        raise AssertionError("zoo path-traced frame not finite")
+    out = dict(ms_per_spp=ms, samples=pt.samples, launches=launches,
+               active_per_depth=pt.counters().rays_per_bounce[:MAX_DEPTH + 1],
+               mean=frame.mean().item(), card=card)
+    log(f"phase 17 path tracer on the GLB zoo {size}x{size}: {json.dumps(out)}")
+    return out
+
+
+def frame_bounds(tables, width, height, shade=None):
+    """Bytes and FP32 operations of the phase 3-9 and 15 kernels on the
+    1080p frame, shadows off (the times the kernels line reports): K1's
+    closest hit of every camera ray, counted on the card, plus each kernel's
+    own reads and writes and per-hit work; for the texture kernels the maps
+    that these hits' materials hold, and the atlas bytes once."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.renderer import split_gbuffer, tiled_pixel_order
+    from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import traversal_work, traverse
 
     tr = tables.trace
@@ -1055,13 +1448,23 @@ def frame_bounds(tables, width, height, shade=None):
     out["K3"] = bound_ms(N * (8 + 32) + tb + table_bytes(tr.attrs),
                          walk + sph + n_hit * (SHADE_FLOPS + 30))
     if shade is not None:
-        n_maps = bin(shade.present).count("1")
-        out["K4"] = bound_ms(N * (32 + 12) + table_bytes(shade.materials, shade.maps, shade.atlas),
-                             n_hit * (SHADE_FLOPS + n_maps * TEXEL_FLOPS))
+        mat = split_gbuffer(render_deferred(tables, px, py, width, height))[1]
+        held = shade.maps[torch.clamp(mat, 0, shade.maps.shape[0] - 1), :, 0] > 0     # [N,4]
+        sampled = torch.tensor([(shade.present >> k) & 1 for k in range(held.shape[1])],
+                               dtype=torch.bool, device=held.device)
+        n_samples = int((held & sampled[None, :] & (mat >= 0)[:, None]).sum())
+        out["map_samples"] = n_samples
+        sb = table_bytes(shade.maps, shade.atlas)
+        out["K4"] = bound_ms(N * (32 + 12) + table_bytes(shade.materials) + sb,
+                             n_hit * SHADE_FLOPS + n_samples * TEXEL_FLOPS)
+        out["K2t"] = bound_ms(N * (8 + 12) + tb + table_bytes(tr.attrs) + sb,
+                              walk + sph + n_hit * (SHADE_FLOPS + 30) + n_samples * TEXEL_FLOPS)
     return out
 
 def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTURE_SIZE,
-        pt_size=PT_SIZE, synth_size=SYNTH_SIZE):
+        pt_size=PT_SIZE, synth_size=SYNTH_SIZE, zoo_triangles=ZOO_TRIANGLES, crop=CROP):
+    import tempfile
+
     import torch
 
     from gpu_raytracer_tpu_torch.models.bvh_native import load_builder
@@ -1125,6 +1528,25 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     k6_launches = sum(v["launches"]["k6"] for v in pt.values())
     k5_launches = sum(v["launches"]["k5"] for v in pt.values())
 
+    with tempfile.TemporaryDirectory() as tmp:
+        glb_scene, glb = phase_glb_round_trip(tscene, texture_size, tmp, width, height, device,
+                                              card)
+        zoos = {}
+        for multi_slot in (False, True):
+            label = "zoo_multi_slot" if multi_slot else "zoo"
+            zoos[label], _ = phase_zoo(multi_slot, zoo_triangles, tmp, width, height, crop,
+                                       device, card)
+    k2t, k2t_launches = phase_k2t(dict(textured_courtyard=glb_scene, **zoos), width, height,
+                                  device, card)
+    ms_2_lights = {(label, s): v["shadows" if s else "no_shadows"]["ms"]
+                   for label, v in (("untextured", main), ("textured", {
+                       "no_shadows": k2t["textured_courtyard_no_shadows"],
+                       "shadows": k2t["textured_courtyard_shadows"]}))
+                   for s in (False, True)}
+    phase_many_lights(triangles, texture_size, width, height, crop, device, card, ms_2_lights)
+    phase_zoo_pathtrace(zoos["zoo_multi_slot"], pt_size, device, card)
+    k2t_err = max(v["err"] for v in k2t.values() if isinstance(v, dict))
+
     fb = frame_bounds(tables, width, height) if cuda else {}
     tfb = frame_bounds(ttables, width, height, shade=tshade) if cuda else {}
     bound = lambda b: dict(bound_ms=b[0], bound_by=b[1]) if b else dict(bound_ms=None,
@@ -1132,11 +1554,11 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     ptc = pt["courtyard"]
     kb = ptc["k6_bound"] or {}
     kernels = [
-        dict(name="K1 bvh4_traverse (device function run by every K2, K3 and K6 launch; "
+        dict(name="K1 bvh4_traverse (device function run by every K2, K2t, K3 and K6 launch; "
                   "standalone kernel checked in phase 3)",
              route="cuda", source="gpu_raytracer_tpu_torch/csrc/traverse.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/traverse.py:851",
-             launches=k2_launches + k3_launches + k6_launches,
+             launches=k2_launches + k2t_launches + k3_launches + k6_launches,
              max_abs_err=max(k1["primary"]["t_abs"], k1["primary"]["normal_abs"],
                              k1["shadow"]["t_abs"], k1["shadow"]["normal_abs"]),
              ms=k1["ms"], plain_ms=k1["plain_ms"], **bound(fb.get("K1")), library_ms=None),
@@ -1146,6 +1568,15 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              launches=k2_launches, max_abs_err=k2_err,
              ms=main["no_shadows"]["ms"], plain_ms=main["no_shadows"]["plain_ms"],
              **bound(fb.get("K2")), library_ms=None),
+        dict(name="K2t render_primary_textured (ms, plain_ms and the bound on the GLB-loaded "
+                  "textured courtyard, shadows off; held to the plain render_chunk on that "
+                  "scene and on both zoos, phase 15)", route="cuda",
+             source="gpu_raytracer_tpu_torch/csrc/render_primary_textured.cu",
+             replaces="gpu_raytracer_tpu/ops/pallas/render.py:363",
+             launches=k2t_launches, max_abs_err=k2t_err,
+             ms=k2t["textured_courtyard_no_shadows"]["ms"],
+             plain_ms=k2t["textured_courtyard_no_shadows"]["plain_ms"],
+             **bound(tfb.get("K2t")), library_ms=None),
         dict(name="K3 render_deferred (G-buffer; max_abs_err is the largest of "
                   "S, uv and the footprint's relative error)", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/render_deferred.cu",

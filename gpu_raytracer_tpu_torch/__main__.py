@@ -1,10 +1,19 @@
-"""Command-line application: the `render` and `pathtrace` subcommands.
+"""Command-line application: the `render`, `pathtrace`, `export` and `info`
+subcommands.
 
-    python -m gpu_raytracer_tpu_torch render [--demo | --courtyard N [--textured]] \
+    python -m gpu_raytracer_tpu_torch render \
+        [--demo | --courtyard N [--textured] | --gltf FILE] \
         [--width W --height H] [--shadows] [--device cuda|cpu] -o out.png
     python -m gpu_raytracer_tpu_torch pathtrace [scene flags] [--spp N] [--spectral] \
         [--no-shadows] [--seed S] [--sampler qmc|rng] [--checkpoint F] [--resume F] \
         [--linear] [--device cuda|cpu] -o out.png
+    python -m gpu_raytracer_tpu_torch export [scene flags] -o out.glb
+    python -m gpu_raytracer_tpu_torch info --gltf FILE [--scene-index I]
+
+`--gltf` loads a .gltf or .glb file; a file that does not load gives the
+default scene and a message saying why. `export` writes the chosen scene as
+a self-contained binary glTF; `info` lists what a glTF file holds. Neither
+needs a device.
 
 `--device cuda` (the default) renders through the CUDA kernels and fails
 without a CUDA device; `--device cpu` renders through the plain PyTorch path.
@@ -14,8 +23,10 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
+import numpy as np
 import torch
 
 from .config import RaytracerConfig, add_config_args, config_from_args
@@ -25,7 +36,9 @@ def _load_scene(args, config, device):
     from .models.scene import build_default_scene
 
     if args.gltf:
-        raise NotImplementedError("glTF scenes are not ported yet")
+        from .models.gltf import scene_from_gltf_or_default
+
+        return scene_from_gltf_or_default(args.gltf, config=config, device=device)
     if args.courtyard:
         from .utils.procgen import make_courtyard_scene
 
@@ -88,7 +101,51 @@ def cmd_pathtrace(args, config):
     print(f"wrote {args.output} ({pt.samples} spp)")
 
 
-def _add_scene_args(p):
+def cmd_info(args, config):
+    from .models.gltf import GltfError, GltfLoader
+
+    try:
+        loader = GltfLoader.load_from_path(args.gltf)
+    except GltfError as e:   # a clean error, not a traceback
+        print(f"error: {e}", file=sys.stderr)
+        raise SystemExit(1)
+    print("scenes: ", loader.list_scenes())
+    print("cameras:", loader.list_cameras())
+    print("lights: ", loader.list_lights())
+    loaded = loader.extract_scene(args.scene_index)
+    print(f"triangles={loaded.triangles.shape[0]} vertices={loaded.vertices.shape[0]} "
+          f"materials={len(loaded.materials)} lights={len(loaded.lights)} "
+          f"images={len(loaded.images)}")
+
+
+def cmd_export(args, config):
+    """Scene -> .glb through models/gltf_export.py: the demo and courtyard
+    scenes, or a loaded glTF re-packed, as a self-contained binary asset."""
+    from .models.gltf_export import export_glb
+
+    scene = _load_scene(args, config, "cpu")
+    images = wraps = None
+    if args.courtyard and args.textured:
+        from .utils.procgen import courtyard_source_images
+
+        images = courtyard_source_images(0)
+    elif args.gltf:
+        from .models.gltf import load_gltf
+
+        loaded = load_gltf(args.gltf)
+        if loaded.images:
+            # one image per texture, alignment kept: a dangling source index
+            # gets the white placeholder, so no later texture shifts
+            images = [loaded.images[i] if i < len(loaded.images)
+                      else np.full((1, 1, 4), 255, np.uint8) for i in loaded.texture_image]
+            wraps = [loaded.texture_wrap[t] if t < len(loaded.texture_wrap) else 0
+                     for t in range(len(loaded.texture_image))]
+    export_glb(scene, args.output, images=images, texture_wrap=wraps)
+    print(f"wrote {args.output} ({os.path.getsize(args.output)} bytes, "
+          f"{scene.num_triangles} triangles)")
+
+
+def _add_scene_args(p, device: bool = True):
     p.add_argument("--gltf", type=str, default=None, help="glTF/GLB scene file")
     p.add_argument("--demo", action="store_true", help="built-in demo scene (default)")
     p.add_argument("--courtyard", type=int, default=0, metavar="TRIS",
@@ -98,8 +155,9 @@ def _add_scene_args(p):
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=720)
     p.add_argument("-o", "--output", type=str, default="out.png")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (the CUDA kernels) or cpu (the plain PyTorch path)")
+    if device:
+        p.add_argument("--device", type=str, default="cuda",
+                       help="cuda (the CUDA kernels) or cpu (the plain PyTorch path)")
 
 
 def main(argv=None):
@@ -129,6 +187,15 @@ def main(argv=None):
     p.add_argument("--resume", type=str, default=None)
     add_config_args(p)
     p.set_defaults(fn=cmd_pathtrace)
+    p = sub.add_parser("export", help="write a scene as a binary glTF (.glb)")
+    _add_scene_args(p, device=False)
+    p.set_defaults(fn=cmd_export, output="out.glb")
+
+    p = sub.add_parser("info", help="inspect a glTF file")
+    p.add_argument("--gltf", type=str, required=True)
+    p.add_argument("--scene-index", type=int, default=None)
+    p.set_defaults(fn=cmd_info)
+
     args = parser.parse_args(argv)
     config = config_from_args(args) if hasattr(args, "tile_size") else RaytracerConfig()
     args.fn(args, config)

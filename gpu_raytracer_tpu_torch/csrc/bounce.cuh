@@ -138,9 +138,9 @@ __global__ void __launch_bounds__(128) bounce_kernel(const BounceArgs a) {
         u = uv.x;
         v = uv.y;
       }
-      const MaterialSample m =
-          sample_material(a.mats, TEXTURED ? a.maps : nullptr, a.atlas, a.present, a.n_levels,
-                          mid, u, v, a.tex_lod);
+      const MaterialSample m = sample_material<false>(
+          a.mats, TEXTURED ? a.maps : nullptr, a.atlas, a.present, a.n_levels, mid, u, v,
+          a.tex_lod);
       const float* uu = a.u + 7 * i;
 
       // ---- direct lighting ----

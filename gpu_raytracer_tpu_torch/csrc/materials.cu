@@ -18,7 +18,8 @@ sample_materials_kernel(const float* __restrict__ mats, int n_mats,
   if (i >= n) return;
   const int m = min(max(mid[i], 0), n_mats - 1);
   const rt::MaterialSample s =
-      rt::sample_material(mats, maps, atlas, present, n_levels, m, uv[2 * i], uv[2 * i + 1], lod);
+      rt::sample_material<false>(mats, maps, atlas, present, n_levels, m, uv[2 * i],
+                                 uv[2 * i + 1], lod);
   float* o = out + 11 * i;
   o[0] = s.albedo[0];
   o[1] = s.albedo[1];

@@ -1,5 +1,5 @@
-// Device functions shared by the primary-render kernels: K2 (render_primary.cu)
-// and K3 (render_deferred.cu). One pixel per thread.
+// Device functions shared by the primary-render kernels: K2 and K2t
+// (render_primary.cuh) and K3 (render_deferred.cu). One pixel per thread.
 //
 // Camera ray from the pixel coordinates, the exhaustive sphere pass, K1's
 // closest hit pruned at the sphere's t (strict <: the sphere wins a tie), the
@@ -156,6 +156,22 @@ __device__ __forceinline__ float light_intensity(const float* __restrict__ L, co
     I = I * (blocked ? 0.0f : 1.0f);
   }
   return I;
+}
+
+// Single-sample light selection (ops/shading.py with `light_index`): the one
+// light min(int(u * n_lights), n_lights - 1), its shadowed intensity behind
+// the > 0 gate and weighted by the light count in `Ig`; returns its row.
+template <int STACK>
+__device__ __forceinline__ const float* sampled_light(
+    const float* __restrict__ lights, int n_lights, float u, const Surface& s, bool shadows,
+    const Node4* __restrict__ nodes, const float4* __restrict__ tris,
+    const float* __restrict__ spheres, int n_spheres, float& Ig) {
+  const int li = min(static_cast<int>(u * static_cast<float>(n_lights)), n_lights - 1);
+  const float* L = lights + li * kLightWords;
+  const float I = light_intensity<STACK>(L, s, shadows, nodes, tris, spheres, n_spheres);
+  const float gate = I > 0.0f ? 1.0f : 0.0f;
+  Ig = (I * gate) * static_cast<float>(n_lights);
+  return L;
 }
 
 // Texture coordinates of a surface (ops/trace.py::trace): for a triangle its

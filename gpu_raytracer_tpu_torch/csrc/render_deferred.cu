@@ -5,7 +5,8 @@
 // -> exhaustive sphere pass -> K1 closest hit pruned at the sphere's t -> per
 // light the shadowed intensity I (render_common.cuh, shared with K2) ->
 // the material-independent light sum S = sum of (I * gate) * colour in light
-// order. It writes one 32-byte G-buffer record per ray, two float4:
+// order, or with `light_u` (the TPU kernel's branch above 16 lights) the one
+// sampled light's (I * gate) * L * colour. It writes one 32-byte G-buffer record per ray, two float4:
 //   (S.r, S.g, S.b, material id as int bits), (u, v, mip footprint, 0),
 // with material -1 and zeros for a miss. K4 (texshade.cu) applies the
 // materials and textures to it.
@@ -36,7 +37,8 @@ render_deferred_kernel(const rt::Node4* __restrict__ nodes, const float4* __rest
                        const float* __restrict__ lights, int n_lights,
                        const float* __restrict__ spheres, int n_spheres,
                        const int* __restrict__ px, const int* __restrict__ py, int n, int width,
-                       int height, int shadows, float pix_scale, float4* __restrict__ gbuf) {
+                       int height, int shadows, float pix_scale,
+                       const float* __restrict__ light_u, float4* __restrict__ gbuf) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -49,13 +51,21 @@ render_deferred_kernel(const rt::Node4* __restrict__ nodes, const float4* __rest
   }
 
   float S[3] = {0.0f, 0.0f, 0.0f};
-  for (int li = 0; li < n_lights; ++li) {
-    const float* L = lights + li * rt::kLightWords;
-    const float I = rt::light_intensity<STACK>(L, s, shadows != 0, nodes, tris, spheres,
-                                               n_spheres);
-    const float gate = I > 0.0f ? 1.0f : 0.0f;
+  if (light_u != nullptr) {
+    float Ig;
+    const float* L = rt::sampled_light<STACK>(lights, n_lights, light_u[i], s, shadows != 0,
+                                              nodes, tris, spheres, n_spheres, Ig);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) S[c] = S[c] + (I * gate) * L[4 + c];
+    for (int c = 0; c < 3; ++c) S[c] = Ig * L[4 + c];
+  } else {
+    for (int li = 0; li < n_lights; ++li) {
+      const float* L = lights + li * rt::kLightWords;
+      const float I = rt::light_intensity<STACK>(L, s, shadows != 0, nodes, tris, spheres,
+                                                 n_spheres);
+      const float gate = I > 0.0f ? 1.0f : 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) S[c] = S[c] + (I * gate) * L[4 + c];
+    }
   }
 
   float density;
@@ -69,11 +79,13 @@ render_deferred_kernel(const rt::Node4* __restrict__ nodes, const float4* __rest
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a stack capacity that was not compiled.
+// `light_u` null: every light is looped over.
 extern "C" int rt_render_deferred(const void* nodes, const void* tris, const void* attrs,
                                   int stack, const void* cam, const void* lights, int n_lights,
                                   const void* spheres, int n_spheres, const void* px,
                                   const void* py, int n, int width, int height, int shadows,
-                                  float pix_scale, void* gbuf, void* stream) {
+                                  float pix_scale, const void* light_u, void* gbuf,
+                                  void* stream) {
   if (n <= 0) return 0;
   const dim3 block(128);
   const dim3 grid((n + 127) / 128);
@@ -84,7 +96,7 @@ extern "C" int rt_render_deferred(const void* nodes, const void* tris, const voi
       static_cast<const float4*>(attrs), static_cast<const float*>(cam),                      \
       static_cast<const float*>(lights), n_lights, static_cast<const float*>(spheres),        \
       n_spheres, static_cast<const int*>(px), static_cast<const int*>(py), n, width, height,  \
-      shadows, pix_scale, static_cast<float4*>(gbuf))
+      shadows, pix_scale, static_cast<const float*>(light_u), static_cast<float4*>(gbuf))
   RT_SWITCH_STACK(stack, RT_LAUNCH)
 #undef RT_LAUNCH
   return static_cast<int>(cudaGetLastError());

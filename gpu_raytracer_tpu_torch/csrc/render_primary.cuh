@@ -1,0 +1,133 @@
+// K2 and K2t: the fused primary render, one pixel per thread, untextured
+// (TEXTURED = false, instantiated in render_primary.cu) and textured
+// (TEXTURED = true, render_primary_textured.cu).
+//
+// Replaces the TPU kernel gpu_raytracer_tpu/ops/pallas/render.py
+// pallas_render_primary -> _kernel (pallas_call at :701), both branches:
+// camera ray from the pixel coordinates -> exhaustive sphere pass (strict <)
+// -> K1 closest hit of the triangles pruned at the sphere's t -> material
+// -> per light: intensity with the f16 attenuation round trip, and with
+// shadows one any-hit shadow ray through K1 plus the sphere occluders ->
+// ambient 0.1 + brdf x light sum + emission -> per-channel dispersion blend ->
+// magenta for an invalid material, the sky colour for a miss.
+//
+// The material is the winner's material row (K2) or, textured (K2t, the TPU
+// kernel's branch at :363-378), that row times its maps: the hit's uv
+// (render_common.cuh::surface_uv, the triangle's barycentrics or the
+// sphere's equirectangular coordinates), the mip footprint
+// t * (2 tan(fov/2) / H) * uv density in the deferred trace's operation
+// order, and texsample.cuh::sample_material at the nearest mip level of that
+// footprint (nearest only, as the TPU kernel); the occlusion map's R scales
+// the ambient term. One launch, no G-buffer.
+//
+// With `light_u` (one uniform per pixel) each pixel evaluates the one light
+// min(floor(u * L), L - 1), one shadow ray, weighted by L
+// (render_common.cuh::sampled_light): the TPU kernel's branch above 16
+// lights (:410-423). Null loops over every light.
+//
+// Every formula follows the plain PyTorch version (engine/renderer.py::
+// render_chunk and ops/shading.py) operation for operation, in the same order
+// (render_common.cuh holds the parts shared with the deferred trace, K3), and
+// the light sum accumulates in light order. Built with -fmad=false the kernel
+// then rounds like the plain version; the two differ only where two triangles
+// share the exact same t (see traverse.cuh).
+//
+// What bounds it on an H100: the traversals (one primary ray and, with
+// shadows, one shadow ray per light), which are latency- and divergence-bound
+// (traverse.cuh). The rest is a few hundred flops per pixel. Per pixel it
+// reads 8 bytes (coordinates) and writes 12 (RGB); the camera, material,
+// light and sphere rows are a few hundred bytes read through the constant-
+// like read-only path, the BVH tables stay in L2; textured, one 32-byte
+// attribute record, 32 bytes of metadata and 4 texel loads per sampled map,
+// dependent loads from L2-resident atlas rows. Fusing raygen, traversal
+// and shading keeps every intermediate in registers instead of the ~15 per-ray
+// arrays the plain pipeline writes to device memory between stages.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "render_common.cuh"
+#include "texsample.cuh"
+
+namespace rt {
+
+// What the textured instance reads beside the untextured one's arguments.
+struct PrimaryTextures {
+  const float4* attrs;    // per-slot uv records (ops/cuda/traverse.py)
+  const TexMeta* maps;    // [n_mats, 4] (ops/cuda/texshade.py)
+  const int* atlas;
+  int present;            // bit k: map slot k is sampled
+  int n_levels;           // longest mip chain of the atlas
+  float pix_scale;        // 2 tan(fov/2) / height
+};
+
+template <int STACK, bool TEXTURED>
+__global__ void __launch_bounds__(128)
+render_primary_kernel(const Node4* __restrict__ nodes, const float4* __restrict__ tris,
+                      const float* __restrict__ cam, const float* __restrict__ mats,
+                      int n_mats, const float* __restrict__ lights, int n_lights,
+                      const float* __restrict__ spheres, int n_spheres,
+                      const PrimaryTextures tex, const int* __restrict__ px,
+                      const int* __restrict__ py, int n, int width, int height, int shadows,
+                      float sky_r, float sky_g, float sky_b,
+                      const float* __restrict__ light_u, float* __restrict__ rgb) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+
+  const Ray ray = camera_ray(cam, px[i], py[i], width, height);
+  Surface s;
+  if (!closest_surface<STACK>(nodes, tris, spheres, n_spheres, ray, s)) {
+    rgb[3 * i] = sky_r;
+    rgb[3 * i + 1] = sky_g;
+    rgb[3 * i + 2] = sky_b;
+    return;
+  }
+
+  // ---- material ----
+  const int mid = min(max(s.mat, 0), n_mats - 1);
+  float u = 0.0f, v = 0.0f, lam = 0.0f;
+  if (TEXTURED) {
+    float density;
+    const float2 uv = surface_uv(tris, tex.attrs, ray, s, density);
+    u = uv.x;
+    v = uv.y;
+    lam = s.slot >= 0 ? s.t * tex.pix_scale * density : 0.0f;
+  }
+  const MaterialSample m = sample_material<true>(
+      mats, TEXTURED ? tex.maps : nullptr, tex.atlas, tex.present, tex.n_levels, mid, u, v, lam);
+  const float is_metal = m.metallic > 0.5f ? 1.0f : 0.0f;
+  const float brdf = is_metal * 0.5f + (1.0f - is_metal) / kPi;
+
+  // ---- direct lighting: every light in light order, or the one sampled ----
+  float sum[3] = {0.0f, 0.0f, 0.0f};
+  if (light_u != nullptr) {
+    float Ig;
+    const float* L = sampled_light<STACK>(lights, n_lights, light_u[i], s, shadows != 0, nodes,
+                                          tris, spheres, n_spheres, Ig);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) sum[c] = m.albedo[c] * brdf * Ig * L[4 + c];
+  } else {
+    for (int li = 0; li < n_lights; ++li) {
+      const float* L = lights + li * kLightWords;
+      const float I = light_intensity<STACK>(L, s, shadows != 0, nodes, tris, spheres,
+                                             n_spheres);
+      const float gate = I > 0.0f ? 1.0f : 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) sum[c] = sum[c] + m.albedo[c] * brdf * (I * gate) * L[4 + c];
+    }
+  }
+
+  // ---- ambient + lights + emission, transmission blend with dispersion ----
+  const bool invalid = s.mat < 0 || s.mat >= n_mats;
+  const bool with_occlusion = TEXTURED && ((tex.present >> kMapOcclusion) & 1);
+  const float magenta[3] = {1.0f, 0.0f, 1.0f};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float ambient = m.albedo[c] * 0.1f;
+    if (with_occlusion) ambient = ambient * m.occlusion;
+    const float lit = ambient + sum[c] + m.emission[c];
+    rgb[3 * i + c] = invalid ? magenta[c] : dispersion_blend(lit, m.ior, m.transmission, c);
+  }
+}
+
+}  // namespace rt

@@ -2,7 +2,8 @@
 // thread: the device form of the plain sampler ops/texture.py, formula for
 // formula and in the same order. Used by the texture shade kernel (K4,
 // texshade.cu) and, through `sample_material` (K5), by the path tracer's
-// bounce (K6, bounce.cuh); the textured primary render is to call it too.
+// bounce (K6, bounce.cuh) and the textured primary render (K2t,
+// render_primary.cuh).
 //
 // Atlas layout (models/geometry.py::Textures): 128-texel rows of 127 texels
 // plus one guard texel repeating the wrap neighbour, one guard row per
@@ -157,14 +158,18 @@ __device__ __forceinline__ float4 sample_map_lod(const int* __restrict__ atlas, 
   return bilinear(atlas, tex_level(m, static_cast<int>(l)), m.wrap, u, v);
 }
 
-// K5: the material of a hit as the path tracer's bounce needs it.
+// K5: the material of a hit as the path tracer's bounce and the textured
+// primary render need it.
 //
 // Replaces the TPU kernel's subroutine gpu_raytracer_tpu/ops/pallas/texshade.py
 // sample_materials_tiles (:506), which looks up material rows by one-hot matrix
 // products and samples the atlas tile by tile. Here one thread reads its
 // material row (ops/cuda/render.py material_rows: albedo, emission, metallic,
-// IOR, transmission, roughness) and samples, at the fixed level `lod`, each
-// map slot that some material uses and its own material holds: base colour
+// IOR, transmission, roughness) and samples each map slot that some material
+// uses and its own material holds, at the fixed level `x` (FOOTPRINT false,
+// the bounce's LOD) or at the nearest mip level of the ray's own footprint
+// `x` (FOOTPRINT true, the primary render, as `sample_map` picks it for the
+// texture shade kernel): base colour
 // scales the albedo, emissive the emission, the metallic-roughness map's B the
 // metallic and its G the roughness, occlusion's R is the ambient factor
 // (1 without). Each map is sampled once. Its plain version is
@@ -176,10 +181,11 @@ struct MaterialSample {
   float metallic, roughness, ior, transmission, occlusion;
 };
 
+template <bool FOOTPRINT>
 __device__ __forceinline__ MaterialSample sample_material(
     const float* __restrict__ mats, const TexMeta* __restrict__ maps,
     const int* __restrict__ atlas, int present, int n_levels, int mid, float u, float v,
-    float lod) {
+    float x) {
   const float* row = mats + mid * 16;
   MaterialSample m;
 #pragma unroll
@@ -197,7 +203,8 @@ __device__ __forceinline__ MaterialSample sample_material(
     if (!((present >> k) & 1)) continue;
     const TexMeta t = maps[mid * kMapSlots + k];
     if (!t.has) continue;   // the plain sampler's factor is exactly 1
-    const float4 s = sample_map_lod(atlas, t, u, v, lod, n_levels);
+    const float4 s = FOOTPRINT ? sample_map(atlas, t, u, v, x, n_levels, false)
+                               : sample_map_lod(atlas, t, u, v, x, n_levels);
     if (k == kMapBaseColor) {
       m.albedo[0] = m.albedo[0] * s.x;
       m.albedo[1] = m.albedo[1] * s.y;

@@ -12,7 +12,9 @@ asks for the CPU). On a CUDA device an
 untextured frame is one fused-render launch and a textured frame a deferred
 trace launch then a texture shade launch; on the CPU every frame goes
 through `render_chunk`, as the JAX package's CPU route does. Nothing falls
-back from one to the other.
+back from one to the other. Above MAX_LIGHTS lights the CUDA route samples
+one light per pixel and frame (`Renderer._light_u`), as the JAX package's
+kernels do; the CPU route loops over every light, as its plain path does.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from ..ops.camera_rays import generate_rays
 from ..ops.cuda.render import MAX_LIGHTS, pack_render_tables, render_deferred, render_primary
 from ..ops.cuda.texshade import pack_shade_tables, texture_shade
 from ..ops.linalg import dot, normalize
-from ..ops.shading import hit_footprint, light_sum, shade, shade_deferred
+from ..ops.shading import (hit_footprint, light_rows, light_sum, sample_light_index, shade,
+                           shade_deferred)
 from ..ops.trace import Hit, occluded, trace
 
 TILE = 64  # tile edge of the tile-major pixel order
@@ -58,19 +61,21 @@ def resolve_device(device, who: str) -> torch.device:
     return dev
 
 
-def _shadow_mask(scene: Scene, hit: Hit) -> torch.Tensor:
-    """[N,L] visibility, 1 where the light is reachable from the hit point:
-    shadow rays start 1e-3 off the surface along the normal and end 1e-3
-    short of a point light."""
+def _shadow_mask(scene: Scene, hit: Hit,
+                 light_index: torch.Tensor | None = None) -> torch.Tensor:
+    """[N,L] visibility, 1 where the light is reachable from the hit point
+    ([N,1], of each ray's own light, with `light_index`): shadow rays start
+    1e-3 off the surface along the normal and end 1e-3 short of a point
+    light."""
     L = scene.lights
     N = hit.point.shape[0]
-    nl = L.count
+    nl = L.count if light_index is None else 1
     origin = hit.point + hit.normal * 1e-3                          # [N,3]
-    to_light = L.position[None, :, :] - hit.point[:, None, :]       # [N,L,3]
+    to_light = light_rows(L.position, light_index) - hit.point[:, None, :]   # [N,L,3]
     dist = torch.sqrt(dot(to_light, to_light))                      # [N,L]
     pl_dir = to_light / dist[..., None]
-    ldir = normalize(L.direction)[None, :, :].expand_as(to_light)
-    is_directional = (L.light_type == 0)[None, :].expand(N, nl)
+    ldir = light_rows(normalize(L.direction), light_index).expand_as(to_light)
+    is_directional = light_rows(L.light_type == 0, light_index).expand(N, nl)
     sdir = torch.where(is_directional[..., None], -ldir, pl_dir)
     smax = torch.where(is_directional, torch.full_like(dist, 3.0e38), dist - 1e-3)
     # light-major: the rays of one light are consecutive
@@ -82,33 +87,52 @@ def _shadow_mask(scene: Scene, hit: Hit) -> torch.Tensor:
     return torch.where(hit.hit[:, None], mask, torch.ones_like(mask))
 
 
+def _sampled_light(scene: Scene, light_u: torch.Tensor | None) -> torch.Tensor | None:
+    """Each ray's light for single-sample selection, or None for the loop
+    over every light (no `light_u`, or nothing to choose between)."""
+    if light_u is None or scene.lights.count <= 1:
+        return None
+    return sample_light_index(scene, light_u)
+
+
 def render_chunk(scene: Scene, px: torch.Tensor, py: torch.Tensor,
                  width: int, height: int, shadows: bool = False,
-                 sky=(0.0, 0.0, 0.0), trilinear: bool = False) -> torch.Tensor:
+                 sky=(0.0, 0.0, 0.0), trilinear: bool = False,
+                 light_u: torch.Tensor | None = None) -> torch.Tensor:
     """Trace + shade one pixel batch -> RGB [n,3] in the given order.
-    Pyramid atlases sample the mip level of each hit's footprint."""
+    Pyramid atlases sample the mip level of each hit's footprint. Every
+    light is evaluated, however many there are; with `light_u` [n]
+    (uniforms in [0, 1)) each ray evaluates the one light
+    min(floor(u * L), L - 1), one shadow ray, weighted by L: the plain
+    version of the render kernels' branch above MAX_LIGHTS lights."""
     orig, dirn = generate_rays(scene.camera, width, height, px, py)
     hit = trace(scene, orig, dirn)
-    mask = _shadow_mask(scene, hit) if shadows else None
+    li = _sampled_light(scene, light_u)
+    mask = _shadow_mask(scene, hit, li) if shadows else None
     lam = hit_footprint(scene, hit, height) if scene.textures.n_levels > 1 else None
-    return shade(scene, hit, shadow_mask=mask, sky_color=sky, lam=lam, trilinear=trilinear)
+    return shade(scene, hit, shadow_mask=mask, sky_color=sky, lam=lam, trilinear=trilinear,
+                 light_index=li)
 
 
 GBUFFER_WORDS = 8   # S rgb, material id (int32 bits), u, v, footprint, 0
 
 
 def render_gbuffer(scene: Scene, px: torch.Tensor, py: torch.Tensor,
-                   width: int, height: int, shadows: bool = False) -> torch.Tensor:
+                   width: int, height: int, shadows: bool = False,
+                   light_u: torch.Tensor | None = None) -> torch.Tensor:
     """The deferred trace of one pixel batch -> G-buffer [n,8] f32: the
-    shadowed light sum S, the material id (int32 bits, -1 a miss), the hit
-    uv and the mip footprint; zeros on a miss. The plain version of the
-    deferred trace kernel (ops/cuda/render.py::render_deferred)."""
+    shadowed light sum S (of every light, or with `light_u` of each ray's
+    one sampled light, as `render_chunk`), the material id (int32 bits, -1 a
+    miss), the hit uv and the mip footprint; zeros on a miss. The plain
+    version of the deferred trace kernel
+    (ops/cuda/render.py::render_deferred)."""
     orig, dirn = generate_rays(scene.camera, width, height, px, py)
     hit = trace(scene, orig, dirn)
-    mask = _shadow_mask(scene, hit) if shadows else None
+    li = _sampled_light(scene, light_u)
+    mask = _shadow_mask(scene, hit, li) if shadows else None
     mat = hit.material_id.to(torch.int32).view(torch.float32)[:, None]
     lam = hit_footprint(scene, hit, height)[:, None]
-    return torch.cat([light_sum(scene, hit, mask), mat, hit.uv, lam,
+    return torch.cat([light_sum(scene, hit, mask, li), mat, hit.uv, lam,
                       torch.zeros_like(lam)], dim=1)
 
 
@@ -120,11 +144,13 @@ def split_gbuffer(gbuf: torch.Tensor):
 
 def render_deferred_chunk(scene: Scene, px: torch.Tensor, py: torch.Tensor,
                           width: int, height: int, shadows: bool = False,
-                          sky=(0.0, 0.0, 0.0), trilinear: bool = False) -> torch.Tensor:
+                          sky=(0.0, 0.0, 0.0), trilinear: bool = False,
+                          light_u: torch.Tensor | None = None) -> torch.Tensor:
     """The two-phase textured render of one pixel batch -> RGB [n,3]: the
     plain version of the deferred trace kernel followed by the texture
     shade kernel."""
-    S, mat, uv, lam = split_gbuffer(render_gbuffer(scene, px, py, width, height, shadows))
+    S, mat, uv, lam = split_gbuffer(render_gbuffer(scene, px, py, width, height, shadows,
+                                                   light_u))
     return shade_deferred(scene, S, mat, uv, sky_color=sky, lam=lam, trilinear=trilinear)
 
 
@@ -138,10 +164,6 @@ class Renderer:
                  config: RaytracerConfig = DEFAULT_CONFIG,
                  shadows: bool = False, sky=(0.0, 0.0, 0.0), device=None):
         self.device = resolve_device(device, "Renderer")
-        if scene.lights.count > MAX_LIGHTS:
-            raise NotImplementedError(
-                f"{scene.lights.count} lights: single-sample light selection "
-                f"above {MAX_LIGHTS} lights is not ported yet")
         self.scene = scene.to(self.device)
         self.textured = scene.textures.textured
         self.width = width
@@ -149,6 +171,10 @@ class Renderer:
         self.config = config
         self.shadows = shadows
         self.sky = tuple(float(x) for x in sky)
+        # folded into the light choice above MAX_LIGHTS lights: a caller that
+        # advances it per frame gets fresh choices, so frames average to the
+        # sum over the lights; left at 0 every frame is the same
+        self.light_frame = 0
         px, py = tiled_pixel_order(width, height)
         self._px_host, self._py_host = px, py
         self.px = torch.from_numpy(px).to(self.device)
@@ -161,16 +187,29 @@ class Renderer:
         self.scene = self.scene.with_camera(camera)
         self.tables = pack_render_tables(self.scene)
 
+    def _light_u(self, n: int) -> torch.Tensor | None:
+        """Per-ray uniforms [n] for the kernels' single-sample light choice
+        (CUDA, more than MAX_LIGHTS lights), from a generator seeded by
+        `light_frame` (a frame is one batch here, so there are no batches
+        of one frame to tell apart); None where every light is looped over."""
+        if self.device.type == "cpu" or self.scene.lights.count <= MAX_LIGHTS:
+            return None
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.light_frame)
+        return torch.rand((n,), generator=gen, dtype=torch.float32, device=self.device)
+
     def render_rays(self, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
         """Trace + shade one pixel batch on the renderer's device -> RGB [n,3]."""
         W, H = self.width, self.height
-        if not self.textured:
-            return render_primary(self.tables, px, py, W, H, shadows=self.shadows, sky=self.sky)
         trilinear = self.config.texture_trilinear
         if self.device.type == "cpu":
             return render_chunk(self.scene, px, py, W, H, shadows=self.shadows, sky=self.sky,
                                 trilinear=trilinear)
-        gbuf = render_deferred(self.tables, px, py, W, H, shadows=self.shadows)
+        light_u = self._light_u(px.shape[0])
+        if not self.textured:
+            return render_primary(self.tables, px, py, W, H, shadows=self.shadows, sky=self.sky,
+                                  light_u=light_u)
+        gbuf = render_deferred(self.tables, px, py, W, H, shadows=self.shadows, light_u=light_u)
         return texture_shade(self.shade_tables, gbuf, sky=self.sky, trilinear=trilinear)
 
     def render_device(self) -> torch.Tensor:

@@ -27,9 +27,11 @@ from dataclasses import dataclass
 PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG), "build", "cuda")
-SOURCES = ("traverse.cu", "render_primary.cu", "render_deferred.cu", "texshade.cu",
-           "bounce.cu", "bounce_textured.cu", "materials.cu")
-HEADERS = ("traverse.cuh", "render_common.cuh", "texsample.cuh", "bounce.cuh")
+SOURCES = ("traverse.cu", "render_primary.cu", "render_primary_textured.cu",
+           "render_deferred.cu", "texshade.cu", "bounce.cu", "bounce_textured.cu",
+           "materials.cu")
+HEADERS = ("traverse.cuh", "render_common.cuh", "render_primary.cuh", "texsample.cuh",
+           "bounce.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -46,13 +48,18 @@ ARGTYPES = {
     "rt_traverse_work": [_p, _p, _i, _p, _p, _p, _i, _i, _p, _p],
     # nodes, tris, stack, camera, materials, n_mats, lights, n_lights,
     # spheres, n_spheres, px, py, n, width, height, shadows,
-    # sky_r, sky_g, sky_b, rgb_out, stream
+    # sky_r, sky_g, sky_b, light_u (null: every light), rgb_out, stream
     "rt_render_primary": [_p, _p, _i, _p, _p, _i, _p, _i, _p, _i, _p, _p, _i,
-                          _i, _i, _i, _f, _f, _f, _p, _p],
+                          _i, _i, _i, _f, _f, _f, _p, _p, _p],
+    # nodes, tris, attrs, stack, camera, materials, n_mats, lights, n_lights,
+    # spheres, n_spheres, maps, atlas, present, n_levels, pix_scale, px, py, n,
+    # width, height, shadows, sky_r, sky_g, sky_b, light_u, rgb_out, stream
+    "rt_render_primary_textured": [_p, _p, _p, _i, _p, _p, _i, _p, _i, _p, _i, _p, _p, _i,
+                                   _i, _f, _p, _p, _i, _i, _i, _i, _f, _f, _f, _p, _p, _p],
     # nodes, tris, attrs, stack, camera, lights, n_lights, spheres, n_spheres,
-    # px, py, n, width, height, shadows, pix_scale, gbuf_out, stream
+    # px, py, n, width, height, shadows, pix_scale, light_u, gbuf_out, stream
     "rt_render_deferred": [_p, _p, _p, _i, _p, _p, _i, _p, _i, _p, _p, _i, _i, _i, _i,
-                           _f, _p, _p],
+                           _f, _p, _p, _p],
     # gbuf, n, materials, n_mats, maps, atlas, present, n_levels, trilinear,
     # sky_r, sky_g, sky_b, rgb_out, stream
     "rt_texture_shade": [_p, _i, _p, _i, _p, _p, _i, _i, _i, _f, _f, _f, _p, _p],

@@ -1,10 +1,18 @@
-"""K2 (fused primary render) and K3 (deferred trace), one pixel per thread (CUDA).
+"""K2 and K2t (fused primary render, untextured and textured) and K3 (deferred
+trace), one pixel per thread (CUDA).
 
 K2 replaces the TPU kernel `gpu_raytracer_tpu/ops/pallas/render.py`
 (`pallas_render_primary` -> `_kernel`, untextured branch). Kernel source:
-csrc/render_primary.cu, which calls K1's device function (csrc/traverse.cuh)
-for the primary ray and for one shadow ray per light. Its plain version is
-`engine/renderer.py::render_chunk`.
+csrc/render_primary.cuh, instantiated in csrc/render_primary.cu, which calls
+K1's device function (csrc/traverse.cuh) for the primary ray and for one
+shadow ray per light. Its plain version is `engine/renderer.py::render_chunk`.
+
+K2t replaces the textured branch of the same TPU kernel: the same kernel
+template with the hit's uv, its mip footprint and the material sampled from
+the atlas at the nearest mip of that footprint (csrc/texsample.cuh), in one
+launch with no G-buffer; instantiated in csrc/render_primary_textured.cu.
+Its plain version is `render_chunk` on the textured scene (`trilinear=False`).
+`render_primary` launches it for a textured scene.
 
 K3 replaces `pallas_render_deferred` -> `_kernel_deferred` of the same file:
 the first phase of the textured render. Kernel source:
@@ -12,6 +20,12 @@ csrc/render_deferred.cu, which shares K2's camera ray, sphere pass and
 per-light shadowed intensity (csrc/render_common.cuh) and writes one
 32-byte G-buffer record per ray (S rgb, material id, uv, mip footprint, 0).
 Its plain version is `engine/renderer.py::render_gbuffer`.
+
+All three loop over every light in light order, or, given `light_u` (one
+uniform per ray), evaluate the one light min(floor(u * L), L - 1) with one
+shadow ray and weight it by L: the TPU kernels' branch above MAX_LIGHTS
+lights (`_sampled_light`), whose plain version is `render_chunk(...,
+light_u=)` / `render_gbuffer(..., light_u=)`.
 
 The small per-scene rows are packed here with the same PyTorch ops the
 plain path evaluates, on the scene's device, so both read identical values:
@@ -39,7 +53,7 @@ from ..shading import pixel_footprint_scale
 from .build import check, load_kernels
 from .traverse import TraceTables, pack_trace_tables
 
-MAX_LIGHTS = 16   # above this the reference renders by single-sample light selection
+MAX_LIGHTS = 16   # above this `Renderer` hands the kernels a `light_u`, as the JAX package
 
 
 @dataclass
@@ -91,64 +105,92 @@ def pack_render_tables(scene: Scene) -> RenderTables:
     return RenderTables(pack_trace_tables(scene), camera, materials, lights, spheres, fov_scale)
 
 
-def _check_pixels(tables: RenderTables, px: torch.Tensor, py: torch.Tensor, name: str) -> int:
-    """Validate the pixel coordinates -> N; raise for a device that is
-    neither the CPU nor CUDA, or for more lights than the kernels loop over."""
+def _check_pixels(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
+                  light_u: torch.Tensor | None, name: str) -> int:
+    """Validate the pixel coordinates and the light uniforms -> N; raise for
+    a device that is neither the CPU nor CUDA."""
     N = px.shape[0]
-    for arg, x in (("px", px), ("py", py)):
-        if x.dtype != torch.int32 or tuple(x.shape) != (N,) or not x.is_contiguous():
-            raise ValueError(f"{arg}: want contiguous int32 ({N},), got {x.dtype} "
+    wanted = [("px", px, torch.int32), ("py", py, torch.int32)]
+    if light_u is not None:
+        wanted.append(("light_u", light_u, torch.float32))
+    for arg, x, dtype in wanted:
+        if x.dtype != dtype or tuple(x.shape) != (N,) or not x.is_contiguous():
+            raise ValueError(f"{arg}: want contiguous {dtype} ({N},), got {x.dtype} "
                              f"{tuple(x.shape)}")
         if x.device != tables.trace.device:
             raise ValueError(f"{arg} is on {x.device}, the tables on {tables.trace.device}")
     if px.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {px.device}")
-    n_lights = tables.lights.shape[0]
-    if px.device.type == "cuda" and n_lights > MAX_LIGHTS:
-        raise NotImplementedError(f"{n_lights} lights: more than {MAX_LIGHTS} is not ported yet")
     return N
+
+
+def _light_u_ptr(tables: RenderTables, light_u: torch.Tensor | None) -> int:
+    """The kernels' `light_u` argument: null selects the loop over every
+    light (also where there is nothing to choose between)."""
+    return 0 if light_u is None or tables.lights.shape[0] <= 1 else light_u.data_ptr()
 
 
 def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
                    width: int, height: int, shadows: bool = False,
-                   sky=(0.0, 0.0, 0.0)) -> torch.Tensor:
+                   sky=(0.0, 0.0, 0.0), light_u: torch.Tensor | None = None,
+                   shade=None) -> torch.Tensor:
     """Fused frame render of pixels (px, py) [N] int32 -> RGB [N,3] f32 in
-    the given order. CUDA tensors launch the kernel, CPU tensors take the
-    plain version."""
+    the given order, one launch: K2, or K2t for a textured scene, which needs
+    `shade`, the scene's `ops/cuda/texshade.py::pack_shade_tables` (textures
+    at the nearest mip of each hit's footprint). `light_u` [N] f32 selects
+    single-sample light selection. CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
     from ...engine.renderer import render_chunk
 
-    N = _check_pixels(tables, px, py, "render_primary")
+    N = _check_pixels(tables, px, py, light_u, "render_primary")
     if px.device.type == "cpu":
-        return render_chunk(tables.scene, px, py, width, height, shadows=shadows, sky=sky)
-    n_lights = tables.lights.shape[0]
+        return render_chunk(tables.scene, px, py, width, height, shadows=shadows, sky=sky,
+                            light_u=light_u)
+    textured = tables.scene.textures.textured
+    if textured and (shade is None or shade.device != px.device):
+        raise ValueError("render_primary: a textured scene needs its shade tables "
+                         "(pack_shade_tables) on the pixels' device")
     k = load_kernels()
     rgb = torch.empty((N, 3), dtype=torch.float32, device=px.device)
     tr = tables.trace
     sky_r, sky_g, sky_b = (float(c) for c in sky)
     stream = torch.cuda.current_stream(px.device).cuda_stream
-    render_primary.launches += 1
-    check(k.lib.rt_render_primary(
-        tr.nodes.data_ptr(), tr.tris.data_ptr(), tr.stack, tables.camera.data_ptr(),
-        tables.materials.data_ptr(), tables.materials.shape[0], tables.lights.data_ptr(),
-        n_lights, tables.spheres.data_ptr(), tables.spheres.shape[0], px.data_ptr(),
-        py.data_ptr(), N, width, height, int(shadows), sky_r, sky_g, sky_b,
-        rgb.data_ptr(), stream), "rt_render_primary")
+    scene_args = (tables.camera.data_ptr(), tables.materials.data_ptr(),
+                  tables.materials.shape[0], tables.lights.data_ptr(), tables.lights.shape[0],
+                  tables.spheres.data_ptr(), tables.spheres.shape[0])
+    frame_args = (px.data_ptr(), py.data_ptr(), N, width, height, int(shadows), sky_r, sky_g,
+                  sky_b, _light_u_ptr(tables, light_u), rgb.data_ptr(), stream)
+    if textured:
+        render_primary.textured_launches += 1
+        check(k.lib.rt_render_primary_textured(
+            tr.nodes.data_ptr(), tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack, *scene_args,
+            shade.maps.data_ptr(), shade.atlas.data_ptr(), shade.present, shade.n_levels,
+            pixel_footprint_scale(tables.fov_scale, height), *frame_args),
+            "rt_render_primary_textured")
+    else:
+        render_primary.launches += 1
+        check(k.lib.rt_render_primary(tr.nodes.data_ptr(), tr.tris.data_ptr(), tr.stack,
+                                      *scene_args, *frame_args), "rt_render_primary")
     return rgb
 
 
-render_primary.launches = 0
+render_primary.launches = 0            # K2
+render_primary.textured_launches = 0   # K2t
 
 
 def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
-                    width: int, height: int, shadows: bool = False) -> torch.Tensor:
+                    width: int, height: int, shadows: bool = False,
+                    light_u: torch.Tensor | None = None) -> torch.Tensor:
     """Deferred trace of pixels (px, py) [N] int32 -> G-buffer [N,8] f32
-    (engine/renderer.py::render_gbuffer's layout) in the given order. CUDA
-    tensors launch the kernel, CPU tensors take the plain version."""
+    (engine/renderer.py::render_gbuffer's layout) in the given order.
+    `light_u` [N] f32 selects single-sample light selection. CUDA tensors
+    launch the kernel, CPU tensors take the plain version."""
     from ...engine.renderer import GBUFFER_WORDS, render_gbuffer
 
-    N = _check_pixels(tables, px, py, "render_deferred")
+    N = _check_pixels(tables, px, py, light_u, "render_deferred")
     if px.device.type == "cpu":
-        return render_gbuffer(tables.scene, px, py, width, height, shadows=shadows)
+        return render_gbuffer(tables.scene, px, py, width, height, shadows=shadows,
+                              light_u=light_u)
     k = load_kernels()
     gbuf = torch.empty((N, GBUFFER_WORDS), dtype=torch.float32, device=px.device)
     tr = tables.trace
@@ -159,7 +201,8 @@ def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
         tr.nodes.data_ptr(), tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack,
         tables.camera.data_ptr(), tables.lights.data_ptr(), tables.lights.shape[0],
         tables.spheres.data_ptr(), tables.spheres.shape[0], px.data_ptr(), py.data_ptr(),
-        N, width, height, int(shadows), pix, gbuf.data_ptr(), stream), "rt_render_deferred")
+        N, width, height, int(shadows), pix, _light_u_ptr(tables, light_u), gbuf.data_ptr(),
+        stream), "rt_render_deferred")
     return gbuf
 
 

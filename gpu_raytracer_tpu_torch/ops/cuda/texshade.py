@@ -18,6 +18,10 @@ The tables are laid out once per scene, on the scene's device:
 
 `present` is a bitmask over the four map slots: the slots some material
 uses, the only ones the plain path samples.
+
+The same tables serve the textured fused render (K2t,
+ops/cuda/render.py::render_primary with `shade=`) and, inside the bounce
+tables, the path tracer's material sampler.
 """
 
 from __future__ import annotations

@@ -23,6 +23,14 @@ def pack_f16_pair(low, high) -> np.ndarray:
     return (lo | (hi << np.uint32(16))).astype(np.uint32)
 
 
+def unpack_f16_pair_host(packed) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side inverse of `pack_f16_pair`: (low, high) as f32 arrays."""
+    packed = np.asarray(packed).astype(np.uint32)
+    lo = (packed & np.uint32(0xFFFF)).astype(np.uint16).view(np.float16).astype(np.float32)
+    hi = (packed >> np.uint32(16)).astype(np.uint16).view(np.float16).astype(np.float32)
+    return lo, hi
+
+
 def _half_bits_to_f32(bits: torch.Tensor) -> torch.Tensor:
     """[..] integer tensor of 16-bit patterns (0..65535) -> float32."""
     signed = torch.where(bits >= 32768, bits - 65536, bits).to(torch.int16)

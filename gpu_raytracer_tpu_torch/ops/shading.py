@@ -16,6 +16,11 @@ takes a per-ray light sum S (shadowed, material-independent) and computes
 albedo*0.1*occ + (albedo*brdf)*S + emission, the same sum as
 `direct_lighting` refactored over the lights.
 
+Every light is evaluated, in light order, unless a caller passes
+`light_index` [N]: then each ray evaluates only the light it names and
+weights it by the light count, an unbiased estimate of the sum (the
+single-sample branch the render kernels take above MAX_LIGHTS lights).
+
 Every division here is tensor by tensor: PyTorch's CUDA kernels turn a
 division by a Python scalar into a multiplication by its reciprocal, which
 would round differently from the CPU and from the CUDA render kernel.
@@ -141,70 +146,98 @@ def _brdf_scale(metallic: torch.Tensor) -> torch.Tensor:
     return is_metal * 0.5 + (1.0 - is_metal) / pi
 
 
-def light_intensity(scene: Scene, hit: Hit,
-                    shadow_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """[N,L] intensity of each light at the hit points, times the shadow
-    mask when given, before the > 0 contribution gate."""
+def light_rows(x: torch.Tensor, light_index: torch.Tensor | None) -> torch.Tensor:
+    """A per-light column [L,...] laid out for broadcasting against per-ray
+    values [N,1,...]: every light, [1,L,...], or each ray's own light,
+    [N,1,...], when `light_index` [N] names one."""
+    return x[None] if light_index is None else x[light_index][:, None]
+
+
+def sample_light_index(scene: Scene, light_u: torch.Tensor) -> torch.Tensor:
+    """[N] the light each ray picks from its uniform: min(floor(u * L), L - 1)."""
+    n = scene.lights.count
+    return torch.clamp((light_u * n).to(torch.int64), max=n - 1)
+
+
+def light_intensity(scene: Scene, hit: Hit, shadow_mask: torch.Tensor | None = None,
+                    light_index: torch.Tensor | None = None) -> torch.Tensor:
+    """[N,L] intensity of each light at the hit points ([N,1], of each ray's
+    own light, with `light_index`), times the shadow mask when given, before
+    the > 0 contribution gate."""
     L = scene.lights
     n = hit.normal
     p = hit.point
+    intensity = light_rows(L.intensity, light_index)
 
     # normalize() of a zero direction gives NaN, which max0 silences
-    ldir = normalize(L.direction)[None, :, :]                       # [1,L,3]
-    dir_I = max0(dot(n[:, None, :], -ldir)) * L.intensity[None, :]  # [N,L]
+    ldir = light_rows(normalize(L.direction), light_index)          # [1,L,3]
+    dir_I = max0(dot(n[:, None, :], -ldir)) * intensity             # [N,L]
 
-    to_light = L.position[None, :, :] - p[:, None, :]               # [N,L,3]
+    to_light = light_rows(L.position, light_index) - p[:, None, :]  # [N,L,3]
     dist = torch.sqrt(dot(to_light, to_light))
     pl_dir = to_light / dist[..., None]
     atten = f16_roundtrip(torch.reciprocal(1.0 + dist * dist * 0.01))
-    point_I = max0(dot(n[:, None, :], pl_dir)) * L.intensity[None, :] * atten
+    point_I = max0(dot(n[:, None, :], pl_dir)) * intensity * atten
     spot_I = point_I * max0(dot(-ldir, pl_dir))
 
-    lt = L.light_type[None, :]
+    lt = light_rows(L.light_type, light_index)
     I = dir_I * (lt == 0) + point_I * (lt == 1) + spot_I * (lt == 2)
     if shadow_mask is not None:
         I = I * shadow_mask
     return I
 
 
-def light_sum(scene: Scene, hit: Hit, shadow_mask: torch.Tensor | None = None) -> torch.Tensor:
+def light_sum(scene: Scene, hit: Hit, shadow_mask: torch.Tensor | None = None,
+              light_index: torch.Tensor | None = None) -> torch.Tensor:
     """[N,3] material-independent light sum S = sum over lights, in light
-    order, of (I * gate) * colour; 0 on a miss."""
-    I = light_intensity(scene, hit, shadow_mask)
+    order, of (I * gate) * colour; with `light_index` the one sampled light's
+    (I * gate) * L * colour; 0 on a miss."""
+    I = light_intensity(scene, hit, shadow_mask, light_index)
     Ig = I * (I > 0.0).to(torch.float32)
     color = scene.lights.color
-    S = Ig[:, 0, None] * color[0][None, :]
-    for li in range(1, scene.lights.count):
-        S = S + Ig[:, li, None] * color[li][None, :]
+    if light_index is not None:
+        S = (Ig * scene.lights.count) * color[light_index]
+    else:
+        S = Ig[:, 0, None] * color[0][None, :]
+        for li in range(1, scene.lights.count):
+            S = S + Ig[:, li, None] * color[li][None, :]
     return torch.where(hit.hit[:, None], S, torch.zeros_like(S))
 
 
 def direct_lighting(scene: Scene, hit: Hit, shadow_mask: torch.Tensor | None = None,
-                    lam: torch.Tensor | None = None, trilinear: bool = False) -> torch.Tensor:
+                    lam: torch.Tensor | None = None, trilinear: bool = False,
+                    light_index: torch.Tensor | None = None) -> torch.Tensor:
     """Per-ray RGB [N,3] from ambient + punctual lights + emission.
     shadow_mask: optional [N,L] (1 lit, 0 occluded), multiplied into each
     light's intensity before the > 0 contribution gate. `lam` (a mip
-    footprint) and `trilinear` select the texture level."""
+    footprint) and `trilinear` select the texture level. `light_index` [N]:
+    single-sample light selection (shadow_mask is then [N,1])."""
     mid = torch.clamp(hit.material_id, 0, scene.materials.count - 1)
     albedo, emission, metallic, occlusion = material_textures(
         scene, mid, hit.uv, lam=lam, trilinear=trilinear)
-    return lit_by_all_lights(scene, hit, albedo, emission, metallic, occlusion, shadow_mask)
+    return lit_by_all_lights(scene, hit, albedo, emission, metallic, occlusion, shadow_mask,
+                             light_index)
 
 
 def lit_by_all_lights(scene: Scene, hit: Hit, albedo, emission, metallic, occlusion,
-                      shadow_mask: torch.Tensor | None = None) -> torch.Tensor:
+                      shadow_mask: torch.Tensor | None = None,
+                      light_index: torch.Tensor | None = None) -> torch.Tensor:
     """[N,3] ambient + every light in light order + emission, for material
-    parameters already sampled at the hits."""
+    parameters already sampled at the hits; with `light_index` the one
+    sampled light weighted by the light count in place of the sum."""
     L = scene.lights
-    I = light_intensity(scene, hit, shadow_mask)
+    I = light_intensity(scene, hit, shadow_mask, light_index)
     brdf_scale = _brdf_scale(metallic)
     gate = (I > 0.0).to(torch.float32)
-    per_light = (albedo[:, None, :] * brdf_scale[..., None]
-                 * (I * gate)[..., None] * L.color[None, :, :])     # [N,L,3]
-    # the light sum in light order, as the render kernel accumulates it
-    light_total = per_light[:, 0]
-    for li in range(1, L.count):
-        light_total = light_total + per_light[:, li]
+    if light_index is not None:
+        light_total = albedo * brdf_scale * ((I * gate) * L.count) * L.color[light_index]
+    else:
+        per_light = (albedo[:, None, :] * brdf_scale[..., None]
+                     * (I * gate)[..., None] * L.color[None, :, :])     # [N,L,3]
+        # the light sum in light order, as the render kernel accumulates it
+        light_total = per_light[:, 0]
+        for li in range(1, L.count):
+            light_total = light_total + per_light[:, li]
     ambient = albedo * 0.1
     if occlusion is not None:
         ambient = ambient * occlusion[:, None]
@@ -232,11 +265,11 @@ def apply_dispersion(scene: Scene, hit: Hit, lighting: torch.Tensor) -> torch.Te
 
 def shade(scene: Scene, hit: Hit, shadow_mask: torch.Tensor | None = None,
           sky_color=(0.0, 0.0, 0.0), lam: torch.Tensor | None = None,
-          trilinear: bool = False) -> torch.Tensor:
+          trilinear: bool = False, light_index: torch.Tensor | None = None) -> torch.Tensor:
     """Shading for a traced batch -> RGB [N,3]: sky on a miss, magenta for
     an out-of-range material."""
-    color = apply_dispersion(scene, hit, direct_lighting(scene, hit, shadow_mask,
-                                                         lam=lam, trilinear=trilinear))
+    color = apply_dispersion(scene, hit, direct_lighting(
+        scene, hit, shadow_mask, lam=lam, trilinear=trilinear, light_index=light_index))
     invalid = hit.hit & ((hit.material_id < 0)
                          | (hit.material_id >= scene.materials.count))
     dev = color.device

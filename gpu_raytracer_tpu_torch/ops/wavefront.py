@@ -36,7 +36,7 @@ from .linalg import dot, normalize
 from .sampling import (RAY_CAMERA, RAY_REFLECT, RAY_TRANSMIT, cosine_hemisphere,
                        ior_for_channel, reflect, refract, schlick_fresnel)
 from .shading import (MAGENTA, MaterialSample, _brdf_scale, dispersion_blend, light_intensity,
-                      lit_by_all_lights, sample_materials)
+                      lit_by_all_lights, sample_light_index, sample_materials)
 from .trace import Hit, occluded, trace
 
 SKY_WAVEFRONT = (0.1, 0.2, 0.3)
@@ -239,7 +239,7 @@ def sampled_shadow_rays(scene: Scene, hit: Hit, live: torch.Tensor, u6: torch.Te
     1e-3 short of a point light; max_t 0 (no ray) where the lane is not a
     live hit or the light adds nothing."""
     L = scene.lights
-    li = torch.clamp((u6 * L.count).to(torch.int64), max=L.count - 1)
+    li = sample_light_index(scene, u6)
     I = light_intensity(scene, hit).gather(1, li[:, None])[:, 0]
     p, n = hit.point, hit.normal
     to_light = L.position[li] - p

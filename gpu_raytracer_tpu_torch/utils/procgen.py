@@ -1,10 +1,13 @@
-"""Procedural benchmark scene: the courtyard, untextured or textured.
+"""Procedural benchmark scenes: the courtyard, untextured or textured, and
+the material zoo.
 
-A tiled floor heightfield, a grid of boxes and two lights, tuned to a
-target triangle count, with the camera inside. The textured variant binds
-procedural RGBA8 maps (checker floor, brick and plaster boxes) with
-world-space planar uvs. Deterministic per seed and identical to the JAX
-package's `make_courtyard_scene`.
+The courtyard is a tiled floor heightfield, a grid of boxes and two or more
+lights, tuned to a target triangle count, with the camera inside. The
+textured variant binds procedural RGBA8 maps (checker floor, brick and
+plaster boxes) with world-space planar uvs. The zoo is the same box grid
+under dozens of materials and textures (`make_zoo_scene`). Deterministic per
+seed and identical to the JAX package's `make_courtyard_scene` and
+`make_zoo_scene`.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ from ..config import DEFAULT_CONFIG, RaytracerConfig
 from ..models.camera import Camera
 from ..models.geometry import JAX_ATLAS_BUDGET_ROWS, Mesh, Spheres, Textures
 from ..models.light import LightBuilder
-from ..models.material import NO_TEXTURE, TEX_BASE_COLOR, MaterialBuilder
+from ..models.material import (NO_TEXTURE, TEX_BASE_COLOR, TEX_EMISSIVE,
+                               TEX_METALLIC_ROUGHNESS, TEX_OCCLUSION, MaterialBuilder)
 from ..models.scene import Scene, prepare_scene
 
 _BOX_FACES = np.asarray([
@@ -222,3 +226,114 @@ def make_courtyard_scene(target_triangles: int = 100_000, seed: int = 0,
             budget_rows=JAX_ATLAS_BUDGET_ROWS if config.texture_mips > 1 else None)
     return prepare_scene(camera, Spheres.from_rows([]), mesh, mats.build(),
                          lb.build(), textures=textures, config=config, device=device)
+
+
+def zoo_source_images(n_texs: int = 24, seed: int = 0, size: int = 128) -> list[np.ndarray]:
+    """n_texs distinct RGBA8 images, checker / brick / noise in rotation with
+    a palette per index and mixed sizes (every third one half the edge): the
+    zoo's level-0 images in texture-index order."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_texs):
+        c0 = tuple(int(v) for v in rng.integers(120, 255, 3))
+        c1 = tuple(int(v) for v in rng.integers(20, 120, 3))
+        s = size if i % 3 else size // 2
+        kind = i % 3
+        if kind == 0:
+            out.append(make_checker_texture(s, tiles=4 + i % 8, c0=c0, c1=c1))
+        elif kind == 1:
+            out.append(make_brick_texture(s, rows=4 + i % 6, brick=c0, mortar=c1,
+                                          seed=seed + i))
+        else:
+            out.append(make_noise_texture(s, base=c0, seed=seed + i))
+    return out
+
+
+ZOO_ATLAS_BUDGET_ROWS = min(JAX_ATLAS_BUDGET_ROWS, 2048)   # the JAX package's zoo budget
+
+
+def make_zoo_scene(target_triangles: int = 60_000, n_mats: int = 48, n_texs: int = 24,
+                   seed: int = 0, config: RaytracerConfig = DEFAULT_CONFIG,
+                   multi_slot: bool = False, device="cpu") -> Scene:
+    """Material- and texture-count scale scene: the courtyard's box grid
+    under `n_mats` materials cycling six kinds (textured diffuse, metallic-
+    roughness, spec-gloss with a diffuse map, glass, occluded, emissive) over
+    `n_texs` textures. Every textured kind binds a base-colour map;
+    `multi_slot=True` also binds the metallic-roughness, occlusion and
+    emissive maps of kinds 1, 4 and 5. The atlas keeps the JAX package's zoo
+    budget (2048 rows), which drops the finest levels of the largest chains."""
+    rng = np.random.default_rng(seed)
+    mats = MaterialBuilder()
+
+    def slots(**kw):
+        ti = np.full(8, NO_TEXTURE, np.uint32)
+        for k, v in kw.items():
+            ti[{"base": TEX_BASE_COLOR, "mr": TEX_METALLIC_ROUGHNESS,
+                "occ": TEX_OCCLUSION, "emi": TEX_EMISSIVE}[k]] = v
+        return ti
+
+    for i in range(n_mats):
+        t0 = i % n_texs
+        t1 = (i * 7 + 3) % n_texs
+        alb = tuple(rng.uniform(0.4, 1.0, 3))
+        kind = i % 6
+        if kind == 0:       # textured diffuse
+            mats.add(albedo=alb, roughness=1.0, texture_indices=slots(base=t0))
+        elif kind == 1:     # textured metallic-roughness workflow
+            mats.add(albedo=alb, metallic=0.9, roughness=0.3,
+                     texture_indices=(slots(base=t0, mr=t1) if multi_slot
+                                      else slots(base=t0)))
+        elif kind == 2:     # spec-gloss workflow with a diffuse map
+            mats.add(albedo=alb, metallic=0.0, roughness=0.6, material_type=1,
+                     diffuse_factor=alb, specular_color=tuple(rng.uniform(0.2, 1.0, 3)),
+                     glossiness_factor=float(rng.uniform(0.2, 0.9)),
+                     texture_indices=slots(base=t0))
+        elif kind == 3:     # glass, untextured
+            mats.add_glass(alb, 1.5, 0.9)
+        elif kind == 4:     # textured, with an ambient-occlusion map
+            mats.add(albedo=alb, roughness=0.8,
+                     texture_indices=(slots(base=t0, occ=t1) if multi_slot
+                                      else slots(base=t0)))
+        else:               # emissive map
+            mats.add(albedo=alb, emission=tuple(rng.uniform(0, 0.5, 3)),
+                     texture_indices=(slots(base=t0, emi=t1) if multi_slot
+                                      else slots(base=t0)))
+
+    n_boxes = max(target_triangles // 24, n_mats)
+    grid = int(np.ceil(np.sqrt(n_boxes)))
+    spacing = 1.75
+    extent = grid * spacing / 2.0
+    gx, gz = np.meshgrid(np.arange(grid), np.arange(grid), indexing="ij")
+    pos = np.stack([
+        (gx.reshape(-1) - grid // 2 + 0.5) * spacing,
+        np.zeros(grid * grid),
+        (gz.reshape(-1) - grid // 2 + 0.5) * spacing,
+    ], axis=1)[:n_boxes].astype(np.float32)
+    heights = rng.uniform(0.5, 4.0, n_boxes).astype(np.float32)
+    widths = rng.uniform(0.3, 1.2, (n_boxes, 2)).astype(np.float32)
+    sizes = np.stack([widths[:, 0], heights, widths[:, 1]], axis=1)
+    centers = pos + np.stack([np.zeros(n_boxes), heights / 2 + 0.2,
+                              np.zeros(n_boxes)], axis=1)
+    bv, bf = _boxes(centers, sizes)
+    box_mats = (np.arange(n_boxes) % n_mats).astype(np.uint32)
+    hf_tris = max(target_triangles - n_boxes * 12, 2)
+    n = int(np.sqrt(hf_tris / 2)) + 1
+    hv, hfc = _heightfield(n, n, -extent, extent, -extent, extent,
+                           lambda x, z: 0.15 * np.sin(x * 0.8) * np.cos(z * 0.7))
+    verts = np.concatenate([bv, hv])
+    faces = np.concatenate([bf, hfc + bv.shape[0]])
+    tri_mats = np.concatenate([np.repeat(box_mats, 12), np.full(hfc.shape[0], 0, np.uint32)])
+    uv = np.stack([(verts[:, 0] + verts[:, 2]) * 0.5, verts[:, 1] * 0.5],
+                  axis=1).astype(np.float32)
+    mesh = Mesh.from_arrays(verts, faces, tri_mats, uv=uv)
+
+    lb = LightBuilder()
+    lb.add_directional((0.3, -1.0, 0.2), (1.0, 0.98, 0.9), 1.5)
+    lb.add_point((0.0, 8.0, 0.0), (1.0, 0.9, 0.7), 4.0)
+    cam_z = float(np.floor(extent * 0.9 / spacing) * spacing)
+    camera = Camera.create(position=(0.0, 2.5, cam_z), direction=(0.0, -0.12, -1.0), fov=55.0)
+    textures = Textures.from_images(
+        zoo_source_images(n_texs, seed), mips=config.texture_mips,
+        budget_rows=ZOO_ATLAS_BUDGET_ROWS if config.texture_mips > 1 else None)
+    return prepare_scene(camera, Spheres.from_rows([]), mesh, mats.build(), lb.build(),
+                         textures=textures, config=config, device=device)

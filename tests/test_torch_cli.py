@@ -1,5 +1,6 @@
 """`python -m gpu_raytracer_tpu_torch render` and `pathtrace` write a PNG of
-the frame."""
+the frame; `export` writes a GLB that `render --gltf`, `pathtrace --gltf` and
+`info` read back."""
 
 import os
 import struct
@@ -50,8 +51,61 @@ def test_pathtrace_writes_a_png_and_resumes(tmp_path):
 
 
 def test_render_refuses_unported_scenes(tmp_path):
-    proc = _run(["--gltf", "scene.glb", "--device", "cpu", "-o", "x.png"], tmp_path)
+    """What the port still lacks raises; a glTF file that does not load is
+    not among it: the default scene is rendered and the message says why."""
+    proc = _run(["--courtyard", "500", "--bvh-width", "8", "--device", "cpu", "-o", "x.png"],
+                tmp_path)
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
+    proc = _run(["--gltf", "absent.glb", "--width", "16", "--height", "12", "--device", "cpu",
+                 "-o", "x.png"], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "Failed to load glTF scene 'absent.glb'" in proc.stderr
+    assert "using default scene" in proc.stderr and _png_size(tmp_path / "x.png") == (16, 12)
+
+
+@pytest.fixture(scope="module")
+def exported_glb(tmp_path_factory):
+    d = tmp_path_factory.mktemp("glb")
+    proc = _run(["--courtyard", "2000", "--textured", "-o", "court.glb"], d, "export")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "wrote court.glb" in proc.stdout and "triangles)" in proc.stdout
+    return d
+
+
+def test_export_writes_a_glb(exported_glb):
+    data = (exported_glb / "court.glb").read_bytes()
+    assert data[:4] == b"glTF" and struct.unpack("<I", data[8:12])[0] == len(data)
+
+
+def test_render_gltf_equals_the_procedural_render(exported_glb):
+    for args, out in ((["--gltf", "court.glb"], "glb.png"),
+                      (["--courtyard", "2000", "--textured"], "proc.png")):
+        proc = _run([*args, "--width", "64", "--height", "48", "--shadows", "--device", "cpu",
+                     "-o", out], exported_glb)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert (exported_glb / "glb.png").read_bytes() == (exported_glb / "proc.png").read_bytes()
+
+
+def test_info_lists_the_file(exported_glb):
+    proc = _run(["--gltf", "court.glb"], exported_glb, "info")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "cameras: ['camera_0']" in proc.stdout and "lights:  ['light_0', 'light_1']" in proc.stdout
+    assert "materials=5 lights=2 images=3" in proc.stdout
+    proc = _run(["--gltf", "absent.glb"], exported_glb, "info")
+    assert proc.returncode == 1 and "error: cannot read absent.glb" in proc.stderr
+
+
+def test_export_repacks_a_loaded_gltf_and_pathtrace_reads_it(exported_glb):
+    proc = _run(["--gltf", "court.glb", "-o", "again.glb"], exported_glb, "export")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    # the loader re-orders vertices per primitive, so the bytes differ; the content does not
+    summary = [_run(["--gltf", name], exported_glb, "info").stdout
+               for name in ("court.glb", "again.glb")]
+    assert summary[0] == summary[1] and "triangles=" in summary[0]
+    proc = _run(["--gltf", "again.glb", "--width", "16", "--height", "12", "--spp", "1",
+                 "--device", "cpu", "-o", "pt.png"], exported_glb, "pathtrace")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert _png_size(exported_glb / "pt.png") == (16, 12)
 
 
 @pytest.mark.parametrize("flags", [["--adaptive", "4"], ["--denoise"]])

@@ -9,25 +9,30 @@ fields equal and its float fields within 1e-5, except where two triangles
 share the exact same t and the two traversal orders keep different ones
 (counted, and bounded)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import torch_bridge  # noqa: F401  (thread cap)
-from chip_smoke import (bounce_compare, gbuffer_compare, k1_compare, k5_compare, plain_bounces,
-                        pools, primary_ties, random_gbuffer, read_launches, reset_launches,
+from chip_smoke import (ZERO_LAUNCHES, bounce_compare, gbuffer_compare, k1_compare, k5_compare,
+                        mip_boundary_mask, plain_bounces, pools, primary_compare, primary_ties,
+                        random_gbuffer, read_launches, reset_launches, seeded_light_u,
                         shade_compare, synthetic_textured_scene)
 
 from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
-from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_chunk, render_deferred_chunk
+from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, render_chunk,
+                                                     render_deferred_chunk, render_gbuffer)
 from gpu_raytracer_tpu_torch.models.scene import build_default_scene
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
 from gpu_raytracer_tpu_torch.ops.cuda.bounce import pack_bounce_tables
-from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred, render_primary
+from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
+                                                     render_primary)
 from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
 from gpu_raytracer_tpu_torch.ops.cuda.traverse import pack_trace_tables, traverse
 from gpu_raytracer_tpu_torch.ops.trace import traverse_triangles
-from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
+from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene, make_zoo_scene
 
 SCENES = {"default": build_default_scene,
           "courtyard2000": lambda **kw: make_courtyard_scene(2000, seed=1, **kw)}
@@ -139,6 +144,77 @@ def test_texture_shade_kernel_on_random_gbuffers(cuda, case):
         assert shade_compare(tables, g, SKY, trilinear) <= 1e-5
 
 
+FUSED_TEXTURED = dict(TEXTURED,
+                      zoo800=lambda **kw: make_zoo_scene(800, seed=0, **kw),
+                      zoo800_multi_slot=lambda **kw: make_zoo_scene(800, seed=0, multi_slot=True,
+                                                                    **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shadows", [False, True])
+@pytest.mark.parametrize("name", sorted(FUSED_TEXTURED))
+def test_textured_primary_kernel_matches_plain(cuda, name, shadows):
+    """K2t: `render_primary` on a textured scene is one launch of the
+    textured kernel and matches the plain `render_chunk` (live spheres,
+    every wrap mode and map slot, 48 materials, mip chains)."""
+    scene = FUSED_TEXTURED[name](device=cuda)
+    W, H = 160, 120
+    tables, shade = pack_render_tables(scene), pack_shade_tables(scene)
+    r = Renderer(scene, W, H, device=cuda)
+    ties = primary_ties(tables, W, H, r.px, r.py)
+    near = mip_boundary_mask(shade, render_deferred(tables, r.px, r.py, W, H))
+    reset_launches()
+    stats, frame = primary_compare(tables, shade, r.px, r.py, W, H, shadows, ties | near, sky=SKY)
+    assert read_launches() == dict(ZERO_LAUNCHES, k2t=1)
+    assert stats["err"] <= 1e-5 and stats["mean"] > 0.01
+    untextured = render_chunk(dataclasses.replace(scene, textures=type(scene.textures).empty()),
+                              r.px, r.py, W, H, shadows=shadows, sky=SKY)
+    assert (frame - untextured).abs().max().item() > 0.01   # the maps are in the frame
+    with pytest.raises(ValueError, match="shade tables"):
+        render_primary(tables, r.px, r.py, W, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shadows", [False, True])
+@pytest.mark.parametrize("textured", [False, True])
+def test_sampled_light_branch_matches_plain(cuda, textured, shadows):
+    """64 lights: K2 / K2t and K3 with a seeded light_u against the plain
+    single-sample version, and the kernels' loop over every light against
+    the plain loop."""
+    scene = make_courtyard_scene(2000, seed=3, lights=64, textured=textured, device=cuda)
+    W, H = 96, 64
+    tables = pack_render_tables(scene)
+    shade = pack_shade_tables(scene) if textured else None
+    r = Renderer(scene, W, H, device=cuda)
+    ties = primary_ties(tables, W, H, r.px, r.py)
+    u = seeded_light_u(W * H, 5, cuda)
+    sampled, frame = primary_compare(tables, shade, r.px, r.py, W, H, shadows, ties, light_u=u)
+    loop, exact = primary_compare(tables, shade, r.px, r.py, W, H, shadows, ties)
+    assert sampled["err"] <= 1e-5 and loop["err"] <= 1e-5
+    assert not torch.equal(frame, exact)
+    got = render_deferred(tables, r.px, r.py, W, H, shadows=shadows, light_u=u)
+    want = render_gbuffer(scene, r.px, r.py, W, H, shadows=shadows, light_u=u)
+    assert (got - want)[:, :3].abs().amax(dim=1)[~ties].max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_renderer_samples_one_light_above_16(cuda):
+    """Renderer on the card hands the kernels its own light_u above 16
+    lights; frames of successive light_frame values average toward the loop
+    over every light (within 8% in sum over 8 frames)."""
+    scene = make_courtyard_scene(2000, seed=3, lights=64, device=cuda)
+    W, H = 96, 64
+    r = Renderer(scene, W, H, shadows=True, device=cuda)
+    exact = render_chunk(r.scene, r.px, r.py, W, H, shadows=True)
+    acc = torch.zeros_like(exact)
+    for k in range(8):
+        r.light_frame = k
+        acc += r.render_device()
+    assert torch.equal(r.render_device(), r.render_device())
+    rel = abs((acc / 8).sum().item() - exact.sum().item()) / exact.sum().item()
+    assert rel < 0.08
+
+
 BOUNCE = {"courtyard2000": SCENES["courtyard2000"],
           "textured_courtyard2000": TEXTURED["courtyard2000"],
           "synthetic": TEXTURED["synthetic"]}
@@ -191,8 +267,7 @@ def test_pathtracer_step_launches_the_bounce_kernel(cuda, name):
     pt.step()
     n = pt.config.max_bounce_depth + 1
     textured = name.startswith("textured")
-    assert read_launches() == dict(k6=n, k5=n if textured else 0, k5_standalone=0, k2=0,
-                                   k3=0, k4=0, k1_standalone=0)
+    assert read_launches() == dict(ZERO_LAUNCHES, k6=n, k5=n if textured else 0)
     torch.cuda.set_sync_debug_mode("error")   # a step never waits for the device
     try:
         pt.step()

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,6 +34,16 @@ def test_port_never_imports_jax():
         "from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer\n"
         "from gpu_raytracer_tpu_torch.ops.cuda import bounce, build, render, texshade, traverse\n"
         "from gpu_raytracer_tpu_torch import bridge, __main__\n"
+        "from gpu_raytracer_tpu_torch.models import gltf, gltf_export\n"
+        "from gpu_raytracer_tpu_torch.utils import jpeg\n"
+        "from gpu_raytracer_tpu_torch.utils.procgen import make_zoo_scene, zoo_source_images\n"
+        "import os, tempfile\n"
+        "zoo = make_zoo_scene(600, multi_slot=True)\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    gltf_export.export_glb(zoo, os.path.join(d, 'z.glb'), images=zoo_source_images(24))\n"
+        "    back = gltf.scene_from_gltf(os.path.join(d, 'z.glb'))\n"
+        "assert back.num_triangles == zoo.num_triangles and jpeg.scan_decoder() == 'native'\n"
+        "assert Renderer(back, 16, 12, device='cpu').render().shape == (12, 16, 3)\n"
         "for textured in (False, True):\n"
         "    scene = make_courtyard_scene(500, textured=textured)\n"
         "    img = Renderer(scene, 16, 12, shadows=True, device='cpu').render()\n"
@@ -217,13 +228,58 @@ def test_wrapper_sources_have_no_fallback():
         assert "try:" not in src and "except" not in src, name
 
 
-def test_unported_inputs_raise():
+def test_textured_render_primary_never_renders_untextured(monkeypatch):
+    """`render_primary` on a textured scene: the textured plain version on
+    the CPU; on a CUDA-typed call it asks for the shade tables and then
+    builds the kernel or raises: never an untextured frame."""
+    from gpu_raytracer_tpu_torch.engine import renderer
+    from gpu_raytracer_tpu_torch.ops.cuda import render as render_mod
+    from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables
+
+    scene = make_courtyard_scene(500, textured=True)
+    rt = pack_render_tables(scene)
+    py, px = (a.reshape(-1).to(torch.int32).contiguous()
+              for a in torch.meshgrid(torch.arange(12), torch.arange(16), indexing="ij"))
+    got = render_primary(rt, px, py, 16, 12, shadows=True)
+    assert torch.equal(got, renderer.render_chunk(scene, px, py, 16, 12, shadows=True))
+    flat = dataclasses.replace(scene, textures=type(scene.textures).empty())
+    assert not torch.equal(got, renderer.render_chunk(flat, px, py, 16, 12, shadows=True))
+
+    class CudaTyped(torch.Tensor):
+        """A CPU tensor that says it lies on a CUDA device."""
+        device = torch.device("cuda", 0)
+
+    cpx, cpy = px.as_subclass(CudaTyped), py.as_subclass(CudaTyped)
+    cuda_rt = dataclasses.replace(rt, trace=dataclasses.replace(
+        rt.trace, nodes=rt.trace.nodes.as_subclass(CudaTyped)))
+    monkeypatch.setattr(renderer, "render_chunk",
+                        lambda *a, **k: pytest.fail("the plain version was taken"))
+    with pytest.raises(ValueError, match="shade tables"):
+        render_primary(cuda_rt, cpx, cpy, 16, 12)
+    monkeypatch.setattr(render_mod, "load_kernels",
+                        lambda: (_ for _ in ()).throw(RuntimeError("nvcc not found")))
+    shade = pack_shade_tables(scene)
+    shade.materials = shade.materials.as_subclass(CudaTyped)
+    launches = render_primary.textured_launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        render_primary(cuda_rt, cpx, cpy, 16, 12, shade=shade)
+    assert render_primary.textured_launches == launches
+
+
+def test_many_lights_are_not_refused():
+    """17 lights, one past the loop bound of the JAX package's kernels: the
+    CPU route renders them all, and more light than the one-light scene."""
     lb = LightBuilder()
     for i in range(17):
         lb.add_point((float(i), 5.0, 0.0), (1.0, 1.0, 1.0), 1.0)
     scene = dataclasses.replace(build_default_scene(), lights=lb.build())
-    with pytest.raises(NotImplementedError):
-        Renderer(scene, 8, 8, device="cpu")
+    frame = Renderer(scene, 8, 8, shadows=True, device="cpu").render()
+    one_light = Renderer(build_default_scene(), 8, 8, shadows=True, device="cpu").render()
+    assert frame.shape == (8, 8, 3) and np.isfinite(frame).all()
+    assert frame.sum() > 2.0 * one_light.sum()
+
+
+def test_unported_inputs_raise():
     with pytest.raises(NotImplementedError):
         make_courtyard_scene(500, config=RaytracerConfig(bvh_width=8))
     with pytest.raises(NotImplementedError):

@@ -8,7 +8,14 @@ kernel built with -fmad=false) rounds every product. The only pixels allowed
 past the tolerance are counted ones where that choice can matter
 (tests/torch_bridge.py): the f16 attenuation round trip sits on a rounding
 boundary, or f32 rounding alone moves the pixel by more than 1e-6 from a
-float64 evaluation (sphere silhouettes). They may be at most 1% of a frame."""
+float64 evaluation (sphere silhouettes). They may be at most 1% of a frame.
+
+Above 16 lights the JAX kernels evaluate one sampled light per ray, weighted
+by the light count; with the same `light_u` from NumPy the port's plain
+single-sample version agrees with the interpreted kernel within 1e-5 relative
+to max(1, value) (a weight of 64 scales the rounding of a different
+multiplication order), and the mean of 8 draws is within 8% of the exact loop
+in sum, the bar of tests/test_pallas_render.py."""
 
 import numpy as np
 import pytest
@@ -18,12 +25,15 @@ import jax.numpy as jnp
 from torch_bridge import f16_attenuation_flips, port_scene_from_jax, rounding_sensitive_pixels
 
 from gpu_raytracer_tpu.engine.renderer import Renderer as JaxRenderer
+from gpu_raytracer_tpu.engine.renderer import render_chunk as jax_render_chunk
 from gpu_raytracer_tpu.models.scene import build_default_scene as jax_default
 from gpu_raytracer_tpu.ops.pallas.render import pallas_render_primary
 from gpu_raytracer_tpu.reference import cpu_tracer as oracle
 from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
 from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_chunk, tiled_pixel_order
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
+from gpu_raytracer_tpu_torch.ops.cuda.render import MAX_LIGHTS, pack_render_tables, render_primary
+from gpu_raytracer_tpu_torch.ops.shading import sample_light_index
 from gpu_raytracer_tpu_torch.ops.trace import trace
 
 TOL = 1e-5
@@ -132,3 +142,94 @@ def test_set_camera_renders_the_moved_view(scene_pairs):
     moved = r.render()
     fresh = Renderer(ps.with_camera(ctrl.camera()), 32, 24, device="cpu").render()
     assert np.array_equal(moved, fresh) and not np.array_equal(moved, before)
+
+
+# ---- more than MAX_LIGHTS lights ----
+
+@pytest.fixture(scope="module")
+def many_lights():
+    js = jax_courtyard(1500, seed=3, lights=64)
+    ps = port_scene_from_jax(js)
+    assert ps.lights.count == 64 > MAX_LIGHTS
+    px, py = tiled_pixel_order(32, 32, 32)
+    return js, ps, px, py
+
+
+@pytest.mark.parametrize("shadows", [False, True])
+def test_many_lights_render_every_light_on_the_cpu(many_lights, shadows):
+    """64 lights on the CPU: `Renderer` and `render_chunk` loop over every
+    light, as the JAX package's `render_chunk` does."""
+    js, ps, px, py = many_lights
+    W = H = 32
+    want = np.asarray(jax_render_chunk(js, jnp.asarray(px), jnp.asarray(py), W, H,
+                                       shadows=shadows))
+    got = render_chunk(ps, torch.from_numpy(px), torch.from_numpy(py), W, H,
+                       shadows=shadows).numpy()
+    frame = Renderer(ps, W, H, shadows=shadows, device="cpu").render()
+    assert np.array_equal(frame[py, px], got) and got.max() > 1.0
+    _assert_close(frame, _to_frame(want, px, py, W, H), _counted(ps, W, H, shadows))
+
+
+def _to_frame(flat, px, py, W, H):
+    fb = np.zeros((H, W, 3), np.float32)
+    fb[py, px] = flat
+    return fb
+
+
+def _light_u(n, seed):
+    return np.random.default_rng(seed).random(n, dtype=np.float32)
+
+
+@pytest.mark.parametrize("shadows", [False, True])
+def test_sampled_light_frame_matches_the_interpreted_tpu_kernel(many_lights, shadows):
+    js, ps, px, py = many_lights
+    W = H = 32
+    u = _light_u(W * H, 9)
+    want = np.asarray(pallas_render_primary(js, jnp.asarray(px), jnp.asarray(py), W, H,
+                                            shadows=shadows, packet_size=1024, interpret=True,
+                                            light_u=jnp.asarray(u)))
+    got = render_chunk(ps, torch.from_numpy(px), torch.from_numpy(py), W, H, shadows=shadows,
+                       light_u=torch.from_numpy(u)).numpy()
+    assert (np.abs(got - want) <= TOL * np.maximum(1.0, np.abs(want))).all()
+    exact = render_chunk(ps, torch.from_numpy(px), torch.from_numpy(py), W, H, shadows=shadows)
+    assert not np.array_equal(got, exact.numpy())
+    # the wrapper's plain version on the CPU is the same function
+    wrapped = render_primary(pack_render_tables(ps), torch.from_numpy(px), torch.from_numpy(py),
+                             W, H, shadows=shadows, light_u=torch.from_numpy(u))
+    assert np.array_equal(wrapped.numpy(), got)
+
+
+def test_sampled_light_mean_converges_to_the_loop(many_lights):
+    _, ps, px, py = many_lights
+    W = H = 32
+    tpx, tpy = torch.from_numpy(px), torch.from_numpy(py)
+    exact = render_chunk(ps, tpx, tpy, W, H, shadows=True).numpy()
+    mean = sum(render_chunk(ps, tpx, tpy, W, H, shadows=True,
+                            light_u=torch.from_numpy(_light_u(W * H, 100 + k))).numpy()
+               for k in range(8)) / 8
+    assert np.isfinite(mean).all()
+    assert abs(mean.sum() - exact.sum()) / exact.sum() < 0.08
+
+
+def test_light_choice_is_floor_of_u_times_the_count(many_lights, scene_pairs):
+    _, ps, px, py = many_lights
+    u = torch.tensor([0.0, 1.0 / 64, 0.4999, 0.5, 0.99999994])
+    assert sample_light_index(ps, u).tolist() == [0, 1, 31, 32, 63]
+    # one light: nothing to choose, the loop is taken and light_u changes nothing
+    _, demo = scene_pairs["default"]
+    tpx, tpy = torch.from_numpy(px), torch.from_numpy(py)
+    assert torch.equal(render_chunk(demo, tpx, tpy, 32, 32, shadows=True,
+                                    light_u=torch.from_numpy(_light_u(1024, 1))),
+                       render_chunk(demo, tpx, tpy, 32, 32, shadows=True))
+
+
+def test_wrappers_check_light_u(many_lights):
+    _, ps, px, py = many_lights
+    tables = pack_render_tables(ps)
+    tpx, tpy = torch.from_numpy(px), torch.from_numpy(py)
+    with pytest.raises(ValueError, match="light_u"):
+        render_primary(tables, tpx, tpy, 32, 32, light_u=torch.zeros(7))
+    with pytest.raises(ValueError, match="light_u"):
+        render_primary(tables, tpx, tpy, 32, 32, light_u=torch.zeros(1024, dtype=torch.float64))
+    r = Renderer(ps, 32, 32, device="cpu")
+    assert r._light_u(1024) is None and r.light_frame == 0   # the CPU route loops

@@ -14,6 +14,13 @@ Tolerances:
     equal, light sum and uv <= 1e-5, mip footprint <= 1e-5 relative, on
     hit lanes (the kernel leaves a miss lane's light sum undefined);
   * frames: <= 1e-5.
+  * the fused textured render (`render_primary` on a textured scene, the
+    plain version of the textured single-phase kernel): <= 3e-4 against the
+    interpreted TPU kernel, the bar tests/test_pallas_render.py states for
+    it (its atlas planes are bf16 and its sphere uvs come from a polynomial
+    atan2), and <= 1e-5 against the JAX package's `render_chunk`; with 64
+    lights and the same `light_u` from NumPy the sampled light sum of the
+    deferred trace within 1e-5 relative to max(1, value).
 Frames and G-buffers may exceed their bound only at counted pixels where
 the evaluation order can matter (tests/torch_bridge.py): an f16
 attenuation on a rounding boundary, f32 rounding alone moving the pixel by
@@ -35,10 +42,12 @@ from torch_bridge import (f16_attenuation_flips, mip_flip_pixels, port_scene_fro
 from gpu_raytracer_tpu.config import RaytracerConfig as JaxConfig
 from gpu_raytracer_tpu.engine.renderer import Renderer as JaxRenderer
 from gpu_raytracer_tpu.models.geometry import Textures as JaxTextures
-from gpu_raytracer_tpu.ops.pallas.render import pallas_render_deferred
+from gpu_raytracer_tpu.engine.renderer import render_chunk as jax_render_chunk
+from gpu_raytracer_tpu.ops.pallas.render import pallas_render_deferred, pallas_render_primary
 from gpu_raytracer_tpu.ops.pallas.texshade import pallas_texture_shade
 from gpu_raytracer_tpu.ops.shading import shade_deferred as jax_shade_deferred
 from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
+from gpu_raytracer_tpu.utils.procgen import make_zoo_scene as jax_zoo
 from test_texshade import _random_gbuffer, _textured_scene
 
 from chip_smoke import synthetic_textured_scene
@@ -47,11 +56,14 @@ from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, render_deferred_c
                                                      render_gbuffer, split_gbuffer,
                                                      tiled_pixel_order)
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
+from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
+                                                     render_primary)
 from gpu_raytracer_tpu_torch.ops.shading import shade_deferred
 from gpu_raytracer_tpu_torch.ops.trace import trace
 
 TOL = 1e-5
 KERNEL_TOL = 2e-5
+FUSED_KERNEL_TOL = 3e-4
 MAX_COUNTED_SHARE = 0.01
 SKY = (0.1, 0.2, 0.3)
 
@@ -238,3 +250,118 @@ def test_textured_courtyard_renders_texels():
     img = r.render()
     floor = img[40:, :, 0]
     assert np.isfinite(img).all() and floor.max() > 2.0 * max(floor.min(), 1e-3)
+
+
+# ---- the fused textured render (the textured single-phase kernel's plain version) ----
+
+def _random_mesh_scene():
+    """The scene of tests/test_pallas_render.py's single-phase textured
+    parity test: 300 random triangles with random uvs, 3 materials over two
+    small textures, one with occlusion and emissive maps."""
+    from gpu_raytracer_tpu.models.camera import Camera
+    from gpu_raytracer_tpu.models.geometry import Mesh, Spheres
+    from gpu_raytracer_tpu.models.light import LightBuilder
+    from gpu_raytracer_tpu.models.material import MaterialBuilder
+    from gpu_raytracer_tpu.models.scene import prepare_scene
+
+    rng = np.random.default_rng(31)
+    imgs = [rng.integers(0, 256, size=(7, 6, 4), dtype=np.uint8),
+            rng.integers(0, 256, size=(4, 10, 4), dtype=np.uint8)]
+    mb = MaterialBuilder()
+    for i in range(3):
+        ti = np.full(8, 0xFFFFFFFF, np.uint32)
+        ti[0] = i % 2
+        if i == 1:
+            ti[3] = 1    # occlusion
+            ti[4] = 0    # emissive
+        mb.add(albedo=rng.uniform(0.3, 1.0, 3), metallic=float(i == 2), roughness=0.5,
+               emission=rng.uniform(0, 0.4, 3), texture_indices=ti)
+    lb = LightBuilder()
+    lb.add_point((2.0, 5.0, 4.0), (1.0, 1.0, 0.9), 3.0, float("inf"))
+    verts = rng.uniform(-4, 4, (500, 3)).astype(np.float32)
+    idx = rng.integers(0, 500, (300, 3)).astype(np.uint32)
+    uvs = rng.uniform(-1, 2, (500, 2)).astype(np.float32)
+    mesh = Mesh.from_arrays(verts, idx, rng.integers(0, 3, 300).astype(np.uint32), uv=uvs)
+    return prepare_scene(Camera.default(), Spheres.from_rows([]), mesh, mb.build(), lb.build(),
+                         textures=JaxTextures.from_images(imgs))
+
+
+_FUSED_SCENES = {
+    "random_mesh": (_random_mesh_scene, 64),
+    "zoo800_multi_slot": (lambda: jax_zoo(800, seed=0, multi_slot=True), 64),
+    "synthetic_spheres": (lambda: _synthetic_pair(4, mips=4)[0], 32),
+}
+
+
+@pytest.fixture(scope="module")
+def fused_pairs():
+    return {name: (js, port_scene_from_jax(js), size)
+            for name, (js, size) in ((n, (fn(), size)) for n, (fn, size) in _FUSED_SCENES.items())}
+
+
+@pytest.mark.parametrize("shadows", [False, True])
+@pytest.mark.parametrize("name", sorted(_FUSED_SCENES))
+def test_textured_render_primary_matches_jax(fused_pairs, name, shadows):
+    """`render_primary` on a textured scene renders it textured (it was
+    untextured on the card and textured on the CPU): against the JAX
+    package's interpreted single-phase kernel and its `render_chunk`."""
+    js, ps, size = fused_pairs[name]
+    W = H = size
+    px, py = tiled_pixel_order(W, H, 64)
+    jpx, jpy = jnp.asarray(px), jnp.asarray(py)
+    tpx, tpy = torch.from_numpy(px), torch.from_numpy(py)
+    got = render_primary(pack_render_tables(ps), tpx, tpy, W, H, shadows=shadows,
+                         sky=SKY).numpy()
+    kernel = np.asarray(pallas_render_primary(js, jpx, jpy, W, H, shadows=shadows, sky=SKY,
+                                              packet_size=1024, interpret=True))
+    counted = _counted(ps, W, H, shadows, sky=SKY).reshape(-1)[_frame_index(tpx, tpy, W)]
+    _assert_close(np.abs(got - kernel).max(axis=1), counted, FUSED_KERNEL_TOL)
+    chunk = np.asarray(jax_render_chunk(js, jpx, jpy, W, H, shadows=shadows, sky=SKY))
+    _assert_close(np.abs(got - chunk).max(axis=1), counted)
+    flat = dataclasses.replace(ps, textures=type(ps.textures).empty())
+    untextured = render_primary(pack_render_tables(flat), tpx, tpy, W, H, shadows=shadows,
+                                sky=SKY).numpy()
+    assert np.abs(got - untextured).max() > 0.01   # the maps are in the frame
+
+
+@pytest.fixture(scope="module")
+def many_lights_textured():
+    js = jax_courtyard(1500, seed=3, lights=64, textured=True)
+    px, py = tiled_pixel_order(32, 32, 32)
+    u = np.random.default_rng(9).random(1024, dtype=np.float32)
+    return js, port_scene_from_jax(js), px, py, u
+
+
+@pytest.mark.parametrize("shadows", [False, True])
+def test_sampled_light_textured_frame_matches_the_interpreted_tpu_kernel(many_lights_textured,
+                                                                         shadows):
+    js, ps, px, py, u = many_lights_textured
+    W = H = 32
+    want = np.asarray(pallas_render_primary(js, jnp.asarray(px), jnp.asarray(py), W, H,
+                                            shadows=shadows, packet_size=1024, interpret=True,
+                                            light_u=jnp.asarray(u)))
+    got = render_primary(pack_render_tables(ps), torch.from_numpy(px), torch.from_numpy(py),
+                         W, H, shadows=shadows, light_u=torch.from_numpy(u)).numpy()
+    assert (np.abs(got - want) <= FUSED_KERNEL_TOL * np.maximum(1.0, np.abs(want))).all()
+
+
+@pytest.mark.parametrize("shadows", [False, True])
+def test_sampled_light_gbuffer_matches_the_interpreted_tpu_kernel(many_lights_textured, shadows):
+    js, ps, px, py, u = many_lights_textured
+    W = H = 32
+    want = np.asarray(pallas_render_deferred(js, jnp.asarray(px), jnp.asarray(py), W, H,
+                                             shadows=shadows, packet_size=1024, interpret=True,
+                                             light_u=jnp.asarray(u), return_gbuffer=True))
+    tpx, tpy, tu = torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(u)
+    gbuf = render_deferred(pack_render_tables(ps), tpx, tpy, W, H, shadows=shadows, light_u=tu)
+    plain = render_gbuffer(ps, tpx, tpy, W, H, shadows=shadows, light_u=tu)
+    assert torch.equal(gbuf.view(torch.int32), plain.view(torch.int32))   # a miss's id is NaN bits
+    S, mat, _, _ = split_gbuffer(gbuf)
+    hit = mat.numpy() >= 0
+    assert np.array_equal(mat.numpy(), want[:, 3].astype(np.int64))
+    ok = np.abs(S.numpy() - want[:, :3]) <= TOL * np.maximum(1.0, np.abs(want[:, :3]))
+    assert ok[hit].all() and S.numpy()[hit].max() > 1.0
+    # the two-phase frame from that G-buffer equals the fused one to a few ulp
+    two_phase = render_deferred_chunk(ps, tpx, tpy, W, H, shadows=shadows, light_u=tu)
+    fused = render_primary(pack_render_tables(ps), tpx, tpy, W, H, shadows=shadows, light_u=tu)
+    assert (two_phase - fused).abs().max().item() <= TOL * max(1.0, fused.max().item())
