@@ -11,8 +11,9 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      the 1920x1080 frame and on 262,144 shadow rays toward the point light;
   4. K2 (fused render) against the plain render_chunk on the full frame,
      shadows off and on, and on the default scene at 256x256;
-  5. the main path, Renderer.render_device() at 1920x1080, timed with CUDA
-     events, with the kernel launch counts of that run;
+  5. the main path, Renderer.render_device() at 1920x1080 (on the card in
+     8 x 4-pixel warps), timed with CUDA events, with the kernel launch
+     counts of that run;
   6. build the textured 100k courtyard (4096-texel floor map, mips) and
      pack its tables to the card;
   7. K3 (deferred trace) against the plain G-buffer on the full frame,
@@ -22,20 +23,25 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      mode, map slot and mip chains, nearest and trilinear;
   9. the textured main path, Renderer.render_device() at 1920x1080 (K3 then
      K4), timed, with the launch counts of that run;
- 10. K6 (the path tracer's bounce) against the plain bounce on the
-     1024x1024 camera pool (depth 0) and on the depth-2 pool of the main
-     path (spectral, shadows, one sampled light, roulette);
+ 10. K6 (the path tracer's bounce, in place on the live lanes of a coherence
+     order, QMC uniforms made in the kernel) against its plain version on
+     the 1024x1024 camera pool (depth 0) and on the depth-2 pool of the main
+     path (spectral, shadows, one sampled light, roulette): every lane of
+     the pool compared, dead lanes bit-unchanged;
  11. the same on the textured courtyard and on a textured synthetic scene
      with live spheres (glass, metal, split lanes; mip chains), texture LOD
      bias 0 and 1, and on glass of IOR 1 (NaN lanes); then K5 (the material
      sampler, a device function of K6) launched on its own against its
-     plain version;
+     plain version; then the kernel's QMC stream launched on its own, bit for
+     bit against ops/sampler.py's;
  12. the main path, PathTracer.step() at 1024x1024 on both courtyards
      (spectral, shadows, QMC anti-aliasing, depth 4): ms per sample, the
      launch counts of that run (K6 five times per step, no other kernel),
-     the per-stage breakdown, the plain step on the card, the 4-spp image
-     against the plain path's, the K6 roofline bound, and the time per
-     sample with the coherence sort skipped (a reading, not an option);
+     the per-stage breakdown (no uniform tensor is drawn outside the
+     bounce), the plain step on the card, the 4-spp image against the plain
+     path's, the K6 roofline bound beside the previous design's, the SIMT
+     efficiency of the walk per depth, and the time per sample with the
+     coherence order skipped (a reading, not an option);
  13. the GLB round trip at scale: the textured 100k courtyard through
      export_glb and scene_from_gltf (seconds, file size), both scenes
      rendered at 1920x1080 by Renderer, max |frame(GLB) - frame(procedural)|
@@ -57,6 +63,8 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      the centre crop), and Renderer's own route (it draws light_u itself);
  17. PathTracer on the GLB-loaded zoo at 1024x1024, 2 samples: K6 five
      times per sample, no host sync inside a step.
+Then the frame kernels' roofline bounds with the SIMT efficiency of the
+walk on camera and shadow rays (a counter in the kernel).
 The card line, then the per-kernel JSON summary, then the last line
 {"ok": true, "device": {...}}.
 """
@@ -146,6 +154,26 @@ def timed(fn, n: int, device) -> float:
     return statistics.median(times)
 
 
+def frame_pixels(width, height, device):
+    """The frame's pixel coordinates on `device` in Renderer's order there:
+    tile-major, on a CUDA device in 8 x 4 blocks inside the tiles."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.renderer import WARP_BLOCK, tiled_pixel_order
+
+    warp = WARP_BLOCK if torch.device(device).type == "cuda" else None
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in tiled_pixel_order(width, height, warp=warp))
+
+
+def simt_efficiency(work) -> dict:
+    """SIMT efficiency of the walk's two bodies from traversal_work's [N,4]
+    counts: the lanes at work per warp iteration, as a share of 32."""
+    n, t, wn, wt = (float(x) for x in work.sum(dim=0).tolist())
+    return dict(node_body=n / (32.0 * wn) if wn else None,
+                triangle_body=t / (32.0 * wt) if wt else None)
+
+
 def primary_rays(scene, width, height, px, py):
     from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
 
@@ -186,17 +214,16 @@ def k1_compare(tables, o, d, max_t):
 
 def phase_k1(scene, tables, width, height, n_shadow, device, card):
     """K1 against the plain traversal on every camera ray of the frame (in
-    the main path's tile-major order) and on n_shadow shadow rays from
+    the main path's order) and on n_shadow shadow rays from
     those hits toward the point light -> (stats, per-pixel tie mask)."""
     import numpy as np
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
     from gpu_raytracer_tpu_torch.ops.linalg import dot
     from gpu_raytracer_tpu_torch.ops.trace import traverse_triangles
 
-    px, py = (torch.from_numpy(a).to(device) for a in tiled_pixel_order(width, height))
+    px, py = frame_pixels(width, height, device)
     o, d = primary_rays(scene, width, height, px, py)
     far = torch.full((px.shape[0],), 3.4028234663852886e38, device=device)
     prim, ties = k1_compare(tables, o, d, far)
@@ -464,10 +491,10 @@ def phase_k3(scene, tables, width, height, device, card):
     and on, and on the synthetic scene (live spheres, so sphere uvs)."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import render_gbuffer, tiled_pixel_order
+    from gpu_raytracer_tpu_torch.engine.renderer import render_gbuffer
     from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables, render_deferred
 
-    px, py = (torch.from_numpy(a).to(device) for a in tiled_pixel_order(width, height))
+    px, py = frame_pixels(width, height, device)
     ties = primary_ties(tables, width, height, px, py)
     out, gbufs = {}, {}
     for shadows in (False, True):
@@ -475,7 +502,7 @@ def phase_k3(scene, tables, width, height, device, card):
         out[key], gbufs[shadows] = gbuffer_compare(tables, px, py, width, height, shadows, ties)
     synth = synthetic_textured_scene(0, mips=4, device=device)
     st = pack_render_tables(synth)
-    spx, spy = (torch.from_numpy(a).to(device) for a in tiled_pixel_order(256, 256))
+    spx, spy = frame_pixels(256, 256, device)
     sties = primary_ties(st, 256, 256, spx, spy)
     for shadows in (False, True):
         key = f"synthetic_256_{'shadows' if shadows else 'no_shadows'}"
@@ -627,42 +654,51 @@ def camera_pool(tables, width, height, sample=0, seed=0):
 
 
 def pools(tables, width, height, depths, tex_lod_bias=0.0):
-    """(depth, pool, uniforms, bounce arguments) of one path-tracer sample
-    at each of `depths`: the main path's pools, advanced by the plain bounce
-    and sorted between depths as the main path sorts them."""
+    """(depth, pool, order, live count, QMC stream, bounce arguments) of one
+    path-tracer sample at each of `depths`: the main path's pools, advanced
+    in place by the plain bounce and ordered between depths as the main path
+    orders them. The pool yielded is a copy."""
     import torch
 
-    from gpu_raytracer_tpu_torch.ops.wavefront import (_coherence_sort, _pool_uniforms, bounce,
-                                                       bounce_flags)
+    from gpu_raytracer_tpu_torch.ops.sampler import QmcStream
+    from gpu_raytracer_tpu_torch.ops.wavefront import bounce_, bounce_flags, coherence_order
 
     scene = tables.scene
     r = camera_pool(tables, width, height)
-    N = r.count
-    rad = torch.zeros((N, 3), dtype=torch.float32, device=tables.device)
-    orig = torch.arange(N, dtype=torch.int32, device=tables.device)
+    rad = torch.zeros((r.count, 3), dtype=torch.float32, device=tables.device)
+    qmc = QmcStream()
+    order = None
     for depth in range(max(depths) + 1):
+        n_live = r.active.sum()
         if depth > 0:
-            r, rad, orig = _coherence_sort(scene, r, rad, orig)
-        u = _pool_uniforms(depth, N, orig, True)
+            order = coherence_order(scene, r, order)
         flags = bounce_flags(scene, depth, MAX_DEPTH, RR_START, True, tex_lod_bias)
         if depth in depths:
-            yield depth, r, u, flags
+            yield depth, r.clone(), order, n_live if depth else None, qmc, flags
         if depth < max(depths):
-            r = bounce(scene, r, u, **flags)[0]
+            bounce_(scene, r, rad, depth=depth, order=order, n_live=n_live if depth else None,
+                    qmc=qmc, **flags)
 
 
-def bounce_compare(tables, r, u, flags):
-    """K6 against the plain bounce on one pool: integer fields and `active`
-    equal, float fields and radiance within RGB_TOL with NaN in the same
-    lanes, outside live lanes whose closest triangle the two traversal
-    orders pick differently at the exact same t (counted)."""
+def bounce_compare(tables, r, flags, *, depth=0, order=None, n_live=None, qmc=None, u=None):
+    """K6 against its plain version on one pool, both in place on copies:
+    over the WHOLE pool (so a lane the launch must not touch is held to bit
+    equality) integer fields and `active` equal, float fields and the
+    radiance (accumulated onto a non-zero start) within RGB_TOL with NaN in
+    the same lanes, outside live lanes whose closest triangle the two
+    traversal orders pick differently at the exact same t (counted). The
+    uniforms are `u` by position, or the QMC stream `qmc` at `depth`, which
+    the kernel computes itself."""
     import torch
 
-    from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce
-    from gpu_raytracer_tpu_torch.ops.wavefront import bounce
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce_
+    from gpu_raytracer_tpu_torch.ops.wavefront import bounce_
 
-    got, grad = fused_bounce(tables, r, u, **flags)
-    want, wrad = bounce(tables.scene, r, u, **flags)
+    start = torch.full((r.count, 3), 0.25, dtype=torch.float32, device=tables.device)
+    got, grad, want, wrad = r.clone(), start.clone(), r.clone(), start.clone()
+    kw = dict(flags, depth=depth, order=order, n_live=n_live, qmc=qmc, u=u)
+    fused_bounce_(tables, got, grad, **kw)
+    bounce_(tables.scene, want, wrad, **kw)
     far = torch.full((r.count,), F32_MAX, device=tables.device)
     ties = k1_compare(tables.render.trace, r.origin, r.direction, far)[1] & r.active
     keep = ~ties
@@ -687,6 +723,14 @@ def bounce_compare(tables, r, u, flags):
         raise AssertionError(f"K6 off the plain bounce by {err} ({flags})")
     if n_ties > TIE_BUDGET * r.count:
         raise AssertionError(f"{n_ties} tie lanes > {TIE_BUDGET:.2%} of the pool")
+    # what the launch must leave alone: a dead lane, bit for bit
+    dead = ~r.active
+    for name in ("origin", "direction", "throughput", "medium_ior", "wavelength_channel",
+                 "ray_type", "bounce_depth", "active"):
+        if not torch.equal(getattr(got, name)[dead], getattr(r, name)[dead]):
+            raise AssertionError(f"K6 wrote {name} of a dead lane")
+    if not torch.equal(grad[dead], start[dead]):
+        raise AssertionError("K6 added radiance to a dead lane")
     return dict(lanes=r.count, live=int(r.active.sum()), next_live=int(got.active.sum()),
                 ties=n_ties, max_abs_err=max(err.values()),
                 nan_lanes=int(torch.isnan(grad).any(dim=1).sum()))
@@ -696,8 +740,9 @@ def phase_k6(tables, width, height, label, biases=(0.0,), depths=(0, 2)):
     """K6 against the plain bounce on the main path's pools of one scene."""
     out = {}
     for bias in biases:
-        for depth, r, u, flags in pools(tables, width, height, depths, bias):
-            out[f"{label}_lod_bias{bias:g}_depth{depth}"] = bounce_compare(tables, r, u, flags)
+        for depth, r, order, n_live, qmc, flags in pools(tables, width, height, depths, bias):
+            out[f"{label}_lod_bias{bias:g}_depth{depth}"] = bounce_compare(
+                tables, r, flags, depth=depth, order=order, n_live=n_live, qmc=qmc)
     return out
 
 
@@ -752,6 +797,40 @@ def phase_k5(ttables, synth_tables, device, card, size):
     return out
 
 
+def phase_qmc(device, card, n):
+    """Phase 11c: the bounce kernel's own QMC numbers (a standalone launch of
+    its stream, csrc/qmc.cu) against ops/sampler.py's on the card, bit for
+    bit, over seeds, depths, sample bases and samples per step across the
+    uint32 range."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import qmc_uniforms_kernel
+    from gpu_raytracer_tpu_torch.ops.sampler import QmcStream
+    from gpu_raytracer_tpu_torch.ops.wavefront import pool_uniforms
+
+    cases = [(QmcStream(), 0), (QmcStream(0, 7, 12345, 1), 2), (QmcStream(0, 3, 2**31 + 5, 4), 4),
+             (QmcStream(2**32 - 1000, 2**32 - 3, 2**32 - 1, 2), 63)]
+    lane = torch.arange(n, device=device)
+    checked = 0
+    for stream, depth in cases:
+        got = qmc_uniforms_kernel(stream, depth, n, device)
+        want = pool_uniforms(stream, depth, lane, n)
+        if not torch.equal(got, want):
+            bad = int((got != want).any(dim=1).sum())
+            raise AssertionError(f"in-kernel QMC uniforms differ from qmc_uniforms on {bad} of "
+                                 f"{n} lanes ({stream}, depth {depth})")
+        if got.min().item() < 0.0 or got.max().item() >= 1.0:
+            raise AssertionError("in-kernel QMC uniforms outside [0, 1)")
+        checked += got.numel()
+    stream, depth = cases[1]
+    out = dict(bit_equal_values=checked, cases=len(cases),
+               ms=timed(lambda: qmc_uniforms_kernel(stream, depth, n, device), FRAMES, device),
+               plain_ms=timed(lambda: pool_uniforms(stream, depth, lane, n), PLAIN_FRAMES,
+                              device), card=card)
+    log(f"phase 11c in-kernel QMC uniforms of {n} lanes: {json.dumps(out)}")
+    return out
+
+
 class _swap:
     """Replace an attribute for the duration of a `with` block."""
 
@@ -770,35 +849,36 @@ class _swap:
 def plain_bounces():
     """Within the block the path tracer runs the plain bounce on the card."""
     from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
-    from gpu_raytracer_tpu_torch.ops.wavefront import bounce
+    from gpu_raytracer_tpu_torch.ops.wavefront import bounce_
 
-    return _swap(bounce_mod, "fused_bounce",
-                 lambda tables, r, u, **flags: bounce(tables.scene, r, u, **flags))
+    return _swap(bounce_mod, "fused_bounce_",
+                 lambda tables, r, radiance, **kw: bounce_(tables.scene, r, radiance, **kw))
 
 
 def recorded_bounces(record: list):
-    """Within the block every K6 call also appends its (pool, uniforms,
-    arguments) to `record`."""
+    """Within the block every K6 call also appends a copy of its pool as it
+    was before the bounce, and its arguments, to `record`."""
     from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
 
-    kernel = bounce_mod.fused_bounce
+    kernel = bounce_mod.fused_bounce_
 
-    def rec(tables, r, u, **flags):
-        record.append((r, u, flags))
-        with _swap(bounce_mod, "fused_bounce", kernel):   # its launch counter
-            return kernel(tables, r, u, **flags)
+    def rec(tables, r, radiance, **kw):
+        record.append((r.clone(), kw))
+        with _swap(bounce_mod, "fused_bounce_", kernel):   # its launch counter
+            return kernel(tables, r, radiance, **kw)
 
-    return _swap(bounce_mod, "fused_bounce", rec)
+    return _swap(bounce_mod, "fused_bounce_", rec)
 
 
 class StageTimer:
     """Per-stage CUDA events of PathTracer steps, recorded by wrapping
     module functions for the duration of a `with` block (the package has
     no timing hook): the camera pool ends where the depth loop
-    (path_trace_pool) is entered; each coherence sort, uniforms block and
-    bounce ends where it returns (a depth's live count falls into its sort,
-    or at depth 0 its uniforms); the scatter back ends where the loop
-    returns, the accumulate with the step. Off the card it records
+    (path_trace_pool) is entered; each coherence order, uniforms block (the
+    independent stream only: the QMC numbers are made inside the bounce) and
+    bounce ends where it returns (a depth's live count falls into its order,
+    or at depth 0 its bounce); what the loop does after its last bounce ends
+    where it returns, the accumulate with the step. Off the card it records
     nothing."""
 
     def __init__(self, device):
@@ -839,10 +919,10 @@ class StageTimer:
         from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
 
         self.stack = contextlib.ExitStack()
-        for swap in (self._wrap(pathtracer, "path_trace_pool", "camera", "unscramble"),
-                     self._wrap(wavefront, "_coherence_sort", stage_out="sort"),
-                     self._wrap(wavefront, "_pool_uniforms", stage_out="uniforms"),
-                     self._wrap(bounce_mod, "fused_bounce", stage_out="bounce")):
+        for swap in (self._wrap(pathtracer, "path_trace_pool", "camera", "counts"),
+                     self._wrap(wavefront, "coherence_order", stage_out="sort"),
+                     self._wrap(wavefront, "stream_uniforms", stage_out="uniforms"),
+                     self._wrap(bounce_mod, "fused_bounce_", stage_out="bounce")):
             self.stack.enter_context(swap)
         return self
 
@@ -887,6 +967,7 @@ def device_profile(fn, steps: int, device) -> dict:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize(device)
+    int64_elementwise = 0.0
     kinds = (("k6", "bounce_kernel"), ("sort", "sort"), ("sort", "radix"),
              ("gather_scatter", "index"), ("elementwise", "elementwise"),
              ("reduce", "reduce"))
@@ -897,22 +978,38 @@ def device_profile(fn, steps: int, device) -> dict:
         if t > 0:
             kind = next((k for k, word in kinds if word in e.key.lower()), "other")
             by_kind[kind] = by_kind.get(kind, 0.0) + t / steps / 1e3
+            if kind == "elementwise" and ("long" in e.key or "int64" in e.key):
+                int64_elementwise += t / steps / 1e3
     return dict(device_ms=sum(by_kind.values()), k6_device_ms=by_kind.get("k6", 0.0),
-                host_enqueue_ms=statistics.median(enqueue), device_ms_by_kind=by_kind)
+                host_enqueue_ms=statistics.median(enqueue), device_ms_by_kind=by_kind,
+                int64_elementwise_ms=int64_elementwise)
+
+
+POOL_READ_BYTES = 45      # per lane worked on: origin, direction, throughput 12 each, medium
+                          # and channel 4 each, active 1
+POOL_WRITE_BYTES = 52     # per survivor: origin, direction, throughput, channel, type, depth
+                          # (read and written)
+RADIANCE_BYTES = 24       # per lane worked on: 12 read, 12 written
 
 
 def bounce_bound(tables, record):
-    """Bytes and FP32 operations of the recorded K6 launches of one step:
-    each pool field read once, the uniforms of live hits only (the kernel
-    reads no other), each output written once, the tables read once per
-    launch, and the work of the closest-hit and shadow walks that these
-    pools need (K1's own walk, counted on the card), spheres, shading and
-    sampling per lane."""
+    """Bytes and FP32 operations of the recorded K6 launches of one step.
+    Bytes: per lane worked on the pool fields it reads and its radiance
+    read and written, 4 bytes of order where the launch has one, per
+    survivor the continuation written over it and per retired lane its
+    flag; the uniforms only where the launch is handed them (28 bytes per
+    hit; none when the kernel makes them); the tables once per launch.
+    Operations: the closest-hit and shadow walks that these pools need
+    (K1's own walk, counted on the card, in the launch's lane order, which
+    also gives the SIMT efficiency of both bodies), spheres, shading and
+    sampling per lane. `old_design` is the same step under the design
+    before the in-place kernel: every lane of the pool read (53 bytes) and
+    written (65), alive or not, and 4 bytes per uniform a live hit read."""
     import torch
 
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import traversal_work
     from gpu_raytracer_tpu_torch.ops.trace import trace
-    from gpu_raytracer_tpu_torch.ops.wavefront import sampled_shadow_rays
+    from gpu_raytracer_tpu_torch.ops.wavefront import pool_uniforms, sampled_shadow_rays
 
     scene, rt, sh = tables.scene, tables.render, tables.shade
     tr = rt.trace
@@ -921,50 +1018,66 @@ def bounce_bound(tables, record):
         tbytes += table_bytes(tr.attrs, sh.maps, sh.atlas)
     n_sph = rt.spheres.shape[0]
     n_maps = bin(sh.present).count("1") if sh is not None else 0
-    total_bytes = total_flops = 0.0
+    total_bytes = total_flops = old_bytes = 0.0
     walks = []
-    for r, u, flags in record:
+    lives = [int(r.active.sum()) for r, _ in record] + [0]
+    for k, (r, kw) in enumerate(record):
         N = r.count
-        # uniform columns a live hit reads: u6 picks the light, u0-u5 sample
-        # the continuation; a dead lane or a miss reads none
-        u_cols = (1 if flags["light_sample"] else 0) + (0 if flags["last"] else 6)
-        live = r.active
-        limit = torch.where(live, torch.full_like(r.medium_ior, F32_MAX),
-                            torch.zeros_like(r.medium_ior))
-        closest = traversal_work(tr, r.origin, r.direction, limit)
-        hit = trace(scene, r.origin, r.direction, max_t=limit)
-        hit_live = live & hit.hit
+        order, n_live = kw.get("order"), kw.get("n_live")
+        sel = torch.arange(N, device=tables.device) if order is None else order.long()
+        if n_live is not None:
+            sel = sel[:int(n_live)]
+        sel = sel[r.active[sel]]                     # the lanes worked on, in launch order
+        o, d = r.origin[sel].contiguous(), r.direction[sel].contiguous()
+        far = torch.full((sel.shape[0],), F32_MAX, device=tables.device)
+        closest = traversal_work(tr, o, d, far)
+        hit = trace(scene, o, d, max_t=far)
         flops = walk_flops(closest)
-        n_live, n_hit = int(live.sum()), int(hit_live.sum())
-        n_shadow = 0
-        if flags["shadows"]:
-            if not flags["light_sample"]:
+        n_live_lanes, n_hit = int(sel.shape[0]), int(hit.hit.sum())
+        if n_live_lanes != lives[k]:
+            raise AssertionError(f"launch {k} works on {n_live_lanes} lanes, {lives[k]} live")
+        n_shadow, shadow_simt = 0, None
+        if kw["shadows"]:
+            if not kw["light_sample"]:
                 raise AssertionError("the main path samples one light per hit")
-            _, _, so, sd, smax = sampled_shadow_rays(scene, hit, hit_live, u[:, 6])
+            u = (kw["u"][:sel.shape[0]] if kw.get("u") is not None
+                 else pool_uniforms(kw["qmc"], kw["depth"], sel, N))
+            _, _, so, sd, smax = sampled_shadow_rays(scene, hit, hit.hit, u[:, 6])
             shadow = traversal_work(tr, so.contiguous(), sd.contiguous(), smax.contiguous(),
                                     any_hit=True)
             flops += walk_flops(shadow)
             n_shadow = int((smax > 0).sum())
-        flops += (n_live + n_shadow) * n_sph * SPHERE_FLOPS
+            shadow_simt = simt_efficiency(shadow)
+        flops += (n_live_lanes + n_shadow) * n_sph * SPHERE_FLOPS
         flops += n_hit * (SHADE_FLOPS + n_maps * TEXEL_FLOPS)
-        if not flags["last"]:
+        if not kw["last"]:
             flops += n_hit * SAMPLE_FLOPS
         total_flops += flops
-        # per lane 53 B of pool in and 65 B out; 4 B per uniform a live hit reads
-        total_bytes += N * (53 + 65) + n_hit * 4 * u_cols + tbytes
-        walks.append(dict(live=n_live, hits=n_hit, shadow_rays=n_shadow,
-                          nodes=int(closest[:, 0].sum()), tris=int(closest[:, 1].sum())))
+        survivors = lives[k + 1]
+        u_cols = (1 if kw["light_sample"] else 0) + (0 if kw["last"] else 6)
+        given_u = kw.get("u") is not None
+        total_bytes += (n_live_lanes * (POOL_READ_BYTES + RADIANCE_BYTES
+                                        + (4 if order is not None else 0))
+                        + survivors * POOL_WRITE_BYTES + (n_live_lanes - survivors)
+                        + (n_hit * 4 * u_cols if given_u else 0)
+                        + (8 if n_live is not None else 0) + tbytes)
+        old_bytes += N * (53 + 65) + n_hit * 4 * u_cols + tbytes
+        walks.append(dict(live=n_live_lanes, hits=n_hit, shadow_rays=n_shadow,
+                          nodes=int(closest[:, 0].sum()), tris=int(closest[:, 1].sum()),
+                          simt_closest=simt_efficiency(closest), simt_shadow=shadow_simt))
     ms, by = bound_ms(total_bytes, total_flops)
-    return dict(bound_ms=ms, bound_by=by, bytes=total_bytes, flops=total_flops, walks=walks)
+    old_ms, old_by = bound_ms(old_bytes, total_flops)
+    return dict(bound_ms=ms, bound_by=by, bytes=total_bytes, flops=total_flops, walks=walks,
+                old_design=dict(bound_ms=old_ms, bound_by=old_by, bytes=old_bytes))
 
 
 def _launch_counters():
-    from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce, sample_materials
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce_, sample_materials
     from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred, render_primary
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import texture_shade
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
 
-    return dict(k6=(fused_bounce, "launches"), k5=(fused_bounce, "material_launches"),
+    return dict(k6=(fused_bounce_, "launches"), k5=(fused_bounce_, "material_launches"),
                 k5_standalone=(sample_materials, "launches"),
                 k2=(render_primary, "launches"), k2t=(render_primary, "textured_launches"),
                 k3=(render_deferred, "launches"),
@@ -1025,6 +1138,9 @@ def phase_pathtracer(scene, label, device, card, size):
             return median_stages([timer.step(tracer_) for _ in range(steps)])
 
     stages = stages_of(pt, PT_STEPS)
+    if any(k.startswith("uniforms") for k in stages):
+        raise AssertionError(f"{label}: a QMC step drew a uniform tensor outside the bounce: "
+                             f"{sorted(stages)}")
     bound = None
     if cuda:   # K1's own walk is counted on the card
         record = []
@@ -1034,7 +1150,7 @@ def phase_pathtracer(scene, label, device, card, size):
         del record
 
     profile = device_profile(pt.step, PT_STEPS, device) if cuda else {}
-    with _swap(wavefront, "_coherence_sort", lambda scene, r, rad, orig: (r, rad, orig)):
+    with _swap(wavefront, "coherence_order", lambda scene, r, previous=None: None):
         ms_unsorted = timed(pt.step, PT_STEPS, device)
         unsorted_stages = stages_of(pt, PT_STEPS)
         unsorted_profile = device_profile(pt.step, PT_STEPS, device) if cuda else {}
@@ -1067,14 +1183,6 @@ def phase_pathtracer(scene, label, device, card, size):
 
 
 # ---- the glTF asset path, K2t and the many-light branch (phases 13-17) ----
-
-def frame_pixels(width, height, device):
-    import torch
-
-    from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
-
-    return tuple(torch.from_numpy(a).to(device) for a in tiled_pixel_order(width, height))
-
 
 def crop_pixels(width, height, edge, device):
     """Pixel coordinates of the centre `edge` x `edge` crop of the frame."""
@@ -1431,18 +1539,37 @@ def frame_bounds(tables, width, height, shade=None):
     from gpu_raytracer_tpu_torch.engine.renderer import split_gbuffer, tiled_pixel_order
     from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import traversal_work, traverse
+    from gpu_raytracer_tpu_torch.ops.linalg import dot
 
     tr = tables.trace
-    px, py = (torch.from_numpy(a).to(tr.device) for a in tiled_pixel_order(width, height))
+    px, py = frame_pixels(width, height, tr.device)
     o, d = primary_rays(tables.scene, width, height, px, py)
     far = torch.full((px.shape[0],), F32_MAX, device=tr.device)
     work = traversal_work(tr, o, d, far)
     N = px.shape[0]
+    # SIMT efficiency of the walk: camera rays in the kernels' order (8 x 4
+    # pixels per warp) and in the row-major tile order (32 x 1), and the
+    # shadow rays of every hit toward the first point light (any-hit)
+    simt = dict(camera=simt_efficiency(work))
+    rx, ry = (torch.from_numpy(a).to(tr.device) for a in tiled_pixel_order(width, height))
+    ro, rd = primary_rays(tables.scene, width, height, rx, ry)
+    simt["camera_row_major_tiles"] = simt_efficiency(traversal_work(tr, ro, rd, far))
+    t, _, h, n, _ = traverse(tr, o, d, far)
+    L = tables.scene.lights
+    point = torch.nonzero(L.light_type == 1)
+    if point.numel() and bool(h.any()):
+        p = o[h] + d[h] * t[h, None]
+        to_light = L.position[int(point[0])][None, :] - p
+        dist = torch.sqrt(dot(to_light, to_light))
+        simt["shadow_any_hit"] = simt_efficiency(traversal_work(
+            tr, (p + n[h] * 1e-3).contiguous(), (to_light / dist[:, None]).contiguous(),
+            (dist - 1e-3).contiguous(), any_hit=True))
     walk = walk_flops(work)
     sph = N * tables.spheres.shape[0] * SPHERE_FLOPS
-    n_hit = int(traverse(tr, o, d, far)[2].sum())
+    n_hit = int(h.sum())
     tb = table_bytes(tr.nodes, tr.tris, tables.materials, tables.lights, tables.spheres)
-    out = dict(rays=N, hits=n_hit, nodes=int(work[:, 0].sum()), tris=int(work[:, 1].sum()))
+    out = dict(rays=N, hits=n_hit, nodes=int(work[:, 0].sum()), tris=int(work[:, 1].sum()),
+               simt_efficiency=simt)
     out["K1"] = bound_ms(N * (28 + 24) + table_bytes(tr.nodes, tr.tris), walk)
     out["K2"] = bound_ms(N * (8 + 12) + tb, walk + sph + n_hit * SHADE_FLOPS)
     out["K3"] = bound_ms(N * (8 + 32) + tb + table_bytes(tr.attrs),
@@ -1521,6 +1648,8 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
                         depths=(0, 1)))
     log(f"phase 11 K6 textured: {json.dumps(k6t)}")
     k5 = phase_k5(tbtables, synth, device, card, pt_size)
+    if cuda:   # the kernel's stream exists only on the card
+        phase_qmc(device, card, pt_size * pt_size)
     del btables, tbtables, synth, degenerate
 
     pt = {label: phase_pathtracer(sc, label, device, card, pt_size)

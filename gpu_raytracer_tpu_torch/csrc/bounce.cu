@@ -8,17 +8,18 @@
 int rt_bounce_textured_launch(const rt::BounceArgs& a, int stack, int nee, int cont,
                               cudaStream_t s);
 
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a stack capacity or flag that was not compiled.
+// One bounce of the pool in place (bounce.cuh): `order`, `n_live` and `u` may
+// be null; `qmc` points at 4 + 2 * 7 host words (pid_base, sample_base, hd,
+// chunk, the generators, the salts), read when `u` is null. Returns
+// cudaGetLastError() after the launch (0 = launched), or cudaErrorInvalidValue
+// for a stack capacity or flag that was not compiled.
 extern "C" int rt_bounce(const void* nodes, const void* tris, const void* attrs, int stack,
                          const void* mats, int n_mats, const void* lights, int n_lights,
                          const void* spheres, int n_spheres, const void* maps, const void* atlas,
-                         int present, int n_levels, int textured, float tex_lod, const void* o,
-                         const void* d, const void* thr, const void* med, const void* chan,
-                         const void* rtype, const void* depth, const void* active, const void* u,
-                         int n, int nee, int cont, void* no, void* nd, void* nthr, void* nmed,
-                         void* nchan, void* nrt, void* ndepth, void* nactive, void* rad,
-                         void* stream) {
+                         int present, int n_levels, int textured, float tex_lod, void* o,
+                         void* d, void* thr, void* med, void* chan, void* rtype, void* depth,
+                         void* active, void* rad, int n, const void* order, const void* n_live,
+                         const void* u, const unsigned* qmc, int nee, int cont, void* stream) {
   if (n <= 0) return 0;
   rt::BounceArgs a;
   a.nodes = static_cast<const rt::Node4*>(nodes);
@@ -35,25 +36,20 @@ extern "C" int rt_bounce(const void* nodes, const void* tris, const void* attrs,
   a.present = present;
   a.n_levels = n_levels;
   a.tex_lod = tex_lod;
-  a.o = static_cast<const float*>(o);
-  a.d = static_cast<const float*>(d);
-  a.thr = static_cast<const float*>(thr);
-  a.med = static_cast<const float*>(med);
-  a.chan = static_cast<const int*>(chan);
-  a.rtype = static_cast<const int*>(rtype);
-  a.depth = static_cast<const int*>(depth);
-  a.active = static_cast<const unsigned char*>(active);
-  a.u = static_cast<const float*>(u);
-  a.n = n;
-  a.no = static_cast<float*>(no);
-  a.nd = static_cast<float*>(nd);
-  a.nthr = static_cast<float*>(nthr);
-  a.nmed = static_cast<float*>(nmed);
-  a.nchan = static_cast<int*>(nchan);
-  a.nrt = static_cast<int*>(nrt);
-  a.ndepth = static_cast<int*>(ndepth);
-  a.nactive = static_cast<unsigned char*>(nactive);
+  a.o = static_cast<float*>(o);
+  a.d = static_cast<float*>(d);
+  a.thr = static_cast<float*>(thr);
+  a.med = static_cast<float*>(med);
+  a.chan = static_cast<int*>(chan);
+  a.rtype = static_cast<int*>(rtype);
+  a.depth = static_cast<int*>(depth);
+  a.active = static_cast<unsigned char*>(active);
   a.rad = static_cast<float*>(rad);
+  a.n = n;
+  a.order = static_cast<const int*>(order);
+  a.n_live = static_cast<const long long*>(n_live);
+  a.u = static_cast<const float*>(u);
+  a.qmc = rt::qmc_stream(qmc);
   auto s = static_cast<cudaStream_t>(stream);
   return textured ? rt_bounce_textured_launch(a, stack, nee, cont, s)
                   : rt::launch_bounce<false>(a, stack, nee, cont, s);

@@ -4,8 +4,7 @@
 // -> _kernel (pallas_call at :505), which runs a 1024-8192-ray packet per
 // program over VMEM-resident pool tiles. Here every thread owns one lane of
 // the pool (ops/wavefront.py WavefrontRays, structure of arrays):
-//   a dead lane writes its state back unchanged, zero radiance, and does not
-//   traverse; a live lane traces its closest hit (render_common.cuh
+//   a dead lane is not visited; a live lane traces its closest hit (render_common.cuh
 //   closest_surface: the sphere pass, then K1 pruned at the sphere's t), adds
 //   sky x throughput on a miss; on a hit it reads the material (the row, or
 //   on a textured scene K5 `sample_material` at the launch's fixed mip level,
@@ -32,15 +31,40 @@
 // Launch flags are template parameters, so each launch compiles to the
 // branches it takes: the traversal stack, textured or not, the lighting mode
 // (none, every light, one sampled light) and the continuation (none at the
-// last depth, with or without roulette).
+// last depth, with or without roulette). Where the uniforms come from is a
+// runtime branch on a pointer that is the same for the whole launch.
 //
-// What bounds it on an H100: per lane it reads 53 bytes of pool and writes
-// 65, and a live hit reads up to 28 bytes of uniforms: at most 150 MB for a
-// 1024^2 pool (0.05 ms at 3.35 TB/s); its arithmetic is dominated by the
-// closest-hit and shadow traversals. Those are latency- and divergence-bound
-// (traverse.cuh): after the first bounce neighbouring lanes no longer share a
-// path through the tree, which is what the coherence sort between launches
-// (ops/wavefront.py::_sort_perm) is for.
+// The pool is updated in place, and only its live lanes are touched. A launch
+// takes `order` (sorted position -> lane, the coherence sort of
+// ops/wavefront.py::_sort_perm with dead lanes last; null: position = lane)
+// and `n_live` (a count on the device; null: every position). Thread i past
+// n_live returns before it reads anything; thread i works on lane order[i]:
+// it reads that lane, adds its radiance to radiance[lane], writes the
+// continuation over the lane when it survives and otherwise only clears
+// active[lane]. Nothing is copied for a dead lane and nothing is permuted.
+//
+// The seven uniforms of a lane: with `u` given, row i of it (by position: an
+// independent stream, sampler "rng"); with `u` null the kernel computes the
+// lane's own QMC numbers (ops/sampler.py::qmc_uniforms, to the letter, in
+// unsigned arithmetic): pixel id pid_base + lane % C and sample index
+// sample_base + lane / C, the rotation hash pcg(pcg(pid ^ hd) + salt_k) with
+// hd the host's hash of depth and seed, and (s * alpha_k + rot) >> 8 times
+// 2^-24. The generators and salts are launch arguments from the host's table.
+//
+// What bounds it on an H100: the closest-hit and shadow walks (traverse.cuh),
+// which from depth 1 on are bound by divergence as well as by instruction
+// throughput: after the first bounce neighbouring lanes no longer share a path
+// through the tree, which is what the coherence order is for; with it the
+// depth-1 pool of the 1024^2 courtyard still has only 62% of a warp's lanes
+// at work in the node body and 48% in the triangle body, its shadow rays
+// 28% / 23% (the kernel's own counter, PERF.md), and without it K6 takes 1.5x
+// as long. Bytes are no longer the limit: per live lane 4 bytes of order and
+// 45 of pool read, 12 of radiance read and written, 52 written by a
+// survivor, and no uniforms when the kernel makes them: 276 MB per sample
+// (0.08 ms at 3.35 TB/s) against 700 MB when every lane was copied; a warp's
+// lanes are scattered in the pool from depth 1 on (32-byte sectors, not
+// 128-byte lines). The launch is 128 threads a block with the registers
+// capped for 4 blocks an SM (a measured sweep, PERF.md).
 // The scene tables (~5 MB for the 100k courtyard, the 1.7 MB atlas) stay in L2.
 #pragma once
 
@@ -57,6 +81,35 @@ constexpr int kNeeSampled = 2;   // one light picked by u6, weighted by the ligh
 constexpr int kContinue = 0;     // sample the continuation
 constexpr int kContinueRR = 1;   // ... then Russian roulette
 constexpr int kLast = 2;         // the last depth: no continuation, every lane retires
+constexpr int kBounceDims = 7;   // uniforms per lane and bounce
+
+// The in-kernel QMC stream of one launch (ops/sampler.py).
+struct QmcStream {
+  unsigned pid_base;      // pixel id of lane 0
+  unsigned sample_base;   // sample index of the pool's first chunk
+  unsigned hd;            // pcg_hash(depth * 0x9E3779B9 + seed), from the host
+  int chunk;              // C: lanes per sample of the chunk-major pool
+  unsigned alpha[kBounceDims];   // the lattice generators, odd uint32 fixed point
+  unsigned salt[kBounceDims];    // k * 0x85EBCA6B + 0x165667B1
+};
+
+// The stream from its 4 + 2 * kBounceDims host words: pid_base, sample_base,
+// hd, chunk, the generators, the salts (ops/cuda/bounce.py::qmc_words); a null
+// pointer gives a stream that is never read (the launch has its `u`).
+inline QmcStream qmc_stream(const unsigned* w) {
+  QmcStream q{};
+  q.chunk = 1;
+  if (w == nullptr) return q;
+  q.pid_base = w[0];
+  q.sample_base = w[1];
+  q.hd = w[2];
+  q.chunk = static_cast<int>(w[3]);
+  for (int k = 0; k < kBounceDims; ++k) {
+    q.alpha[k] = w[4 + k];
+    q.salt[k] = w[4 + kBounceDims + k];
+  }
+  return q;
+}
 
 struct BounceArgs {
   const Node4* nodes;
@@ -73,27 +126,21 @@ struct BounceArgs {
   int present;
   int n_levels;
   float tex_lod;
-  // the pool in
-  const float* o;
-  const float* d;
-  const float* thr;
-  const float* med;
-  const int* chan;
-  const int* rtype;
-  const int* depth;
-  const unsigned char* active;
-  const float* u;   // [n,7]
+  // the pool, updated in place
+  float* o;
+  float* d;
+  float* thr;
+  float* med;
+  int* chan;
+  int* rtype;
+  int* depth;
+  unsigned char* active;
+  float* rad;   // [n,3], added to
   int n;
-  // the pool out
-  float* no;
-  float* nd;
-  float* nthr;
-  float* nmed;
-  int* nchan;
-  int* nrt;
-  int* ndepth;
-  unsigned char* nactive;
-  float* rad;
+  const int* order;          // [n] sorted position -> lane, or null
+  const long long* n_live;   // positions to work on, or null for n
+  const float* u;            // [n,7] by position, or null: the QMC stream
+  QmcStream qmc;
 };
 
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -105,210 +152,223 @@ __device__ __forceinline__ float nan_clamp(float x, float lo, float hi) {
   return x != x ? x : fminf(fmaxf(x, lo), hi);
 }
 
+// PCG output permutation on uint32 (ops/sampler.py::pcg_hash).
+__device__ __forceinline__ unsigned pcg_hash(unsigned x) {
+  x = x * 747796405u + 2891336453u;
+  x = ((x >> ((x >> 28) + 4u)) ^ x) * 277803737u;
+  return (x >> 22) ^ x;
+}
+
+// The kBounceDims lattice uniforms of `lane` (ops/sampler.py::qmc_uniforms).
+__device__ __forceinline__ void qmc_uniforms(const QmcStream& q, int lane, float* uu) {
+  const unsigned pid = q.pid_base + static_cast<unsigned>(lane % q.chunk);
+  const unsigned s = q.sample_base + static_cast<unsigned>(lane / q.chunk);
+  const unsigned h = pcg_hash(pid ^ q.hd);
+#pragma unroll
+  for (int k = 0; k < kBounceDims; ++k) {
+    const unsigned v = s * q.alpha[k] + pcg_hash(h + q.salt[k]);
+    uu[k] = static_cast<float>(v >> 8) * (1.0f / 16777216.0f);
+  }
+}
+
 template <int STACK, bool TEXTURED, int NEE, int CONT>
-__global__ void __launch_bounds__(128) bounce_kernel(const BounceArgs a) {
+__global__ void __launch_bounds__(kBounceBlock, kBounceMinBlocks)
+bounce_kernel(const BounceArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  const float ox = a.o[3 * i], oy = a.o[3 * i + 1], oz = a.o[3 * i + 2];
-  const float dx = a.d[3 * i], dy = a.d[3 * i + 1], dz = a.d[3 * i + 2];
-  const float thr[3] = {a.thr[3 * i], a.thr[3 * i + 1], a.thr[3 * i + 2]};
-  const float med = a.med[i];
-  const int chan = a.chan[i];
+  if (a.n_live != nullptr && i >= *a.n_live) return;
+  const int lane = a.order != nullptr ? a.order[i] : i;
+  if (!a.active[lane]) return;
+  const float ox = a.o[3 * lane], oy = a.o[3 * lane + 1], oz = a.o[3 * lane + 2];
+  const float dx = a.d[3 * lane], dy = a.d[3 * lane + 1], dz = a.d[3 * lane + 2];
+  const float thr[3] = {a.thr[3 * lane], a.thr[3 * lane + 1], a.thr[3 * lane + 2]};
+  const float med = a.med[lane];
+  const int chan = a.chan[lane];
 
-  // the identity transition, overwritten by a surviving continuation
-  float no[3] = {ox, oy, oz}, nd[3] = {dx, dy, dz}, nt[3] = {thr[0], thr[1], thr[2]};
-  float nmed = med;
-  int nchan = chan, nrt = a.rtype[i], ndepth = a.depth[i];
   bool alive = false;
   float rad[3] = {0.0f, 0.0f, 0.0f};
-
-  if (a.active[i]) {
-    const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
-    Surface s;
-    if (!closest_surface<STACK>(a.nodes, a.tris, a.spheres, a.n_spheres, ray, s)) {
-      const float sky[3] = {0.1f, 0.2f, 0.3f};
+  const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
+  Surface s;
+  if (!closest_surface<STACK>(a.nodes, a.tris, a.spheres, a.n_spheres, ray, s)) {
+    const float sky[3] = {0.1f, 0.2f, 0.3f};
 #pragma unroll
-      for (int c = 0; c < 3; ++c) rad[c] = sky[c] * thr[c] + 0.0f;
+    for (int c = 0; c < 3; ++c) rad[c] = sky[c] * thr[c] + 0.0f;
+  } else {
+    const int mid = min(max(s.mat, 0), a.n_mats - 1);
+    float u = 0.0f, v = 0.0f;
+    if (TEXTURED) {
+      float density;
+      const float2 uv = surface_uv(a.tris, a.attrs, ray, s, density);
+      u = uv.x;
+      v = uv.y;
+    }
+    const MaterialSample m = sample_material<false>(
+        a.mats, TEXTURED ? a.maps : nullptr, a.atlas, a.present, a.n_levels, mid, u, v,
+        a.tex_lod);
+    float uu[kBounceDims];
+    if (a.u != nullptr) {
+#pragma unroll
+      for (int k = 0; k < kBounceDims; ++k) uu[k] = a.u[kBounceDims * i + k];
     } else {
-      const int mid = min(max(s.mat, 0), a.n_mats - 1);
-      float u = 0.0f, v = 0.0f;
-      if (TEXTURED) {
-        float density;
-        const float2 uv = surface_uv(a.tris, a.attrs, ray, s, density);
-        u = uv.x;
-        v = uv.y;
-      }
-      const MaterialSample m = sample_material<false>(
-          a.mats, TEXTURED ? a.maps : nullptr, a.atlas, a.present, a.n_levels, mid, u, v,
-          a.tex_lod);
-      const float* uu = a.u + 7 * i;
+      qmc_uniforms(a.qmc, lane, uu);
+    }
 
-      // ---- direct lighting ----
-      const float is_metal_f = m.metallic > 0.5f ? 1.0f : 0.0f;
-      const float brdf = is_metal_f * 0.5f + (1.0f - is_metal_f) / kPi;
-      float lit[3];
-      if (NEE == kNeeSampled) {
-        const int li = min(static_cast<int>(uu[6] * static_cast<float>(a.n_lights)),
-                           a.n_lights - 1);
+    // ---- direct lighting ----
+    const float is_metal_f = m.metallic > 0.5f ? 1.0f : 0.0f;
+    const float brdf = is_metal_f * 0.5f + (1.0f - is_metal_f) / kPi;
+    float lit[3];
+    if (NEE == kNeeSampled) {
+      const int li = min(static_cast<int>(uu[6] * static_cast<float>(a.n_lights)),
+                         a.n_lights - 1);
+      const float* L = a.lights + li * kLightWords;
+      const float I =
+          light_intensity<STACK>(L, s, true, a.nodes, a.tris, a.spheres, a.n_spheres);
+      const float gate = I > 0.0f ? 1.0f : 0.0f;
+      const float w = brdf * I * gate * static_cast<float>(a.n_lights);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        lit[c] = m.albedo[c] * 0.1f * m.occlusion + m.albedo[c] * w * L[4 + c] +
+                 m.emission[c];
+    } else {
+      float sum[3] = {0.0f, 0.0f, 0.0f};
+      for (int li = 0; li < a.n_lights; ++li) {
         const float* L = a.lights + li * kLightWords;
-        const float I =
-            light_intensity<STACK>(L, s, true, a.nodes, a.tris, a.spheres, a.n_spheres);
+        const float I = light_intensity<STACK>(L, s, NEE == kNeeAll, a.nodes, a.tris,
+                                               a.spheres, a.n_spheres);
         const float gate = I > 0.0f ? 1.0f : 0.0f;
-        const float w = brdf * I * gate * static_cast<float>(a.n_lights);
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
-          lit[c] = m.albedo[c] * 0.1f * m.occlusion + m.albedo[c] * w * L[4 + c] +
-                   m.emission[c];
-      } else {
-        float sum[3] = {0.0f, 0.0f, 0.0f};
-        for (int li = 0; li < a.n_lights; ++li) {
-          const float* L = a.lights + li * kLightWords;
-          const float I = light_intensity<STACK>(L, s, NEE == kNeeAll, a.nodes, a.tris,
-                                                 a.spheres, a.n_spheres);
-          const float gate = I > 0.0f ? 1.0f : 0.0f;
-#pragma unroll
-          for (int c = 0; c < 3; ++c) sum[c] = sum[c] + m.albedo[c] * brdf * (I * gate) * L[4 + c];
-        }
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          lit[c] = m.albedo[c] * 0.1f * m.occlusion + sum[c] + m.emission[c];
+        for (int c = 0; c < 3; ++c) sum[c] = sum[c] + m.albedo[c] * brdf * (I * gate) * L[4 + c];
       }
-      const bool invalid = s.mat >= a.n_mats;
-      const float magenta[3] = {1.0f, 0.0f, 1.0f};
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        lit[c] = m.albedo[c] * 0.1f * m.occlusion + sum[c] + m.emission[c];
+    }
+    const bool invalid = s.mat >= a.n_mats;
+    const float magenta[3] = {1.0f, 0.0f, 1.0f};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float shaded =
+          invalid ? magenta[c] : dispersion_blend(lit[c], m.ior, m.transmission, c);
+      rad[c] = 0.0f + shaded * thr[c];
+    }
+
+    if (CONT != kLast) {
+      const float u0 = uu[0], u1 = uu[1], u2 = uu[2], u3 = uu[3], u4 = uu[4], u5 = uu[5];
+      const bool entering = dot3(dx, dy, dz, s.nx, s.ny, s.nz) < 0.0f;
+      const float fnx = entering ? s.nx : -s.nx;
+      const float fny = entering ? s.ny : -s.ny;
+      const float fnz = entering ? s.nz : -s.nz;
+
+      // diffuse: cosine lobe about the faced normal, Duff's basis
+      const float sg = fnz >= 0.0f ? 1.0f : -1.0f;
+      const float ob = -1.0f / (sg + fnz);
+      const float bb = fnx * fny * ob;
+      const float tx = 1.0f + sg * (fnx * fnx) * ob, ty = sg * bb, tz = -sg * fnx;
+      const float bx = bb, by = sg + (fny * fny) * ob, bz = -fny;
+      const float r = sqrtf(u0);
+      const float phi = (2.0f * kPi) * u1;
+      const float hx = r * cosf(phi), hy = r * sinf(phi);
+      const float hz = sqrtf(fmaxf(1.0f - u0, 0.0f));
+      float dfx = tx * hx + bx * hy + fnx * hz;
+      float dfy = ty * hx + by * hy + fny * hz;
+      float dfz = tz * hx + bz * hy + fnz * hz;
+      const float dl = sqrtf(dot3(dfx, dfy, dfz, dfx, dfy, dfz));
+      dfx = dfx / dl;
+      dfy = dfy / dl;
+      dfz = dfz / dl;
+
+      // metal: the mirror direction plus roughness x fuzz
+      const float dfn = dot3(dx, dy, dz, fnx, fny, fnz);
+      const float k2 = 2.0f * dfn;
+      const float rfx = dx - k2 * fnx, rfy = dy - k2 * fny, rfz = dz - k2 * fnz;
+      float mx = rfx + m.roughness * (u0 * 2.0f - 1.0f);
+      float my = rfy + m.roughness * (u1 * 2.0f - 1.0f);
+      float mz = rfz + m.roughness * (u2 * 2.0f - 1.0f);
+      const float ml = sqrtf(dot3(mx, my, mz, mx, my, mz));
+      mx = mx / ml;
+      my = my / ml;
+      mz = mz / ml;
+      const bool metal_absorbed = dot3(mx, my, mz, fnx, fny, fnz) <= 0.0f;
+
+      // glass: Fresnel-weighted reflection or refraction at the wavelength's IOR
+      const bool is_glass = m.transmission > 0.0f;
+      const bool split = is_glass && chan >= 3;
+      const int eff = split ? min(static_cast<int>(u5 * 3.0f), 2) : chan;
+      const float offs = eff == 0 ? -0.018f : eff == 1 ? 0.0f : eff == 2 ? 0.035f : 0.0f;
+      const float mat_ior = m.ior + offs;
+      const float n1 = entering ? med : mat_ior;
+      const float n2 = entering ? mat_ior : 1.0f;
+      const float eta = n1 / n2;
+      const float cos_i = fabsf(dfn);
+      const float ci = -dfn;
+      const float sin2_t = eta * eta * fmaxf(1.0f - ci * ci, 0.0f);
+      const bool tir = sin2_t > 1.0f;
+      const float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
+      const float kr = eta * ci - cos_t;
+      float gx = eta * dx + kr * fnx, gy = eta * dy + kr * fny, gz = eta * dz + kr * fnz;
+      const float gl = sqrtf(dot3(gx, gy, gz, gx, gy, gz));
+      gx = gx / gl;
+      gy = gy / gl;
+      gz = gz / gl;
+      const float xr = (n1 - n2) / (n1 + n2);
+      const float r0 = xr * xr;
+      const float om = 1.0f - cos_i;
+      const float om2 = om * om;
+      const float fres = nan_clamp(r0 + (1.0f - r0) * (om * (om2 * om2)), 0.0f, 1.0f);
+      const bool do_reflect = tir || u3 < fres;
+
+      const bool is_metal = !is_glass && m.metallic > 0.5f;
+      float ndx, ndy, ndz;
+      if (is_glass) {
+        ndx = do_reflect ? rfx : gx;
+        ndy = do_reflect ? rfy : gy;
+        ndz = do_reflect ? rfz : gz;
+      } else if (is_metal) {
+        ndx = mx;
+        ndy = my;
+        ndz = mz;
+      } else {
+        ndx = dfx;
+        ndy = dfy;
+        ndz = dfz;
+      }
+      const float off = (dot3(ndx, ndy, ndz, fnx, fny, fnz) >= 0.0f ? 1.0f : -1.0f) * 1e-3f;
+
+      float t3[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const float shaded =
-            invalid ? magenta[c] : dispersion_blend(lit[c], m.ior, m.transmission, c);
-        rad[c] = 0.0f + shaded * thr[c];
+        t3[c] = thr[c] * m.albedo[c];
+        if (split) t3[c] = t3[c] * 3.0f * (eff == c ? 1.0f : 0.0f);
       }
-
-      if (CONT != kLast) {
-        const float u0 = uu[0], u1 = uu[1], u2 = uu[2], u3 = uu[3], u4 = uu[4], u5 = uu[5];
-        const bool entering = dot3(dx, dy, dz, s.nx, s.ny, s.nz) < 0.0f;
-        const float fnx = entering ? s.nx : -s.nx;
-        const float fny = entering ? s.ny : -s.ny;
-        const float fnz = entering ? s.nz : -s.nz;
-
-        // diffuse: cosine lobe about the faced normal, Duff's basis
-        const float sg = fnz >= 0.0f ? 1.0f : -1.0f;
-        const float ob = -1.0f / (sg + fnz);
-        const float bb = fnx * fny * ob;
-        const float tx = 1.0f + sg * (fnx * fnx) * ob, ty = sg * bb, tz = -sg * fnx;
-        const float bx = bb, by = sg + (fny * fny) * ob, bz = -fny;
-        const float r = sqrtf(u0);
-        const float phi = (2.0f * kPi) * u1;
-        const float hx = r * cosf(phi), hy = r * sinf(phi);
-        const float hz = sqrtf(fmaxf(1.0f - u0, 0.0f));
-        float dfx = tx * hx + bx * hy + fnx * hz;
-        float dfy = ty * hx + by * hy + fny * hz;
-        float dfz = tz * hx + bz * hy + fnz * hz;
-        const float dl = sqrtf(dot3(dfx, dfy, dfz, dfx, dfy, dfz));
-        dfx = dfx / dl;
-        dfy = dfy / dl;
-        dfz = dfz / dl;
-
-        // metal: the mirror direction plus roughness x fuzz
-        const float dfn = dot3(dx, dy, dz, fnx, fny, fnz);
-        const float k2 = 2.0f * dfn;
-        const float rfx = dx - k2 * fnx, rfy = dy - k2 * fny, rfz = dz - k2 * fnz;
-        float mx = rfx + m.roughness * (u0 * 2.0f - 1.0f);
-        float my = rfy + m.roughness * (u1 * 2.0f - 1.0f);
-        float mz = rfz + m.roughness * (u2 * 2.0f - 1.0f);
-        const float ml = sqrtf(dot3(mx, my, mz, mx, my, mz));
-        mx = mx / ml;
-        my = my / ml;
-        mz = mz / ml;
-        const bool metal_absorbed = dot3(mx, my, mz, fnx, fny, fnz) <= 0.0f;
-
-        // glass: Fresnel-weighted reflection or refraction at the wavelength's IOR
-        const bool is_glass = m.transmission > 0.0f;
-        const bool split = is_glass && chan >= 3;
-        const int eff = split ? min(static_cast<int>(u5 * 3.0f), 2) : chan;
-        const float offs = eff == 0 ? -0.018f : eff == 1 ? 0.0f : eff == 2 ? 0.035f : 0.0f;
-        const float mat_ior = m.ior + offs;
-        const float n1 = entering ? med : mat_ior;
-        const float n2 = entering ? mat_ior : 1.0f;
-        const float eta = n1 / n2;
-        const float cos_i = fabsf(dfn);
-        const float ci = -dfn;
-        const float sin2_t = eta * eta * fmaxf(1.0f - ci * ci, 0.0f);
-        const bool tir = sin2_t > 1.0f;
-        const float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
-        const float kr = eta * ci - cos_t;
-        float gx = eta * dx + kr * fnx, gy = eta * dy + kr * fny, gz = eta * dz + kr * fnz;
-        const float gl = sqrtf(dot3(gx, gy, gz, gx, gy, gz));
-        gx = gx / gl;
-        gy = gy / gl;
-        gz = gz / gl;
-        const float xr = (n1 - n2) / (n1 + n2);
-        const float r0 = xr * xr;
-        const float om = 1.0f - cos_i;
-        const float om2 = om * om;
-        const float fres = nan_clamp(r0 + (1.0f - r0) * (om * (om2 * om2)), 0.0f, 1.0f);
-        const bool do_reflect = tir || u3 < fres;
-
-        const bool is_metal = !is_glass && m.metallic > 0.5f;
-        float ndx, ndy, ndz;
-        if (is_glass) {
-          ndx = do_reflect ? rfx : gx;
-          ndy = do_reflect ? rfy : gy;
-          ndz = do_reflect ? rfz : gz;
-        } else if (is_metal) {
-          ndx = mx;
-          ndy = my;
-          ndz = mz;
-        } else {
-          ndx = dfx;
-          ndy = dfy;
-          ndz = dfz;
-        }
-        const float off = (dot3(ndx, ndy, ndz, fnx, fny, fnz) >= 0.0f ? 1.0f : -1.0f) * 1e-3f;
-
-        float t3[3];
+      alive = !(is_metal && metal_absorbed);
+      if (CONT == kContinueRR) {
+        const float p = nan_clamp(nan_max(nan_max(t3[0], t3[1]), t3[2]), 0.05f, 0.95f);
+        const bool survive = u4 <= p;
+        if (alive && survive) {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          t3[c] = thr[c] * m.albedo[c];
-          if (split) t3[c] = t3[c] * 3.0f * (eff == c ? 1.0f : 0.0f);
+          for (int c = 0; c < 3; ++c) t3[c] = t3[c] / p;
         }
-        alive = !(is_metal && metal_absorbed);
-        if (CONT == kContinueRR) {
-          const float p = nan_clamp(nan_max(nan_max(t3[0], t3[1]), t3[2]), 0.05f, 0.95f);
-          const bool survive = u4 <= p;
-          if (alive && survive) {
+        alive = alive && survive;
+      }
+      if (alive) {
+        a.o[3 * lane] = s.px + fnx * off;
+        a.o[3 * lane + 1] = s.py + fny * off;
+        a.o[3 * lane + 2] = s.pz + fnz * off;
+        a.d[3 * lane] = ndx;
+        a.d[3 * lane + 1] = ndy;
+        a.d[3 * lane + 2] = ndz;
 #pragma unroll
-            for (int c = 0; c < 3; ++c) t3[c] = t3[c] / p;
-          }
-          alive = alive && survive;
-        }
-        if (alive) {
-          no[0] = s.px + fnx * off;
-          no[1] = s.py + fny * off;
-          no[2] = s.pz + fnz * off;
-          nd[0] = ndx;
-          nd[1] = ndy;
-          nd[2] = ndz;
-#pragma unroll
-          for (int c = 0; c < 3; ++c) nt[c] = t3[c];
-          if (is_glass) nmed = do_reflect ? med : (entering ? mat_ior : 1.0f);
-          nchan = eff;
-          nrt = (is_glass && !do_reflect) ? 2 : 1;
-          ndepth = ndepth + 1;
-        }
+        for (int c = 0; c < 3; ++c) a.thr[3 * lane + c] = t3[c];
+        if (is_glass) a.med[lane] = do_reflect ? med : (entering ? mat_ior : 1.0f);
+        a.chan[lane] = eff;
+        a.rtype[lane] = (is_glass && !do_reflect) ? 2 : 1;
+        a.depth[lane] = a.depth[lane] + 1;
       }
     }
   }
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    a.no[3 * i + c] = no[c];
-    a.nd[3 * i + c] = nd[c];
-    a.nthr[3 * i + c] = nt[c];
-    a.rad[3 * i + c] = rad[c];
-  }
-  a.nmed[i] = nmed;
-  a.nchan[i] = nchan;
-  a.nrt[i] = nrt;
-  a.ndepth[i] = ndepth;
-  a.nactive[i] = alive ? 1 : 0;
+  for (int c = 0; c < 3; ++c) a.rad[3 * lane + c] = a.rad[3 * lane + c] + rad[c];
+  if (!alive) a.active[lane] = 0;
 }
 
 // Launch the instance of the given flags for `stack`; returns
@@ -316,8 +376,8 @@ __global__ void __launch_bounds__(128) bounce_kernel(const BounceArgs a) {
 // that was not compiled.
 template <bool TEXTURED>
 int launch_bounce(const BounceArgs& a, int stack, int nee, int cont, cudaStream_t s) {
-  const dim3 block(128);
-  const dim3 grid((a.n + 127) / 128);
+  const dim3 block(kBounceBlock);
+  const dim3 grid((a.n + kBounceBlock - 1) / kBounceBlock);
 #define RT_LAUNCH_NC(S, N, C) bounce_kernel<S, TEXTURED, N, C><<<grid, block, 0, s>>>(a)
 #define RT_LAUNCH_N(S, N)                                       \
   switch (cont) {                                               \

@@ -31,7 +31,7 @@
 namespace {
 
 template <int STACK>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(rt::kRenderBlock, rt::kRenderMinBlocks)
 render_deferred_kernel(const rt::Node4* __restrict__ nodes, const float4* __restrict__ tris,
                        const float4* __restrict__ attrs, const float* __restrict__ cam,
                        const float* __restrict__ lights, int n_lights,
@@ -87,8 +87,8 @@ extern "C" int rt_render_deferred(const void* nodes, const void* tris, const voi
                                   float pix_scale, const void* light_u, void* gbuf,
                                   void* stream) {
   if (n <= 0) return 0;
-  const dim3 block(128);
-  const dim3 grid((n + 127) / 128);
+  const dim3 block(rt::kRenderBlock);
+  const dim3 grid((n + rt::kRenderBlock - 1) / rt::kRenderBlock);
   auto s = static_cast<cudaStream_t>(stream);
 #define RT_LAUNCH(S)                                                                           \
   render_deferred_kernel<S><<<grid, block, 0, s>>>(                                            \

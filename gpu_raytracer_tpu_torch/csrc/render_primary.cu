@@ -11,8 +11,8 @@ extern "C" int rt_render_primary(const void* nodes, const void* tris, int stack,
                                  int height, int shadows, float sky_r, float sky_g, float sky_b,
                                  const void* light_u, void* rgb, void* stream) {
   if (n <= 0) return 0;
-  const dim3 block(128);
-  const dim3 grid((n + 127) / 128);
+  const dim3 block(rt::kRenderBlock);
+  const dim3 grid((n + rt::kRenderBlock - 1) / rt::kRenderBlock);
   auto s = static_cast<cudaStream_t>(stream);
   const rt::PrimaryTextures none{nullptr, nullptr, nullptr, 0, 1, 0.0f};
 #define RT_LAUNCH(S)                                                                          \

@@ -33,15 +33,20 @@
 // share the exact same t (see traverse.cuh).
 //
 // What bounds it on an H100: the traversals (one primary ray and, with
-// shadows, one shadow ray per light), which are latency- and divergence-bound
-// (traverse.cuh). The rest is a few hundred flops per pixel. Per pixel it
-// reads 8 bytes (coordinates) and writes 12 (RGB); the camera, material,
-// light and sphere rows are a few hundred bytes read through the constant-
-// like read-only path, the BVH tables stay in L2; textured, one 32-byte
-// attribute record, 32 bytes of metadata and 4 texel loads per sampled map,
-// dependent loads from L2-resident atlas rows. Fusing raygen, traversal
-// and shading keeps every intermediate in registers instead of the ~15 per-ray
-// arrays the plain pipeline writes to device memory between stages.
+// shadows, one shadow ray per light), which are bound by instruction
+// throughput and the latency of dependent node loads, not by divergence on camera rays
+// (traverse.cuh, with the measured SIMT efficiency). The rest is a few
+// hundred flops per pixel. Per pixel it reads 8 bytes (coordinates) and
+// writes 12 (RGB); the camera, material, light and sphere rows are a few
+// hundred bytes read through the constant-like read-only path, the BVH
+// tables (128-byte node lines) stay in L2; textured, one 32-byte attribute
+// record, 32 bytes of metadata and 4 texel loads per sampled map, dependent
+// loads from L2-resident atlas rows. Fusing raygen, traversal and shading
+// keeps every intermediate in registers instead of the ~15 per-ray arrays the
+// plain pipeline writes to device memory between stages. The launch is 128
+// threads a block with the registers capped for 6 blocks an SM (77-80
+// registers, no spills; a measured sweep, PERF.md), and callers order the
+// pixels so that a warp is an 8 x 4 block (engine/renderer.py).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,7 +67,7 @@ struct PrimaryTextures {
 };
 
 template <int STACK, bool TEXTURED>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kRenderBlock, kRenderMinBlocks)
 render_primary_kernel(const Node4* __restrict__ nodes, const float4* __restrict__ tris,
                       const float* __restrict__ cam, const float* __restrict__ mats,
                       int n_mats, const float* __restrict__ lights, int n_lights,

@@ -13,7 +13,7 @@
 namespace {
 
 template <int STACK, bool ANY_HIT>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(rt::kRenderBlock, rt::kRenderMinBlocks)
 traverse_kernel(const rt::Node4* __restrict__ nodes, const float4* __restrict__ tris,
                 const float* __restrict__ orig, const float* __restrict__ dirn,
                 const float* __restrict__ max_t, int n, float* __restrict__ t_out,
@@ -35,20 +35,22 @@ traverse_kernel(const rt::Node4* __restrict__ nodes, const float4* __restrict__ 
   mat_out[i] = mat;
 }
 
-// The same walk with its work counted: (nodes, triangles) per ray. Used to
-// compute the roofline bound of the traversing kernels, never by the renderer.
+// The same walk with its work counted: (nodes, triangles, node-body and
+// triangle-body iterations led for the warp) per ray, rt::Work. Used to compute
+// the roofline bound of the traversing kernels and the SIMT efficiency of the
+// walk, never by the renderer.
 template <int STACK, bool ANY_HIT>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(rt::kRenderBlock, rt::kRenderMinBlocks)
 traverse_work_kernel(const rt::Node4* __restrict__ nodes, const float4* __restrict__ tris,
                      const float* __restrict__ orig, const float* __restrict__ dirn,
-                     const float* __restrict__ max_t, int n, int2* __restrict__ work_out) {
+                     const float* __restrict__ max_t, int n, int4* __restrict__ work_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const rt::Ray r = rt::make_ray(orig[3 * i], orig[3 * i + 1], orig[3 * i + 2],
                                  dirn[3 * i], dirn[3 * i + 1], dirn[3 * i + 2]);
-  rt::Work w{0, 0};
+  rt::Work w{0, 0, 0, 0};
   rt::traverse_bvh4<STACK, ANY_HIT, true>(nodes, tris, r, max_t[i], &w);
-  work_out[i] = make_int2(w.nodes, w.tris);
+  work_out[i] = make_int4(w.nodes, w.tris, w.warp_nodes, w.warp_tris);
 }
 
 template <int STACK>
@@ -72,8 +74,8 @@ extern "C" int rt_traverse(const void* nodes, const void* tris, int stack, const
                            void* t_out, void* slot_out, void* normal_out, void* mat_out,
                            void* stream) {
   if (n <= 0) return 0;
-  const dim3 block(128);
-  const dim3 grid((n + 127) / 128);
+  const dim3 block(rt::kRenderBlock);
+  const dim3 grid((n + rt::kRenderBlock - 1) / rt::kRenderBlock);
   auto s = static_cast<cudaStream_t>(stream);
   auto nd = static_cast<const rt::Node4*>(nodes);
   auto tr = static_cast<const float4*>(tris);
@@ -100,15 +102,15 @@ extern "C" int rt_traverse_work(const void* nodes, const void* tris, int stack,
                                 const void* orig, const void* dirn, const void* max_t, int n,
                                 int any_hit, void* work_out, void* stream) {
   if (n <= 0) return 0;
-  const dim3 block(128);
-  const dim3 grid((n + 127) / 128);
+  const dim3 block(rt::kRenderBlock);
+  const dim3 grid((n + rt::kRenderBlock - 1) / rt::kRenderBlock);
   auto s = static_cast<cudaStream_t>(stream);
   auto nd = static_cast<const rt::Node4*>(nodes);
   auto tr = static_cast<const float4*>(tris);
   auto o = static_cast<const float*>(orig);
   auto d = static_cast<const float*>(dirn);
   auto m = static_cast<const float*>(max_t);
-  auto w = static_cast<int2*>(work_out);
+  auto w = static_cast<int4*>(work_out);
 #define RT_LAUNCH(S)                                                             \
   if (any_hit)                                                                   \
     traverse_work_kernel<S, true><<<grid, block, 0, s>>>(nd, tr, o, d, m, n, w); \

@@ -5,17 +5,57 @@
 // walks one shared cursor per 1024-8192-ray packet over 128-lane VMEM rows.
 // Here every thread walks its own ray with its own stack, over tables laid out
 // for this card by ops/cuda/traverse.py::pack_trace_tables:
-//   nodes: one 144-byte record per BVH4 node (9 x 16-byte loads),
+//   nodes: one 128-byte record per BVH4 node, 128-byte aligned, so a node is
+//          one cache line (four 32-byte sectors): six float4 of child boxes,
+//          one int4 of child codes (a wide node id >= 0, a leaf already as its
+//          stack code -1 - (first slot << 4 | count), or -1 for an empty
+//          slot), and 16 bytes whose first word is the sort axis;
 //   tris:  three float4 per leaf-ordered triangle slot (v0|mat, e1, e2).
 //
-// What bounds it on an H100: not arithmetic and not DRAM bandwidth (the
-// 100k-triangle courtyard's tables are ~5 MB and stay in the 50 MB L2) but
-// the latency of dependent node and triangle loads, and warp divergence when
-// the 32 rays of a warp take different paths. What the design does about it:
-// 16-byte vector loads of whole records through the read-only path; near-first
-// order by each ray's own entry distance, so best_t tightens early and far
-// subtrees are culled (again at pop time); callers hand in rays in tile-major
-// order, so a warp's rays are neighbours that walk nearly the same nodes.
+// What bounds it on an H100: instruction throughput, then the latency of dependent
+// node loads; not DRAM bandwidth (the 100k-triangle courtyard's tables are
+// ~5 MB and stay in the 50 MB L2) and, for camera rays, not divergence: the
+// COUNT instances below read 98% of a warp's lanes at work in the node body
+// and 94% in the triangle body on the 1080p frame (62% / 48% on the path
+// tracer's depth-1 pool). A ray costs ~12 node visits and ~8 triangle tests
+// of a few hundred instructions each, almost none of them fused multiply-adds
+// (the arithmetic must round like the plain version: -fmad=false, compares,
+// selects, min/max), so K1 runs at about a sixth of the FP32 roofline that
+// counts its operations, and close to the rate at which the card dispatches them
+// (PERF.md). What the design does about it:
+//   * one aligned 128-byte line per node, seven 16-byte loads and one 4-byte
+//     load through the read-only path;
+//   * a while-while walk (Aila and Laine 2009): an inner loop over internal
+//     nodes that a lane leaves only when it holds a leaf, then that leaf's
+//     triangles, so the lanes of a warp run the node body together and the
+//     triangle body together instead of each iteration running both;
+//   * the nearest child is entered at once (no push and pop), the others are
+//     ordered by a fixed network of six adjacent compare-exchanges on
+//     registers (adjacent exchanges on a strict > keep equal distances in
+//     their stored order along the ray), with the two child orders (forward,
+//     backward along the sort axis) as register swaps: nothing but the stack
+//     is indexed dynamically;
+//   * a lean slab test for the rays that cannot produce a NaN (finite
+//     origin, finite non-zero direction: practically all): the near and far
+//     plane of each axis are picked by the direction's sign when the record
+//     is loaded, which is what min and max of the two plane distances
+//     compute, so 24 min/max and 24 NaN tests per node fall away with the
+//     same bits; the general test stays for the others, chosen once per ray;
+//   * a shortcut where exactly one child is ahead, the most frequent case
+//     (about one child per visit on the courtyard): it is entered without
+//     the ordering network or a push, which is what the network would do;
+//   * near-first order by each ray's own entry distance, so best_t tightens
+//     early and far subtrees are culled (again at pop time); callers hand in
+//     rays so that a warp's rays are a compact block of pixels
+//     (engine/renderer.py::tiled_pixel_order) or neighbours in the coherence
+//     order (ops/wavefront.py::coherence_order).
+// Measured and not kept (PERF.md): the stack's top entries in shared memory
+// laid out [entry][thread] (no faster than local memory, whose lines L1
+// serves), a per-child branch around the NaN tests (slower: more registers),
+// other block sizes and register caps than 128 threads with 6 blocks per SM.
+// The COUNT instances measure what is left: node and triangle visits per ray
+// and, per warp, the iterations of each body and the lanes active in them
+// (SIMT efficiency; the card's profilers are not available everywhere).
 //
 // Semantics kept from the reference traversal (ops/pallas/traverse.py:537-538
 // and :242-245): slab entry clamped at 0, accept ce <= tmax && ce < best_t
@@ -30,23 +70,54 @@
 
 #include <cuda_runtime.h>
 
+// Launch shape of the traversing kernels, from a measured sweep on an H100
+// (PERF.md): threads per block and the minimum resident blocks per SM that
+// ptxas is asked to fit the registers to, for the frame kernels (K1, K2, K2t,
+// K3) and for the bounce (K6).
+#ifndef RT_RENDER_BLOCK
+#define RT_RENDER_BLOCK 128
+#endif
+#ifndef RT_RENDER_MIN_BLOCKS
+#define RT_RENDER_MIN_BLOCKS 6
+#endif
+#ifndef RT_BOUNCE_BLOCK
+#define RT_BOUNCE_BLOCK 128
+#endif
+#ifndef RT_BOUNCE_MIN_BLOCKS
+#define RT_BOUNCE_MIN_BLOCKS 4
+#endif
+
 namespace rt {
 
 constexpr float kMinT = 1e-5f;
 constexpr float kMissT = 3.402823466e38f;   // f32::MAX
+constexpr int kRenderBlock = RT_RENDER_BLOCK;
+constexpr int kRenderMinBlocks = RT_RENDER_MIN_BLOCKS;
+constexpr int kBounceBlock = RT_BOUNCE_BLOCK;
+constexpr int kBounceMinBlocks = RT_BOUNCE_MIN_BLOCKS;
 
-struct __align__(16) Node4 {
+struct __align__(128) Node4 {
   float4 lo_x, lo_y, lo_z, hi_x, hi_y, hi_z;
-  int4 child;   // wide node id | leaf first slot | -1
-  int4 count;   // leaf triangle count, 0 for internal or empty
-  int axis;     // axis the children are sorted on (by centroid)
+  int4 code;   // per child: wide node id | leaf code (< -1) | -1 empty
+  int axis;    // axis the children are sorted on (by centroid)
   int pad0, pad1, pad2;
 };
-static_assert(sizeof(Node4) == 144, "Node4 must match the 36-word host record");
+static_assert(sizeof(Node4) == 128, "Node4 must match the 32-word host record");
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
 };
+
+// Whether no slab product of this ray can be NaN: a finite origin and finite
+// non-zero direction components (so finite non-zero inverses) times box planes
+// that are finite give finite or infinite distances, never 0 * inf. Almost
+// every ray is tame, and a warp of tame rays skips the six NaN tests per child.
+__device__ __forceinline__ bool is_tame(const Ray& r) {
+  const float big = 3.402823466e38f;
+  return fabsf(r.ox) <= big && fabsf(r.oy) <= big && fabsf(r.oz) <= big &&
+         fabsf(r.dx) <= big && fabsf(r.dy) <= big && fabsf(r.dz) <= big &&
+         fabsf(r.ix) <= big && fabsf(r.iy) <= big && fabsf(r.iz) <= big;
+}
 
 __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
                                         float dx, float dy, float dz) {
@@ -58,32 +129,83 @@ struct TriHit {
   int slot;   // -1 on a miss
 };
 
-__device__ __forceinline__ float lane(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ int lane(const int4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-
 __device__ __forceinline__ bool is_nan(float x) { return x != x; }
 
-// Stack entry: an internal node id (>= 0) or a leaf, -1 - (first_slot << 4 | count).
-struct Entry {
-  int code;
-  float ce;   // clamped entry distance at push time
+// The work of one walk, counted only by the COUNT instances: node records
+// slab-tested and triangles intersected by this ray (the roofline bound's
+// operation count), and the iterations of the node body and of the triangle
+// body that this lane led as the lowest active lane of its warp. Summed over
+// a launch, nodes / (32 * warp_nodes) is the SIMT efficiency of the node
+// body (the share of a warp's lanes at work in it), and the same for tris.
+struct Work {
+  int nodes, tris, warp_nodes, warp_tris;
 };
 
-__device__ __forceinline__ int leaf_code(int first, int count) {
-  return -1 - ((first << 4) | count);
+// One more iteration of a body: `mine` counts the lane, `led` the warp.
+__device__ __forceinline__ void count_iteration(int& mine, int& led) {
+  const unsigned active = __activemask();
+  ++mine;
+  if ((threadIdx.x & 31) == __ffs(active) - 1) ++led;
 }
 
-// The work of one walk, counted only by the COUNT instances (the roofline
-// bound's operation count): node records popped and slab-tested, triangles
-// intersected.
-struct Work {
-  int nodes, tris;
+// Stack entry: an internal node id (>= 0) or a leaf code (< -1), and the
+// child's clamped entry distance at push time.
+struct Entry {
+  int code;
+  float ce;
 };
+
+constexpr float kInf = __builtin_huge_valf();
+
+// Clamped slab entry distance of one child box, or +inf where the ray misses
+// it, the slot is empty, or the box cannot hold anything closer than best_t.
+// The general form: any ray, NaN slabs rejected.
+__device__ __forceinline__ float child_entry(float lo_x, float lo_y, float lo_z, float hi_x,
+                                             float hi_y, float hi_z, int code, const Ray& r,
+                                             float best_t) {
+  const float t1x = (lo_x - r.ox) * r.ix;
+  const float t2x = (hi_x - r.ox) * r.ix;
+  const float t1y = (lo_y - r.oy) * r.iy;
+  const float t2y = (hi_y - r.oy) * r.iy;
+  const float t1z = (lo_z - r.oz) * r.iz;
+  const float t2z = (hi_z - r.oz) * r.iz;
+  const bool nan = is_nan(t1x) || is_nan(t2x) || is_nan(t1y) || is_nan(t2y) ||
+                   is_nan(t1z) || is_nan(t2z);
+  const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+  const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+  const float ce = fmaxf(tmin, 0.0f);
+  const bool ok = code != -1 && !nan && ce <= tmax && ce < best_t;
+  return ok ? ce : kInf;
+}
+
+// The same for a tame ray (is_tame), given each axis' near and far plane by
+// the sign of the direction: with a finite non-zero inverse the nearer plane's
+// distance IS min(t1, t2) and the farther one's max(t1, t2) (rounding is
+// monotone and every box has lo <= hi), and no product is NaN, so the six
+// min/max and the six NaN tests per child fall away with the same result.
+__device__ __forceinline__ float child_entry_tame(float near_x, float near_y, float near_z,
+                                                  float far_x, float far_y, float far_z,
+                                                  int code, const Ray& r, float best_t) {
+  const float tmin = fmaxf(fmaxf((near_x - r.ox) * r.ix, (near_y - r.oy) * r.iy),
+                           (near_z - r.oz) * r.iz);
+  const float tmax = fminf(fminf((far_x - r.ox) * r.ix, (far_y - r.oy) * r.iy),
+                           (far_z - r.oz) * r.iz);
+  const float ce = fmaxf(tmin, 0.0f);
+  const bool ok = code != -1 && ce <= tmax && ce < best_t;
+  return ok ? ce : kInf;
+}
+
+// Exchange two neighbours of the child order when the first is strictly
+// farther: equal distances (and misses, both +inf) keep their order.
+__device__ __forceinline__ void order_pair(float& ce_a, int& code_a, float& ce_b, int& code_b) {
+  const bool swap = ce_a > ce_b;
+  const float ce = swap ? ce_b : ce_a;
+  const int code = swap ? code_b : code_a;
+  ce_b = swap ? ce_a : ce_b;
+  code_b = swap ? code_a : code_b;
+  ce_a = ce;
+  code_a = code;
+}
 
 // One leaf against the ray: closest update with strict <, or the first
 // blocker in any-hit mode (returns true when the ray is done).
@@ -92,7 +214,7 @@ __device__ __forceinline__ bool leaf_test(const float4* __restrict__ tris, int f
                                           int count, const Ray& r, TriHit& best,
                                           Work* work = nullptr) {
   for (int j = 0; j < count; ++j) {
-    if (COUNT) ++work->tris;
+    if (COUNT) count_iteration(work->tris, work->warp_tris);
     const int slot = first + j;
     const float4 a0 = __ldg(tris + 3 * slot + 0);
     const float4 a1 = __ldg(tris + 3 * slot + 1);
@@ -124,70 +246,106 @@ __device__ __forceinline__ bool leaf_test(const float4* __restrict__ tris, int f
   return false;
 }
 
+// The walk of one ray, TAME for a ray that is_tame (the lean slab test).
+template <int STACK, bool ANY_HIT, bool TAME, bool COUNT>
+__device__ __forceinline__ TriHit walk_bvh4(const Node4* __restrict__ nodes,
+                                            const float4* __restrict__ tris, const Ray& r,
+                                            float max_t, Work* work) {
+  TriHit best{max_t, -1};
+  Entry stack[STACK];
+  int sp = 0;
+  int cur = 0;   // the root node
+  // float4 index of each axis' near and far planes in a record (lo at 0-2, hi at 3-5)
+  const int near_x = r.dx > 0.0f ? 0 : 3, near_y = r.dy > 0.0f ? 1 : 4;
+  const int near_z = r.dz > 0.0f ? 2 : 5;
+  while (true) {
+    // ---- internal nodes, until this lane holds a leaf ----
+    while (cur >= 0) {
+      if (COUNT) count_iteration(work->nodes, work->warp_nodes);
+      const float4* rec = reinterpret_cast<const float4*>(nodes + cur);
+      const int4 code = __ldg(reinterpret_cast<const int4*>(rec + 6));
+      const int axis = __ldg(reinterpret_cast<const int*>(rec + 7));
+      float e0, e1, e2, e3;   // the four children's entry distances, stored order
+      if (TAME) {
+        const float4 nx = __ldg(rec + near_x), ny = __ldg(rec + near_y);
+        const float4 nz = __ldg(rec + near_z), fx = __ldg(rec + (3 - near_x));
+        const float4 fy = __ldg(rec + (5 - near_y)), fz = __ldg(rec + (7 - near_z));
+        e0 = child_entry_tame(nx.x, ny.x, nz.x, fx.x, fy.x, fz.x, code.x, r, best.t);
+        e1 = child_entry_tame(nx.y, ny.y, nz.y, fx.y, fy.y, fz.y, code.y, r, best.t);
+        e2 = child_entry_tame(nx.z, ny.z, nz.z, fx.z, fy.z, fz.z, code.z, r, best.t);
+        e3 = child_entry_tame(nx.w, ny.w, nz.w, fx.w, fy.w, fz.w, code.w, r, best.t);
+      } else {
+        const float4 lo_x = __ldg(rec + 0), lo_y = __ldg(rec + 1), lo_z = __ldg(rec + 2);
+        const float4 hi_x = __ldg(rec + 3), hi_y = __ldg(rec + 4), hi_z = __ldg(rec + 5);
+        e0 = child_entry(lo_x.x, lo_y.x, lo_z.x, hi_x.x, hi_y.x, hi_z.x, code.x, r, best.t);
+        e1 = child_entry(lo_x.y, lo_y.y, lo_z.y, hi_x.y, hi_y.y, hi_z.y, code.y, r, best.t);
+        e2 = child_entry(lo_x.z, lo_y.z, lo_z.z, hi_x.z, hi_y.z, hi_z.z, code.z, r, best.t);
+        e3 = child_entry(lo_x.w, lo_y.w, lo_z.w, hi_x.w, hi_y.w, hi_z.w, code.w, r, best.t);
+      }
+      // one child ahead (most visits): nothing to order, nothing to push
+      if ((e0 < kInf) + (e1 < kInf) + (e2 < kInf) + (e3 < kInf) == 1) {
+        cur = e0 < kInf ? code.x : e1 < kInf ? code.y : e2 < kInf ? code.z : code.w;
+        continue;
+      }
+      const float d_axis = axis == 0 ? r.dx : axis == 1 ? r.dy : r.dz;
+      const bool forward = d_axis >= 0.0f;
+      // the children's order along the ray, then by entry distance, equal
+      // distances (and the misses at +inf, last) keeping that order
+      float c0 = forward ? e0 : e3, c1 = forward ? e1 : e2;
+      float c2 = forward ? e2 : e1, c3 = forward ? e3 : e0;
+      int k0 = forward ? code.x : code.w, k1 = forward ? code.y : code.z;
+      int k2 = forward ? code.z : code.y, k3 = forward ? code.w : code.x;
+      order_pair(c0, k0, c1, k1);
+      order_pair(c2, k2, c3, k3);
+      order_pair(c1, k1, c2, k2);
+      order_pair(c0, k0, c1, k1);
+      order_pair(c2, k2, c3, k3);
+      order_pair(c1, k1, c2, k2);
+
+      if (c0 < kInf) {
+        // enter the nearest child now; the others wait, far first
+        cur = k0;
+        if (c3 < kInf) stack[sp++] = Entry{k3, c3};
+        if (c2 < kInf) stack[sp++] = Entry{k2, c2};
+        if (c1 < kInf) stack[sp++] = Entry{k1, c1};
+        continue;
+      }
+      // nothing ahead in this node: the topmost entry that a hit found since
+      // its push does not cull
+      cur = -1;
+      while (sp > 0) {
+        const Entry e = stack[--sp];
+        if (!(e.ce >= best.t)) {
+          cur = e.code;
+          break;
+        }
+      }
+      if (cur == -1) return best;
+    }
+
+    // ---- the leaf this lane holds ----
+    const int packed = -1 - cur;
+    if (leaf_test<ANY_HIT, COUNT>(tris, packed >> 4, packed & 15, r, best, work)) return best;
+    cur = -1;
+    while (sp > 0) {
+      const Entry e = stack[--sp];
+      if (!(e.ce >= best.t)) {
+        cur = e.code;
+        break;
+      }
+    }
+    if (cur == -1) return best;
+  }
+}
+
 // Closest hit (or any hit) of triangles strictly below max_t.
 template <int STACK, bool ANY_HIT, bool COUNT = false>
 __device__ TriHit traverse_bvh4(const Node4* __restrict__ nodes,
                                 const float4* __restrict__ tris, const Ray& r,
                                 float max_t, Work* work = nullptr) {
-  TriHit best{max_t, -1};
-  Entry stack[STACK];
-  int sp = 0;
-  stack[sp++] = Entry{0, 0.0f};   // the root node
-  while (sp > 0) {
-    const Entry e = stack[--sp];
-    if (e.ce >= best.t) continue;   // culled by a hit found since the push
-    if (e.code < 0) {
-      const int packed = -1 - e.code;
-      if (leaf_test<ANY_HIT, COUNT>(tris, packed >> 4, packed & 15, r, best, work)) return best;
-      continue;
-    }
-    if (COUNT) ++work->nodes;
-    const float4* rec = reinterpret_cast<const float4*>(nodes + e.code);
-    const float4 lo_x = __ldg(rec + 0), lo_y = __ldg(rec + 1), lo_z = __ldg(rec + 2);
-    const float4 hi_x = __ldg(rec + 3), hi_y = __ldg(rec + 4), hi_z = __ldg(rec + 5);
-    const int4 child = __ldg(reinterpret_cast<const int4*>(rec + 6));
-    const int4 count = __ldg(reinterpret_cast<const int4*>(rec + 7));
-    const int axis = __ldg(reinterpret_cast<const int*>(rec + 8));
-    const float d_axis = axis == 0 ? r.dx : axis == 1 ? r.dy : r.dz;
-    const bool forward = d_axis >= 0.0f;
-
-    // slab-test the four children; keep the hits sorted by entry distance,
-    // equal distances in the children's stored order along the ray
-    int hit_code[4];
-    float hit_ce[4];
-    int nh = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int c = forward ? k : 3 - k;
-      const int ch = lane(child, c);
-      const float t1x = (lane(lo_x, c) - r.ox) * r.ix;
-      const float t2x = (lane(hi_x, c) - r.ox) * r.ix;
-      const float t1y = (lane(lo_y, c) - r.oy) * r.iy;
-      const float t2y = (lane(hi_y, c) - r.oy) * r.iy;
-      const float t1z = (lane(lo_z, c) - r.oz) * r.iz;
-      const float t2z = (lane(hi_z, c) - r.oz) * r.iz;
-      const bool nan = is_nan(t1x) || is_nan(t2x) || is_nan(t1y) || is_nan(t2y) ||
-                       is_nan(t1z) || is_nan(t2z);
-      const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-      const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-      const float ce = fmaxf(tmin, 0.0f);
-      if (ch >= 0 && !nan && ce <= tmax && ce < best.t) {
-        const int n = lane(count, c);
-        const int code = n > 0 ? leaf_code(ch, n) : ch;
-        int p = nh++;
-        while (p > 0 && hit_ce[p - 1] > ce) {
-          hit_code[p] = hit_code[p - 1];
-          hit_ce[p] = hit_ce[p - 1];
-          --p;
-        }
-        hit_code[p] = code;
-        hit_ce[p] = ce;
-      }
-    }
-    // far first, so the nearest child is popped next
-    for (int p = nh - 1; p >= 0; --p) stack[sp++] = Entry{hit_code[p], hit_ce[p]};
-  }
-  return best;
+  if (0.0f >= max_t) return TriHit{max_t, -1};   // no ray: the root is culled unread
+  return is_tame(r) ? walk_bvh4<STACK, ANY_HIT, true, COUNT>(nodes, tris, r, max_t, work)
+                    : walk_bvh4<STACK, ANY_HIT, false, COUNT>(nodes, tris, r, max_t, work);
 }
 
 // Unit geometric normal and material of a winning slot.

@@ -7,13 +7,14 @@ with full RGB throughput and splits it to one wavelength only at
 dispersive glass; RGB mode traces channel 1 (no dispersion offset) and
 never splits.
 
-On a CUDA device a step is: the camera pool with QMC-jittered pixel
-positions (one lane per pixel, tile-major), then for each depth 0 to
-`max_bounce_depth` a count of the live lanes, the coherence sort (not at
-depth 0), the uniforms and one bounce kernel launch, then one scatter of
-the radiance back to the lanes' original order and one add into the
-accumulator. No step reads a value back to the host. On the CPU the same
-step runs the plain bounce.
+A step is: the camera pool with QMC-jittered pixel positions (one lane
+per pixel, tile-major), then for each depth 0 to `max_bounce_depth` a count
+of the live lanes, their coherence order (not at depth 0) and one bounce,
+which updates the pool and the step's radiance in place, then one add into
+the accumulator. On a CUDA device the bounce is one kernel launch that
+visits only the live lanes and computes their QMC uniforms itself; no step
+reads a value back to the host. On the CPU the same calls run the plain
+bounce.
 
 The accumulator rows are pixels in tile-major order (64x64 tiles, every
 pixel once); `image()` and `image_device()` reorder them to [H,W,3].

@@ -34,12 +34,26 @@ from ..ops.shading import (hit_footprint, light_rows, light_sum, sample_light_in
 from ..ops.trace import Hit, occluded, trace
 
 TILE = 64  # tile edge of the tile-major pixel order
+WARP_BLOCK = (8, 4)  # pixels (wide, high) of one warp of the CUDA kernels
 
 
-def tiled_pixel_order(width: int, height: int, tile: int = TILE):
-    """Pixel coordinates in tile-major order (row-major inside each tile),
-    every pixel once: (px [W*H] i32, py [W*H] i32)."""
+def tiled_pixel_order(width: int, height: int, tile: int = TILE,
+                      warp: tuple[int, int] | None = None):
+    """Pixel coordinates in tile-major order, every pixel once: (px [W*H]
+    i32, py [W*H] i32). Inside each tile the pixels run row-major (the JAX
+    package's order), or with `warp` = (w, h) in w x h blocks, row-major
+    inside a block and block after block along the tile's rows, so that 32
+    consecutive rays of a CUDA warp cover a compact 8 x 4 block of pixels
+    and walk nearly the same nodes, not a 32 x 1 strip. `tile` must be a
+    multiple of both block edges."""
     gy, gx = np.mgrid[0:tile, 0:tile]
+    if warp is not None:
+        bw, bh = warp
+        if tile % bw or tile % bh:
+            raise ValueError(f"a {tile}-pixel tile does not divide into {bw} x {bh} blocks")
+        # [block row, block column, row in block, column in block]
+        blocks = lambda g: g.reshape(tile // bh, bh, tile // bw, bw).transpose(0, 2, 1, 3)
+        gx, gy = blocks(gx), blocks(gy)
     gx, gy = gx.reshape(-1), gy.reshape(-1)
     px, py = [], []
     for ty in range(0, height, tile):
@@ -156,8 +170,9 @@ def render_deferred_chunk(scene: Scene, px: torch.Tensor, py: torch.Tensor,
 
 class Renderer:
     """Whole-frame renderer on one device (`device` defaults to CUDA; pass
-    "cpu" for the plain path). Frames come out in tile-major ray order (`render_device`) or
-    as [H,W,3] images (`render`, `render_u8`). Textured scenes sample with
+    "cpu" for the plain path). Frames come out in the order of `px`, `py`
+    (`render_device`: tile-major, on CUDA in 8 x 4 blocks inside the tiles) or
+    as [H,W,3] images (`render`, `render_u8`), the same on either device. Textured scenes sample with
     `config.texture_trilinear`."""
 
     def __init__(self, scene: Scene, width: int, height: int,
@@ -175,7 +190,9 @@ class Renderer:
         # advances it per frame gets fresh choices, so frames average to the
         # sum over the lights; left at 0 every frame is the same
         self.light_frame = 0
-        px, py = tiled_pixel_order(width, height)
+        # on the card a warp's 32 rays are a compact block of pixels
+        px, py = tiled_pixel_order(width, height,
+                                   warp=WARP_BLOCK if self.device.type == "cuda" else None)
         self._px_host, self._py_host = px, py
         self.px = torch.from_numpy(px).to(self.device)
         self.py = torch.from_numpy(py).to(self.device)
@@ -213,7 +230,8 @@ class Renderer:
         return texture_shade(self.shade_tables, gbuf, sky=self.sky, trilinear=trilinear)
 
     def render_device(self) -> torch.Tensor:
-        """The full frame, left on the device: f32 [W*H,3] in tile-major ray order."""
+        """The full frame, left on the device: f32 [W*H,3] in the order of
+        `self.px`, `self.py`."""
         return self.render_rays(self.px, self.py)
 
     def to_image(self, flat: np.ndarray) -> np.ndarray:

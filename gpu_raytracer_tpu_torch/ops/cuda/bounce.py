@@ -5,8 +5,17 @@ K6 replaces the TPU kernel `gpu_raytracer_tpu/ops/pallas/bounce.py`
 (`pallas_bounce` -> `_kernel`). Kernel source: csrc/bounce.cuh (instances
 in csrc/bounce.cu and csrc/bounce_textured.cu), which reuses K2's sphere
 pass, K1's closest and any-hit traversal, the per-light intensity and the
-dispersion blend (csrc/render_common.cuh). Its plain version is
-`ops/wavefront.py::bounce`.
+dispersion blend (csrc/render_common.cuh). `fused_bounce_` is its wrapper:
+it updates the pool and the radiance IN PLACE, visits only the live lanes
+in the coherence order it is handed, and on the card computes each lane's
+QMC uniforms inside the kernel. Its plain version is
+`ops/wavefront.py::bounce_` (built on `bounce`, the functional form).
+`fused_bounce` is the functional form of the same kernel (pool in, new
+pool and radiance out, the uniforms given), for checks against `bounce`.
+
+`qmc_uniforms_kernel` launches the kernel's QMC stream on its own
+(csrc/qmc.cu) so that it can be held bit for bit against
+`ops/sampler.py::qmc_uniforms`; the path tracer never calls it.
 
 K5 replaces the TPU subroutine `gpu_raytracer_tpu/ops/pallas/texshade.py`
 `sample_materials_tiles`: on the card it is the device function
@@ -23,14 +32,17 @@ shade kernel's maps and atlas (ops/cuda/texshade.py).
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
 
 from ...models.scene import Scene
 from .build import check, load_kernels
+from ..sampler import MASK32, QmcStream, lattice_words, mul32, pcg_hash
 from .render import RenderTables, pack_render_tables
 from .texshade import ShadeTables, pack_shade_tables
+from .traverse import nodes_ptr
 
 # lighting modes and continuations of the kernel (csrc/bounce.cuh)
 NEE_NONE, NEE_ALL, NEE_SAMPLED = 0, 1, 2
@@ -66,66 +78,143 @@ def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} is on {x.device}, the tables on {device}")
 
 
-def fused_bounce(tables: BounceTables, r, u: torch.Tensor, *, shadows: bool, do_rr: bool,
-                 light_sample: bool = False, tex_lod: float = 0.0, last: bool = False):
-    """One bounce of pool `r` (ops/wavefront.py WavefrontRays) with
-    uniforms u [N,7] f32 -> (next pool, radiance [N,3] f32), the arguments
-    of `ops/wavefront.py::bounce`. CUDA tensors launch the kernel, CPU
-    tensors take the plain version."""
-    from ..wavefront import bounce
+def qmc_words(stream: QmcStream, depth: int, chunk: int):
+    """The kernel's view of `stream` at bounce `depth` for a pool of `chunk`
+    lanes per sample: 4 + 2 * 7 uint32 host words (pixel id base, sample
+    base, the depth's rotation hash, chunk, the lattice generators and the
+    rotation salts), everything `ops/sampler.py::qmc_uniforms` derives
+    before it touches a lane."""
+    hd = pcg_hash((mul32(int(depth) & MASK32, 0x9E3779B9) + (int(stream.seed) & MASK32))
+                  & MASK32)
+    words = [int(stream.pid_base) & MASK32, int(stream.sample_base) & MASK32, hd, int(chunk),
+             *lattice_words()]
+    return (ctypes.c_uint32 * len(words))(*words)
 
+
+def _check_pool(tables: BounceTables, r, order, n_live, u, radiance=None) -> int:
     N = r.count
     dev = tables.device
     f32, i32 = torch.float32, torch.int32
-    for name, x, dtype, shape in (
-            ("origin", r.origin, f32, (N, 3)), ("direction", r.direction, f32, (N, 3)),
-            ("throughput", r.throughput, f32, (N, 3)), ("medium_ior", r.medium_ior, f32, (N,)),
-            ("wavelength_channel", r.wavelength_channel, i32, (N,)),
-            ("ray_type", r.ray_type, i32, (N,)), ("bounce_depth", r.bounce_depth, i32, (N,)),
-            ("active", r.active, torch.bool, (N,)), ("u", u, f32, (N, 7))):
+    wanted = [("origin", r.origin, f32, (N, 3)), ("direction", r.direction, f32, (N, 3)),
+              ("throughput", r.throughput, f32, (N, 3)), ("medium_ior", r.medium_ior, f32, (N,)),
+              ("wavelength_channel", r.wavelength_channel, i32, (N,)),
+              ("ray_type", r.ray_type, i32, (N,)), ("bounce_depth", r.bounce_depth, i32, (N,)),
+              ("active", r.active, torch.bool, (N,))]
+    if radiance is not None:
+        wanted.append(("radiance", radiance, f32, (N, 3)))
+    if order is not None:
+        wanted.append(("order", order, i32, (N,)))
+    if n_live is not None:
+        wanted.append(("n_live", n_live, torch.int64, ()))
+    if u is not None:
+        wanted.append(("u", u, f32, (N, 7)))
+    for name, x, dtype, shape in wanted:
         _check(name, x, dtype, shape, dev)
+    return N
+
+
+def fused_bounce_(tables: BounceTables, r, radiance: torch.Tensor, *, depth: int = 0,
+                  order: torch.Tensor | None = None, n_live: torch.Tensor | None = None,
+                  u: torch.Tensor | None = None, qmc: QmcStream | None = None,
+                  shadows: bool, do_rr: bool, light_sample: bool = False,
+                  tex_lod: float = 0.0, last: bool = False) -> None:
+    """One bounce of pool `r` (ops/wavefront.py WavefrontRays) IN PLACE:
+    every live lane's continuation is written over the lane (or the lane is
+    retired) and its radiance is added to `radiance` [N,3]; a dead lane is
+    left as it is. The arguments of `ops/wavefront.py::bounce_`:
+
+    order   [N] int32, sorted position -> lane (the coherence order, dead
+            lanes last), or None for position = lane;
+    n_live  0-d int64 on the pool's device: only the first n_live positions
+            are worked on (never read by the host), or None for all;
+    u       [N,7] f32 uniforms BY POSITION (an independent stream), or None
+            for the QMC numbers of `qmc` at `depth`, which follow the
+            lane's identity: on the card the kernel computes them itself.
+
+    CUDA tensors launch the kernel, CPU tensors take the plain version."""
+    from ..wavefront import bounce_
+
+    if (u is None) == (qmc is None):
+        raise ValueError("fused_bounce_: give the uniforms `u` or the QMC stream `qmc`")
+    N = _check_pool(tables, r, order, n_live, u, radiance)
+    dev = tables.device
+    flags = dict(shadows=shadows, do_rr=do_rr, light_sample=light_sample, tex_lod=tex_lod,
+                 last=last)
     if dev.type == "cpu":
-        return bounce(tables.scene, r, u, shadows=shadows, do_rr=do_rr,
-                      light_sample=light_sample, tex_lod=tex_lod, last=last)
+        return bounce_(tables.scene, r, radiance, depth=depth, order=order, n_live=n_live,
+                       u=u, qmc=qmc, **flags)
     if dev.type != "cuda":
-        raise ValueError(f"fused_bounce: unsupported device {dev}")
+        raise ValueError(f"fused_bounce_: unsupported device {dev}")
     k = load_kernels()
     rt, sh = tables.render, tables.shade
     n_lights = rt.lights.shape[0]
     nee = (NEE_NONE if not shadows
            else NEE_SAMPLED if light_sample and n_lights > 1 else NEE_ALL)
     cont = LAST if last else CONTINUE_RR if do_rr else CONTINUE
-    empty = lambda shape, dtype: torch.empty(shape, dtype=dtype, device=dev)
-    no, nd, nthr, rad = (empty((N, 3), f32) for _ in range(4))
-    nmed = empty((N,), f32)
-    nchan, nrt, ndepth = (empty((N,), i32) for _ in range(3))
-    nact = empty((N,), torch.bool)
     textured = sh is not None
     maps = sh.maps.data_ptr() if textured else None
     atlas = sh.atlas.data_ptr() if textured else None
+    ptr = lambda x: None if x is None else x.data_ptr()
+    words = None if qmc is None else qmc_words(qmc, depth, N // qmc.spp)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    fused_bounce.launches += 1
-    if textured:
-        fused_bounce.material_launches += 1
     tr = rt.trace
+    nodes = nodes_ptr(tr)
+    fused_bounce_.launches += 1
+    if textured:
+        fused_bounce_.material_launches += 1
     check(k.lib.rt_bounce(
-        tr.nodes.data_ptr(), tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack,
+        nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack,
         rt.materials.data_ptr(), rt.materials.shape[0], rt.lights.data_ptr(), n_lights,
         rt.spheres.data_ptr(), rt.spheres.shape[0], maps, atlas,
         sh.present if textured else 0, sh.n_levels if textured else 1, int(textured),
         float(tex_lod), r.origin.data_ptr(), r.direction.data_ptr(), r.throughput.data_ptr(),
         r.medium_ior.data_ptr(), r.wavelength_channel.data_ptr(), r.ray_type.data_ptr(),
-        r.bounce_depth.data_ptr(), r.active.data_ptr(), u.data_ptr(), N, nee, cont,
-        no.data_ptr(), nd.data_ptr(), nthr.data_ptr(), nmed.data_ptr(), nchan.data_ptr(),
-        nrt.data_ptr(), ndepth.data_ptr(), nact.data_ptr(), rad.data_ptr(), stream),
-        "rt_bounce")
-    return r.replace(origin=no, direction=nd, throughput=nthr, medium_ior=nmed,
-                     wavelength_channel=nchan, ray_type=nrt, bounce_depth=ndepth,
-                     active=nact), rad
+        r.bounce_depth.data_ptr(), r.active.data_ptr(), radiance.data_ptr(), N, ptr(order),
+        ptr(n_live), ptr(u), words, nee, cont, stream), "rt_bounce")
 
 
-fused_bounce.launches = 0            # K6 launches
-fused_bounce.material_launches = 0   # of which textured: each runs K5 per hit
+fused_bounce_.launches = 0            # K6 launches
+fused_bounce_.material_launches = 0   # of which textured: each runs K5 per hit
+
+
+def fused_bounce(tables: BounceTables, r, u: torch.Tensor, *, shadows: bool, do_rr: bool,
+                 light_sample: bool = False, tex_lod: float = 0.0, last: bool = False):
+    """The functional form: one bounce of pool `r` with uniforms u [N,7] f32
+    by lane -> (next pool, radiance [N,3] f32), the arguments and the result
+    of `ops/wavefront.py::bounce`; `r` is left as it was. On CUDA tensors it
+    is `fused_bounce_` (the kernel) on a copy of the pool; CPU tensors take
+    the plain `bounce`."""
+    from ..wavefront import bounce
+
+    flags = dict(shadows=shadows, do_rr=do_rr, light_sample=light_sample, tex_lod=tex_lod,
+                 last=last)
+    if tables.device.type == "cpu":
+        _check_pool(tables, r, None, None, u)
+        return bounce(tables.scene, r, u, **flags)
+    out = r.clone()
+    rad = torch.zeros_like(r.origin)
+    fused_bounce_(tables, out, rad, u=u, **flags)
+    return out, rad
+
+
+def qmc_uniforms_kernel(qmc: QmcStream, depth: int, n: int, device) -> torch.Tensor:
+    """The bounce kernel's own QMC numbers of lanes 0..n-1 of an n-lane pool
+    of `qmc.spp` samples at bounce `depth` -> [n,7] f32, by a standalone
+    launch of the kernel's stream (csrc/qmc.cu). Bit-equal to
+    `ops/wavefront.py::pool_uniforms`. Only on a CUDA device."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"qmc_uniforms_kernel: the kernel's stream runs on CUDA, got {dev}")
+    k = load_kernels()
+    out = torch.empty((n, 7), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    qmc_uniforms_kernel.launches += 1
+    check(k.lib.rt_qmc_uniforms(qmc_words(qmc, depth, n // qmc.spp), n, out.data_ptr(), stream),
+          "rt_qmc_uniforms")
+    return out
+
+
+qmc_uniforms_kernel.launches = 0
 
 
 def material_channels(scene: Scene, mat_id: torch.Tensor, uv: torch.Tensor,

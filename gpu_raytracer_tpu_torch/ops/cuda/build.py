@@ -29,7 +29,7 @@ CSRC = os.path.join(PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG), "build", "cuda")
 SOURCES = ("traverse.cu", "render_primary.cu", "render_primary_textured.cu",
            "render_deferred.cu", "texshade.cu", "bounce.cu", "bounce_textured.cu",
-           "materials.cu")
+           "materials.cu", "qmc.cu")
 HEADERS = ("traverse.cuh", "render_common.cuh", "render_primary.cuh", "texsample.cuh",
            "bounce.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -65,11 +65,13 @@ ARGTYPES = {
     "rt_texture_shade": [_p, _i, _p, _i, _p, _p, _i, _i, _i, _f, _f, _f, _p, _p],
     # nodes, tris, attrs, stack, materials, n_mats, lights, n_lights, spheres,
     # n_spheres, maps, atlas, present, n_levels, textured, tex_lod,
-    # origin, direction, throughput, medium, channel, ray_type, depth, active,
-    # u, n, nee, cont, and the same eight pool fields out, radiance, stream
+    # the pool in place: origin, direction, throughput, medium, channel,
+    # ray_type, depth, active, radiance; n, order, n_live, u (each may be
+    # null), qmc (host words, read when u is null), nee, cont, stream
     "rt_bounce": [_p, _p, _p, _i, _p, _i, _p, _i, _p, _i, _p, _p, _i, _i, _i, _f,
-                  _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
-                  _p, _p, _p, _p, _p, _p, _p, _p, _p, _p],
+                  _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _i, _p],
+    # qmc (host words), n, u_out, stream
+    "rt_qmc_uniforms": [_p, _i, _p, _p],
     # materials, n_mats, maps, atlas, present, n_levels, mat_id, uv, lod, n,
     # out, stream
     "rt_sample_materials": [_p, _i, _p, _p, _i, _i, _p, _p, _f, _i, _p, _p],

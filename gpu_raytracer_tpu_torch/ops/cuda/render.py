@@ -51,7 +51,7 @@ from ..f16 import unpack_f16_high, unpack_f16_low
 from ..linalg import cross, normalize
 from ..shading import pixel_footprint_scale
 from .build import check, load_kernels
-from .traverse import TraceTables, pack_trace_tables
+from .traverse import TraceTables, nodes_ptr, pack_trace_tables
 
 MAX_LIGHTS = 16   # above this `Renderer` hands the kernels a `light_u`, as the JAX package
 
@@ -155,6 +155,7 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     tr = tables.trace
     sky_r, sky_g, sky_b = (float(c) for c in sky)
     stream = torch.cuda.current_stream(px.device).cuda_stream
+    nodes = nodes_ptr(tr)
     scene_args = (tables.camera.data_ptr(), tables.materials.data_ptr(),
                   tables.materials.shape[0], tables.lights.data_ptr(), tables.lights.shape[0],
                   tables.spheres.data_ptr(), tables.spheres.shape[0])
@@ -163,13 +164,13 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     if textured:
         render_primary.textured_launches += 1
         check(k.lib.rt_render_primary_textured(
-            tr.nodes.data_ptr(), tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack, *scene_args,
+            nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack, *scene_args,
             shade.maps.data_ptr(), shade.atlas.data_ptr(), shade.present, shade.n_levels,
             pixel_footprint_scale(tables.fov_scale, height), *frame_args),
             "rt_render_primary_textured")
     else:
         render_primary.launches += 1
-        check(k.lib.rt_render_primary(tr.nodes.data_ptr(), tr.tris.data_ptr(), tr.stack,
+        check(k.lib.rt_render_primary(nodes, tr.tris.data_ptr(), tr.stack,
                                       *scene_args, *frame_args), "rt_render_primary")
     return rgb
 
@@ -196,9 +197,10 @@ def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     tr = tables.trace
     pix = pixel_footprint_scale(tables.fov_scale, height)
     stream = torch.cuda.current_stream(px.device).cuda_stream
+    nodes = nodes_ptr(tr)
     render_deferred.launches += 1
     check(k.lib.rt_render_deferred(
-        tr.nodes.data_ptr(), tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack,
+        nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack,
         tables.camera.data_ptr(), tables.lights.data_ptr(), tables.lights.shape[0],
         tables.spheres.data_ptr(), tables.spheres.shape[0], px.data_ptr(), py.data_ptr(),
         N, width, height, int(shadows), pix, _light_u_ptr(tables, light_u), gbuf.data_ptr(),

@@ -8,12 +8,13 @@ launch). Its plain version is `ops/trace.py::traverse_triangles`.
 
 The scene tables are laid out for the GPU here, once per scene:
 
-  * nodes [Q,36] f32: one 144-byte record per BVH4 node, 16-byte aligned:
-    child boxes as lo_x[4], lo_y[4], lo_z[4], hi_x[4], hi_y[4], hi_z[4],
-    then child[4] (wide node id, or first triangle slot of a leaf, or -1),
-    count[4] (leaf triangle count, 0 for an internal or empty slot), the
-    axis the children are sorted on, 3 pad words. The integer fields are
-    int32 bit patterns in the f32 tensor.
+  * nodes [Q,32] f32: one 128-byte record per BVH4 node, 128-byte aligned
+    (one cache line): child boxes as lo_x[4], lo_y[4], lo_z[4], hi_x[4],
+    hi_y[4], hi_z[4], then code[4] (a wide node id >= 0, or a leaf as the
+    traversal stack's leaf code -1 - (first triangle slot << 4 | count), or
+    -1 for an empty slot), the axis the children are sorted on, 3 pad
+    words. The integer fields are int32 bit patterns in the f32 tensor;
+    `unpack_nodes` reads a table back.
   * tris [Tp,12] f32: three float4 per leaf-ordered triangle slot:
     (v0, material as int32 bits), (e1, 0), (e2, 0).
 
@@ -40,13 +41,15 @@ from ..trace import traverse_triangles
 from .build import check, load_kernels
 
 STACK_SIZES = (16, 32, 64, 128)   # compiled stack capacities (csrc/traverse.cu)
+NODE_WORDS = 32                   # f32 words of a node record
+NODE_BYTES = 4 * NODE_WORDS       # and its alignment: one 128-byte cache line
 _BIG = 3.0e38
 
 
 @dataclass
 class TraceTables:
     scene: Scene            # the scene the tables were packed from (plain path)
-    nodes: torch.Tensor     # [Q,36] f32
+    nodes: torch.Tensor     # [Q,32] f32, 128-byte aligned on the card
     tris: torch.Tensor      # [Tp,12] f32
     attrs: torch.Tensor     # [Tp,8] f32 winner attributes (uvs, density)
     depth: int              # BVH4 levels of internal nodes
@@ -74,44 +77,90 @@ def wide_depth(q_child: np.ndarray, q_leafc: np.ndarray) -> int:
     return int(depth.max())
 
 
+def wide_arrays(scene: Scene):
+    """The BVH4 of a scene as (q_min [Q,4,3] f32, q_max [Q,4,3] f32, q_child
+    [Q,4] i32, q_leafc [Q,4] i32, q_axis [Q] i32, depth). A single-leaf tree
+    (no BVH4 overlay) becomes one node whose slot 0 is the leaf under a box
+    no ray misses, slots 1-3 empty."""
+    bvh = scene.bvh
+    dev = scene.device
+    if bvh.has_wide:
+        if bvh.q_child.shape[1] != 4:
+            raise NotImplementedError("BVH width 8 is not ported yet")
+        return (bvh.q_min.float(), bvh.q_max.float(), bvh.q_child, bvh.q_leafc, bvh.q_axis,
+                wide_depth(bvh.q_child.cpu().numpy(), bvh.q_leafc.cpu().numpy()))
+    q_min = torch.full((1, 4, 3), 1e30, device=dev)
+    q_max = torch.full((1, 4, 3), 1e30, device=dev)
+    q_min[0, 0] = -_BIG
+    q_max[0, 0] = _BIG
+    n0 = int(bvh.tri_count[0])
+    child = torch.tensor([[int(bvh.tri_start[0]) if n0 else -1, -1, -1, -1]],
+                         dtype=torch.int32, device=dev)
+    count = torch.tensor([[n0, 0, 0, 0]], dtype=torch.int32, device=dev)
+    return q_min, q_max, child, count, torch.zeros((1,), dtype=torch.int32, device=dev), 1
+
+
+def pack_nodes(q_min, q_max, q_child, q_leafc, q_axis) -> torch.Tensor:
+    """[Q,32] f32 node records (the module docstring's layout) from the
+    BVH4 arrays of `wide_arrays`."""
+    child, count = q_child.to(torch.int32), q_leafc.to(torch.int32)
+    leaf = -1 - ((child << 4) | count)
+    code = torch.where(child < 0, torch.full_like(child, -1),
+                       torch.where(count > 0, leaf, child))
+    pad = torch.zeros((child.shape[0], 3), dtype=torch.float32, device=child.device)
+    return torch.cat(
+        [q_min[:, :, 0], q_min[:, :, 1], q_min[:, :, 2],
+         q_max[:, :, 0], q_max[:, :, 1], q_max[:, :, 2],
+         _bits(code), _bits(q_axis[:, None]), pad], dim=1).contiguous()
+
+
+def unpack_nodes(nodes: torch.Tensor):
+    """Node records [Q,32] f32 -> (q_min, q_max, q_child, q_leafc, q_axis),
+    the arrays `pack_nodes` was given."""
+    boxes = nodes[:, :24].reshape(-1, 6, 4)
+    q_min = boxes[:, 0:3].transpose(1, 2).contiguous()
+    q_max = boxes[:, 3:6].transpose(1, 2).contiguous()
+    ints = nodes[:, 24:29].contiguous().view(torch.int32)
+    code = ints[:, :4]
+    packed = -1 - code
+    is_leaf = code < -1
+    child = torch.where(is_leaf, packed >> 4, code)
+    count = torch.where(is_leaf, packed & 15, torch.zeros_like(code))
+    return q_min, q_max, child, count, ints[:, 4]
+
+
 def pack_trace_tables(scene: Scene) -> TraceTables:
     """The GPU node and triangle tables of a scene, on the scene's device."""
     bvh = scene.bvh
     dev = scene.device
-    # a stack entry packs a leaf as (first slot << 4 | count) in an int32
+    # a leaf is the code -1 - (first slot << 4 | count) in an int32
     if bvh.max_leaf > 15 or scene.tri_v0.shape[0] >= 1 << 27:
         raise ValueError(f"leaves of up to {bvh.max_leaf} of {scene.tri_v0.shape[0]} "
                          f"triangle slots do not fit the kernels' 4+27-bit leaf code")
-    if bvh.has_wide:
-        if bvh.q_child.shape[1] != 4:
-            raise NotImplementedError("BVH width 8 is not ported yet")
-        q_min, q_max = bvh.q_min.float(), bvh.q_max.float()
-        child, count, axis = bvh.q_child, bvh.q_leafc, bvh.q_axis
-        depth = wide_depth(child.cpu().numpy(), bvh.q_leafc.cpu().numpy())
-    else:
-        # one leaf: slot 0 under a box no ray misses, slots 1-3 empty
-        q_min = torch.full((1, 4, 3), 1e30, device=dev)
-        q_max = torch.full((1, 4, 3), 1e30, device=dev)
-        q_min[0, 0] = -_BIG
-        q_max[0, 0] = _BIG
-        n0 = int(bvh.tri_count[0])
-        child = torch.tensor([[int(bvh.tri_start[0]) if n0 else -1, -1, -1, -1]],
-                             dtype=torch.int32, device=dev)
-        count = torch.tensor([[n0, 0, 0, 0]], dtype=torch.int32, device=dev)
-        axis = torch.zeros((1,), dtype=torch.int32, device=dev)
-        depth = 1
-    Q = child.shape[0]
-    nodes = torch.cat(
-        [q_min[:, :, 0], q_min[:, :, 1], q_min[:, :, 2],
-         q_max[:, :, 0], q_max[:, :, 1], q_max[:, :, 2],
-         _bits(child), _bits(count), _bits(axis[:, None]),
-         torch.zeros((Q, 3), dtype=torch.float32, device=dev)], dim=1).contiguous()
+    q_min, q_max, child, count, axis, depth = wide_arrays(scene)
+    nodes = pack_nodes(q_min, q_max, child, count, axis)
     zero = torch.zeros((scene.tri_v0.shape[0], 1), dtype=torch.float32, device=dev)
     tris = torch.cat([scene.tri_v0, _bits(scene.tri_mat[:, None]),
                       scene.tri_e1, zero, scene.tri_e2, zero], dim=1).contiguous()
     attrs = torch.cat([scene.tri_uv.reshape(-1, 6), den_decode(scene.tri_den)[:, None],
                        zero], dim=1).contiguous()
     return TraceTables(scene, nodes, tris, attrs, depth, stack_capacity(depth))
+
+
+def nodes_ptr(tables: TraceTables) -> int:
+    """The node table's device address for a kernel launch: the kernels read
+    a record as one aligned 128-byte line, so any other alignment (a view
+    into a larger buffer) or shape is refused."""
+    nodes = tables.nodes
+    if (nodes.dtype != torch.float32 or nodes.dim() != 2 or nodes.shape[1] != NODE_WORDS
+            or not nodes.is_contiguous()):
+        raise ValueError(f"nodes: want contiguous float32 [Q,{NODE_WORDS}], got {nodes.dtype} "
+                         f"{tuple(nodes.shape)}")
+    ptr = nodes.data_ptr()
+    if ptr % NODE_BYTES:
+        raise ValueError(f"nodes: the table starts at {ptr:#x}, not on a {NODE_BYTES}-byte "
+                         f"boundary")
+    return ptr
 
 
 def stack_capacity(depth: int) -> int:
@@ -157,8 +206,9 @@ def traverse(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
     normal = torch.empty((N, 3), dtype=torch.float32, device=orig.device)
     mat = torch.empty((N,), dtype=torch.int32, device=orig.device)
     stream = torch.cuda.current_stream(orig.device).cuda_stream
+    nodes = nodes_ptr(tables)
     traverse.launches += 1
-    check(k.lib.rt_traverse(tables.nodes.data_ptr(), tables.tris.data_ptr(), tables.stack,
+    check(k.lib.rt_traverse(nodes, tables.tris.data_ptr(), tables.stack,
                             orig.data_ptr(), dirn.data_ptr(), max_t.data_ptr(), N,
                             int(any_hit), t.data_ptr(), slot.data_ptr(),
                             normal.data_ptr(), mat.data_ptr(), stream), "rt_traverse")
@@ -170,17 +220,21 @@ traverse.launches = 0
 
 def traversal_work(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
                    max_t: torch.Tensor, any_hit: bool = False) -> torch.Tensor:
-    """The work of K1's own walk for each ray -> [N,2] int32 (node records
-    slab-tested, triangles intersected): a measurement on the card, for
-    the operation count of the kernels' roofline bound. Only CUDA tensors:
-    the plain traversal walks the binary tree, a different count."""
+    """The work of K1's own walk for each ray -> [N,4] int32: node records
+    slab-tested, triangles intersected (the operation count of the kernels'
+    roofline bound), and the iterations of the node body and of the
+    triangle body that the ray's lane led for its warp of 32 consecutive
+    rays, so that over a launch sum(nodes) / (32 * sum(warp nodes)) is the
+    SIMT efficiency of the node body, and the same for the triangles. A
+    measurement on the card, only for CUDA tensors: the plain traversal
+    walks the binary tree, a different count."""
     N = _check_rays(tables, orig, dirn, max_t)
     if orig.device.type != "cuda":
         raise ValueError(f"traversal_work: counts the CUDA walk, got {orig.device}")
     k = load_kernels()
-    work = torch.empty((N, 2), dtype=torch.int32, device=orig.device)
+    work = torch.empty((N, 4), dtype=torch.int32, device=orig.device)
     stream = torch.cuda.current_stream(orig.device).cuda_stream
-    check(k.lib.rt_traverse_work(tables.nodes.data_ptr(), tables.tris.data_ptr(), tables.stack,
+    check(k.lib.rt_traverse_work(nodes_ptr(tables), tables.tris.data_ptr(), tables.stack,
                                  orig.data_ptr(), dirn.data_ptr(), max_t.data_ptr(), N,
                                  int(any_hit), work.data_ptr(), stream), "rt_traverse_work")
     return work

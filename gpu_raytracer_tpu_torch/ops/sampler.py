@@ -19,6 +19,7 @@ split into 16-bit halves of one factor.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -50,6 +51,25 @@ N_DIMS = 7
 _ALPHA7_Q = _alphas_q(N_DIMS)
 _ALPHA2_Q = _alphas_q(2)
 JITTER_TAG = 0xA11A50   # the jitter's "depth" in the rotation hash
+
+
+@dataclass(frozen=True)
+class QmcStream:
+    """The identity of a chunk-major [spp, C] pool's lanes in the lattice:
+    lane i is pixel id pid_base + i % C at sample index sample_base + i // C
+    of the stream `seed` (a uint32 value)."""
+
+    pid_base: int = 0
+    sample_base: int = 0
+    seed: int = 0
+    spp: int = 1
+
+
+def lattice_words(alphas_q: np.ndarray = _ALPHA7_Q) -> list[int]:
+    """The per-dimension constants of `qmc_uniforms` as Python ints: the d
+    generators, then the d rotation salts k * 0x85EBCA6B + 0x165667B1."""
+    return ([int(a) for a in alphas_q]
+            + [(k * 0x85EBCA6B + 0x165667B1) & MASK32 for k in range(len(alphas_q))])
 
 
 def _u32(x):
@@ -88,9 +108,10 @@ def _lattice(alphas: tuple, device: torch.device):
     """Per-dimension constants as [d] int64 tensors on `device`, made once:
     the generator's low and high 16 bits and the rotation salt
     k * 0x85EBCA6B + 0x165667B1."""
-    a = torch.tensor(alphas, dtype=torch.int64, device=device)
-    k = torch.arange(len(alphas), dtype=torch.int64, device=device)
-    return a & 0xFFFF, (a >> 16) & 0xFFFF, (k * 0x85EBCA6B + 0x165667B1) & MASK32
+    words = lattice_words(np.array(alphas, np.uint32))
+    a = torch.tensor(words[:len(alphas)], dtype=torch.int64, device=device)
+    salt = torch.tensor(words[len(alphas):], dtype=torch.int64, device=device)
+    return a & 0xFFFF, (a >> 16) & 0xFFFF, salt
 
 
 def qmc_uniforms(pid: torch.Tensor, s: torch.Tensor, depth, seed,

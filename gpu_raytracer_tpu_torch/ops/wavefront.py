@@ -13,18 +13,22 @@ collapses to one wavelength only at its first transmissive hit, with a 3x
 one-hot throughput, so the estimator stays unbiased and only paths through
 glass pay for dispersion.
 
-`bounce` is the plain version of the bounce kernel (ops/cuda/bounce.py);
-`path_trace_pool` drives the kernel (or, for a CPU pool, `bounce`) from a
-static loop over the depths. Between depths the pool is sorted by
-(direction octant | dominant axis | coarse origin Morton code) for
-traversal coherence, dead lanes last; the original lane index rides along,
-and the radiance is scattered back to it once at the end. No step of the
-loop reads a value back to the host.
+`bounce` is the plain version of the bounce kernel in its functional form
+(pool in, new pool and radiance out); `bounce_` is the plain version of
+the kernel's own contract (ops/cuda/bounce.py::fused_bounce_): the pool and
+the radiance updated in place, only the live lanes of a coherence order
+worked on. `path_trace_pool` drives `fused_bounce_` from a static loop over
+the depths, the same way on either device. Between depths the live lanes
+are ordered by (direction octant | dominant axis | coarse origin Morton
+code) for traversal coherence, dead lanes last; the pool itself never
+moves, the kernel goes to its lanes through the order. No step of the loop
+reads a value back to the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -114,6 +118,11 @@ class WavefrontRays:
     def replace(self, **kw) -> "WavefrontRays":
         return dataclasses.replace(self, **kw)
 
+    def clone(self) -> "WavefrontRays":
+        """A copy with its own tensors (the in-place bounce writes a pool)."""
+        return WavefrontRays(**{f.name: getattr(self, f.name).clone()
+                                for f in dataclasses.fields(self)})
+
 
 def camera_wavefront_rays(camera, width: int, height: int, px: torch.Tensor,
                           py: torch.Tensor, channel: int, jitter: torch.Tensor | None = None,
@@ -158,78 +167,81 @@ def _shadow_mask_points(scene: Scene, point: torch.Tensor, normal: torch.Tensor,
     return torch.where(hit_mask[:, None], mask, torch.ones_like(mask))
 
 
-def _sort_perm(scene: Scene, o: torch.Tensor, d: torch.Tensor,
-               active: torch.Tensor) -> torch.Tensor:
-    """Coherence order of a pool: sort key (direction octant | dominant axis
+@functools.lru_cache(maxsize=None)
+def _key_tables(device: torch.device):
+    """Constants of `_sort_key` on `device`, made once: the octant weights
+    (4, 2, 1) and, per axis, the 16 cell indices with their 4 bits spread to
+    every third bit (x at bit 2, y at bit 1, z at bit 0 of each triple)."""
+    cell = torch.arange(16, dtype=torch.int32, device=device)
+    spread = torch.zeros_like(cell)
+    for b in range(4):
+        spread = spread | (((cell >> b) & 1) << (3 * b))
+    weights = torch.tensor([4, 2, 1], dtype=torch.int32, device=device)
+    return weights, torch.stack([spread << 2, spread << 1, spread])
+
+
+def _sort_key(scene: Scene, o: torch.Tensor, d: torch.Tensor,
+              active: torch.Tensor) -> torch.Tensor:
+    """Coherence key of each lane, int32: (direction octant | dominant axis
     | 12-bit origin Morton code in the root box), dead lanes keyed past
-    every live one; a stable sort, so equal keys keep their lane order."""
-    octant = (((d[:, 0] >= 0).to(torch.int32) << 2)
-              | ((d[:, 1] >= 0).to(torch.int32) << 1)
-              | (d[:, 2] >= 0).to(torch.int32))
+    every live one. Few, whole-tensor operations: on the card each one is a
+    launch, and a step is bound by the host's launches."""
+    weights, spread = _key_tables(o.device)
+    octant = ((d >= 0).to(torch.int32) * weights).sum(dim=1, dtype=torch.int32)
     axis = torch.argmax(torch.abs(d), dim=1).to(torch.int32)
-    dirkey = (octant << 2) | axis
     lo = scene.bvh.node_min[0]
     hi = scene.bvh.node_max[0]
     # clamp before truncating: the same cells as truncate-then-clip, and no
-    # out-of-range float to int conversion
-    q = torch.clamp((o - lo) / (hi - lo + 1e-6) * 16.0, 0.0, 15.0).to(torch.int32)
-    morton = torch.zeros_like(dirkey)
-    for b in range(4):
-        morton = (morton
-                  | (((q[:, 0] >> b) & 1) << (3 * b + 2))
-                  | (((q[:, 1] >> b) & 1) << (3 * b + 1))
-                  | (((q[:, 2] >> b) & 1) << (3 * b)))
-    key = torch.where(active, (dirkey << 12) | morton, torch.full_like(morton, 2 ** 30))
-    return torch.sort(key, stable=True)[1]
+    # out-of-range float to int conversion; again after it, so that a NaN
+    # origin (whatever integer it becomes) still indexes the tables
+    q = torch.clamp((o - lo) / (hi - lo + 1e-6) * 16.0, 0.0, 15.0).long().clamp_(0, 15)
+    morton = spread.gather(1, q.t()).sum(dim=0, dtype=torch.int32)   # disjoint bits: sum = or
+    key = (((octant << 2) | axis) << 12) | morton
+    return torch.where(active, key, torch.full_like(key, 2 ** 30))
 
 
-def _permute_pool(r: WavefrontRays, radiance: torch.Tensor, orig_lane: torch.Tensor,
-                  perm: torch.Tensor):
-    """The pool, its radiance and its original lane ids in `perm` order,
-    one gather per field. inv_pdf, t_min and t_max are the same for every
-    lane (no bounce writes them) and are not moved."""
-    r2 = r.replace(origin=r.origin[perm], direction=r.direction[perm],
-                   ray_type=r.ray_type[perm], bounce_depth=r.bounce_depth[perm],
-                   throughput=r.throughput[perm], medium_ior=r.medium_ior[perm],
-                   pixel=r.pixel[perm], wavelength_channel=r.wavelength_channel[perm],
-                   active=r.active[perm])
-    return r2, radiance[perm], orig_lane[perm]
+def _sort_perm(scene: Scene, o: torch.Tensor, d: torch.Tensor,
+               active: torch.Tensor) -> torch.Tensor:
+    """Coherence order of a pool: a stable sort by `_sort_key`, so equal
+    keys keep their lane order."""
+    return torch.sort(_sort_key(scene, o, d, active), stable=True)[1]
 
 
-def _coherence_sort(scene: Scene, r: WavefrontRays, radiance: torch.Tensor,
-                    orig_lane: torch.Tensor):
-    return _permute_pool(r, radiance, orig_lane, _sort_perm(scene, r.origin, r.direction,
-                                                            r.active))
+def coherence_order(scene: Scene, r: WavefrontRays,
+                    previous: torch.Tensor | None = None) -> torch.Tensor:
+    """[N] int32, sorted position -> lane: the lanes of the pool in
+    coherence order (`_sort_perm`), dead lanes last. Lanes of equal key stay
+    in the order of `previous` (the order of the depth before; None: lane
+    order), as if the pool had been moved into each order in turn."""
+    key = _sort_key(scene, r.origin, r.direction, r.active)
+    if previous is None:
+        return torch.sort(key, stable=True)[1].to(torch.int32)
+    return previous[torch.sort(key[previous.long()], stable=True)[1]]
 
 
-def _unscramble(radiance: torch.Tensor, orig_lane: torch.Tensor) -> torch.Tensor:
-    """Row i of `radiance` belongs to original lane orig_lane[i]: scatter it
-    back."""
-    out = torch.empty_like(radiance)
-    out[orig_lane] = radiance
-    return out
+def pool_uniforms(qmc, depth: int, lane: torch.Tensor, count: int) -> torch.Tensor:
+    """The [len(lane),7] QMC uniform block of bounce `depth` for lanes
+    `lane` of a `count`-lane pool with identity `qmc` (ops/sampler.py
+    QmcStream): lattice uniforms addressed by the ray's identity in the
+    chunk-major [spp, C] pool, pixel id pid_base + lane % C and sample index
+    sample_base + lane // C, so a lane's numbers do not depend on where a
+    coherence order puts it. The plain version of the bounce kernel's own
+    stream."""
+    from .sampler import qmc_uniforms
+
+    C = count // qmc.spp
+    lane = lane.to(torch.int64)
+    return qmc_uniforms(int(qmc.pid_base) + lane % C, int(qmc.sample_base) + lane // C, depth,
+                        qmc.seed)
 
 
-def _pool_uniforms(depth: int, N: int, orig_lane: torch.Tensor, qmc: bool, qmc_pid_base=0,
-                   sample_base=0, qmc_seed=0, qmc_spp: int = 1,
-                   rng_seed: int = 0) -> torch.Tensor:
-    """The per-depth [N,7] uniform block at the pool's current lane order.
-    QMC: lattice uniforms addressed by the ray's identity, derived from its
-    original lane in the chunk-major [spp, C] pool: pixel id
-    qmc_pid_base + lane % C, sample index sample_base + lane // C, so a
-    lane's numbers do not depend on where the sorts moved it. Otherwise an
-    independent stream drawn by lane position."""
-    if qmc:
-        from .sampler import qmc_uniforms
-
-        C = N // qmc_spp
-        lane = orig_lane.to(torch.int64)
-        return qmc_uniforms(int(qmc_pid_base) + lane % C, int(sample_base) + lane // C,
-                            depth, qmc_seed)
+def stream_uniforms(rng_seed: int, sample_base: int, depth: int, count: int,
+                    device) -> torch.Tensor:
+    """The [count,7] uniform block of bounce `depth` from the independent
+    stream (sampler "rng"), one row per position of the coherence order."""
     from .rng import bounce_key, sample_uniform
 
-    gen = bounce_key(rng_seed, sample_base, depth, device=orig_lane.device)
-    return sample_uniform(gen, (N,), 7)
+    return sample_uniform(bounce_key(rng_seed, sample_base, depth, device=device), (count,), 7)
 
 
 def sampled_shadow_rays(scene: Scene, hit: Hit, live: torch.Tensor, u6: torch.Tensor):
@@ -375,6 +387,43 @@ def bounce(scene: Scene, r: WavefrontRays, u: torch.Tensor, *, shadows: bool, do
         active=alive), radiance
 
 
+def bounce_(scene: Scene, r: WavefrontRays, radiance: torch.Tensor, *, depth: int = 0,
+            order: torch.Tensor | None = None, n_live: torch.Tensor | None = None,
+            u: torch.Tensor | None = None, qmc=None, shadows: bool, do_rr: bool,
+            light_sample: bool = False, tex_lod: float = 0.0, last: bool = False) -> None:
+    """One bounce of the pool IN PLACE: the plain version of the bounce
+    kernel's own contract (ops/cuda/bounce.py::fused_bounce_, which
+    documents the arguments). The lanes worked on are the live ones among
+    the first n_live positions of `order`; each gets its continuation
+    written over it or is retired, and its radiance added to `radiance`;
+    every other lane is left as it is. Uniforms: row i of `u` belongs to
+    position i, i.e. to lane order[i]; without `u` each lane gets the QMC
+    numbers of its own identity (`pool_uniforms`). Built on `bounce` over
+    the whole pool with the other lanes masked out."""
+    N = r.count
+    dev = r.origin.device
+    if u is None:
+        u_lane = pool_uniforms(qmc, depth, torch.arange(N, device=dev), N)
+    elif order is None:
+        u_lane = u
+    else:
+        u_lane = torch.empty_like(u)
+        u_lane[order.long()] = u
+    chosen = r.active
+    if n_live is not None:
+        first = torch.arange(N, device=dev) < n_live
+        if order is not None:
+            first = torch.zeros_like(first).index_put_((order.long(),), first)
+        chosen = chosen & first
+    new, rad = bounce(scene, r.replace(active=chosen), u_lane, shadows=shadows, do_rr=do_rr,
+                      light_sample=light_sample, tex_lod=tex_lod, last=last)
+    for name in ("origin", "direction", "ray_type", "bounce_depth", "throughput", "medium_ior",
+                 "wavelength_channel"):
+        getattr(r, name).copy_(getattr(new, name))
+    r.active.copy_(new.active | (r.active & ~chosen))
+    radiance.add_(rad)
+
+
 def bounce_flags(scene: Scene, depth: int, max_depth: int = 4, rr_start: int = 2,
                  shadows: bool = True, tex_lod_bias: float = 0.0) -> dict:
     """The bounce arguments of `depth` in a loop to `max_depth`: Russian
@@ -392,33 +441,40 @@ def path_trace_pool(tables, rays: WavefrontRays, max_depth: int = 4, rr_start: i
                     rng_seed: int = 0):
     """Trace a pool to termination -> (radiance [N,3] in the pool's lane
     order, per-depth active counts [max_depth + 1] int64, on the device).
+    The pool `rays` is consumed: its tensors are updated in place.
 
     `tables` are the bounce tables of the scene (ops/cuda/bounce.py
-    `pack_bounce_tables`): a CUDA pool runs the bounce kernel, a CPU pool
-    the plain `bounce`. Depth d: count the live lanes, sort the pool (not at
-    depth 0: camera rays arrive in tile-major order), draw the uniforms,
-    bounce with Russian roulette when the continuation enters depth
-    >= rr_start, the textures at level tex_lod_bias * d and `last` at
-    max_depth."""
-    from .cuda.bounce import fused_bounce
+    `pack_bounce_tables`): a CUDA pool runs the bounce kernel, a CPU pool its
+    plain version, through the same calls. Depth d: count the live lanes,
+    order them for coherence (not at depth 0: camera rays arrive in
+    tile-major order), then one `fused_bounce_` over the first `count`
+    positions of the order, with Russian roulette
+    when the continuation enters depth >= rr_start, the textures at level
+    tex_lod_bias * d and `last` at max_depth. With `qmc` the uniforms follow
+    each lane's identity (the kernel computes them); otherwise they are an
+    independent stream drawn by position in the order."""
+    from .cuda.bounce import fused_bounce_
+    from .sampler import QmcStream
 
     scene = tables.scene
     N = rays.count
     dev = rays.origin.device
     r = rays
     radiance = torch.zeros((N, 3), dtype=torch.float32, device=dev)
-    orig_lane = torch.arange(N, dtype=torch.int32, device=dev)
+    stream = QmcStream(int(qmc_pid_base), int(sample_base), int(qmc_seed), qmc_spp) if qmc else None
+    order = None
     counts = []
     for depth in range(max_depth + 1):
-        counts.append(r.active.sum())
+        n_live = r.active.sum()
+        counts.append(n_live)
         if depth > 0:
-            r, radiance, orig_lane = _coherence_sort(scene, r, radiance, orig_lane)
-        u = _pool_uniforms(depth, N, orig_lane, qmc, qmc_pid_base, sample_base, qmc_seed,
-                           qmc_spp, rng_seed)
-        r, rad = fused_bounce(tables, r, u, **bounce_flags(scene, depth, max_depth, rr_start,
-                                                           shadows, tex_lod_bias))
-        radiance = radiance + rad
-    return _unscramble(radiance, orig_lane.long()), torch.stack(counts)
+            order = coherence_order(scene, r, order)
+        u = None if qmc else stream_uniforms(rng_seed, sample_base, depth, N, dev)
+        # only an order puts the live lanes first
+        fused_bounce_(tables, r, radiance, depth=depth, order=order,
+                      n_live=None if order is None else n_live, u=u, qmc=stream,
+                      **bounce_flags(scene, depth, max_depth, rr_start, shadows, tex_lod_bias))
+    return radiance, torch.stack(counts)
 
 
 def wavefront_single_bounce(scene: Scene, px: torch.Tensor, py: torch.Tensor, width: int,

@@ -26,12 +26,15 @@ from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, render_chunk,
                                                      render_deferred_chunk, render_gbuffer)
 from gpu_raytracer_tpu_torch.models.scene import build_default_scene
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
-from gpu_raytracer_tpu_torch.ops.cuda.bounce import pack_bounce_tables
+from gpu_raytracer_tpu_torch.ops.cuda.bounce import (fused_bounce, fused_bounce_,
+                                                     pack_bounce_tables, qmc_uniforms_kernel)
 from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
                                                      render_primary)
 from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
 from gpu_raytracer_tpu_torch.ops.cuda.traverse import pack_trace_tables, traverse
+from gpu_raytracer_tpu_torch.ops.sampler import QmcStream
 from gpu_raytracer_tpu_torch.ops.trace import traverse_triangles
+from gpu_raytracer_tpu_torch.ops.wavefront import bounce, coherence_order, pool_uniforms
 from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene, make_zoo_scene
 
 SCENES = {"default": build_default_scene,
@@ -224,23 +227,99 @@ BOUNCE = {"courtyard2000": SCENES["courtyard2000"],
 @pytest.mark.parametrize("name", sorted(BOUNCE))
 def test_bounce_kernel_matches_plain(cuda, name):
     """K6 against the plain bounce on 65,536-lane pools of the path tracer
-    (depths 0-2 and the last), texture LOD bias 0 and 1, and at depth 1
-    with shadows off, every light instead of one sampled light, no
-    roulette, the last-depth form, channel 1 and an all-dead half."""
+    (depths 0-2 and the last; from depth 1 on through the coherence order
+    over the live lanes only, QMC uniforms made by the kernel), texture LOD
+    bias 0 and 1, and at depth 1 with shadows off, every light instead of
+    one sampled light, no roulette, the last-depth form, channel 1, an
+    all-dead half, and uniforms handed in by position (with and without the
+    order)."""
     tables = pack_bounce_tables(BOUNCE[name](device=cuda))
     for bias in (0.0, 1.0):
-        for depth, r, u, flags in pools(tables, 256, 256, (0, 1, 2, 4), bias):
-            bounce_compare(tables, r, u, flags)
+        for depth, r, order, n_live, qmc, flags in pools(tables, 256, 256, (0, 1, 2, 4), bias):
+            how = dict(depth=depth, order=order, n_live=n_live, qmc=qmc)
+            bounce_compare(tables, r, flags, **how)
             if depth != 1 or bias:
                 continue
             for change in (dict(shadows=False), dict(light_sample=False), dict(do_rr=False),
                            dict(last=True)):
-                bounce_compare(tables, r, u, dict(flags, **change))
+                bounce_compare(tables, r, dict(flags, **change), **how)
             chan1 = r.replace(wavelength_channel=torch.ones_like(r.wavelength_channel))
-            bounce_compare(tables, chan1, u, flags)
+            bounce_compare(tables, chan1, flags, **how)
             half = r.active.clone()
             half[r.count // 2:] = False
-            bounce_compare(tables, r.replace(active=half), u, flags)
+            dead_half = r.replace(active=half)
+            bounce_compare(tables, dead_half, flags, depth=depth, qmc=qmc)
+            live = dead_half.active.sum()
+            bounce_compare(tables, dead_half, flags, depth=depth, qmc=qmc, n_live=live,
+                           order=coherence_order(tables.scene, dead_half))
+            u = torch.from_numpy(np.random.default_rng(7).random((r.count, 7), dtype=np.float32))
+            u = u.to(cuda)
+            bounce_compare(tables, r, flags, u=u)
+            bounce_compare(tables, r, flags, u=u, order=order, n_live=n_live)
+
+
+@pytest.mark.cuda
+def test_bounce_kernel_works_in_place_on_live_lanes_only(cuda):
+    """On a sorted pool with dead lanes the launch leaves every dead lane
+    bit-unchanged, adds the radiance in place, and with n_live smaller than
+    the live count leaves the live lanes past it alone too; the functional
+    form leaves its input alone and equals the plain functional bounce."""
+    tables = pack_bounce_tables(BOUNCE["courtyard2000"](device=cuda))
+    (_, r, order, n_live, qmc, flags), = pools(tables, 128, 128, (2,))
+    assert 0 < int(n_live) < r.count
+    stats = bounce_compare(tables, r, flags, depth=2, order=order, n_live=n_live, qmc=qmc)
+    assert stats["max_abs_err"] <= 1e-5 and stats["live"] == int(n_live)
+    half = n_live // 2
+    got, rad = r.clone(), torch.zeros_like(r.origin)
+    fused_bounce_(tables, got, rad, depth=2, order=order, n_live=half, qmc=qmc, **flags)
+    skipped = order[int(half):].long()
+    assert r.active[skipped[: int(n_live) - int(half)]].all()
+    for name in ("origin", "direction", "throughput", "active", "bounce_depth"):
+        assert torch.equal(getattr(got, name)[skipped], getattr(r, name)[skipped]), name
+    assert not rad[skipped].any() and rad.abs().sum() > 0
+    before = r.clone()
+    u = pool_uniforms(qmc, 2, torch.arange(r.count, device=cuda), r.count)
+    new, frad = fused_bounce(tables, r, u, **flags)
+    assert torch.equal(r.origin, before.origin) and torch.equal(r.active, before.active)
+    want, wrad = bounce(tables.scene, r, u, **flags)
+    assert torch.equal(new.active, want.active)
+    assert (frad - wrad).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream, depth", [(QmcStream(), 0), (QmcStream(5, 9, 2**31 + 5, 4), 3),
+                                           (QmcStream(2**32 - 7, 2**32 - 2, 2**32 - 1, 2), 63)])
+def test_in_kernel_qmc_uniforms_are_bit_equal(cuda, stream, depth):
+    n = 16_384
+    got = qmc_uniforms_kernel(stream, depth, n, cuda)
+    want = pool_uniforms(stream, depth, torch.arange(n, device=cuda), n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_misaligned_node_table_raises(cuda):
+    """A node record is read as one aligned 128-byte line: a table that
+    starts elsewhere (a view into a larger buffer) is refused, not read."""
+    scene = SCENES["courtyard2000"](device=cuda)
+    tables = pack_trace_tables(scene)
+    Q, words = tables.nodes.shape
+    buf = torch.zeros(Q * words + 16, dtype=torch.float32, device=cuda)
+    shifted = buf[16:].view(Q, words)
+    shifted.copy_(tables.nodes)
+    assert shifted.data_ptr() % 128 == 64
+    bad = dataclasses.replace(tables, nodes=shifted)
+    o = scene.camera.position[None, :].repeat(4, 1).contiguous()
+    d = scene.camera.direction[None, :].repeat(4, 1).contiguous()
+    far = torch.full((4,), 3.0e38, device=cuda)
+    launches = traverse.launches
+    with pytest.raises(ValueError, match="128-byte"):
+        traverse(bad, o, d, far)
+    assert traverse.launches == launches
+    rt = dataclasses.replace(pack_render_tables(scene), trace=bad)
+    px = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="128-byte"):
+        render_primary(rt, px, px, 8, 8)
+    traverse(tables, o, d, far)   # the table as packed is aligned
 
 
 @pytest.mark.cuda

@@ -73,7 +73,7 @@ def test_wrappers_refuse_other_devices():
     """A tensor neither on the CPU nor on a CUDA device is an error, not a
     reason to take the plain version."""
     meta = torch.device("meta")
-    tables = TraceTables(scene=None, nodes=torch.empty((1, 36), device=meta),
+    tables = TraceTables(scene=None, nodes=torch.empty((1, 32), device=meta),
                          tris=torch.empty((8, 12), device=meta),
                          attrs=torch.empty((8, 8), device=meta), depth=1, stack=16)
     o = torch.empty((4, 3), device=meta)
@@ -126,7 +126,7 @@ def _meta_bounce_inputs():
     from gpu_raytracer_tpu_torch.ops.wavefront import WavefrontRays
 
     meta = torch.device("meta")
-    trace = TraceTables(scene=None, nodes=torch.empty((1, 36), device=meta),
+    trace = TraceTables(scene=None, nodes=torch.empty((1, 32), device=meta),
                         tris=torch.empty((8, 12), device=meta),
                         attrs=torch.empty((8, 8), device=meta), depth=1, stack=16)
     rt = dataclasses.replace(pack_render_tables(build_default_scene()), trace=trace)
@@ -176,10 +176,10 @@ def test_bounce_on_cuda_raises_when_the_kernels_do_not_load(tmp_path, monkeypatc
     monkeypatch.setenv("PATH", str(tmp_path / "no-bin"))
     build.load_kernels.cache_clear()
     try:
-        launches = bounce_mod.fused_bounce.launches
+        launches = bounce_mod.fused_bounce_.launches
         with pytest.raises(RuntimeError, match="nvcc"):
             bounce_mod.fused_bounce(tables, pool, u, shadows=True, do_rr=True)
-        assert bounce_mod.fused_bounce.launches == launches
+        assert bounce_mod.fused_bounce_.launches == launches
     finally:
         build.load_kernels.cache_clear()
 
@@ -284,3 +284,73 @@ def test_unported_inputs_raise():
         make_courtyard_scene(500, config=RaytracerConfig(bvh_width=8))
     with pytest.raises(NotImplementedError):
         make_courtyard_scene(500, config=RaytracerConfig(bvh_spatial_splits=True))
+
+
+def test_in_place_bounce_takes_the_plain_version_only_on_cpu(monkeypatch):
+    """`fused_bounce_` on CPU tensors is `ops/wavefront.py::bounce_` (the
+    same in-place result); it wants the uniforms or the QMC stream, never
+    both or neither; and it launches nothing."""
+    from gpu_raytracer_tpu_torch.ops import wavefront
+    from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
+    from gpu_raytracer_tpu_torch.ops.sampler import QmcStream
+
+    scene = make_courtyard_scene(500)
+    tables = bounce_mod.pack_bounce_tables(scene)
+    py, px = (a.reshape(-1).to(torch.int32).contiguous()
+              for a in torch.meshgrid(torch.arange(12), torch.arange(16), indexing="ij"))
+    pool = lambda: wavefront.camera_wavefront_rays(scene.camera, 16, 12, px, py,
+                                                   wavefront.RGB_CHANNEL)
+    kw = dict(depth=0, qmc=QmcStream(seed=3), shadows=True, do_rr=False, light_sample=True)
+    a, b = pool(), pool()
+    ra, rb = torch.zeros((192, 3)), torch.zeros((192, 3))
+    launches = bounce_mod.fused_bounce_.launches
+    assert bounce_mod.fused_bounce_(tables, a, ra, **kw) is None
+    wavefront.bounce_(scene, b, rb, **kw)
+    assert bounce_mod.fused_bounce_.launches == launches
+    assert torch.equal(ra, rb) and ra.abs().sum() > 0
+    for name in ("origin", "direction", "throughput", "active", "bounce_depth"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert not torch.equal(a.origin, pool().origin)   # updated in place
+    with pytest.raises(ValueError, match="uniforms"):
+        bounce_mod.fused_bounce_(tables, a, ra, shadows=True, do_rr=False)
+    with pytest.raises(ValueError, match="uniforms"):
+        bounce_mod.fused_bounce_(tables, a, ra, u=torch.zeros((192, 7)), qmc=QmcStream(),
+                                 shadows=True, do_rr=False)
+    with pytest.raises(ValueError, match="order"):   # int64 order
+        bounce_mod.fused_bounce_(tables, a, ra, order=torch.arange(192), **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        bounce_mod.qmc_uniforms_kernel(QmcStream(), 0, 16, "cpu")
+
+
+@pytest.mark.cuda
+def test_bounce_on_a_misaligned_node_table_raises_and_touches_nothing():
+    """On the card K6's wrapper refuses a node table off its 128-byte line
+    before it counts a launch or writes a lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gpu_raytracer_tpu_torch.ops import wavefront
+    from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
+    from gpu_raytracer_tpu_torch.ops.sampler import QmcStream
+
+    cuda = torch.device("cuda")
+    scene = make_courtyard_scene(500, device=cuda)
+    tables = bounce_mod.pack_bounce_tables(scene)
+    trace = tables.render.trace
+    Q, words = trace.nodes.shape
+    buf = torch.zeros(Q * words + 16, dtype=torch.float32, device=cuda)
+    shifted = buf[16:].view(Q, words)
+    shifted.copy_(trace.nodes)
+    bad = bounce_mod.BounceTables(dataclasses.replace(
+        tables.render, trace=dataclasses.replace(trace, nodes=shifted)), None)
+    py, px = (a.reshape(-1).to(torch.int32).contiguous().to(cuda)
+              for a in torch.meshgrid(torch.arange(12), torch.arange(16), indexing="ij"))
+    r = wavefront.camera_wavefront_rays(scene.camera, 16, 12, px, py, wavefront.RGB_CHANNEL)
+    before = r.origin.clone()
+    rad = torch.zeros((192, 3), device=cuda)
+    launches = bounce_mod.fused_bounce_.launches
+    with pytest.raises(ValueError, match="128-byte"):
+        bounce_mod.fused_bounce_(bad, r, rad, qmc=QmcStream(), shadows=True, do_rr=False)
+    assert bounce_mod.fused_bounce_.launches == launches
+    assert torch.equal(r.origin, before) and not rad.any()
+    bounce_mod.fused_bounce_(tables, r, rad, qmc=QmcStream(), shadows=True, do_rr=False)
+    assert bounce_mod.fused_bounce_.launches == launches + 1 and rad.any()

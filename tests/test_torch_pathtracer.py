@@ -128,3 +128,66 @@ def test_entry_points_default_to_cuda(entry):
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry(build_default_scene(), 16, 16)
+
+
+def test_64_spp_image_matches_jax_pathtracer():
+    """64 steps of one sample each on the default scene (spheres, glass,
+    metal): the accumulated image against the JAX package's, at the 4-spp
+    test's tolerance."""
+    js = jax_default_scene()
+    jp = JaxPathTracer(js, 32, 32)
+    pp = PathTracer(port_scene_from_jax(js), 32, 32, device="cpu")
+    for _ in range(64):
+        jp.step()
+        pp.step()
+    got, want = pp.image(), jp.image()
+    assert pp.samples == jp.samples == 64 and np.isfinite(got).all()
+    share = (np.abs(got - want).max(axis=2) <= TOL).mean()
+    assert share >= MIN_SHARE, f"{share:.4f} of the pixels within {TOL}"
+
+
+@pytest.mark.parametrize("size", [(1920, 1080), (96, 64), (100, 70), (64, 64), (128, 192)])
+def test_warp_compact_pixel_order_visits_every_pixel_once(size):
+    """`tiled_pixel_order(warp=(8, 4))`: the same tiles in the same order,
+    every pixel once, 32 consecutive pixels an 8 x 4 block wherever the tile
+    is whole; the default stays the JAX package's row-major tiles."""
+    from gpu_raytracer_tpu.ops.packet_trace import tiled_pixel_order as jax_order
+    from gpu_raytracer_tpu_torch.engine.renderer import TILE, WARP_BLOCK, tiled_pixel_order
+
+    w, h = size
+    px, py = tiled_pixel_order(w, h)
+    if w % TILE == 0 and h % TILE == 0:   # (JAX pads a ragged frame with clamped lanes)
+        jx, jy = jax_order(w, h, tile=TILE)
+        np.testing.assert_array_equal(px, jx)
+        np.testing.assert_array_equal(py, jy)
+    wx, wy = tiled_pixel_order(w, h, warp=WARP_BLOCK)
+    assert wx.dtype == wy.dtype == np.int32 and WARP_BLOCK == (8, 4)
+    flat = wy.astype(np.int64) * w + wx
+    assert np.array_equal(np.sort(flat), np.arange(w * h))
+    # tile by tile the same pixels as the default order
+    tile_of = lambda x, y: (y // TILE) * ((w + TILE - 1) // TILE) + x // TILE
+    np.testing.assert_array_equal(tile_of(wx, wy), tile_of(px, py))
+    if w % 8 == 0 and h % 4 == 0:
+        bx, by = wx.reshape(-1, 32), wy.reshape(-1, 32)
+        assert ((bx.max(1) - bx.min(1)) == 7).all() and ((by.max(1) - by.min(1)) == 3).all()
+        assert (bx.min(1) % 8 == 0).all() and (by.min(1) % 4 == 0).all()
+    with pytest.raises(ValueError, match="blocks"):
+        tiled_pixel_order(w, h, warp=(6, 4))
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_renderer_frames_do_not_depend_on_the_pixel_order(textured):
+    """A frame rendered in the warp-compact order is the default order's
+    frame, pixel for pixel."""
+    from gpu_raytracer_tpu_torch.engine.renderer import WARP_BLOCK, tiled_pixel_order
+    from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
+
+    scene = make_courtyard_scene(1500, seed=4, textured=textured)
+    r = Renderer(scene, 72, 40, shadows=True, device="cpu")
+    want = r.render()
+    np.testing.assert_array_equal(r._px_host, tiled_pixel_order(72, 40)[0])
+    wx, wy = tiled_pixel_order(72, 40, warp=WARP_BLOCK)
+    r._px_host, r._py_host = wx, wy
+    r.px, r.py = torch.from_numpy(wx), torch.from_numpy(wy)
+    assert not np.array_equal(wx, tiled_pixel_order(72, 40)[0])
+    np.testing.assert_array_equal(r.render(), want)

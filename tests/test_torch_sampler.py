@@ -90,3 +90,54 @@ def test_independent_stream_is_uniform_and_replays():
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert a.min().item() >= 0.0 and a.max().item() < 1.0
     assert abs(a.mean().item() - 0.5) < 0.01
+
+
+def _np_pcg(x: np.ndarray) -> np.ndarray:
+    """PCG output permutation in numpy uint32 (wrapping)."""
+    x = x.astype(np.uint32)
+    x = x * np.uint32(747796405) + np.uint32(2891336453)
+    x = ((x >> ((x >> np.uint32(28)) + np.uint32(4))) ^ x) * np.uint32(277803737)
+    return (x >> np.uint32(22)) ^ x
+
+
+def _np_kernel_lattice(words, lanes: np.ndarray) -> np.ndarray:
+    """The bounce kernel's QMC stream (csrc/bounce.cuh::qmc_uniforms) modelled
+    in numpy uint32 arithmetic from the host words the kernel is handed:
+    pid_base, sample_base, hd, chunk, seven generators, seven salts."""
+    w = np.array(list(words), np.uint32)
+    pid_base, sample_base, hd, chunk = w[0], w[1], w[2], int(w[3])
+    alpha, salt = w[4:11], w[11:18]
+    with np.errstate(over="ignore"):
+        pid = pid_base + (lanes % chunk).astype(np.uint32)
+        s = sample_base + (lanes // chunk).astype(np.uint32)
+        h = _np_pcg(pid ^ hd)
+        v = s[:, None] * alpha[None, :] + _np_pcg(h[:, None] + salt[None, :])
+    return (v >> np.uint32(8)).astype(np.float32) * np.float32(1.0 / 16777216.0)
+
+
+@pytest.mark.parametrize("stream, depth", [((0, 0, 0, 1), 0), ((11, 3, 2**31 + 9, 2), 1),
+                                           ((2**32 - 300, 2**32 - 2, U32_MAX, 4), 63),
+                                           ((7, 2**31, 12345, 1), 4)])
+def test_in_kernel_lattice_model_matches_qmc_uniforms_bit_for_bit(stream, depth):
+    """What the bounce kernel computes from its launch arguments (two PCG
+    hashes and seven multiply-adds per lane in native unsigned arithmetic,
+    the depth hash from the host) equals `qmc_uniforms` at the lane's
+    identity, and so the JAX package's numbers."""
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import qmc_words
+    from gpu_raytracer_tpu_torch.ops.wavefront import pool_uniforms
+
+    q = sampler.QmcStream(*stream)
+    n = 4096 * q.spp
+    words = qmc_words(q, depth, n // q.spp)
+    assert len(words) == 4 + 2 * sampler.N_DIMS
+    assert list(words)[4:] == sampler.lattice_words()
+    lanes = np.arange(n, dtype=np.int64)
+    got = _np_kernel_lattice(words, lanes)
+    want = pool_uniforms(q, depth, torch.arange(n), n).numpy()
+    np.testing.assert_array_equal(got, want)
+    C = n // q.spp
+    pid = (q.pid_base + lanes % C).astype(np.uint32)
+    s = (q.sample_base + lanes // C).astype(np.uint32)
+    jax_want = np.asarray(jsampler.qmc_uniforms(jnp.asarray(pid), jnp.asarray(s), depth,
+                                                np.uint32(q.seed)))
+    np.testing.assert_array_equal(got, jax_want)

@@ -127,8 +127,12 @@ def test_trace_tables_encode_the_bvh4(name):
     t = pack_trace_tables(scene)
     nodes = t.nodes.numpy()
     ints = nodes.view(np.int32)
-    assert nodes.shape[1] == 36 and t.tris.shape == (scene.tri_v0.shape[0], 12)
-    child, count = ints[:, 24:28], ints[:, 28:32]
+    assert nodes.shape[1] == 32 and t.tris.shape == (scene.tri_v0.shape[0], 12)
+    code, axis = ints[:, 24:28], ints[:, 28]
+    # a leaf's code is the traversal stack's: -1 - (first slot << 4 | count)
+    leaf = code < -1
+    child = np.where(leaf, (-1 - code) >> 4, code)
+    count = np.where(leaf, (-1 - code) & 15, 0)
     if scene.bvh.has_wide:
         q_min = np.stack([nodes[:, 0:4], nodes[:, 4:8], nodes[:, 8:12]], axis=2)
         q_max = np.stack([nodes[:, 12:16], nodes[:, 16:20], nodes[:, 20:24]], axis=2)
@@ -136,10 +140,11 @@ def test_trace_tables_encode_the_bvh4(name):
         assert np.array_equal(q_max, scene.bvh.q_max.numpy())
         assert np.array_equal(child, scene.bvh.q_child.numpy())
         assert np.array_equal(count, scene.bvh.q_leafc.numpy())
-        assert np.array_equal(ints[:, 32], scene.bvh.q_axis.numpy())
+        assert np.array_equal(axis, scene.bvh.q_axis.numpy())
     else:
         assert child[0].tolist() == [0, -1, -1, -1]
         assert count[0].tolist() == [int(scene.bvh.tri_count[0]), 0, 0, 0]
+    assert not ints[:, 29:32].any()
     assert 3 * t.depth + 1 <= t.stack and t.stack in STACK_SIZES
     tris = t.tris.numpy()
     assert np.array_equal(tris[:, 0:3], scene.tri_v0.numpy())

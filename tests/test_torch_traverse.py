@@ -99,3 +99,70 @@ def test_kernel_wrapper_checks_its_inputs(bad):
         o = torch.zeros((3, 8)).t()
     with pytest.raises(ValueError):
         traverse(tables, o, d, max_t)
+
+
+def _single_leaf_scene():
+    """Six triangles under one leaf: no BVH4 overlay."""
+    import dataclasses
+
+    scene = port_scene_from_jax(jax_courtyard(2000, seed=1))
+    none = dict(q_child=None, q_leafc=None, q_min=None, q_max=None, q_axis=None, q_src=None)
+    bvh = dataclasses.replace(scene.bvh, tri_start=torch.tensor([0]),
+                              tri_count=torch.tensor([6]), **none)
+    return dataclasses.replace(scene, bvh=bvh)
+
+
+@pytest.mark.parametrize("name", ["default", "courtyard5000", "single_leaf"])
+def test_node_records_decode_back_to_the_bvh4(name):
+    """The 128-byte node record (six float4 of child boxes, one int4 of
+    child codes with a leaf as its stack code and -1 for an empty slot, the
+    sort axis) holds exactly the scene's BVH4: q_min, q_max, q_child,
+    q_leafc and q_axis come back bit for bit."""
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import (NODE_BYTES, NODE_WORDS, unpack_nodes,
+                                                           wide_arrays)
+
+    if name == "single_leaf":
+        ps = _single_leaf_scene()
+    else:
+        ps = port_scene_from_jax(jax_default() if name == "default" else jax_courtyard(5000, seed=2))
+    tables = pack_trace_tables(ps)
+    assert tables.nodes.dtype == torch.float32 and tables.nodes.shape[1] == NODE_WORDS
+    assert tables.nodes.is_contiguous() and NODE_BYTES == 128
+    q_min, q_max, child, count, axis, depth = wide_arrays(ps)
+    assert tables.depth == depth and tables.nodes.shape[0] == child.shape[0]
+    g_min, g_max, g_child, g_count, g_axis = unpack_nodes(tables.nodes)
+    assert torch.equal(g_min.view(torch.int32), q_min.contiguous().view(torch.int32))
+    assert torch.equal(g_max.view(torch.int32), q_max.contiguous().view(torch.int32))
+    assert torch.equal(g_child, child.to(torch.int32))
+    assert torch.equal(g_count, count.to(torch.int32))
+    assert torch.equal(g_axis, axis.to(torch.int32))
+    # the codes themselves: a leaf is what the traversal stack holds for it
+    code = tables.nodes[:, 24:28].contiguous().view(torch.int32)
+    leaf = count > 0
+    assert leaf.any() and (code[leaf] < -1).all()
+    assert torch.equal(code[leaf], (-1 - ((child[leaf] << 4) | count[leaf])).to(torch.int32))
+    assert (code[(child < 0)] == -1).all() and (code[~leaf & (child >= 0)] >= 0).all()
+    if name == "single_leaf":
+        assert tables.nodes.shape[0] == 1 and tables.depth == 1 and tables.stack == 16
+        assert code[0].tolist() == [-1 - 6, -1, -1, -1]
+    elif name == "default":   # two triangles: itself a single-leaf tree
+        assert not ps.bvh.has_wide and tables.nodes.shape[0] == 1
+    else:
+        assert ps.bvh.has_wide and tables.nodes.shape[0] > 100 and tables.depth > 2
+
+
+def test_node_table_of_another_shape_or_alignment_is_refused():
+    import dataclasses
+
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import nodes_ptr
+
+    tables = pack_trace_tables(port_scene_from_jax(jax_default()))
+    old_record = torch.zeros((tables.nodes.shape[0], 36))
+    with pytest.raises(ValueError, match=r"\[Q,32\]"):
+        nodes_ptr(dataclasses.replace(tables, nodes=old_record))
+    Q, words = tables.nodes.shape
+    buf = torch.zeros(Q * words + 64, dtype=torch.float32)
+    start = next(k for k in range(32) if (buf.data_ptr() + 4 * k) % 128 == 4)
+    shifted = buf[start:start + Q * words].view(Q, words)
+    with pytest.raises(ValueError, match="128-byte"):
+        nodes_ptr(dataclasses.replace(tables, nodes=shifted))

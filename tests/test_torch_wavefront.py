@@ -32,7 +32,8 @@ from gpu_raytracer_tpu.ops import wavefront as jwf
 from gpu_raytracer_tpu.ops.pallas.bounce import pallas_bounce
 from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
 from gpu_raytracer_tpu_torch.ops import sampling, wavefront
-from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce, pack_bounce_tables
+from gpu_raytracer_tpu_torch.ops.cuda.bounce import (fused_bounce, fused_bounce_,
+                                                     pack_bounce_tables)
 
 W = H = 32
 TOL = 1e-5
@@ -297,3 +298,151 @@ def test_single_bounce_matches_jax():
     want = jwf.wavefront_single_bounce(js, jnp.asarray(px), jnp.asarray(py), W, H, channel=2)
     got = wavefront.wavefront_single_bounce(ps, _t(px), _t(py), W, H, channel=2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+
+
+# ---- the in-place bounce (the bounce kernel's own contract) ----
+
+def _gather_pool(r, perm):
+    """The pool moved into `perm` order, one gather per field."""
+    return r.replace(**{name: getattr(r, name)[perm] for name in
+                        ("origin", "direction", "ray_type", "bounce_depth", "throughput",
+                         "medium_ior", "pixel", "wavelength_channel", "active")})
+
+
+@pytest.mark.parametrize("ordered", [False, True], ids=["lane_order", "coherence_order"])
+@pytest.mark.parametrize("sampler", ["qmc", "rng"])
+@pytest.mark.parametrize("scene", ["courtyard2000", "textured"])
+def test_in_place_bounce_equals_move_bounce_scatter(bounce_setup, scene, sampler, ordered):
+    """`bounce_` (the pool and the radiance updated in place, the live lanes
+    visited through an order) against the path it replaces: move the pool
+    into the order, draw the uniforms at the moved positions, `bounce`,
+    add the radiance, scatter everything back. Lane for lane, bit for bit,
+    with dead lanes in the pool, QMC and independent uniforms."""
+    from gpu_raytracer_tpu_torch.ops.sampler import QmcStream
+
+    _, tables, _, pool = bounce_setup[scene]
+    r = _to_port(pool)
+    r.active[::5] = False
+    N, depth = r.count, 1
+    kw = dict(shadows=True, do_rr=True, light_sample=True, tex_lod=0.5)
+    stream = QmcStream(pid_base=11, sample_base=3, seed=2**31 + 9, spp=2)
+    u_rng = _t(np.random.default_rng(8).random((N, 7), dtype=np.float32))
+    rad0 = _t(np.random.default_rng(9).random((N, 3), dtype=np.float32))
+    perm = (wavefront._sort_perm(tables.scene, r.origin, r.direction, r.active) if ordered
+            else torch.arange(N))
+    # the replaced path
+    moved = _gather_pool(r, perm)
+    u = (wavefront.pool_uniforms(stream, depth, perm, N) if sampler == "qmc" else u_rng)
+    new, rad = wavefront.bounce(tables.scene, moved, u, **kw)
+    want_rad = torch.empty_like(rad0)
+    want_rad[perm] = rad0[perm] + rad
+    want = {}
+    for f in dataclasses.fields(wavefront.WavefrontRays):
+        back = torch.empty_like(getattr(new, f.name))
+        back[perm] = getattr(new, f.name)
+        want[f.name] = back
+    # in place
+    got, grad = r.clone(), rad0.clone()
+    out = fused_bounce_(tables, got, grad, depth=depth,
+                        order=perm.to(torch.int32) if ordered else None,
+                        n_live=r.active.sum() if ordered else None,
+                        u=None if sampler == "qmc" else u_rng,
+                        qmc=stream if sampler == "qmc" else None, **kw)
+    assert out is None
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    for name, w in want.items():
+        assert torch.equal(bits(getattr(got, name)), bits(w)), name
+    assert torch.equal(bits(grad), bits(want_rad))
+    dead = ~r.active
+    assert torch.equal(grad[dead], rad0[dead]) and torch.equal(got.origin[dead], r.origin[dead])
+    assert got.active.any() and (grad != rad0).any()
+
+
+def test_in_place_bounce_leaves_lanes_past_n_live_alone(bounce_setup):
+    """Only the first n_live positions of the order are worked on: a live
+    lane past them keeps its state, its flag and its radiance."""
+    from gpu_raytracer_tpu_torch.ops.sampler import QmcStream
+
+    _, tables, _, pool = bounce_setup["courtyard2000"]
+    r = _to_port(pool)
+    N = r.count
+    order = wavefront.coherence_order(tables.scene, r)
+    assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(N))
+    live = int(r.active.sum())
+    assert r.active[order[:live].long()].all() and not r.active[order[live:].long()].any()
+    half = live // 2
+    got, rad = r.clone(), torch.zeros((N, 3))
+    fused_bounce_(tables, got, rad, depth=1, order=order, n_live=torch.tensor(half),
+                  qmc=QmcStream(), shadows=True, do_rr=False)
+    skipped = order[half:].long()
+    for f in dataclasses.fields(wavefront.WavefrontRays):
+        assert torch.equal(getattr(got, f.name)[skipped], getattr(r, f.name)[skipped]), f.name
+    assert not rad[skipped].any() and rad[order[:half].long()].any()
+    with pytest.raises(ValueError, match="uniforms"):
+        fused_bounce_(tables, got, rad, shadows=True, do_rr=False)
+
+
+def test_coherence_order_composes_like_moving_the_pool(bounce_setup):
+    """An order made from the previous depth's order keeps equal keys in
+    that order: the permutation that sorting the moved pool would give."""
+    _, tables, pool0, pool1 = bounce_setup["courtyard2000"]
+    r0, r1 = _to_port(pool0), _to_port(pool1)
+    first = wavefront.coherence_order(tables.scene, r0)
+    moved = _gather_pool(r1, first.long())
+    perm = wavefront._sort_perm(tables.scene, moved.origin, moved.direction, moved.active)
+    want = first[perm]
+    got = wavefront.coherence_order(tables.scene, r1, first)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert not torch.equal(got, wavefront.coherence_order(tables.scene, r1))   # ties differ
+
+
+@pytest.mark.parametrize("scene", ["courtyard2000", "textured"])
+def test_pool_after_each_depth_matches_jax(scene):
+    """The path tracer's loop, depth by depth, against the JAX package's
+    (its `_sort_perm`, `_permute_pool`, `_pool_uniforms` and XLA bounce, op
+    by op): before each depth the port takes JAX's pool in lane order, runs
+    its own count, coherence order and in-place bounce with the QMC numbers
+    of each lane's identity, and must give JAX's pool and radiance after
+    that depth, at `test_bounce_matches_jax_xla_bounce`'s tolerances."""
+    from gpu_raytracer_tpu_torch.ops.sampler import QmcStream
+
+    js = SCENES[scene]()
+    tables = pack_bounce_tables(port_scene_from_jax(js))
+    N = W * H
+    bias = 0.5 if scene == "textured" else 0.0
+    jitter = np.random.default_rng(21).random((N, 2), dtype=np.float32)
+    jr = _jax_pool(js, jwf.RGB_CHANNEL, jitter)
+    jrad = jnp.zeros((N, 3), jnp.float32)
+    jlane = jnp.arange(N, dtype=jnp.int32)
+    stream = QmcStream(pid_base=5, sample_base=2, seed=77, spp=1)
+    max_depth, rr_start = 3, 2
+    order = None
+    for depth in range(max_depth + 1):
+        inv = np.argsort(np.asarray(jlane))
+        unscr = lambda a: np.asarray(a)[inv]
+        r = wavefront.WavefrontRays(**{f.name: _t(unscr(getattr(jr, f.name))).contiguous()
+                                       for f in dataclasses.fields(wavefront.WavefrontRays)})
+        rad = _t(unscr(jrad)).contiguous()
+        # JAX: sort, permute, uniforms by identity, bounce
+        perm = jwf._sort_perm(js, jr.origin, jr.direction, jr.active)
+        jr, jrad, jlane = jwf._permute_pool(jr, jrad, jlane, perm)
+        ju = jwf._pool_uniforms(None, depth, N, jlane, True, stream.pid_base,
+                                stream.sample_base, np.uint32(stream.seed), 1)
+        rr = depth + 1 >= rr_start
+        jr, jr_rad = _jax_bounce(js, jr, np.asarray(ju), shadows=True, rr=rr,
+                                 light_sample=True, lod_bias=bias)
+        jrad = jrad + jr_rad
+        # the port, in place from the same pool
+        n_live = r.active.sum()
+        flags = wavefront.bounce_flags(tables.scene, depth, max_depth + 1, rr_start, True, bias)
+        if depth > 0:   # (JAX also sorts at depth 0, so equal keys may sit in another order)
+            order = wavefront.coherence_order(tables.scene, r, order)
+            assert sorted(order[: int(n_live)].tolist()) == torch.nonzero(r.active)[:, 0].tolist()
+        fused_bounce_(tables, r, rad, depth=depth, order=order,
+                      n_live=n_live if depth > 0 else None, qmc=stream, **flags)
+        inv = np.argsort(np.asarray(jlane))
+        want = dataclasses.replace(jr, **{f.name: jnp.asarray(np.asarray(getattr(jr, f.name))[inv])
+                                          for f in dataclasses.fields(wavefront.WavefrontRays)})
+        bad = _compare_pools(r, rad, want, np.asarray(jrad)[inv], N)
+        assert bad.sum() <= MAX_COUNTED_SHARE * N, f"depth {depth}: {bad.sum()} lanes differ"
+        assert int(n_live) > 0
