@@ -5,6 +5,7 @@ in turn inside one run so that they share a card.
 
     python3 chip_ab.py --parent build/parent                # parent, change, change, parent
     python3 chip_ab.py --variants "RT_SHARED_STACK=0" "RT_RENDER_MIN_BLOCKS=8 RT_RENDER_BLOCK=64"
+    python3 chip_ab.py --variants "kShadeMinBlocks=12"      # a csrc constant rewritten
     python3 chip_ab.py --one [--root DIR] [--defines "A=1 B=2"]   # one measurement, one JSON line
     python3 chip_ab.py --sass                               # static SASS size of K1's loops
 
@@ -12,14 +13,32 @@ Unpack the other tree first (`git archive <commit> | tar -x -C build/parent`;
 build/ is git-ignored). Every measurement is its own process, run from this
 file but importing the package and chip_smoke.py of its `--root`, with the
 given `-D` settings appended to the kernels' nvcc flags (csrc/traverse.cuh
-names them). Each prints one JSON line: the card, the settings, ptxas's
+names them). A variant's setting `kName=VALUE` instead rewrites the one
+`constexpr int kName = ...;` of csrc/ in a copy of this tree under
+build/variants/ (git-ignored) and measures that copy. Each prints one JSON line: the card, the settings, ptxas's
 registers and spills, and median milliseconds (`chip_smoke.timed`, CUDA
 events) on the 100k-triangle courtyard:
   K1 on the 1920x1080 camera rays; K2 (render_primary) shadows off and on;
   K3 (render_deferred) on the textured courtyard; each in the row-major tile
   order and, where the tree has it, the 8 x 4 warp order;
   PathTracer.step() at 1024x1024 with K6's device time, the device's busy
-  time and the host's enqueue time per sample (torch.profiler).
+  time and the host's enqueue time per sample (torch.profiler);
+and the texture sampler, on the textured courtyard (4096-texel floor map)
+and on the procedural multi-slot zoo (60k triangles, 48 materials, four map
+kinds), 1920x1080 in the warp order:
+  K4 (texture_shade) on K3's G-buffer, nearest and trilinear; on the
+  courtyard also K4 with no map slot sampled (`present` 0) and a copy of the
+  G-buffer's light sums into an RGB buffer (K4's bytes without its work);
+  K2t (render_primary with the shade tables) shadows off and on, beside
+  K3 + K4 on the same frames; K5 (sample_materials) on the courtyard's
+  1024x1024 camera-ray hits; PathTracer.step() with K6's device time; and
+  one K6 launch on the main path's depth-0 and depth-1 pools (made by the
+  plain bounce, so the same pools under every build), each launch on a
+  fresh copy. Beside the event times (`k4_...`) the sampler's kernels are
+  also read by their own device time (`..._device`, torch.profiler): K4
+  and K5 run for less than their wrappers' host time.
+`RT_SAMPLER_OFF=1` (csrc/texsample.cuh) builds every kernel with its map
+slots read as absent: the same launches without the sampler.
 With `--out FILE` every line is also appended to FILE.
 """
 
@@ -34,23 +53,47 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _here_smoke():
+    """This tree's chip_smoke.py under another name: its timing helpers, for
+    a measurement of any tree (the tree's own chip_smoke may predate them)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+HERE_SMOKE = _here_smoke()
 WIDTH, HEIGHT, PT_SIZE = 1920, 1080, 1024
+TEXTURE_SIZE = 4096            # the textured courtyard's floor map (chip_smoke.py)
 LAUNCHES, REPEATS = 32, 3      # launches per median, medians per reading
 PT_STEPS = 8
+K6_LAUNCHES = 24               # single K6 launches on fresh pool copies, 3 medians of 8
 
 
 def measure(root: str, defines: list[str], label: str) -> dict:
     sys.path.insert(0, root)
+    import dataclasses
+
     import torch
 
     import chip_smoke as cs
     from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
     from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
     from gpu_raytracer_tpu_torch.ops.cuda import build
+    from gpu_raytracer_tpu_torch.engine.renderer import split_gbuffer
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import (fused_bounce_, pack_bounce_tables,
+                                                         sample_materials)
     from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
                                                          render_primary)
+    from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
-    from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
+    from gpu_raytracer_tpu_torch.ops.trace import trace
+    from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene, make_zoo_scene
 
     build.NVCC_FLAGS = (*build.NVCC_FLAGS, *(f"-D{d}" for d in defines))
     k = build.load_kernels()
@@ -58,16 +101,21 @@ def measure(root: str, defines: list[str], label: str) -> dict:
     out = dict(label=label, root=os.path.relpath(root, HERE), defines=defines,
                card=cs.card_line(), nvcc_s=k.seconds)
     ptxas = cs.ptxas_summary(k.log)
-    out["ptxas"] = {name: v for name, v in ptxas.items()
-                    if name.startswith(("traverse_kernel<32, 0", "render_primary_kernel<32, 0",
-                                        "render_deferred_kernel<32", "bounce_kernel<32, 0, 2"))}
+    out["sass_untextured"] = sass_digest(k.path)
+    out["ptxas"] = {name: v for name, v in ptxas.items()   # the 32-entry stack instances
+                    if "<32" in name or name.startswith(("texshade_kernel",
+                                                         "sample_materials_kernel"))}
 
     def reading(fn):
         return [cs.timed(fn, LAUNCHES, device) for _ in range(REPEATS)]
 
+    def device_reading(fn, words):   # the kernels' own time, with this file's helper
+        return [HERE_SMOKE.kernel_device_ms(fn, words, LAUNCHES, device)
+                for _ in range(REPEATS)]
+
     scene = make_courtyard_scene(100_000, seed=0, device=device)
     tables = pack_render_tables(scene)
-    tscene = make_courtyard_scene(100_000, seed=0, textured=True, texture_size=1024,
+    tscene = make_courtyard_scene(100_000, seed=0, textured=True, texture_size=TEXTURE_SIZE,
                                   device=device)
     ttables = pack_render_tables(tscene)
     orders = {"rows": tiled_pixel_order(WIDTH, HEIGHT)}
@@ -93,6 +141,87 @@ def measure(root: str, defines: list[str], label: str) -> dict:
     out["pt_device_ms_per_spp"] = [p["device_ms"] for p in prof]
     out["pt_host_enqueue_ms"] = [p["host_enqueue_ms"] for p in prof]
     out["pt_device_ms_by_kind"] = prof[-1]["device_ms_by_kind"]
+    del pt
+
+    # the texture sampler: K4, K2t beside K3 + K4, K5, textured K6
+    px, py = (torch.from_numpy(a).to(device) for a in orders.get("warp8x4", orders["rows"]))
+    zoo = make_zoo_scene(60_000, n_mats=48, n_texs=24, seed=0, multi_slot=True, device=device)
+    for name, sc in (("courtyard", tscene), ("zoo_multi_slot", zoo)):
+        rtab, shade = pack_render_tables(sc), pack_shade_tables(sc)
+        gbuf = render_deferred(rtab, px, py, WIDTH, HEIGHT)
+        for tri in (False, True):
+            k4 = lambda: texture_shade(shade, gbuf, trilinear=tri)
+            key = f"k4_{name}_{'trilinear' if tri else 'nearest'}"
+            out[key] = reading(k4)
+            out[key + "_device"] = device_reading(k4, "texshade_kernel")
+        for shadows in (False, True):
+            s = "shadows" if shadows else "no_shadows"
+            k2t = lambda: render_primary(rtab, px, py, WIDTH, HEIGHT, shadows=shadows,
+                                         shade=shade)
+            k3k4 = lambda: texture_shade(shade, render_deferred(rtab, px, py, WIDTH, HEIGHT,
+                                                                shadows=shadows))
+            out[f"k2t_{name}_{s}"] = reading(k2t)
+            out[f"k3k4_{name}_{s}"] = reading(k3k4)
+            out[f"k2t_{name}_{s}_device"] = device_reading(k2t, "render_primary_kernel")
+            out[f"k3k4_{name}_{s}_device"] = device_reading(
+                k3k4, ("render_deferred_kernel", "texshade_kernel"))
+        if name == "courtyard":
+            k4 = lambda: texture_shade(dataclasses.replace(shade, present=0), gbuf)
+            out["k4_courtyard_present0"] = reading(k4)
+            out["k4_courtyard_present0_device"] = device_reading(k4, "texshade_kernel")
+            light = split_gbuffer(gbuf)[0]
+            rgb = torch.empty((light.shape[0], 3), dtype=torch.float32, device=device)
+            out["k4_courtyard_bytes_copy"] = reading(lambda: rgb.copy_(light))
+            btab = pack_bounce_tables(sc)
+            pool = cs.camera_pool(btab, PT_SIZE, PT_SIZE)
+            hit = trace(sc, pool.origin, pool.direction)
+            mid = hit.material_id[hit.hit].to(torch.int32).contiguous()
+            uv = hit.uv[hit.hit].contiguous()
+            out["k5_courtyard_hits"] = int(mid.shape[0])
+            k5 = lambda: sample_materials(btab, mid, uv)
+            out["k5_courtyard"] = reading(k5)
+            out["k5_courtyard_device"] = device_reading(k5, "sample_materials_kernel")
+            del btab, pool, hit, mid, uv, rgb, light
+        del gbuf
+        btab = pack_bounce_tables(sc)
+        for depth, pool, order, n_live, qmc, flags in cs.pools(btab, PT_SIZE, PT_SIZE, (0, 1)):
+            copies = [pool.clone() for _ in range(K6_LAUNCHES)]
+            rad = torch.zeros((pool.count, 3), dtype=torch.float32, device=device)
+            out[f"k6_{name}_depth{depth}"] = [cs.timed(
+                lambda: fused_bounce_(btab, copies.pop(), rad, depth=depth, order=order,
+                                      n_live=n_live, qmc=qmc, **flags), K6_LAUNCHES // REPEATS,
+                device) for _ in range(REPEATS)]
+            del copies, pool
+        del btab
+        pt = PathTracer(sc, PT_SIZE, PT_SIZE, device=device)
+        for _ in range(3):
+            pt.step()
+        out[f"pt_{name}_ms_per_spp"] = reading(pt.step)
+        prof = [cs.device_profile(pt.step, PT_STEPS, device) for _ in range(REPEATS)]
+        out[f"k6_{name}_device_ms_per_spp"] = [p["k6_device_ms"] for p in prof]
+        del pt
+    return out
+
+
+def sass_digest(lib_path: str) -> dict:
+    """A digest of each untextured K2 and K6 instance's SASS (cuobjdump of
+    the built objects): equal digests in two builds mean the same machine
+    code, which the texture sampler's changes must leave alone."""
+    import glob
+    import hashlib
+    import re
+
+    from gpu_raytracer_tpu_torch.ops.cuda import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    out = {}
+    for obj in ("render_primary", "bounce"):
+        path = glob.glob(os.path.join(os.path.dirname(lib_path), f"*.{obj}.o"))[0]
+        text = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                              check=True).stdout
+        for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s+Function :|\Z)", text,
+                                     re.S):
+            out[name] = hashlib.sha256(body.encode()).hexdigest()[:16]
     return out
 
 
@@ -153,11 +282,46 @@ def run_one(root: str, defines: str, label: str, out: str | None) -> dict:
     return json.loads(lines[-1])
 
 
+def variant_tree(settings: list[str], label: str) -> tuple[str, list[str]]:
+    """A variant's settings -> (the tree to measure, its -D settings). Each
+    `kName=VALUE` rewrites the one `constexpr int kName = ...;` of csrc/ in a
+    fresh copy of this tree under build/variants/<label>; the others stay -D
+    settings of this tree."""
+    import re
+    import shutil
+
+    consts = [s for s in settings if s.startswith("k")]
+    defines = [s for s in settings if not s.startswith("k")]
+    if not consts:
+        return HERE, defines
+    root = os.path.join(HERE, "build", "variants", re.sub(r"[^\w.=,-]", "_", label))
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(HERE, root, ignore=shutil.ignore_patterns(
+        "build", ".git", "__pycache__"))
+    csrc = os.path.join(root, "gpu_raytracer_tpu_torch", "csrc")
+    for setting in consts:
+        name, value = setting.split("=", 1)
+        pat = re.compile(rf"constexpr int {name} = [^;]+;")
+        hits = []
+        for fname in sorted(os.listdir(csrc)):
+            path = os.path.join(csrc, fname)
+            with open(path) as f:
+                text = f.read()
+            if len(pat.findall(text)) == 1:
+                hits.append((path, text))
+        if len(hits) != 1:
+            raise SystemExit(f"{name}: {len(hits)} csrc files define it once, want 1")
+        path, text = hits[0]
+        with open(path, "w") as f:
+            f.write(pat.sub(f"constexpr int {name} = {value};", text))
+    return root, defines
+
+
 def summary(rows: list[dict]) -> None:
     keys = []
     for r in rows:   # an older tree has no warp-order readings
-        keys += [k for k in r if k not in keys and k.startswith(
-            ("k1_", "k2_", "k3_", "pt_ms", "k6_device", "pt_device_ms_per", "pt_host"))]
+        keys += [k for k, v in r.items() if k not in keys and isinstance(v, list) and v
+                 and all(isinstance(x, float) for x in v)]
     for k in keys:
         cells = [f"{r['label']}={statistics.median(r[k]):.4f}" for r in rows
                  if not r.get("failed") and k in r]
@@ -194,11 +358,17 @@ def main() -> int:
     if args.variants:
         rows.append(run_one(HERE, "", "default_a", args.out))
         for v in args.variants:
-            rows.append(run_one(HERE, v, v.replace("RT_", "").replace(" ", ","), args.out))
+            label = v.replace("RT_", "").replace(" ", ",")
+            root, defines = variant_tree(v.split(), label)
+            rows.append(run_one(root, " ".join(defines), label, args.out))
         rows.append(run_one(HERE, "", "default_b", args.out))
     good = [r for r in rows if not r.get("failed")]
     if good:
         summary(good)
+        digests = {r["label"]: r.get("sass_untextured") for r in good}
+        same = len({json.dumps(d, sort_keys=True) for d in digests.values()}) == 1
+        print(f"untextured K2 / K6 SASS identical in every build: {same} "
+              f"({len(next(iter(digests.values())) or {})} instances)", flush=True)
     return 0 if len(good) == len(rows) and rows else 1
 
 

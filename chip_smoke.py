@@ -14,6 +14,10 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
   5. the main path, Renderer.render_device() at 1920x1080 (on the card in
      8 x 4-pixel warps), timed with CUDA events, with the kernel launch
      counts of that run;
+ 5b. a camera move on the 100k courtyard: ms per Renderer.set_camera and
+     PathTracer.set_camera (the camera row rewritten in place) beside the
+     code path they replace (every table repacked), the move under sync
+     debug mode "error", the frame after it against a fresh renderer's;
   6. build the textured 100k courtyard (4096-texel floor map, mips) and
      pack its tables to the card;
   7. K3 (deferred trace) against the plain G-buffer on the full frame,
@@ -60,9 +64,13 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      and K3 with a seeded light_u against the plain single-sample version,
      their ms beside the 2-light frame's, the mean of 8 draws against the
      loop over every light (the kernel's, itself held to the plain loop on
-     the centre crop), and Renderer's own route (it draws light_u itself);
+     the centre crop), and Renderer's own route (it draws light_u itself:
+     the same batch salt gives the same uniforms and frame, another salt
+     others, and frames of one salt average to the loop);
  17. PathTracer on the GLB-loaded zoo at 1024x1024, 2 samples: K6 five
      times per sample, no host sync inside a step.
+K4, K5 (alone and inside textured K6) and K2t are held to 0.0 from their
+plain versions (SAMPLER_TOL), nearest and trilinear, all three wraps.
 Then the frame kernels' roofline bounds with the SIMT efficiency of the
 walk on camera and shadow rays (a counter in the kernel).
 The card line, then the per-kernel JSON summary, then the last line
@@ -86,6 +94,7 @@ TEXTURE_SIZE = 4096    # the textured courtyard's floor map edge (bench.py secti
 SHADOW_RAYS = 262_144
 TIE_BUDGET = 1e-4      # tie pixels allowed, as a share of the frame
 RGB_TOL = 1e-5         # max |diff| against the plain version outside ties
+SAMPLER_TOL = 0.0      # K4, K5 (alone and inside K6) and K2t: the same bits as the plain sampler
 T_REL_TOL = 1e-6       # K1 hit distance, relative
 GBUF_TOL = 1e-5        # K3 light sum and uv, absolute; mip footprint, relative
 FRAMES = 8             # timed frames of the kernel path
@@ -314,6 +323,76 @@ def phase_main(scene, width, height, device, card):
     return out
 
 
+CAMERA_MOVES = 8        # timed camera moves of phase 5b, each way
+
+
+def phase_camera_move(scene, width, height, pt_size, device, card):
+    """Phase 5b: ms per camera move of Renderer and PathTracer (host clock
+    to a synchronize) against the code path they replace, on the same
+    moves: the scene's camera moved field by field (`to_device`), then
+    pack_render_tables / pack_bounce_tables."""
+    import dataclasses
+
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.models.camera import CameraController
+    from gpu_raytracer_tpu_torch.models.scene import to_device
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import pack_bounce_tables
+    from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables
+
+    ctrl = CameraController(scene.camera)
+    cams = []
+    for k in range(CAMERA_MOVES):
+        ctrl.move(forward=0.25, strafe=0.1 * (k % 3 - 1))
+        ctrl.rotate(3.0, 0.5)
+        cams.append(ctrl.camera())
+
+    def per_move(fn) -> float:
+        times = []
+        for cam in cams:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            fn(cam)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    r = Renderer(scene, width, height, device=device)
+    pt = PathTracer(scene, pt_size, pt_size, device=device)
+    r.render_device()
+    pt.step()
+    repack = lambda cam: dataclasses.replace(scene, camera=to_device(cam, scene.device))
+    out = dict(renderer_ms=per_move(r.set_camera),
+               renderer_repack_ms=per_move(lambda cam: pack_render_tables(repack(cam))),
+               pathtracer_ms=per_move(pt.set_camera),
+               pathtracer_repack_ms=per_move(lambda cam: pack_bounce_tables(repack(cam))))
+    kept = (r.tables.camera, r.tables.trace.nodes, pt.tables.render.camera)
+    cam = cams[0]
+    if device.type == "cuda":   # the controller's move never waits for the card
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        r.set_camera(cam)
+        pt.set_camera(cam)
+        frame = r.render_device()
+        pt.step()
+    finally:
+        if device.type == "cuda":
+            torch.cuda.set_sync_debug_mode("default")
+    if any(a is not b for a, b in zip(kept, (r.tables.camera, r.tables.trace.nodes,
+                                             pt.tables.render.camera))):
+        raise AssertionError("set_camera replaced a table tensor")
+    fresh = Renderer(scene.with_camera(cam), width, height, device=device)
+    if not torch.equal(frame, fresh.render_device()):
+        raise AssertionError("the frame after set_camera differs from a fresh renderer's")
+    out.update(moves=len(cams), frame_equal_to_fresh=True, card=card)
+    log(f"phase 5b camera move: {json.dumps(out)}")
+    return out
+
+
 def synthetic_textured_scene(seed: int = 0, n_mats: int = 6, mips: int = 1,
                              degenerate_glass: bool = False, device="cpu"):
     """The default scene's geometry (spheres and triangles) with n_mats
@@ -409,7 +488,7 @@ def gbuffer_compare(tables, px, py, width, height, shadows, ties):
     ref = render_gbuffer(tables.scene, px, py, width, height, shadows=shadows)
     (gs, gm, guv, glam), (rs, rm, ruv, rlam) = split_gbuffer(got), split_gbuffer(ref)
     finite = all(bool(torch.isfinite(x).all()) for x in (gs, guv, glam))
-    if got.shape != ref.shape or not finite:
+    if got.shape != (2, px.shape[0], 4) or not finite:
         raise AssertionError(f"K3 G-buffer: shape {tuple(got.shape)}, finite {finite}")
     keep = ~ties
     if not torch.equal(gm[keep], rm[keep]):
@@ -443,8 +522,8 @@ def shade_compare(shade, gbuf, sky, trilinear, keep=None):
     if keep is not None:
         diff = diff[keep]
     err = diff.max().item()
-    if err > RGB_TOL:
-        raise AssertionError(f"K4 max |diff| {err:.3g} > {RGB_TOL} (trilinear={trilinear})")
+    if err > SAMPLER_TOL:
+        raise AssertionError(f"K4 max |diff| {err:.3g} > {SAMPLER_TOL} (trilinear={trilinear})")
     return err
 
 
@@ -521,13 +600,13 @@ def phase_k4(shade, gbuf, ties, device, card):
     import numpy as np
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import split_gbuffer
+    from gpu_raytracer_tpu_torch.engine.renderer import gbuffer_planes, split_gbuffer
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
     from gpu_raytracer_tpu_torch.ops.shading import shade_deferred
 
     sky = (0.1, 0.2, 0.3)
     near = mip_boundary_rays(shade, gbuf)
-    if near > TIE_BUDGET * gbuf.shape[0]:
+    if near > TIE_BUDGET * split_gbuffer(gbuf)[1].shape[0]:
         raise AssertionError(f"{near} rays on a mip level boundary > {TIE_BUDGET:.2%}")
     err = {}
     for tri in (False, True):
@@ -536,14 +615,17 @@ def phase_k4(shade, gbuf, ties, device, card):
     rng = np.random.default_rng(0)
     for mips in (1, 4):
         synth = pack_shade_tables(synthetic_textured_scene(0, mips=mips, device=device))
-        g = torch.from_numpy(random_gbuffer(rng, 65_536, synth.scene.materials.count,
-                                            mips=mips > 1)).to(device)
+        g = gbuffer_planes(torch.from_numpy(random_gbuffer(
+            rng, 65_536, synth.scene.materials.count, mips=mips > 1)).to(device))
         for tri in (False, True):
             err[f"synthetic_mips{mips}_{'trilinear' if tri else 'nearest'}"] = shade_compare(
                 synth, g, sky, tri)
     S, mat, uv, lam = split_gbuffer(gbuf)
     out = dict(max_abs_diff=err, mip_boundary_rays=near)
     out["ms"] = timed(lambda: texture_shade(shade, gbuf), FRAMES, device)
+    if device.type == "cuda":   # the kernel's own time: shorter than its wrapper's host time
+        out["device_ms"] = kernel_device_ms(lambda: texture_shade(shade, gbuf),
+                                            "texshade_kernel", FRAMES, device)
     out["plain_ms"] = timed(lambda: shade_deferred(shade.scene, S, mat, uv, lam=lam),
                             PLAIN_FRAMES, device)
     out["card"] = card
@@ -628,6 +710,12 @@ def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
 
 def table_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def sampler_table_bytes(shade) -> int:
+    """The sampler's tables as the work needs them: metadata, level records
+    and every texel once (the pair atlas holds each texel twice)."""
+    return table_bytes(shade.maps, shade.levels) + shade.atlas.numel() * 2
 
 
 def walk_flops(work) -> float:
@@ -719,8 +807,9 @@ def bounce_compare(tables, r, flags, *, depth=0, order=None, n_live=None, qmc=No
             raise AssertionError(f"K6 {name}: NaN lanes differ from the plain bounce")
         d = torch.nan_to_num((a - b).abs(), nan=0.0)
         err[name] = d.max().item() if d.numel() else 0.0
-    if max(err.values()) > RGB_TOL:
-        raise AssertionError(f"K6 off the plain bounce by {err} ({flags})")
+    tol = SAMPLER_TOL if tables.shade is not None else RGB_TOL   # K5 inside: exact
+    if max(err.values()) > tol:
+        raise AssertionError(f"K6 off the plain bounce by {err} > {tol} ({flags})")
     if n_ties > TIE_BUDGET * r.count:
         raise AssertionError(f"{n_ties} tie lanes > {TIE_BUDGET:.2%} of the pool")
     # what the launch must leave alone: a dead lane, bit for bit
@@ -757,8 +846,8 @@ def k5_compare(tables, mat_id, uv, lod):
     if not torch.equal(torch.isnan(got), torch.isnan(want)):
         raise AssertionError("K5 NaN channels differ from the plain material sample")
     err = torch.nan_to_num((got - want).abs(), nan=0.0).max().item()
-    if err > RGB_TOL:
-        raise AssertionError(f"K5 max |diff| {err:.3g} > {RGB_TOL} at lod {lod}")
+    if err > SAMPLER_TOL:
+        raise AssertionError(f"K5 max |diff| {err:.3g} > {SAMPLER_TOL} at lod {lod}")
     return err
 
 
@@ -786,10 +875,13 @@ def phase_k5(ttables, synth_tables, device, card, size):
         err[f"synthetic_lod{lod:g}"] = k5_compare(synth_tables, smid, suv, lod)
     sh = ttables.shade
     n_maps = bin(sh.present).count("1")
-    bytes_moved = mid.shape[0] * (4 + 8 + 44) + table_bytes(sh.materials, sh.maps, sh.atlas)
+    bytes_moved = mid.shape[0] * (4 + 8 + 44) + table_bytes(sh.materials) + sampler_table_bytes(sh)
     bms, by = bound_ms(bytes_moved, mid.shape[0] * n_maps * TEXEL_FLOPS)
     out = dict(max_abs_diff=err, hits=int(mid.shape[0]),
                ms=timed(lambda: sample_materials(ttables, mid, uv), FRAMES, device),
+               device_ms=(kernel_device_ms(lambda: sample_materials(ttables, mid, uv),
+                                           "sample_materials_kernel", FRAMES, device)
+                          if device.type == "cuda" else None),
                plain_ms=timed(lambda: material_channels(ttables.scene, mid, uv), PLAIN_FRAMES,
                               device),
                bound_ms=bms, bound_by=by, card=card)
@@ -947,6 +1039,45 @@ class StageTimer:
 def median_stages(runs) -> dict:
     """Per-stage medians over steps (empty off the card: no events)."""
     return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+
+L2_FLUSH_BYTES = 256 << 20   # > 5x the H100's 50 MB L2
+
+
+def kernel_device_ms(fn, words, calls: int, device) -> float:
+    """Device time per call of fn spent in the kernels whose names hold one
+    of `words`, each launched once a call (torch.profiler): a kernel's own
+    time. Between CUDA events around one call, a kernel shorter than its
+    wrapper's host time reads the host's time instead. The L2 is flushed (a
+    256 MB write) before each call, so every call reads its inputs from
+    memory, as its roofline bound counts them; back to back, a call finds
+    the last one's inputs in the L2. Each word's time is the mean over the
+    launches the profiler recorded (it has been seen to drop one of a
+    session's kernels); raises if it recorded none of a word's, or more than
+    one a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    words = (words,) if isinstance(words, str) else tuple(words)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize(device)
+    us, counts = dict.fromkeys(words, 0.0), dict.fromkeys(words, 0)
+    for e in prof.key_averages():
+        for w in words:
+            if w in e.key:
+                t = getattr(e, "self_device_time_total", None)
+                us[w] += e.self_cuda_time_total if t is None else t
+                counts[w] += e.count
+    if not all(0 < c <= calls for c in counts.values()):
+        raise RuntimeError(f"kernel_device_ms: the profiler saw {counts} launches in "
+                           f"{calls} calls")
+    return sum(us[w] / counts[w] for w in words) / 1e3
 
 
 def device_profile(fn, steps: int, device) -> dict:
@@ -1222,8 +1353,9 @@ def primary_compare(tables, shade, px, py, width, height, shadows, exclude, ligh
     diff = (got - ref).abs().amax(dim=1)
     err = diff[~exclude].max().item()
     n_ex = int(exclude.sum())
-    if err > RGB_TOL:
-        raise AssertionError(f"fused render max |diff| {err:.3g} > {RGB_TOL} outside {n_ex} "
+    tol = SAMPLER_TOL if shade is not None else RGB_TOL
+    if err > tol:
+        raise AssertionError(f"fused render max |diff| {err:.3g} > {tol} outside {n_ex} "
                              f"excluded lanes (textured={shade is not None}, "
                              f"sampled={light_u is not None}, shadows={shadows})")
     if n_ex > TIE_BUDGET * px.shape[0]:
@@ -1490,10 +1622,41 @@ def phase_many_lights(triangles, texture_size, width, height, crop, device, card
         rel_r = abs(f0.sum().item() - exact.sum().item()) / exact.sum().item()
         res.update(renderer_launches=launches, renderer_frame_rel_err=rel_r,
                    renderer_ms=timed(r.render_device, FRAMES, device))
+        res["light_salt"] = light_salt_check(r, exact)
         out[label] = res
     out["card"] = card
     log(f"phase 16 {MANY_LIGHTS} lights {width}x{height}: {json.dumps(out)}")
     return out
+
+
+def light_salt_check(r, exact) -> dict:
+    """Renderer's single-sample light choice per batch: the uniforms of
+    (light_frame, salt) are light_uniforms', the same salt repeats its
+    frame, another salt draws others, and the frames 0..LIGHT_DRAWS-1 of one
+    salt average to the loop over every light (`exact`)."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.renderer import light_uniforms
+
+    n = r.px.shape[0]
+    if r.device.type == "cuda" and not torch.equal(r._light_u(n, 3),
+                                                   light_uniforms(n, r.light_frame, 3, r.device)):
+        raise AssertionError("Renderer's light uniforms are not light_uniforms(frame, salt)")
+    a = r.render_rays(r.px, r.py, light_salt=3)
+    b = r.render_rays(r.px, r.py, light_salt=3)
+    c = r.render_rays(r.px, r.py, light_salt=4)
+    acc = torch.zeros_like(exact)
+    for k in range(LIGHT_DRAWS):
+        r.light_frame = k
+        acc += r.render_rays(r.px, r.py, light_salt=3)
+    rel = abs((acc / LIGHT_DRAWS).sum().item() - exact.sum().item()) / exact.sum().item()
+    if r.device.type == "cuda" and (not torch.equal(a, b) or torch.equal(a, c)
+                                    or rel > LIGHT_MEAN_TOL):
+        raise AssertionError(f"light salt: same salt equal {torch.equal(a, b)}, other salt "
+                             f"equal {torch.equal(a, c)}, mean over frames off by {rel:.3%}")
+    return dict(same_salt_equal=torch.equal(a, b),
+                other_salt_pixels_differ=int((a != c).any(dim=1).sum()),
+                frames_mean_rel_err=rel)
 
 
 def phase_zoo_pathtrace(scene, size, device, card):
@@ -1581,8 +1744,9 @@ def frame_bounds(tables, width, height, shade=None):
                                dtype=torch.bool, device=held.device)
         n_samples = int((held & sampled[None, :] & (mat >= 0)[:, None]).sum())
         out["map_samples"] = n_samples
-        sb = table_bytes(shade.maps, shade.atlas)
-        out["K4"] = bound_ms(N * (32 + 12) + table_bytes(shade.materials) + sb,
+        sb = sampler_table_bytes(shade)
+        # K4 reads 16 bytes of every ray, 16 more of a hit, and writes 12
+        out["K4"] = bound_ms(N * (16 + 12) + n_hit * 16 + table_bytes(shade.materials) + sb,
                              n_hit * SHADE_FLOPS + n_samples * TEXEL_FLOPS)
         out["K2t"] = bound_ms(N * (8 + 12) + tb + table_bytes(tr.attrs) + sb,
                               walk + sph + n_hit * (SHADE_FLOPS + 30) + n_samples * TEXEL_FLOPS)
@@ -1621,6 +1785,7 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     log(f"phase 4 K2: {json.dumps(k2)}")
 
     main = phase_main(scene, width, height, device, card)
+    phase_camera_move(scene, width, height, pt_size, device, card)
     k2_err = max(v["err"] for v in k2.values())
     k2_launches = main["no_shadows"]["k2_launches"] + main["shadows"]["k2_launches"]
 
@@ -1712,19 +1877,24 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:787",
              launches=k3_launches, max_abs_err=k3_err, ms=k3["ms"], plain_ms=k3["plain_ms"],
              **bound(tfb.get("K3")), library_ms=None),
-        dict(name="K4 texture_shade", route="cuda",
+        dict(name="K4 texture_shade (ms: the kernel's device time, torch.profiler, the L2 "
+                  "flushed before each call; between CUDA events around one call it reads "
+                  "the wrapper's host time)", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/texshade.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/texshade.py:463",
              launches=k4_launches,
              max_abs_err=max(k4["max_abs_diff"].values()),
-             ms=k4["ms"], plain_ms=k4["plain_ms"], **bound(tfb.get("K4")), library_ms=None),
+             ms=k4["device_ms"], plain_ms=k4["plain_ms"], **bound(tfb.get("K4")),
+             library_ms=None),
         dict(name="K5 sample_material (device function inside K6's textured launches; "
-                  "ms, plain_ms and the bound from its standalone launch on the textured "
-                  "courtyard's camera hits, csrc/materials.cu)", route="cuda",
+                  "ms (device time, torch.profiler, the L2 flushed before each call), "
+                  "plain_ms and the bound from its "
+                  "standalone launch on the textured courtyard's camera hits, "
+                  "csrc/materials.cu)", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/texsample.cuh",
              replaces="gpu_raytracer_tpu/ops/pallas/texshade.py:506",
              launches=k5_launches, max_abs_err=max(k5["max_abs_diff"].values()),
-             ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5.get("bound_ms"),
+             ms=k5["device_ms"], plain_ms=k5["plain_ms"], bound_ms=k5.get("bound_ms"),
              bound_by=k5.get("bound_by"), library_ms=None),
         dict(name=f"K6 bounce ({MAX_DEPTH + 1} launches per sample; ms (kernel device time, "
                   f"torch.profiler), plain_ms and the bound are per sample of the untextured "

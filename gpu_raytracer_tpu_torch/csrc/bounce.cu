@@ -32,7 +32,7 @@ extern "C" int rt_bounce(const void* nodes, const void* tris, const void* attrs,
   a.spheres = static_cast<const float*>(spheres);
   a.n_spheres = n_spheres;
   a.maps = static_cast<const rt::TexMeta*>(maps);
-  a.atlas = static_cast<const int*>(atlas);
+  a.atlas = static_cast<const int2*>(atlas);
   a.present = present;
   a.n_levels = n_levels;
   a.tex_lod = tex_lod;

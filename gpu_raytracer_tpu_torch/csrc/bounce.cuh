@@ -65,7 +65,7 @@
 // lanes are scattered in the pool from depth 1 on (32-byte sectors, not
 // 128-byte lines). The launch is 128 threads a block with the registers
 // capped for 4 blocks an SM (a measured sweep, PERF.md).
-// The scene tables (~5 MB for the 100k courtyard, the 1.7 MB atlas) stay in L2.
+// The scene tables (~5 MB for the 100k courtyard, the 3.5 MB pair atlas) stay in L2.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -122,7 +122,7 @@ struct BounceArgs {
   const float* spheres;
   int n_spheres;
   const TexMeta* maps;
-  const int* atlas;
+  const int2* atlas;      // texel pairs (ops/cuda/texshade.py)
   int present;
   int n_levels;
   float tex_lod;

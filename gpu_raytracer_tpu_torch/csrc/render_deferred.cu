@@ -6,10 +6,14 @@
 // light the shadowed intensity I (render_common.cuh, shared with K2) ->
 // the material-independent light sum S = sum of (I * gate) * colour in light
 // order, or with `light_u` (the TPU kernel's branch above 16 lights) the one
-// sampled light's (I * gate) * L * colour. It writes one 32-byte G-buffer record per ray, two float4:
-//   (S.r, S.g, S.b, material id as int bits), (u, v, mip footprint, 0),
-// with material -1 and zeros for a miss. K4 (texshade.cu) applies the
-// materials and textures to it.
+// sampled light's (I * gate) * L * colour. It writes the G-buffer as two
+// planes of one float4 per ray, [2, n, 4]:
+//   plane 0: (S.r, S.g, S.b, material id as int bits),
+//   plane 1: (u, v, mip footprint, 0),
+// with material -1 and zeros for a miss (engine/renderer.py::split_gbuffer
+// reads both layouts). Each store of a warp is one contiguous 512-byte run,
+// and K4 (texshade.cu), which applies the materials and textures, reads
+// plane 1 for hits only.
 //
 // The hit's texture coordinates: for a triangle, its Moller-Trumbore
 // barycentrics recomputed once for the winner in the plain version's
@@ -22,7 +26,7 @@
 //
 // What bounds it on an H100: as K2, the traversals (latency- and
 // divergence-bound, traverse.cuh); the winner's attribute record is one more
-// 32-byte read, the record out 32 bytes per ray. Splitting shading off lets
+// 32-byte read, 32 bytes out per ray. Splitting shading off lets
 // the texture reads run in K4 on rays already sorted out from the sky.
 #include <cuda_runtime.h>
 
@@ -45,8 +49,8 @@ render_deferred_kernel(const rt::Node4* __restrict__ nodes, const float4* __rest
   const rt::Ray ray = rt::camera_ray(cam, px[i], py[i], width, height);
   rt::Surface s;
   if (!rt::closest_surface<STACK>(nodes, tris, spheres, n_spheres, ray, s)) {
-    gbuf[2 * i] = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(-1));
-    gbuf[2 * i + 1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    gbuf[i] = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(-1));
+    gbuf[n + i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     return;
   }
 
@@ -71,8 +75,8 @@ render_deferred_kernel(const rt::Node4* __restrict__ nodes, const float4* __rest
   float density;
   const float2 uv = rt::surface_uv(tris, attrs, ray, s, density);
   const float lam = s.slot >= 0 ? s.t * pix_scale * density : 0.0f;
-  gbuf[2 * i] = make_float4(S[0], S[1], S[2], __int_as_float(s.mat));
-  gbuf[2 * i + 1] = make_float4(uv.x, uv.y, lam, 0.0f);
+  gbuf[i] = make_float4(S[0], S[1], S[2], __int_as_float(s.mat));
+  gbuf[n + i] = make_float4(uv.x, uv.y, lam, 0.0f);
 }
 
 }  // namespace

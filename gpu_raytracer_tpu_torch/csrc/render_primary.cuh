@@ -40,10 +40,11 @@
 // writes 12 (RGB); the camera, material, light and sphere rows are a few
 // hundred bytes read through the constant-like read-only path, the BVH
 // tables (128-byte node lines) stay in L2; textured, one 32-byte attribute
-// record, 32 bytes of metadata and 4 texel loads per sampled map, dependent
-// loads from L2-resident atlas rows. Fusing raygen, traversal and shading
-// keeps every intermediate in registers instead of the ~15 per-ray arrays the
-// plain pipeline writes to device memory between stages. The launch is 128
+// record, the metadata, one level record and two 8-byte texel-pair loads per
+// sampled map (texsample.cuh), dependent loads from L2-resident tables.
+// Fusing raygen, traversal and shading keeps every intermediate in registers
+// instead of the ~15 per-ray arrays the plain pipeline writes to device
+// memory between stages. The launch is 128
 // threads a block with the registers capped for 6 blocks an SM (77-80
 // registers, no spills; a measured sweep, PERF.md), and callers order the
 // pixels so that a warp is an 8 x 4 block (engine/renderer.py).
@@ -60,7 +61,7 @@ namespace rt {
 struct PrimaryTextures {
   const float4* attrs;    // per-slot uv records (ops/cuda/traverse.py)
   const TexMeta* maps;    // [n_mats, 4] (ops/cuda/texshade.py)
-  const int* atlas;
+  const int2* atlas;      // texel pairs
   int present;            // bit k: map slot k is sampled
   int n_levels;           // longest mip chain of the atlas
   float pix_scale;        // 2 tan(fov/2) / height

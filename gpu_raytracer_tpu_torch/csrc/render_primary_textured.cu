@@ -17,7 +17,7 @@ extern "C" int rt_render_primary_textured(
   auto s = static_cast<cudaStream_t>(stream);
   const rt::PrimaryTextures tex{static_cast<const float4*>(attrs),
                                 static_cast<const rt::TexMeta*>(maps),
-                                static_cast<const int*>(atlas), present, n_levels, pix_scale};
+                                static_cast<const int2*>(atlas), present, n_levels, pix_scale};
 #define RT_LAUNCH(S)                                                                          \
   rt::render_primary_kernel<S, true><<<grid, block, 0, s>>>(                                  \
       static_cast<const rt::Node4*>(nodes), static_cast<const float4*>(tris),                \

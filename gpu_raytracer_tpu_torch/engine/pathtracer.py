@@ -34,6 +34,7 @@ import torch
 from ..config import DEFAULT_CONFIG, RaytracerConfig
 from ..models.scene import Scene
 from ..ops.cuda.bounce import pack_bounce_tables
+from ..ops.cuda.render import set_camera
 from ..ops.wavefront import (RGB_CHANNEL, WavefrontCounters, camera_wavefront_rays,
                              path_trace_pool)
 from .perf import PerformanceState, ProgressiveTiming, Timer
@@ -125,11 +126,12 @@ class PathTracer:
         self.perf = PerformanceState(config.performance_stats_interval, verbose=False)
 
     def set_camera(self, camera, temporal: bool = False) -> None:
-        """Move the camera and restart the accumulation."""
+        """Move the camera and restart the accumulation. The camera row of the
+        tables is rewritten in place; nothing else is repacked."""
         if temporal:
             raise NotImplementedError(f"set_camera(temporal=True) {_NOT_PORTED}")
-        self.scene = self.scene.with_camera(camera)
-        self.tables = pack_bounce_tables(self.scene)
+        set_camera(self.tables.render, camera)
+        self.scene = self.tables.scene
         self.reset()
 
     def reset(self) -> None:

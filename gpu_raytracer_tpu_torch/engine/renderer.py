@@ -13,7 +13,7 @@ untextured frame is one fused-render launch and a textured frame a deferred
 trace launch then a texture shade launch; on the CPU every frame goes
 through `render_chunk`, as the JAX package's CPU route does. Nothing falls
 back from one to the other. Above MAX_LIGHTS lights the CUDA route samples
-one light per pixel and frame (`Renderer._light_u`), as the JAX package's
+one light per pixel, batch and frame (`light_uniforms`), as the JAX package's
 kernels do; the CPU route loops over every light, as its plain path does.
 """
 
@@ -26,7 +26,8 @@ from ..config import DEFAULT_CONFIG, RaytracerConfig
 from ..models.camera import Camera
 from ..models.scene import Scene
 from ..ops.camera_rays import generate_rays
-from ..ops.cuda.render import MAX_LIGHTS, pack_render_tables, render_deferred, render_primary
+from ..ops.cuda.render import (MAX_LIGHTS, pack_render_tables, render_deferred, render_primary,
+                               set_camera)
 from ..ops.cuda.texshade import pack_shade_tables, texture_shade
 from ..ops.linalg import dot, normalize
 from ..ops.shading import (hit_footprint, light_rows, light_sum, sample_light_index, shade,
@@ -34,6 +35,8 @@ from ..ops.shading import (hit_footprint, light_rows, light_sum, sample_light_in
 from ..ops.trace import Hit, occluded, trace
 
 TILE = 64  # tile edge of the tile-major pixel order
+MASK32 = 0xFFFFFFFF
+MASK64 = 0xFFFFFFFFFFFFFFFF
 WARP_BLOCK = (8, 4)  # pixels (wide, high) of one warp of the CUDA kernels
 
 
@@ -63,6 +66,31 @@ def tiled_pixel_order(width: int, height: int, tile: int = TILE,
             py.append(ty + gy[keep])
     return (np.concatenate(px).astype(np.int32),
             np.concatenate(py).astype(np.int32))
+
+
+def light_seed(frame: int, salt: int) -> int:
+    """The light choice's generator seed of (frame, salt), each taken modulo
+    2^32 (the JAX package folds a 32-bit salt into PRNGKey(frame)): the
+    64-bit word frame << 32 | salt through the splitmix64 finalizer, a
+    bijection of 64-bit words, so the mix is injective: two batches of one
+    frame, or one batch of two frames, never share a seed. The card's Philox
+    generator keys on all 64 bits; the CPU's mt19937 keeps the low 32, which
+    the finalizer makes depend on both numbers."""
+    z = ((int(frame) & MASK32) << 32) | (int(salt) & MASK32)
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & MASK64
+    return z ^ (z >> 31)
+
+
+def light_uniforms(n: int, frame: int, salt: int, device) -> torch.Tensor:
+    """[n] f32 uniforms in [0, 1) for the single-sample light choice of one
+    pixel batch, from a torch.Generator on `device` seeded by
+    light_seed(frame, salt): the same (frame, salt) gives the same numbers.
+    They are not the JAX package's threefry numbers; both estimate the sum
+    over the lights without bias."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(light_seed(frame, salt))
+    return torch.rand((n,), generator=gen, dtype=torch.float32, device=device)
 
 
 def resolve_device(device, who: str) -> torch.device:
@@ -151,9 +179,19 @@ def render_gbuffer(scene: Scene, px: torch.Tensor, py: torch.Tensor,
 
 
 def split_gbuffer(gbuf: torch.Tensor):
-    """G-buffer [n,8] -> (S [n,3], material id [n] int64, uv [n,2], footprint [n])."""
-    mat = gbuf[:, 3].contiguous().view(torch.int32).long()
-    return gbuf[:, 0:3], mat, gbuf[:, 4:6], gbuf[:, 6]
+    """G-buffer -> (S [n,3], material id [n] int64, uv [n,2], footprint [n]),
+    from rows [n,8] (`render_gbuffer`) or planes [2,n,4] (the deferred trace
+    kernel's layout: (S, material id) for every ray, then (u, v, footprint,
+    0)); the same eight words per ray either way."""
+    lo, hi = (gbuf[0], gbuf[1]) if gbuf.dim() == 3 else (gbuf[:, 0:4], gbuf[:, 4:8])
+    mat = lo[:, 3].contiguous().view(torch.int32).long()
+    return lo[:, 0:3], mat, hi[:, 0:2], hi[:, 2]
+
+
+def gbuffer_planes(rows: torch.Tensor) -> torch.Tensor:
+    """G-buffer rows [n,8] (`render_gbuffer`) -> planes [2,n,4], the layout
+    `render_deferred` returns and `texture_shade` reads."""
+    return rows.reshape(-1, 2, 4).transpose(0, 1).contiguous()
 
 
 def render_deferred_chunk(scene: Scene, px: torch.Tensor, py: torch.Tensor,
@@ -201,28 +239,30 @@ class Renderer:
                              if self.textured and self.device.type != "cpu" else None)
 
     def set_camera(self, camera: Camera) -> None:
-        self.scene = self.scene.with_camera(camera)
-        self.tables = pack_render_tables(self.scene)
+        """Move the camera: the camera row of the tables is rewritten in
+        place (ops/cuda/render.py::set_camera); nothing else is repacked."""
+        set_camera(self.tables, camera)
+        self.scene = self.tables.scene
 
-    def _light_u(self, n: int) -> torch.Tensor | None:
+    def _light_u(self, n: int, salt: int = 0) -> torch.Tensor | None:
         """Per-ray uniforms [n] for the kernels' single-sample light choice
-        (CUDA, more than MAX_LIGHTS lights), from a generator seeded by
-        `light_frame` (a frame is one batch here, so there are no batches
-        of one frame to tell apart); None where every light is looped over."""
+        (CUDA, more than MAX_LIGHTS lights) of the batch `salt` of frame
+        `light_frame`; None where every light is looped over."""
         if self.device.type == "cpu" or self.scene.lights.count <= MAX_LIGHTS:
             return None
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.light_frame)
-        return torch.rand((n,), generator=gen, dtype=torch.float32, device=self.device)
+        return light_uniforms(n, self.light_frame, salt, self.device)
 
-    def render_rays(self, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
-        """Trace + shade one pixel batch on the renderer's device -> RGB [n,3]."""
+    def render_rays(self, px: torch.Tensor, py: torch.Tensor,
+                    light_salt: int = 0) -> torch.Tensor:
+        """Trace + shade one pixel batch on the renderer's device -> RGB [n,3].
+        `light_salt` tells the batches of one frame apart: above MAX_LIGHTS
+        lights each (light_frame, light_salt) draws its own light choices."""
         W, H = self.width, self.height
         trilinear = self.config.texture_trilinear
         if self.device.type == "cpu":
             return render_chunk(self.scene, px, py, W, H, shadows=self.shadows, sky=self.sky,
                                 trilinear=trilinear)
-        light_u = self._light_u(px.shape[0])
+        light_u = self._light_u(px.shape[0], light_salt)
         if not self.textured:
             return render_primary(self.tables, px, py, W, H, shadows=self.shadows, sky=self.sky,
                                   light_u=light_u)

@@ -47,6 +47,19 @@ class Camera:
         return Camera(position=_f32(position), direction=_f32(d),
                       up=_f32(up), fov=_f32(fov))
 
+    def to(self, device) -> "Camera":
+        """The camera on `device`. Host float32 fields bound for a CUDA device
+        go in one pinned, non-blocking copy: a pageable copy would make the
+        host wait for the card, and a camera moves while frames are queued."""
+        dev = torch.device(device)
+        fields = (self.position, self.direction, self.up, self.fov)
+        if dev.type != "cuda" or any(f.device.type != "cpu" or f.dtype != torch.float32
+                                     for f in fields):
+            return Camera(*(f.to(dev) for f in fields))
+        flat = torch.cat([f.detach().reshape(-1) for f in fields]).pin_memory()
+        flat = flat.to(dev, non_blocking=True)
+        return Camera(flat[0:3], flat[3:6], flat[6:9], flat[9])
+
     def fov_scale(self) -> float:
         """tan(fov/2) as a float32 value, evaluated once on the host so that
         every device and kernel scales rays by the same number."""

@@ -71,7 +71,7 @@ class Scene:
         return to_device(self, device)
 
     def with_camera(self, camera: Camera) -> "Scene":
-        return dataclasses.replace(self, camera=to_device(camera, self.device))
+        return dataclasses.replace(self, camera=camera.to(self.device))
 
 
 def _expand_triangles(vertices, indices, material_id, uv, order, pad_to: int):

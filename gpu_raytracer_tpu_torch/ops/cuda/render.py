@@ -17,9 +17,11 @@ Its plain version is `render_chunk` on the textured scene (`trilinear=False`).
 K3 replaces `pallas_render_deferred` -> `_kernel_deferred` of the same file:
 the first phase of the textured render. Kernel source:
 csrc/render_deferred.cu, which shares K2's camera ray, sphere pass and
-per-light shadowed intensity (csrc/render_common.cuh) and writes one
-32-byte G-buffer record per ray (S rgb, material id, uv, mip footprint, 0).
-Its plain version is `engine/renderer.py::render_gbuffer`.
+per-light shadowed intensity (csrc/render_common.cuh) and writes the
+G-buffer as two planes [2,N,4]: (S rgb, material id) for every ray, then
+(uv, mip footprint, 0). Its plain version is
+`engine/renderer.py::render_gbuffer`, whose rows [N,8] hold the same words;
+`render_deferred` returns planes on either device (`gbuffer_planes`).
 
 All three loop over every light in light order, or, given `light_u` (one
 uniform per ray), evaluate the one light min(floor(u * L), L - 1) with one
@@ -46,6 +48,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ...models.camera import Camera
 from ...models.scene import Scene
 from ..f16 import unpack_f16_high, unpack_f16_low
 from ..linalg import cross, normalize
@@ -63,7 +66,7 @@ class RenderTables:
     materials: torch.Tensor   # [M,16] f32
     lights: torch.Tensor      # [L,16] f32
     spheres: torch.Tensor     # [S,8] f32
-    fov_scale: float          # the camera's tan(fov/2), read from the device once
+    fov_scale: float          # the camera's tan(fov/2), evaluated on the host once
 
     @property
     def scene(self) -> Scene:
@@ -85,15 +88,35 @@ def material_rows(scene: Scene) -> torch.Tensor:
          unpack_f16_high(m.metallic_roughness_f16)[:, None]], dim=1), 16)
 
 
-def pack_render_tables(scene: Scene) -> RenderTables:
-    dev = scene.device
-    cam = scene.camera
+def camera_row(cam: Camera, fov_scale: float) -> torch.Tensor:
+    """[16] f32 on the camera's device: position, forward, right, true_up,
+    `fov_scale`, 3 pad (no host copy: a fill, not a pageable upload)."""
+    dev = cam.position.device
     right = cross(cam.direction, cam.up)
     true_up = cross(right, cam.direction)
-    fov_scale = cam.fov_scale()
-    fov = torch.tensor([fov_scale], dtype=torch.float32, device=dev)
-    camera = torch.cat([cam.position, cam.direction, right, true_up, fov,
-                        torch.zeros(3, device=dev)]).contiguous()
+    fov = torch.full((1,), fov_scale, dtype=torch.float32, device=dev)
+    return torch.cat([cam.position, cam.direction, right, true_up, fov,
+                      torch.zeros(3, device=dev)])
+
+
+def set_camera(tables: RenderTables, camera: Camera) -> None:
+    """Point the tables at a moved camera: the camera row is rewritten in
+    place (its address stays valid for a launch captured earlier),
+    `fov_scale` and the tables' scene follow; no other table is repacked.
+    Nothing is read back from the device where the new camera's field of
+    view lies on the host (CameraController.camera()) or is the old one's
+    tensor."""
+    old = tables.scene.camera
+    fov_scale = tables.fov_scale if camera.fov is old.fov else camera.fov_scale()
+    scene = tables.scene.with_camera(camera)
+    tables.camera.copy_(camera_row(scene.camera, fov_scale))
+    tables.fov_scale = fov_scale
+    tables.trace.scene = scene
+
+
+def pack_render_tables(scene: Scene) -> RenderTables:
+    fov_scale = scene.camera.fov_scale()
+    camera = camera_row(scene.camera, fov_scale).contiguous()
     materials = material_rows(scene)
     L = scene.lights
     lights = _pad(torch.cat(
@@ -182,18 +205,20 @@ render_primary.textured_launches = 0   # K2t
 def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
                     width: int, height: int, shadows: bool = False,
                     light_u: torch.Tensor | None = None) -> torch.Tensor:
-    """Deferred trace of pixels (px, py) [N] int32 -> G-buffer [N,8] f32
-    (engine/renderer.py::render_gbuffer's layout) in the given order.
-    `light_u` [N] f32 selects single-sample light selection. CUDA tensors
-    launch the kernel, CPU tensors take the plain version."""
-    from ...engine.renderer import GBUFFER_WORDS, render_gbuffer
+    """Deferred trace of pixels (px, py) [N] int32 -> G-buffer planes
+    [2,N,4] f32 in the given order: (S rgb, material id), then (u, v,
+    footprint, 0). `light_u` [N] f32 selects single-sample light selection.
+    CUDA tensors launch the kernel, CPU tensors take the plain version
+    (engine/renderer.py::render_gbuffer, whose rows [N,8] hold the same
+    words, laid out as planes)."""
+    from ...engine.renderer import gbuffer_planes, render_gbuffer
 
     N = _check_pixels(tables, px, py, light_u, "render_deferred")
     if px.device.type == "cpu":
-        return render_gbuffer(tables.scene, px, py, width, height, shadows=shadows,
-                              light_u=light_u)
+        return gbuffer_planes(render_gbuffer(tables.scene, px, py, width, height,
+                                             shadows=shadows, light_u=light_u))
     k = load_kernels()
-    gbuf = torch.empty((N, GBUFFER_WORDS), dtype=torch.float32, device=px.device)
+    gbuf = torch.empty((2, N, 4), dtype=torch.float32, device=px.device)
     tr = tables.trace
     pix = pixel_footprint_scale(tables.fov_scale, height)
     stream = torch.cuda.current_stream(px.device).cuda_stream

@@ -22,8 +22,10 @@ from chip_smoke import (ZERO_LAUNCHES, bounce_compare, gbuffer_compare, k1_compa
                         shade_compare, synthetic_textured_scene)
 
 from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
-from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, render_chunk,
-                                                     render_deferred_chunk, render_gbuffer)
+from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, light_uniforms, render_chunk,
+                                                     render_deferred_chunk, render_gbuffer,
+                                                     gbuffer_planes, split_gbuffer)
+from gpu_raytracer_tpu_torch.models.camera import CameraController
 from gpu_raytracer_tpu_torch.models.scene import build_default_scene
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
 from gpu_raytracer_tpu_torch.ops.cuda.bounce import (fused_bounce, fused_bounce_,
@@ -132,19 +134,29 @@ def test_deferred_kernels_match_plain(cuda, name, shadows):
     assert (got - want).abs().amax(dim=1)[~ties].max().item() <= 1e-5
 
 
+SAMPLER_SCENES = {
+    "mips1": lambda **kw: synthetic_textured_scene(1, mips=1, **kw),
+    "mips4": lambda **kw: synthetic_textured_scene(1, mips=4, **kw),
+    "degenerate_glass": lambda **kw: synthetic_textured_scene(1, degenerate_glass=True, **kw),
+    "zoo800_multi_slot": lambda **kw: make_zoo_scene(800, seed=0, multi_slot=True, **kw)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mips1", "mips4", "degenerate_glass"])
+@pytest.mark.parametrize("case", sorted(SAMPLER_SCENES))
 def test_texture_shade_kernel_on_random_gbuffers(cuda, case):
     """Every wrap mode and map slot, miss and invalid-material lanes, mip
-    chains, and ior-1 glass whose dispersion is 0/0 (NaN in the same lanes)."""
-    mips = 4 if case == "mips4" else 1
-    scene = synthetic_textured_scene(1, mips=mips, degenerate_glass=case == "degenerate_glass",
-                                     device=cuda)
+    chains, ior-1 glass whose dispersion is 0/0 (NaN in the same lanes), and
+    the zoo's four map kinds over 7-8 levels: 0.0 from the plain shade; the
+    plain rows are refused."""
+    scene = SAMPLER_SCENES[case](device=cuda)
     tables = pack_shade_tables(scene)
-    g = random_gbuffer(np.random.default_rng(2), 16_384, scene.materials.count, mips=mips > 1)
-    g = torch.from_numpy(g).to(cuda)
+    mips = scene.textures.n_levels > 1
+    g = random_gbuffer(np.random.default_rng(2), 16_387, scene.materials.count, mips=mips)
+    rows = torch.from_numpy(g).to(cuda)
     for trilinear in (False, True):
-        assert shade_compare(tables, g, SKY, trilinear) <= 1e-5
+        assert shade_compare(tables, gbuffer_planes(rows), SKY, trilinear) == 0.0
+    with pytest.raises(ValueError, match="planes"):
+        texture_shade(tables, rows)
 
 
 FUSED_TEXTURED = dict(TEXTURED,
@@ -195,9 +207,9 @@ def test_sampled_light_branch_matches_plain(cuda, textured, shadows):
     loop, exact = primary_compare(tables, shade, r.px, r.py, W, H, shadows, ties)
     assert sampled["err"] <= 1e-5 and loop["err"] <= 1e-5
     assert not torch.equal(frame, exact)
-    got = render_deferred(tables, r.px, r.py, W, H, shadows=shadows, light_u=u)
-    want = render_gbuffer(scene, r.px, r.py, W, H, shadows=shadows, light_u=u)
-    assert (got - want)[:, :3].abs().amax(dim=1)[~ties].max().item() <= 1e-5
+    got = split_gbuffer(render_deferred(tables, r.px, r.py, W, H, shadows=shadows, light_u=u))
+    want = split_gbuffer(render_gbuffer(scene, r.px, r.py, W, H, shadows=shadows, light_u=u))
+    assert (got[0] - want[0]).abs().amax(dim=1)[~ties].max().item() <= 1e-5
 
 
 @pytest.mark.cuda
@@ -323,15 +335,16 @@ def test_misaligned_node_table_raises(cuda):
 
 
 @pytest.mark.cuda
-def test_material_sample_kernel_matches_plain(cuda):
-    tables = pack_bounce_tables(synthetic_textured_scene(0, mips=4, device=cuda))
+@pytest.mark.parametrize("case", sorted(SAMPLER_SCENES))
+def test_material_sample_kernel_matches_plain(cuda, case):
+    tables = pack_bounce_tables(SAMPLER_SCENES[case](device=cuda))
     rng = np.random.default_rng(4)
-    n = 16_384
+    n = 16_387   # a ragged last block
     mid = torch.from_numpy(rng.integers(-1, tables.scene.materials.count + 2, n)
                            .astype(np.int32)).to(cuda)
     uv = torch.from_numpy(rng.uniform(-1.5, 2.5, (n, 2)).astype(np.float32)).to(cuda)
     for lod in (0.0, 1.0, 2.5, 9.0):
-        assert k5_compare(tables, mid, uv, lod) <= 1e-5
+        assert k5_compare(tables, mid, uv, lod) == 0.0
 
 
 @pytest.mark.cuda
@@ -362,3 +375,74 @@ def test_pathtracer_step_launches_the_bounce_kernel(cuda, name):
     assert torch.isfinite(got).all()
     assert ((got - want).abs().amax(dim=2) <= 1e-5).float().mean().item() >= 0.999
     assert pt.counters().rays_per_bounce == plain.counters().rays_per_bounce
+
+
+def moved_camera(camera):
+    """The interactive controller's move: a camera whose fields are on the host."""
+    ctrl = CameraController(camera)
+    ctrl.move(forward=2.0, strafe=-1.0)
+    ctrl.rotate(-15.0, 5.0)
+    return ctrl.camera()
+
+
+@pytest.mark.cuda
+def test_renderer_light_salt_draws_per_batch_on_the_card(cuda):
+    """Above 16 lights on the card: one batch salt gives the same frame,
+    another salt (or frame) other light choices."""
+    scene = make_courtyard_scene(2000, seed=3, lights=64, device=cuda)
+    r = Renderer(scene, 96, 64, shadows=True, device=cuda)
+    assert torch.equal(r._light_u(r.px.shape[0], 2), light_uniforms(r.px.shape[0], 0, 2, cuda))
+    a = r.render_rays(r.px, r.py, light_salt=1)
+    assert torch.equal(a, r.render_rays(r.px, r.py, light_salt=1))
+    assert not torch.equal(a, r.render_rays(r.px, r.py, light_salt=2))
+    r.light_frame = 1
+    assert not torch.equal(a, r.render_rays(r.px, r.py, light_salt=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("textured", [False, True])
+def test_set_camera_on_the_card_never_waits_and_repacks_nothing(cuda, textured):
+    """The controller's move (a host camera) under sync debug mode "error":
+    no read-back, the same table tensors, the frame of a fresh renderer."""
+    scene = make_courtyard_scene(2000, seed=1, textured=textured, device=cuda)
+    r = Renderer(scene, 96, 64, shadows=True, device=cuda)
+    r.render_device()
+    kept = (r.tables.camera, r.tables.trace.nodes, r.tables.materials,
+            None if r.shade_tables is None else r.shade_tables.atlas)
+    cam = moved_camera(scene.camera)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r.set_camera(cam)
+        got = r.render_device()
+        r.set_camera(r.scene.camera)   # the same camera again: its fov is the old tensor
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    now = (r.tables.camera, r.tables.trace.nodes, r.tables.materials,
+           None if r.shade_tables is None else r.shade_tables.atlas)
+    assert all(x is y for x, y in zip(now, kept))
+    fresh = Renderer(scene.with_camera(cam), 96, 64, shadows=True, device=cuda)
+    assert torch.equal(got, fresh.render_device())
+    assert torch.equal(r.tables.camera, fresh.tables.camera)
+
+
+@pytest.mark.cuda
+def test_pathtracer_set_camera_on_the_card_never_waits(cuda):
+    """The controller's move between steps under sync debug mode "error",
+    then the step of a fresh tracer at that camera."""
+    scene = make_courtyard_scene(2000, seed=1, textured=True, device="cuda")
+    pt = PathTracer(scene, 64, 64, device="cuda")
+    pt.step()
+    camera_row = pt.tables.render.camera
+    cam = moved_camera(scene.camera)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pt.set_camera(cam)
+        pt.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pt.tables.render.camera is camera_row
+    fresh = PathTracer(scene.with_camera(cam), 64, 64, device="cuda")
+    fresh.step()
+    assert torch.equal(pt.image_device(), fresh.image_device())

@@ -90,7 +90,8 @@ def test_wrappers_refuse_other_devices():
 def test_deferred_wrappers_refuse_other_devices_and_take_plain_on_cpu(monkeypatch):
     """K3 and K4's wrappers: the plain versions for CPU tensors, an error
     for other devices, malformed inputs or an atlas past int32 addresses."""
-    from gpu_raytracer_tpu_torch.engine.renderer import render_gbuffer, split_gbuffer
+    from gpu_raytracer_tpu_torch.engine.renderer import (gbuffer_planes, render_gbuffer,
+                                                         split_gbuffer)
     from gpu_raytracer_tpu_torch.ops.cuda import texshade
     from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred
     from gpu_raytracer_tpu_torch.ops.shading import shade_deferred
@@ -100,7 +101,7 @@ def test_deferred_wrappers_refuse_other_devices_and_take_plain_on_cpu(monkeypatc
     py, px = (a.reshape(-1).to(torch.int32).contiguous()
               for a in torch.meshgrid(torch.arange(12), torch.arange(16), indexing="ij"))
     gbuf = render_deferred(rt, px, py, 16, 12, shadows=True)
-    ref = render_gbuffer(scene, px, py, 16, 12, shadows=True)
+    ref = gbuffer_planes(render_gbuffer(scene, px, py, 16, 12, shadows=True))
     assert torch.equal(gbuf.view(torch.int32), ref.view(torch.int32))   # a miss's id is NaN bits
     S, mat, uv, lam = split_gbuffer(gbuf)
     assert (mat >= 0).any() and (lam > 0).any()
@@ -113,8 +114,10 @@ def test_deferred_wrappers_refuse_other_devices_and_take_plain_on_cpu(monkeypatc
         render_deferred(rt, px.long(), py.long(), 16, 12)
     with pytest.raises(ValueError):
         texshade.texture_shade(st, gbuf.to(meta))
-    with pytest.raises(ValueError):   # not the 8-word record
-        texshade.texture_shade(st, gbuf[:, :7].contiguous())
+    with pytest.raises(ValueError):   # not the planes [2,N,4]
+        texshade.texture_shade(st, gbuf[:, :, :3].contiguous())
+    with pytest.raises(ValueError):   # the plain rows [N,8]
+        texshade.texture_shade(st, render_gbuffer(scene, px, py, 16, 12))
     monkeypatch.setattr(texshade, "MAX_ATLAS_WORDS", scene.textures.data_u32.numel() - 1)
     with pytest.raises(ValueError, match="int32"):
         texshade.pack_shade_tables(scene)

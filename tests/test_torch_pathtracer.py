@@ -25,7 +25,9 @@ from gpu_raytracer_tpu.engine.pathtracer import PathTracer as JaxPathTracer
 from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
 from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer, render_pathtraced
 from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+from gpu_raytracer_tpu_torch.models.camera import CameraController
 from gpu_raytracer_tpu_torch.models.scene import build_default_scene
+from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
 
 SPP = 4
 TOL = 1e-5
@@ -191,3 +193,32 @@ def test_renderer_frames_do_not_depend_on_the_pixel_order(textured):
     r.px, r.py = torch.from_numpy(wx), torch.from_numpy(wy)
     assert not np.array_equal(wx, tiled_pixel_order(72, 40)[0])
     np.testing.assert_array_equal(r.render(), want)
+
+
+def _moved(camera):
+    ctrl = CameraController(camera)
+    ctrl.move(forward=1.5, strafe=0.5)
+    ctrl.rotate(10.0, -5.0)
+    return ctrl.camera()
+
+
+def test_set_camera_keeps_the_tables_and_steps_as_a_fresh_tracer():
+    """After a move the bounce tables are the same tensors (camera row
+    rewritten in place), and the next step equals a fresh tracer's first."""
+    scene = make_courtyard_scene(1500, seed=0, textured=True)
+    pt = PathTracer(scene, 16, 16, device="cpu")
+    pt.step()
+    t = pt.tables
+    kept = (t.render.camera, t.render.trace.nodes, t.render.materials, t.shade.maps,
+            t.shade.levels, t.shade.atlas, t.shade.materials)
+    cam = _moved(scene.camera)
+    pt.set_camera(cam)
+    assert pt.tables is t and pt.samples == 0
+    assert all(a is b for a, b in zip(kept, (t.render.camera, t.render.trace.nodes,
+                                             t.render.materials, t.shade.maps, t.shade.levels,
+                                             t.shade.atlas, t.shade.materials)))
+    pt.step()
+    fresh = PathTracer(scene.with_camera(cam), 16, 16, device="cpu")
+    fresh.step()
+    assert torch.equal(t.render.camera, fresh.tables.render.camera)
+    assert np.array_equal(pt.image(), fresh.image())

@@ -30,9 +30,12 @@ from gpu_raytracer_tpu.models.scene import build_default_scene as jax_default
 from gpu_raytracer_tpu.ops.pallas.render import pallas_render_primary
 from gpu_raytracer_tpu.reference import cpu_tracer as oracle
 from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
-from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_chunk, tiled_pixel_order
+from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, light_seed, light_uniforms,
+                                                     render_chunk, tiled_pixel_order)
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
+from gpu_raytracer_tpu_torch.models.camera import CameraController
 from gpu_raytracer_tpu_torch.ops.cuda.render import MAX_LIGHTS, pack_render_tables, render_primary
+from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
 from gpu_raytracer_tpu_torch.ops.shading import sample_light_index
 from gpu_raytracer_tpu_torch.ops.trace import trace
 
@@ -233,3 +236,72 @@ def test_wrappers_check_light_u(many_lights):
         render_primary(tables, tpx, tpy, 32, 32, light_u=torch.zeros(1024, dtype=torch.float64))
     r = Renderer(ps, 32, 32, device="cpu")
     assert r._light_u(1024) is None and r.light_frame == 0   # the CPU route loops
+
+
+# ---- the light choice's salt and the camera move (their card cases: test_torch_cuda.py) ----
+
+def test_light_seed_is_injective_over_frames_and_salts():
+    """The seed of (frame, salt) keeps both whole (32 bits each): batches of
+    one frame and one batch of different frames never share a seed."""
+    values = [0, 1, 2, 7, 2**31 - 1, 2**31, 2**32 - 1]
+    seeds = {light_seed(f, s) for f in values for s in values}
+    assert len(seeds) == len(values) ** 2 and all(0 <= x < 2**64 for x in seeds)
+    # the low 32 bits (all the CPU generator keeps) also differ here
+    assert len({x & 0xFFFFFFFF for x in seeds}) == len(seeds)
+    assert light_seed(3, 0) != light_seed(0, 3) and light_seed(1, 0) != light_seed(0, 1 << 32)
+    assert light_seed(5, -1) == light_seed(5, 2**32 - 1)   # a salt is taken modulo 2^32
+
+
+def test_light_uniforms_follow_frame_and_salt():
+    n = 4096
+    a = light_uniforms(n, 3, 1, "cpu")
+    assert a.dtype == torch.float32 and a.shape == (n,)
+    assert ((a >= 0.0) & (a < 1.0)).all()
+    assert torch.equal(a, light_uniforms(n, 3, 1, "cpu"))
+    for frame, salt in ((3, 0), (3, 2), (4, 1), (1, 3)):
+        assert not torch.equal(a, light_uniforms(n, frame, salt, "cpu")), (frame, salt)
+
+
+@pytest.mark.parametrize("salt", [0, 5])
+def test_sampled_frames_of_a_salt_average_to_the_loop(many_lights, salt):
+    """64 lights: frames 0..7 of one batch salt, each light chosen from
+    light_uniforms, average toward the loop over every light (8%, the bar
+    of tests/test_pallas_render.py)."""
+    _, ps, px, py = many_lights
+    W = H = 32
+    tpx, tpy = torch.from_numpy(px), torch.from_numpy(py)
+    exact = render_chunk(ps, tpx, tpy, W, H, shadows=True)
+    mean = sum(render_chunk(ps, tpx, tpy, W, H, shadows=True,
+                            light_u=light_uniforms(W * H, k, salt, "cpu"))
+               for k in range(8)) / 8
+    assert torch.isfinite(mean).all()
+    assert abs(mean.sum().item() - exact.sum().item()) / exact.sum().item() < 0.08
+
+
+def _moved(camera):
+    ctrl = CameraController(camera)
+    ctrl.move(forward=2.0, strafe=-1.0)
+    ctrl.rotate(-15.0, 5.0)
+    return ctrl.camera()
+
+
+def test_set_camera_rewrites_the_camera_row_only():
+    """A camera move keeps every table tensor (the camera row too, rewritten
+    in place) and gives the frame and the camera row of a renderer built at
+    the new camera."""
+    scene = make_courtyard_scene(2000, seed=1, textured=True)
+    r = Renderer(scene, 32, 24, shadows=True, device="cpu")
+    t = r.tables
+    before = dict(trace=t.trace, nodes=t.trace.nodes, tris=t.trace.tris, attrs=t.trace.attrs,
+                  camera=t.camera, materials=t.materials, lights=t.lights, spheres=t.spheres)
+    cam = _moved(scene.camera)
+    r.set_camera(cam)
+    after = dict(trace=r.tables.trace, nodes=r.tables.trace.nodes, tris=r.tables.trace.tris,
+                 attrs=r.tables.trace.attrs, camera=r.tables.camera,
+                 materials=r.tables.materials, lights=r.tables.lights,
+                 spheres=r.tables.spheres)
+    assert r.tables is t and all(after[k] is before[k] for k in before)
+    fresh = Renderer(scene.with_camera(cam), 32, 24, shadows=True, device="cpu")
+    assert torch.equal(t.camera, fresh.tables.camera) and t.fov_scale == fresh.tables.fov_scale
+    assert r.scene.camera is t.scene.camera and torch.equal(r.scene.camera.fov, cam.fov)
+    assert np.array_equal(r.render(), fresh.render())

@@ -52,9 +52,9 @@ from test_texshade import _random_gbuffer, _textured_scene
 
 from chip_smoke import synthetic_textured_scene
 from gpu_raytracer_tpu_torch.config import RaytracerConfig
-from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, render_deferred_chunk,
-                                                     render_gbuffer, split_gbuffer,
-                                                     tiled_pixel_order)
+from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, gbuffer_planes,
+                                                     render_deferred_chunk, render_gbuffer,
+                                                     split_gbuffer, tiled_pixel_order)
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
 from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
                                                      render_primary)
@@ -354,7 +354,7 @@ def test_sampled_light_gbuffer_matches_the_interpreted_tpu_kernel(many_lights_te
                                              light_u=jnp.asarray(u), return_gbuffer=True))
     tpx, tpy, tu = torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(u)
     gbuf = render_deferred(pack_render_tables(ps), tpx, tpy, W, H, shadows=shadows, light_u=tu)
-    plain = render_gbuffer(ps, tpx, tpy, W, H, shadows=shadows, light_u=tu)
+    plain = gbuffer_planes(render_gbuffer(ps, tpx, tpy, W, H, shadows=shadows, light_u=tu))
     assert torch.equal(gbuf.view(torch.int32), plain.view(torch.int32))   # a miss's id is NaN bits
     S, mat, _, _ = split_gbuffer(gbuf)
     hit = mat.numpy() >= 0
