@@ -34,7 +34,9 @@ kinds), 1920x1080 in the warp order:
   1024x1024 camera-ray hits; PathTracer.step() with K6's device time; and
   one K6 launch on the main path's depth-0 and depth-1 pools (made by the
   plain bounce, so the same pools under every build), each launch on a
-  fresh copy. Beside the event times (`k4_...`) the sampler's kernels are
+  fresh copy; PathTracer.step() on the textured courtyard with one light,
+  whose K6 launches are the all-lights (NEE_ALL) instances, with K6's
+  device time. Beside the event times (`k4_...`) the sampler's kernels are
   also read by their own device time (`..._device`, torch.profiler): K4
   and K5 run for less than their wrappers' host time.
 `RT_SAMPLER_OFF=1` (csrc/texsample.cuh) builds every kernel with its map
@@ -200,6 +202,17 @@ def measure(root: str, defines: list[str], label: str) -> dict:
         prof = [cs.device_profile(pt.step, PT_STEPS, device) for _ in range(REPEATS)]
         out[f"k6_{name}_device_ms_per_spp"] = [p["k6_device_ms"] for p in prof]
         del pt
+
+    # textured K6's all-lights instances (NEE_ALL): with one light every hit
+    # shades it, so the main path runs them
+    one = make_courtyard_scene(100_000, seed=0, lights=1, textured=True,
+                               texture_size=TEXTURE_SIZE, device=device)
+    pt = PathTracer(one, PT_SIZE, PT_SIZE, device=device)
+    for _ in range(3):
+        pt.step()
+    out["pt_courtyard_1light_ms_per_spp"] = reading(pt.step)
+    prof = [HERE_SMOKE.device_profile(pt.step, PT_STEPS, device) for _ in range(REPEATS)]
+    out["k6_courtyard_1light_device_ms_per_spp"] = [p["k6_device_ms"] for p in prof]
     return out
 
 

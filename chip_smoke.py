@@ -68,7 +68,28 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      the same batch salt gives the same uniforms and frame, another salt
      others, and frames of one salt average to the loop);
  17. PathTracer on the GLB-loaded zoo at 1024x1024, 2 samples: K6 five
-     times per sample, no host sync inside a step.
+     times per sample, no host sync inside a step;
+ 18. PathTracer.gbuffer() at 1024x1024 on the textured courtyard (K1 and K5
+     launched alone, once each) against the plain trace and
+     material_textures on the same card tensors (hit masks equal, depth
+     within T_REL_TOL, normal 1e-6 and albedo 0.0 off exact-t ties), and
+     the à-trous filter (4 passes) on the card against the same call on a
+     CPU copy, within DENOISE_TOL x max(1, max |ref|): its ms, device time,
+     host enqueue time and launches;
+ 19. the fly-through on both courtyards at 1024x1024: 8 steps, then
+     PathTracer.fly_frame(camera, m=8, iterations=4, u8=True) along a
+     strafe / forward / turn path, under sync debug mode "error": ms per
+     frame (pipelined and one at a time), device busy and host enqueue
+     time, the per-stage device time (torch.profiler: warp trace, history
+     gather, coset step, G-buffer reorder, image, denoise, encode),
+     launches per frame
+     (K1 and K5 alone once each), the share of pixels whose history is
+     accepted; one coset step held against the plain bounce on the same
+     pool (PT_IMAGE_SHARE);
+ 20. AdaptivePathTracer(tiles_per_step=16) at 1024x1024: adaptive_from + 4
+     steps, then the tile selection from CPU copies of the accumulators
+     equal to the card's, tile for tile, and to the tiles the next step
+     refines; ms per step.
 K4, K5 (alone and inside textured K6) and K2t are held to 0.0 from their
 plain versions (SAMPLER_TOL), nearest and trilinear, all three wraps.
 Then the frame kernels' roofline bounds with the SIMT efficiency of the
@@ -79,6 +100,7 @@ The card line, then the per-kernel JSON summary, then the last line
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -1082,8 +1104,9 @@ def kernel_device_ms(fn, words, calls: int, device) -> float:
 
 def device_profile(fn, steps: int, device) -> dict:
     """Kernel time on the device per call of fn (torch.profiler), in all and
-    by kind of kernel, and the host's time to enqueue one call (median; the
-    device idle at its start, no synchronise inside)."""
+    by kind of kernel, the kernels and copies launched per call, and the
+    host's time to enqueue one call (median; the device idle at its start,
+    no synchronise inside)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1101,19 +1124,22 @@ def device_profile(fn, steps: int, device) -> dict:
     int64_elementwise = 0.0
     kinds = (("k6", "bounce_kernel"), ("sort", "sort"), ("sort", "radix"),
              ("gather_scatter", "index"), ("elementwise", "elementwise"),
-             ("reduce", "reduce"))
-    by_kind = {}
+             ("reduce", "reduce"), ("copy", "memcpy"), ("copy", "memset"))
+    by_kind, launches = {}, {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         t = e.self_cuda_time_total if t is None else t
         if t > 0:
             kind = next((k for k, word in kinds if word in e.key.lower()), "other")
             by_kind[kind] = by_kind.get(kind, 0.0) + t / steps / 1e3
+            launches[kind] = launches.get(kind, 0) + e.count / steps
             if kind == "elementwise" and ("long" in e.key or "int64" in e.key):
                 int64_elementwise += t / steps / 1e3
     return dict(device_ms=sum(by_kind.values()), k6_device_ms=by_kind.get("k6", 0.0),
                 host_enqueue_ms=statistics.median(enqueue), device_ms_by_kind=by_kind,
-                int64_elementwise_ms=int64_elementwise)
+                int64_elementwise_ms=int64_elementwise,
+                kernels_per_call=sum(v for k, v in launches.items() if k != "copy"),
+                copies_per_call=launches.get("copy", 0))
 
 
 POOL_READ_BYTES = 45      # per lane worked on: origin, direction, throughput 12 each, medium
@@ -1691,6 +1717,353 @@ def phase_zoo_pathtrace(scene, size, device, card):
     return out
 
 
+# ---- the interactive stack: G-buffer, à-trous, fly-through, adaptive (phases 18-20) ----
+
+DENOISE_ITERS = 4
+DENOISE_TOL = 1e-5       # the filter on the card against the CPU copy, x max(1, max |ref|)
+DENOISE_CALLS = 8        # profiled filter calls
+FLY_WARMUP_STEPS = 8     # full steps before the fly-through
+FLY_WARMUP_FRAMES = 2    # fly frames before the timed ones (the first warp traces the old depth)
+FLY_FRAMES = 16          # timed fly frames of each reading
+FLY_INTERLEAVE = 8       # m: a fly frame samples 1/8 of the pixels (bench.py section 3b)
+FLY_PATH = "dadawjdadawldada"   # strafe right / left, forward, turn left / right
+FLY_TURN = 8.0           # mouse pixels of a turn
+ADAPTIVE_TILES = 16      # tiles_per_step of phase 20
+ADAPTIVE_EXTRA_STEPS = 4     # steps past the warm-up before the selection check
+
+
+def no_host_sync(fn, device):
+    """Run fn under set_sync_debug_mode("error"): it raises if fn makes the
+    host wait for the device."""
+    import torch
+
+    if device.type != "cuda":
+        return fn()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def phase_gbuffer_denoise(scene, size, device, card):
+    """Phase 18: PathTracer.gbuffer() at size^2 on the textured courtyard (K1
+    for the triangles, K5 for the albedo) against the plain trace and
+    material_textures on the same card tensors; the à-trous filter on the
+    card against the same call on a CPU copy; the filter's device time,
+    host enqueue time and launches."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer, primary_gbuffer
+    from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import trace
+    from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise
+    from gpu_raytracer_tpu_torch.ops.shading import material_textures
+    from gpu_raytracer_tpu_torch.ops.trace import trace as plain_trace
+
+    cuda = device.type == "cuda"
+    pt = PathTracer(scene, size, size, device=device)
+    reset_launches()
+    normal, depth, albedo = no_host_sync(pt.gbuffer, device)
+    launches = read_launches()
+    textured = pt.tables.shade is not None
+    want = dict(ZERO_LAUNCHES, k1_standalone=1, k5_standalone=1 if textured else 0)
+    if cuda and launches != want:
+        raise AssertionError(f"gbuffer() launched {launches}, want {want}")
+
+    grid = torch.arange(size * size, device=device)
+    o, d = generate_rays(pt.scene.camera, size, size, grid % size, grid // size,
+                         fov_scale=pt.tables.render.fov_scale)
+    kh = trace(pt.tables.render.trace, o, d)      # gbuffer()'s trace again, for its slots
+    ph = plain_trace(pt.scene, o, d)
+    if not torch.equal(kh.t, depth.reshape(-1)):
+        raise AssertionError("gbuffer() depth is not the K1 trace's t")
+    if not torch.equal(kh.hit, ph.hit):
+        raise AssertionError(f"G-buffer hit masks differ on {(kh.hit != ph.hit).sum().item()} "
+                             f"pixels")
+    h = kh.hit
+    ties = h & (kh.prim_id != ph.prim_id) & (kh.t == ph.t)
+    if (h & (kh.prim_id != ph.prim_id) & ~ties).any():
+        raise AssertionError("G-buffer: another primitive at another t")
+    t_rel = ((kh.t - ph.t).abs() / ph.t.abs().clamp(min=1e-30))[h].max().item()
+    mid = torch.clamp(ph.material_id, min=0)
+    p_alb = material_textures(pt.scene, mid, ph.uv)[0]
+    p_alb = torch.where(ph.hit[:, None], p_alb, torch.ones_like(p_alb))
+    keep = ~ties
+    n_err = (normal.reshape(-1, 3) - ph.normal).abs().amax(dim=1)[keep].max().item()
+    a_err = (albedo.reshape(-1, 3) - p_alb).abs().amax(dim=1)[keep].max().item()
+    if t_rel > T_REL_TOL or n_err > 1e-6 or a_err > SAMPLER_TOL:
+        raise AssertionError(f"G-buffer off the plain version: depth {t_rel:.3g} relative, "
+                             f"normal {n_err:.3g}, albedo {a_err:.3g}")
+    plain_ms = timed(lambda: plain_trace(pt.scene, o, d), 1, device)
+
+    for _ in range(2):
+        pt.step()
+    img = pt.image_device()
+    den = no_host_sync(lambda: atrous_denoise(img, normal, depth, albedo,
+                                              iterations=DENOISE_ITERS), device)
+    t0 = time.perf_counter()
+    ref = atrous_denoise(img.cpu(), normal.cpu(), depth.cpu(), albedo.cpu(),
+                         iterations=DENOISE_ITERS)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    d_err = (den.cpu() - ref).abs().max().item()
+    bar = DENOISE_TOL * max(1.0, ref.abs().max().item())
+    if den.shape != (size, size, 3) or not torch.isfinite(den).all() or d_err > bar:
+        raise AssertionError(f"à-trous on the card off the CPU copy by {d_err:.3g} "
+                             f"(bar {bar:.3g})")
+    denoise = lambda: atrous_denoise(img, normal, depth, albedo, iterations=DENOISE_ITERS)
+    gbuf = lambda: primary_gbuffer(pt.tables, grid % size, grid // size, size, size)
+    out = dict(gbuffer=dict(pixels=size * size, hits=int(h.sum()), ties=int(ties.sum()),
+                            depth_rel=t_rel, normal_abs=n_err, albedo_abs=a_err,
+                            launches=launches, ms=timed(gbuf, FRAMES, device),
+                            plain_trace_ms=plain_ms),
+               denoise=dict(iterations=DENOISE_ITERS, max_abs_diff_to_cpu=d_err, bar=bar,
+                            ms=timed(denoise, DENOISE_CALLS, device), cpu_ms=cpu_ms,
+                            **(device_profile(denoise, DENOISE_CALLS, device) if cuda else {})),
+               card=card)
+    log(f"phase 18 G-buffer and à-trous {size}x{size}: {json.dumps(out)}")
+    return out
+
+
+def fly_cameras(camera):
+    """Host cameras along FLY_PATH, repeated without end: the Viewer's keys
+    d / a (strafe), w (forward) and a turn of FLY_TURN mouse pixels (j left,
+    l right)."""
+    from gpu_raytracer_tpu_torch.models.camera import CameraController
+
+    ctrl = CameraController(camera)   # reads the camera back now, not inside a frame
+
+    def path():
+        for i in itertools.count():
+            k = FLY_PATH[i % len(FLY_PATH)]
+            if k in "da":
+                ctrl.move(strafe=1.0 if k == "d" else -1.0)
+            elif k == "w":
+                ctrl.move(forward=1.0)
+            else:
+                ctrl.rotate(FLY_TURN if k == "j" else -FLY_TURN, 0.0)
+            yield ctrl.camera()
+
+    return path()
+
+
+FLY_STAGE_CALLS = (("module", "primary_gbuffer", "warp_trace"),
+                   ("module", "_warp_history", "warp"),
+                   ("class", "_coset_step", "coset_step"),
+                   ("class", "gbuffer", "gbuffer_reorder"),
+                   ("class", "image_device", "image"),
+                   ("module", "atrous_denoise", "denoise"),
+                   ("module", "to_u8", "encode"),
+                   ("class", "fly_frame", "frame"))
+
+
+def fly_stage_device_ms(fly, frames: int, device) -> dict:
+    """Device time per fly frame of each stage's kernels (torch.profiler:
+    the kernels launched inside a record_function range around the
+    stage's function), the warp split into its trace and the rest
+    (history: reprojection, gather, depth test), and `other` for what the
+    frame runs outside the stages (the camera row's rewrite, the weights'
+    fold, the jitter)."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gpu_raytracer_tpu_torch.engine import pathtracer
+
+    def ranged(fn, stage):
+        def wrapper(*args, **kw):
+            with record_function(f"fly:{stage}"):
+                return fn(*args, **kw)
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        for where, name, stage in FLY_STAGE_CALLS:
+            owner = pathtracer if where == "module" else pathtracer.PathTracer
+            stack.enter_context(_swap(owner, name, ranged(getattr(owner, name), stage)))
+        torch.cuda.synchronize(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(frames):
+                fly()
+            torch.cuda.synchronize(device)
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith("fly:"):
+            t = getattr(e, "device_time_total", None)
+            out[e.key[4:]] = (e.cuda_time_total if t is None else t) / frames / 1e3
+    # a range counts the kernels launched in it outside the ranges nested in
+    # it: the warp's own are the history's, the frame's own the rest
+    out["history"] = out.pop("warp")
+    out["other"] = out.pop("frame")
+    return out
+
+
+def device_batch_ms(fn, calls: int, device) -> float:
+    """Device milliseconds per call of fn over `calls` calls enqueued behind
+    a spin kernel (torch.cuda._sleep), so that the events around them time
+    the device back to back and not the host's launches: for kernels too
+    short to time one at a time."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    torch.cuda._sleep(50_000_000)   # ~25 ms of spinning: the host enqueues ahead
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def phase_fly(scene, label, size, device, card):
+    """Phase 19: the fly-through, FLY_WARMUP_STEPS full steps then
+    PathTracer.fly_frame(camera, m=FLY_INTERLEAVE, iterations=4, u8=True)
+    along FLY_PATH, under set_sync_debug_mode("error"): ms per frame
+    (pipelined, and one frame at a time), the device's busy time and the
+    host's enqueue time per frame, the per-stage device time, launches per
+    frame, the share of pixels whose history the warp accepts; one coset
+    step held against the plain bounce on the same pool."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine import pathtracer
+
+    cuda = device.type == "cuda"
+
+    def tracer():
+        return pathtracer.PathTracer(scene, size, size, spectral=True, shadows=True,
+                                     antialias=True, sampler="qmc", device=device)
+
+    pt = tracer()
+    for _ in range(FLY_WARMUP_STEPS):
+        pt.step()
+    cams = fly_cameras(scene.camera)
+    fly = lambda u8=True: pt.fly_frame(next(cams), m=FLY_INTERLEAVE, iterations=DENOISE_ITERS,
+                                       u8=u8)
+    for _ in range(FLY_WARMUP_FRAMES):
+        no_host_sync(fly, device)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    if cuda:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+    frames = no_host_sync(lambda: [fly() for _ in range(FLY_FRAMES)], device)
+    if cuda:
+        b.record()
+        b.synchronize()
+        burst_ms = a.elapsed_time(b) / FLY_FRAMES
+    else:
+        burst_ms = (time.perf_counter() - t0) * 1e3 / FLY_FRAMES
+    launches = read_launches()
+    textured = pt.tables.shade is not None
+    n_k6 = FLY_FRAMES * (MAX_DEPTH + 1)
+    want = dict(ZERO_LAUNCHES, k6=n_k6, k5=n_k6 if textured else 0, k1_standalone=FLY_FRAMES,
+                k5_standalone=FLY_FRAMES if textured else 0)
+    if cuda and launches != want:
+        raise AssertionError(f"{label}: fly frames launched {launches}, want {want}")
+    last = frames[-1]
+    if last.shape != (size, size, 3) or last.dtype != torch.uint8:
+        raise AssertionError(f"{label}: fly frame {tuple(last.shape)} {last.dtype}")
+    del frames
+
+    accepted = []
+    warp = pathtracer._warp_history
+
+    def kept_warp(*args, **kw):   # each warp's accepted share, kept on the device
+        out = warp(*args, **kw)
+        accepted.append((out[1] > 0).float().mean())
+        return out
+
+    with _swap(pathtracer, "_warp_history", kept_warp):
+        ms = timed(fly, FLY_FRAMES, device)
+    accepted = [x.item() for x in accepted]
+    stages, profile, accumulate_ms = {}, {}, None
+    if cuda:
+        stages = fly_stage_device_ms(fly, FLY_FRAMES, device)
+        profile = device_profile(fly, FLY_FRAMES, device)
+        # the coset step's accumulate alone: one index_add_ over C/m unique rows
+        rows = pt._cosets(FLY_INTERLEAVE)[0][0]
+        contrib = torch.rand((rows.shape[0], 3), device=device)
+        acc = pt.accum.clone()
+        accumulate_ms = device_batch_ms(lambda: acc.index_add_(0, rows, contrib), 32, device)
+    frame = fly(u8=False)
+    if frame.shape != (size, size, 3) or not torch.isfinite(frame).all():
+        raise AssertionError(f"{label}: f32 fly frame not finite")
+
+    # one coset step on the kernel and on the plain bounce, the same pool
+    k, p = tracer(), tracer()
+    k.step()
+    p.step()
+    if not torch.equal(k.accum, p.accum):
+        raise AssertionError(f"{label}: two tracers' first steps differ")
+    k._coset_step(FLY_INTERLEAVE)
+    with plain_bounces():
+        p._coset_step(FLY_INTERLEAVE)
+    rows = k._cosets(FLY_INTERLEAVE)[0][0]
+    diff = (k.accum[rows] - p.accum[rows]).abs().amax(dim=1)
+    share = (diff <= RGB_TOL).float().mean().item()
+    if share < PT_IMAGE_SHARE:
+        raise AssertionError(f"{label}: {share:.4%} of the coset step within {RGB_TOL} of the "
+                             f"plain bounce < {PT_IMAGE_SHARE:.1%}")
+    out = dict(interleave=FLY_INTERLEAVE, iterations=DENOISE_ITERS, ms_per_frame=ms,
+               burst_ms_per_frame=burst_ms, launches=launches,
+               launches_per_frame={k_: v / FLY_FRAMES for k_, v in launches.items()},
+               stages_device_ms=stages, profile=profile, accumulate_device_ms=accumulate_ms,
+               device_busy_share=profile["device_ms"] / ms if cuda else None,
+               history_accepted_share=statistics.median(accepted) if accepted else None,
+               history_accepted_min=min(accepted) if accepted else None,
+               coset_step_share_within_tol=share, coset_step_max_abs_diff=diff.max().item(),
+               mean=frame.mean().item(), card=card)
+    log(f"phase 19 fly-through {label} {size}x{size}: {json.dumps(out)}")
+    return out
+
+
+def phase_adaptive(scene, size, device, card):
+    """Phase 20: AdaptivePathTracer(tiles_per_step=ADAPTIVE_TILES) at size^2:
+    adaptive_from + ADAPTIVE_EXTRA_STEPS steps, then the tile selection made
+    from copies of the accumulators on the CPU against the card's, tile for
+    tile, and the tiles the card's next step refined; ms per step."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.adaptive import TILE_PX, AdaptivePathTracer, select_tiles
+
+    pt = AdaptivePathTracer(scene, size, size, tiles_per_step=ADAPTIVE_TILES, shadows=True,
+                            device=device)
+    warm = pt.adaptive_from + ADAPTIVE_EXTRA_STEPS
+    no_host_sync(pt.step, device)
+    reset_launches()
+    ms_warm = timed(pt.step, warm - 1, device)
+    launches = read_launches()
+    if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, k6=(warm - 1) * (MAX_DEPTH + 1)):
+        raise AssertionError(f"adaptive steps launched {launches}")
+    g = pt._steps
+    args = (g, pt.K, pt.T, pt.adaptive_from)
+    on_card = select_tiles(pt.accum, pt.accum_sq, pt.counts, *args).cpu()
+    on_cpu = select_tiles(pt.accum.cpu(), pt.accum_sq.cpu(), pt.counts.cpu(), *args)
+    if not torch.equal(on_card, on_cpu):
+        raise AssertionError(f"adaptive selection: card {on_card.tolist()} != CPU "
+                             f"{on_cpu.tolist()}")
+    before = pt.counts.clone().cpu()
+    no_host_sync(pt.step, device)
+    added = (pt.counts.cpu() - before).reshape(pt.T, TILE_PX)[:, 0]
+    want = torch.bincount(on_cpu, minlength=pt.T).to(added.dtype)
+    if not torch.equal(added, want):
+        raise AssertionError("the adaptive step refined other tiles than its selection")
+    ms = timed(pt.step, FRAMES, device)
+    frame = pt.image_device()
+    if not torch.isfinite(frame).all():
+        raise AssertionError("adaptive frame not finite")
+    counts = pt.counts.reshape(pt.T, TILE_PX)[:, 0]
+    out = dict(tiles=pt.T, tiles_per_step=pt.K, adaptive_from=pt.adaptive_from,
+               checked_step=g, selection=on_cpu.tolist(), ms_per_step=ms,
+               warmup_ms_per_step=ms_warm, launches=launches, samples=pt.samples,
+               tile_counts_min=int(counts.min()), tile_counts_max=int(counts.max()),
+               mean=frame.mean().item(), card=card)
+    log(f"phase 20 adaptive {size}x{size}: {json.dumps(out)}")
+    return out
+
+
 def frame_bounds(tables, width, height, shade=None):
     """Bytes and FP32 operations of the phase 3-9 and 15 kernels on the
     1080p frame, shadows off (the times the kernels line reports): K1's
@@ -1839,6 +2212,16 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
                    for s in (False, True)}
     phase_many_lights(triangles, texture_size, width, height, crop, device, card, ms_2_lights)
     phase_zoo_pathtrace(zoos["zoo_multi_slot"], pt_size, device, card)
+    gd = phase_gbuffer_denoise(tscene, pt_size, device, card)
+    fly = {label: phase_fly(sc, label, pt_size, device, card)
+           for label, sc in (("courtyard", scene), ("textured_courtyard", tscene))}
+    ada = phase_adaptive(scene, pt_size, device, card)
+    interactive = [gd["gbuffer"]["launches"], ada["launches"]] + [v["launches"]
+                                                                  for v in fly.values()]
+    k1_standalone = sum(v["k1_standalone"] for v in interactive)
+    k5_standalone = sum(v["k5_standalone"] for v in interactive)
+    k6_launches += sum(v["k6"] for v in interactive)
+    k5_launches += sum(v["k5"] for v in interactive)
     k2t_err = max(v["err"] for v in k2t.values() if isinstance(v, dict))
 
     fb = frame_bounds(tables, width, height) if cuda else {}
@@ -1849,10 +2232,11 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     kb = ptc["k6_bound"] or {}
     kernels = [
         dict(name="K1 bvh4_traverse (device function run by every K2, K2t, K3 and K6 launch; "
-                  "standalone kernel checked in phase 3)",
+                  "standalone kernel checked in phase 3 and launched by the G-buffer and the "
+                  "fly-through's warp, phases 18-19)",
              route="cuda", source="gpu_raytracer_tpu_torch/csrc/traverse.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/traverse.py:851",
-             launches=k2_launches + k2t_launches + k3_launches + k6_launches,
+             launches=k2_launches + k2t_launches + k3_launches + k6_launches + k1_standalone,
              max_abs_err=max(k1["primary"]["t_abs"], k1["primary"]["normal_abs"],
                              k1["shadow"]["t_abs"], k1["shadow"]["normal_abs"]),
              ms=k1["ms"], plain_ms=k1["plain_ms"], **bound(fb.get("K1")), library_ms=None),
@@ -1886,14 +2270,16 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              max_abs_err=max(k4["max_abs_diff"].values()),
              ms=k4["device_ms"], plain_ms=k4["plain_ms"], **bound(tfb.get("K4")),
              library_ms=None),
-        dict(name="K5 sample_material (device function inside K6's textured launches; "
+        dict(name="K5 sample_material (device function inside K6's textured launches, "
+                  "launched alone for the G-buffer's albedo, phases 18-19; "
                   "ms (device time, torch.profiler, the L2 flushed before each call), "
                   "plain_ms and the bound from its "
                   "standalone launch on the textured courtyard's camera hits, "
                   "csrc/materials.cu)", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/texsample.cuh",
              replaces="gpu_raytracer_tpu/ops/pallas/texshade.py:506",
-             launches=k5_launches, max_abs_err=max(k5["max_abs_diff"].values()),
+             launches=k5_launches + k5_standalone,
+             max_abs_err=max(max(k5["max_abs_diff"].values()), gd["gbuffer"]["albedo_abs"]),
              ms=k5["device_ms"], plain_ms=k5["plain_ms"], bound_ms=k5.get("bound_ms"),
              bound_by=k5.get("bound_by"), library_ms=None),
         dict(name=f"K6 bounce ({MAX_DEPTH + 1} launches per sample; ms (kernel device time, "

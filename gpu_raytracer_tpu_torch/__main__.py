@@ -5,7 +5,8 @@ subcommands.
         [--demo | --courtyard N [--textured] | --gltf FILE] \
         [--width W --height H] [--shadows] [--device cuda|cpu] -o out.png
     python -m gpu_raytracer_tpu_torch pathtrace [scene flags] [--spp N] [--spectral] \
-        [--no-shadows] [--seed S] [--sampler qmc|rng] [--checkpoint F] [--resume F] \
+        [--no-shadows] [--seed S] [--sampler qmc|rng] [--adaptive K] \
+        [--denoise [--denoise-iters N]] [--checkpoint F] [--resume F] \
         [--linear] [--device cuda|cpu] -o out.png
     python -m gpu_raytracer_tpu_torch export [scene flags] -o out.glb
     python -m gpu_raytracer_tpu_torch info --gltf FILE [--scene-index I]
@@ -81,15 +82,17 @@ def cmd_pathtrace(args, config):
     from .engine.pathtracer import PathTracer
     from .utils.image import write_png
 
-    if args.adaptive:
-        raise NotImplementedError("--adaptive is not ported yet (ROADMAP queue 1 item 9)")
-    if args.denoise:
-        raise NotImplementedError("--denoise is not ported yet (ROADMAP queue 1 item 9)")
     device = torch.device(args.device)
     scene = _load_scene(args, config, "cpu")
-    pt = PathTracer(scene, args.width, args.height, config=config, spectral=args.spectral,
-                    shadows=not args.no_shadows, seed=args.seed, sampler=args.sampler,
-                    device=device)
+    kw = dict(config=config, spectral=args.spectral, shadows=not args.no_shadows,
+              seed=args.seed, device=device)
+    if args.adaptive:
+        from .engine.adaptive import AdaptivePathTracer
+
+        pt = AdaptivePathTracer(scene, args.width, args.height, tiles_per_step=args.adaptive,
+                                **kw)
+    else:
+        pt = PathTracer(scene, args.width, args.height, sampler=args.sampler, **kw)
     if args.resume and os.path.exists(args.resume):
         pt.load_checkpoint(args.resume)
         print(f"resumed at {pt.samples} spp")
@@ -97,6 +100,9 @@ def cmd_pathtrace(args, config):
     if args.checkpoint:
         pt.save_checkpoint(args.checkpoint)
         print(f"checkpoint -> {args.checkpoint}")
+    if args.denoise:
+        img = pt.denoised_image(iterations=args.denoise_iters)
+        print(f"denoised ({args.denoise_iters} a-trous iterations)")
     write_png(args.output, img, srgb=not args.linear)
     print(f"wrote {args.output} ({pt.samples} spp)")
 
@@ -178,11 +184,16 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--linear", action="store_true",
                    help="write raw linear u8 instead of the default sRGB display encode")
-    p.add_argument("--denoise", action="store_true", help="not ported yet")
+    p.add_argument("--denoise", action="store_true",
+                   help="edge-avoiding a-trous reconstruction filter")
+    p.add_argument("--denoise-iters", type=int, default=4)
     p.add_argument("--sampler", choices=("qmc", "rng"), default="qmc",
                    help="qmc: low-discrepancy lattice sampling; rng: independent "
                         "torch.Generator streams")
-    p.add_argument("--adaptive", type=int, default=0, metavar="K", help="not ported yet")
+    p.add_argument("--adaptive", type=int, default=0, metavar="K",
+                   help="variance-weighted sampling: each step refines the K highest-error "
+                        "64x64 tiles (0 = uniform; --spp then counts steps, average spp = "
+                        "spp*K/tiles)")
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--resume", type=str, default=None)
     add_config_args(p)

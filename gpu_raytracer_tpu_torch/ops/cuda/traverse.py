@@ -5,6 +5,8 @@ Replaces the TPU kernel `gpu_raytracer_tpu/ops/pallas/traverse.py`
 The kernel source is csrc/traverse.cuh (the device function, which the
 fused render kernel calls too) and csrc/traverse.cu (the standalone
 launch). Its plain version is `ops/trace.py::traverse_triangles`.
+`trace` is the closest hit of a ray batch (ops/trace.py::Hit) with the
+triangles through K1: the path tracer's G-buffer and temporal warp.
 
 The scene tables are laid out for the GPU here, once per scene:
 
@@ -37,7 +39,8 @@ import torch
 
 from ...models.scene import Scene
 from ..texture import den_decode
-from ..trace import traverse_triangles
+from ..trace import Hit, traverse_triangles
+from ..trace import trace as plain_trace
 from .build import check, load_kernels
 
 STACK_SIZES = (16, 32, 64, 128)   # compiled stack capacities (csrc/traverse.cu)
@@ -216,6 +219,23 @@ def traverse(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
 
 
 traverse.launches = 0
+
+
+def trace(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor, max_t=None) -> Hit:
+    """Closest hit for a ray batch orig/dirn [N,3] f32 -> ops/trace.py::Hit,
+    composed as the plain `trace` is: the sphere pass in PyTorch, the
+    triangles through K1 (`traverse`) below the sphere's t (strict <, so the
+    sphere keeps a tie), the winner triangle's uv from its slot, the sphere
+    normal and uv. CPU tensors take the plain `ops/trace.py::trace`; on a
+    CUDA tensor the triangles never take the plain walk."""
+    if orig.device.type == "cpu":
+        return plain_trace(tables.scene, orig, dirn, max_t)
+
+    def k1(scene, o, d, limit):
+        t, slot, hit, normal, mat = traverse(tables, o.contiguous(), d.contiguous(), limit)
+        return t, slot.long(), hit, normal, mat.long()
+
+    return plain_trace(tables.scene, orig, dirn, max_t, triangles=k1)
 
 
 def traversal_work(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,

@@ -26,8 +26,10 @@ SQRT2 = 1.4142135       # f32 sqrt(2): lod = floor(log2(foot * sqrt2)) rounds lo
 _DEN_MAX = (254 << 6) | 63
 
 
-def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+def _f32(x: float, device) -> torch.Tensor:
+    """A 0-d f32 constant made on `device` (no host copy, which would make
+    the host wait for a CUDA device)."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def _log2_split(x: torch.Tensor):

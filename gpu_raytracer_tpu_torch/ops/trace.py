@@ -106,16 +106,19 @@ def _max_t(max_t, orig: torch.Tensor) -> torch.Tensor:
     return torch.full((n,), max_t, dtype=orig.dtype, device=orig.device)
 
 
-def trace(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor, max_t=None) -> Hit:
-    """Closest hit for a ray batch orig/dirn [N,3]."""
+def trace(scene: Scene, orig: torch.Tensor, dirn: torch.Tensor, max_t=None,
+          triangles=traverse_triangles) -> Hit:
+    """Closest hit for a ray batch orig/dirn [N,3]. `triangles` is the
+    triangle pass, called as triangles(scene, orig, dirn, limit) with the
+    result of `traverse_triangles`: the plain walk, or the CUDA traversal
+    kernel (ops/cuda/traverse.py::trace)."""
     max_t = _max_t(max_t, orig)
     sph = scene.spheres
     s_t, s_hit = sphere_intersect(orig, dirn, sph.center, sph.radius, max_t)
     sph_t, sph_i, sph_any = closest_select(s_t, s_hit)
     tri_limit = torch.where(sph_any, sph_t, max_t)  # strict < keeps the sphere on a tie
 
-    tri_t, tri_i, use_tri, tri_normal, tri_m = traverse_triangles(
-        scene, orig, dirn, tri_limit)
+    tri_t, tri_i, use_tri, tri_normal, tri_m = triangles(scene, orig, dirn, tri_limit)
 
     t = torch.where(use_tri, tri_t, torch.where(sph_any, sph_t, torch.full_like(sph_t, MISS_T)))
     hit = use_tri | sph_any

@@ -50,6 +50,20 @@ def test_pathtrace_writes_a_png_and_resumes(tmp_path):
     assert "resumed at 2 spp" in proc.stdout and "(4 spp)" in proc.stdout
 
 
+@pytest.mark.parametrize("mode", [["--denoise", "--denoise-iters", "2"],
+                                  ["--adaptive", "2", "--denoise"]])
+def test_pathtrace_denoise_and_adaptive(tmp_path, mode):
+    out = tmp_path / "pt.png"
+    proc = _run(["--courtyard", "500", "--width", "128", "--height", "64", "--spp", "2",
+                 *mode, "--device", "cpu", "-o", str(out)], tmp_path, "pathtrace")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert _png_size(out) == (128, 64)
+    iters = mode[mode.index("--denoise-iters") + 1] if "--denoise-iters" in mode else "4"
+    assert f"denoised ({iters} a-trous iterations)" in proc.stdout
+    # adaptive: 2 steps of 2 tiles of the 2 make 2 samples per pixel on average
+    assert ("(2.0 spp)" if "--adaptive" in mode else "(2 spp)") in proc.stdout
+
+
 def test_render_refuses_unported_scenes(tmp_path):
     """What the port still lacks raises; a glTF file that does not load is
     not among it: the default scene is rendered and the message says why."""
@@ -110,6 +124,15 @@ def test_export_repacks_a_loaded_gltf_and_pathtrace_reads_it(exported_glb):
 
 @pytest.mark.parametrize("flags", [["--adaptive", "4"], ["--denoise"]])
 def test_pathtrace_refuses_unported_options(tmp_path, flags):
+    """Both options are ported: on an 8x8 frame --denoise runs, and
+    --adaptive refuses the frame (not whole 64x64 tiles) as the JAX CLI
+    does, with a ValueError, not NotImplementedError."""
     proc = _run([*flags, "--width", "8", "--height", "8", "--device", "cpu", "-o", "x.png"],
                 tmp_path, "pathtrace")
-    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
+    assert "NotImplementedError" not in proc.stderr
+    if "--adaptive" in flags:
+        assert proc.returncode != 0 and "ValueError" in proc.stderr
+        assert "whole 64x64 tiles" in proc.stderr
+    else:
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert _png_size(tmp_path / "x.png") == (8, 8)

@@ -33,7 +33,7 @@ from gpu_raytracer_tpu_torch.ops.cuda.bounce import (fused_bounce, fused_bounce_
 from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
                                                      render_primary)
 from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
-from gpu_raytracer_tpu_torch.ops.cuda.traverse import pack_trace_tables, traverse
+from gpu_raytracer_tpu_torch.ops.cuda.traverse import pack_trace_tables, trace, traverse
 from gpu_raytracer_tpu_torch.ops.sampler import QmcStream
 from gpu_raytracer_tpu_torch.ops.trace import traverse_triangles
 from gpu_raytracer_tpu_torch.ops.wavefront import bounce, coherence_order, pool_uniforms
@@ -446,3 +446,106 @@ def test_pathtracer_set_camera_on_the_card_never_waits(cuda):
     fresh = PathTracer(scene.with_camera(cam), 64, 64, device="cuda")
     fresh.step()
     assert torch.equal(pt.image_device(), fresh.image_device())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("textured", [False, True])
+def test_gbuffer_and_warp_trace_through_k1_and_k5(cuda, textured, monkeypatch):
+    """PathTracer.gbuffer() and the temporal warp on the card: one K1
+    launch per trace, one K5 launch per textured albedo, never the plain
+    BVH walk; the planes equal the plain trace and material_textures on the
+    same card tensors (normal <= 1e-6, depth 1e-6 relative, albedo 0.0)
+    off exact-t ties."""
+    from gpu_raytracer_tpu_torch.ops import trace as plain
+    from gpu_raytracer_tpu_torch.ops.shading import material_textures
+
+    scene = make_courtyard_scene(2000, seed=1, textured=textured, device=cuda)
+    pt = PathTracer(scene, 64, 64, device=cuda)
+    grid = torch.arange(64 * 64, device=cuda)
+    o, d = generate_rays(pt.scene.camera, 64, 64, grid % 64, grid // 64,
+                         fov_scale=pt.tables.render.fov_scale)
+    ph = plain.trace(pt.scene, o, d)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain BVH walk ran on the card")
+
+    monkeypatch.setattr(plain, "bvh_traverse_threaded", refuse)
+    reset_launches()
+    normal, depth, albedo = pt.gbuffer()
+    k5 = 1 if textured else 0
+    assert read_launches() == dict(ZERO_LAUNCHES, k1_standalone=1, k5_standalone=k5)
+    kh = trace(pt.tables.render.trace, o, d)    # gbuffer()'s trace again, for its slots
+    assert torch.equal(kh.t, depth.reshape(-1)) and torch.equal(kh.hit, ph.hit)
+    ties = kh.hit & (kh.prim_id != ph.prim_id) & (kh.t == ph.t)
+    assert not (kh.hit & (kh.prim_id != ph.prim_id) & ~ties).any()
+    h = kh.hit
+    assert ((kh.t - ph.t).abs() / ph.t.abs())[h].max().item() <= 1e-6
+    p_alb = material_textures(pt.scene, torch.clamp(ph.material_id, min=0), ph.uv)[0]
+    p_alb = torch.where(ph.hit[:, None], p_alb, torch.ones_like(p_alb))
+    keep = ~ties
+    assert (normal.reshape(-1, 3) - ph.normal)[keep].abs().max().item() <= 1e-6
+    assert (albedo.reshape(-1, 3) - p_alb)[keep].abs().max().item() == 0.0
+    pt.step()
+    cam = moved_camera(scene.camera)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pt.set_camera(cam, temporal=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert read_launches() == dict(ZERO_LAUNCHES, k1_standalone=1, k5_standalone=k5)
+    assert torch.isfinite(pt.image_device()).all()
+
+
+@pytest.mark.cuda
+def test_denoise_on_the_card_matches_the_cpu(cuda):
+    """atrous_denoise on the card against the same call on a CPU copy:
+    within 1e-5 x max(1, max |ref|)."""
+    from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise
+
+    pt = PathTracer(make_courtyard_scene(2000, seed=1, textured=True, device=cuda), 96, 64,
+                    device=cuda)
+    for _ in range(2):
+        pt.step()
+    img, planes = pt.image_device(), pt.gbuffer()
+    for iterations in (1, 4):
+        got = atrous_denoise(img, *planes, iterations=iterations).cpu()
+        ref = atrous_denoise(img.cpu(), *(x.cpu() for x in planes), iterations=iterations)
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_fly_frame_on_the_card_matches_the_plain_path(cuda):
+    """Two fly frames on the card (warp, coset step, à-trous, u8) without a
+    host sync, against the same frames on the CPU with the same history
+    jitter: the u8 frames equal on >= 99% of the pixels."""
+    from gpu_raytracer_tpu_torch.engine.pathtracer import warp_jitter
+
+    scene = make_courtyard_scene(2000, seed=1, device="cpu")
+    tracers = [PathTracer(scene, 64, 64, device=dev) for dev in (cuda, torch.device("cpu"))]
+    jitter = {n: warp_jitter(0, n, 64 * 64, "cpu") for n in (1, 2)}
+    for pt in tracers:
+        on_device = {n: j.to(pt.device) for n, j in jitter.items()}
+        pt._warp_jitter = lambda pt=pt, on_device=on_device: on_device[pt._warp_no]
+        for _ in range(3):
+            pt.step()
+    ctrl = CameraController(scene.camera)
+    cams = []
+    for strafe, forward in ((1.0, 0.0), (0.0, 1.0)):
+        ctrl.move(forward=forward, strafe=strafe)
+        cams.append(ctrl.camera())
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frames = [tracers[0].fly_frame(c, m=4, u8=True) for c in cams]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n = tracers[0].config.max_bounce_depth + 1
+    assert read_launches() == dict(ZERO_LAUNCHES, k6=2 * n, k1_standalone=3)
+    want = [tracers[1].fly_frame(c, m=4, u8=True) for c in cams]
+    for got, ref in zip(frames, want):
+        assert got.dtype == torch.uint8 and got.shape == (64, 64, 3)
+        equal = (got.cpu().int() - ref.int()).abs().amax(dim=2) == 0
+        assert equal.float().mean().item() >= 0.99

@@ -32,6 +32,8 @@ def test_port_never_imports_jax():
         "from gpu_raytracer_tpu_torch.models.scene import build_default_scene\n"
         "from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene\n"
         "from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer\n"
+        "from gpu_raytracer_tpu_torch.engine.adaptive import AdaptivePathTracer\n"
+        "from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise\n"
         "from gpu_raytracer_tpu_torch.ops.cuda import bounce, build, render, texshade, traverse\n"
         "from gpu_raytracer_tpu_torch import bridge, __main__\n"
         "from gpu_raytracer_tpu_torch.models import gltf, gltf_export\n"
@@ -51,6 +53,11 @@ def test_port_never_imports_jax():
         "    pt = PathTracer(scene, 16, 12, device='cpu')\n"
         "    pt.step()\n"
         "    assert pt.image().shape == (12, 16, 3) and pt.counters().rays_per_bounce[0] == 192\n"
+        "    assert pt.fly_frame(scene.camera, m=4, u8=True).shape == (12, 16, 3)\n"
+        "ada = AdaptivePathTracer(make_courtyard_scene(500), 64, 64, tiles_per_step=1,\n"
+        "                         device='cpu')\n"
+        "ada.step()\n"
+        "assert ada.denoised_image(iterations=1).shape == (64, 64, 3)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib',"
         " 'gpu_raytracer_tpu.')) or m == 'gpu_raytracer_tpu')\n"
         "print('LOADED', bad)\n"
@@ -280,6 +287,70 @@ def test_many_lights_are_not_refused():
     one_light = Renderer(build_default_scene(), 8, 8, shadows=True, device="cpu").render()
     assert frame.shape == (8, 8, 3) and np.isfinite(frame).all()
     assert frame.sum() > 2.0 * one_light.sum()
+
+
+def test_trace_on_a_device_tensor_takes_k1_never_the_plain_walk(monkeypatch):
+    """`ops/cuda/traverse.py::trace` on a tensor that is not on the CPU
+    hands the triangles to the K1 wrapper (here on the meta device, where a
+    recording stand-in answers for the kernel) and never reaches the plain
+    BVH walk; on CPU tensors it is the plain trace."""
+    from gpu_raytracer_tpu_torch.ops import trace as plain
+    from gpu_raytracer_tpu_torch.ops.cuda import traverse as k1
+
+    scene = make_courtyard_scene(500, textured=True)
+    tables = k1.pack_trace_tables(scene)
+    o = scene.camera.position.expand(64, 3)
+    d = torch.nn.functional.normalize(torch.randn(64, 3), dim=1)
+    want = plain.trace(scene, o, d)
+    got = k1.trace(tables, o, d)
+    for f in ("t", "hit", "prim_id", "normal", "material_id", "uv"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain BVH walk ran for a device tensor")
+
+    monkeypatch.setattr(plain, "bvh_traverse_threaded", refuse)
+    monkeypatch.setattr(plain, "_triangles_brute", refuse)
+    calls = []
+
+    def kernel(tables_, orig, dirn, max_t, any_hit=False):
+        calls.append((orig.device, orig.is_contiguous(), tuple(max_t.shape)))
+        n = orig.shape[0]
+        return (torch.empty(n, device=orig.device), torch.empty(n, dtype=torch.int32,
+                                                                 device=orig.device),
+                torch.empty(n, dtype=torch.bool, device=orig.device), torch.empty_like(orig),
+                torch.empty(n, dtype=torch.int32, device=orig.device))
+
+    monkeypatch.setattr(k1, "traverse", kernel)
+    meta = torch.device("meta")
+    hit = k1.trace(dataclasses.replace(tables, scene=scene.to(meta)), o.to(meta), d.to(meta))
+    assert calls == [(meta, True, (64,))]
+    assert hit.t.device == meta and hit.uv.shape == (64, 2)
+
+
+def test_gbuffer_and_warp_trace_through_the_kernel_wrappers(monkeypatch):
+    """The path tracer's G-buffer and temporal warp trace with
+    `ops/cuda/traverse.py::trace` (K1 on a CUDA device) and sample a
+    textured albedo with `ops/cuda/bounce.py::sample_materials` (K5)."""
+    from gpu_raytracer_tpu_torch.engine import pathtracer
+    from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
+    from gpu_raytracer_tpu_torch.ops.cuda import traverse as k1
+
+    assert pathtracer.trace is k1.trace
+    assert pathtracer.sample_materials is bounce_mod.sample_materials
+    seen = []
+    spy = lambda name, fn: (lambda *a, **kw: (seen.append(name), fn(*a, **kw))[1])
+    monkeypatch.setattr(pathtracer, "trace", spy("k1", k1.trace))
+    monkeypatch.setattr(pathtracer, "sample_materials", spy("k5", bounce_mod.sample_materials))
+    pt = pathtracer.PathTracer(make_courtyard_scene(500, textured=True), 16, 12, device="cpu")
+    pt.gbuffer()
+    assert seen == ["k1", "k5"]
+    pt.step()
+    pt.set_camera(pt.scene.camera, temporal=True)   # the old depth from gbuffer()'s planes
+    assert seen == ["k1", "k5"] * 2
+    pt._gbuf = pt._gbuf_tile = None
+    pt.set_camera(pt.scene.camera, temporal=True)   # no cached depth: it is traced first
+    assert seen == ["k1", "k5"] * 2 + ["k1", "k1", "k5"]
 
 
 def test_unported_inputs_raise():

@@ -109,17 +109,27 @@ def test_rng_sampler_and_rgb_mode_run():
 
 
 def test_set_camera_restarts_and_unported_modes_raise():
+    """set_camera restarts the accumulation; the modes that raised
+    NotImplementedError until the interactive stack was ported (temporal
+    warp, interleaved step, G-buffer, denoised outputs, fly frame) run on
+    the CPU now (their parity with the JAX package: test_torch_temporal,
+    test_torch_interleave, test_torch_denoise, test_torch_fly)."""
     pt = PathTracer(build_default_scene(), 16, 16, device="cpu")
     pt.step()
     cam = pt.scene.camera
     pt.set_camera(cam)
     assert pt.samples == 0 and not pt.accum.any()
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pt.set_camera(cam, temporal=True)
-    for call in (pt.step_interleaved, pt.gbuffer, pt.denoised_frame, pt.denoised_image,
-                 lambda: pt.fly_frame(cam)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            call()
+    pt.step()
+    pt.set_camera(cam, temporal=True)
+    assert pt.samples == 0 and pt._count_base is not None and pt._gbuf_tile is not None
+    pt.step_interleaved()
+    assert pt._count_base.sum().item() > 0
+    normal, depth, albedo = pt.gbuffer()
+    assert normal.shape == albedo.shape == (16, 16, 3) and depth.shape == (16, 16)
+    assert pt.denoised_frame().shape == (16, 16, 3)
+    assert pt.denoised_image().shape == (16, 16, 3)
+    frame = pt.fly_frame(cam, u8=True)
+    assert frame.shape == (16, 16, 3) and frame.dtype == torch.uint8
 
 
 @pytest.mark.parametrize("entry", [Renderer, PathTracer])
