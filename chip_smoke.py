@@ -32,7 +32,8 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      the 1024x1024 camera pool (depth 0) and on the depth-2 pool of the main
      path (spectral, shadows, one sampled light, roulette): every lane of
      the pool compared, dead lanes bit-unchanged;
- 11. the same on the textured courtyard and on a textured synthetic scene
+ 11. the same on the textured courtyard (two lights and, for the all-lights
+     instances, one) and on a textured synthetic scene
      with live spheres (glass, metal, split lanes; mip chains), texture LOD
      bias 0 and 1, and on glass of IOR 1 (NaN lanes); then K5 (the material
      sampler, a device function of K6) launched on its own against its
@@ -89,7 +90,20 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
  20. AdaptivePathTracer(tiles_per_step=16) at 1024x1024: adaptive_from + 4
      steps, then the tile selection from CPU copies of the accumulators
      equal to the card's, tile for tile, and to the tiles the next step
-     refines; ms per step.
+     refines; ms per step;
+ 21. the Viewer at 1920x1080 with shadows on the 100k courtyard (the JAX
+     benchmark's section 3): 8 camera-moving frames (handle_key +
+     run_compute, one K2 launch each) x 3, ms per frame pipelined between
+     CUDA events, device and host enqueue time (profiler), launches; then 4
+     frames of moving geometry (update_geometry(host vertices + offset), a
+     topology refit with the tables rewritten in place, + run_compute) x 3;
+     a camera-moving frame and a refit frame under sync debug "error"; the
+     refit, the rebuild (grouped LBVH + BVH4 collapse) and refit + table
+     refresh alone (device ms, host enqueue, launches); the refreshed tables
+     bit-equal to a fresh pack; the refit and the LBVH arrays on the card
+     equal to the CPU's; K2 on the refit and on a rebuilt scene and a
+     textured Viewer's K3 + K4 after a scaling refit against the plain path;
+     memory_stats of both scenes.
 K4, K5 (alone and inside textured K6) and K2t are held to 0.0 from their
 plain versions (SAMPLER_TOL), nearest and trilinear, all three wraps.
 Then the frame kernels' roofline bounds with the SIMT efficiency of the
@@ -2064,6 +2078,245 @@ def phase_adaptive(scene, size, device, card):
     return out
 
 
+# ---- the Viewer and the geometry refit (phase 21) ----
+
+VIEWER_FRAMES = 8        # camera-moving frames per reading (bench.py section 3: VK)
+VIEWER_REPS = 3          # readings (VR)
+REFIT_FRAMES = 4         # update_geometry + run_compute per reading (RFI)
+REFIT_PROFILE_CALLS = 4  # profiled refits
+
+
+def pipelined_ms(fn, n: int, device) -> float:
+    """Milliseconds per call of n calls of fn enqueued back to back between
+    two CUDA events, no synchronise inside (host clock on the CPU)."""
+    import torch
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize(device)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def tables_equal(a, b) -> list:
+    """Names of the trace-table tensors (node lines, triangle and attribute
+    rows) that differ in a bit between two TraceTables, plus depth / stack."""
+    import torch
+
+    bad = [n for n in ("nodes", "tris", "attrs")
+           if getattr(a, n).shape != getattr(b, n).shape
+           or not torch.equal(getattr(a, n).view(torch.int32), getattr(b, n).view(torch.int32))]
+    return bad + [n for n in ("depth", "stack") if getattr(a, n) != getattr(b, n)]
+
+
+def lbvh_cpu_compare(scene) -> dict:
+    """The grouped LBVH build and the BVH4 collapse of the scene's triangles
+    on its device against the same calls on a CPU copy: every array equal."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.lbvh import build_lbvh_grouped_arrays, collapse4_device
+
+    def build(vertices, indices):
+        a, b, c = (vertices[indices[:, k]] for k in range(3))
+        tri_min = torch.minimum(a, torch.minimum(b, c))
+        tri_max = torch.maximum(a, torch.maximum(b, c))
+        arrs = build_lbvh_grouped_arrays(tri_min, tri_max)
+        return list(arrs) + list(collapse4_device(*arrs[:6]))
+
+    v, i = scene.mesh.vertices, scene.mesh.indices.long()
+    dev, cpu = build(v, i), build(v.cpu(), i.cpu())
+    bad = [k for k, (x, y) in enumerate(zip(dev, cpu)) if not torch.equal(x.cpu(), y)]
+    if bad:
+        raise AssertionError(f"LBVH arrays {bad} differ between the card and the CPU")
+    return dict(arrays=len(dev), nodes=int(dev[2].shape[0]), quads=int(dev[9].shape[0]))
+
+
+def refit_frame_compare(r, label, frame=None):
+    """A frame of renderer `r` (K2, or K3 + K4 textured; `frame`, or a new
+    one) on its current scene against the plain path on the same pixels,
+    outside the camera rays whose closest triangle K1 and the plain walk
+    pick differently at the same t."""
+    from gpu_raytracer_tpu_torch.engine.renderer import render_chunk, render_deferred_chunk
+
+    if frame is None:
+        frame = r.render_device()
+    plain = render_deferred_chunk if r.textured else render_chunk
+    ref = plain(r.scene, r.px, r.py, r.width, r.height, shadows=r.shadows, sky=r.sky)
+    ties = primary_ties(r.tables, r.width, r.height, r.px, r.py)
+    diff = (frame - ref).abs().amax(dim=1)
+    err = diff[~ties].max().item()
+    n_ties = int(ties.sum())
+    if err > RGB_TOL or n_ties > TIE_BUDGET * diff.shape[0]:
+        raise AssertionError(f"{label}: max |diff| {err:.3g} outside {n_ties} ties")
+    return dict(max_abs_err=err, err_with_ties=diff.max().item(), tie_pixels=n_ties,
+                mean=frame.mean().item())
+
+
+def phase_viewer_refit(scene, tscene, width, height, device, card):
+    """Phase 21: the Viewer at width x height with shadows on the 100k
+    courtyard, as the JAX benchmark's section 3 drives it: camera-moving
+    frames (handle_key("w" / "s") + run_compute), then frames with moving
+    geometry (update_geometry(host vertices + offset) + run_compute, a
+    topology refit). ms per frame pipelined, device and host time, launches;
+    the refit and the rebuild alone; a frame and a refit under sync debug
+    "error"; the refreshed tables against a fresh pack; the LBVH on the card
+    against the CPU's; K2 on a refit and a rebuilt scene and a textured
+    Viewer's K3 + K4 after a scaling refit against the plain path; the
+    scene's resident bytes."""
+    import numpy as np
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.engine.viewer import Viewer
+    from gpu_raytracer_tpu_torch.models.scene import memory_stats, refit_scene
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import pack_bounce_tables
+    from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import pack_trace_tables, refit_trace_tables
+
+    cuda = device.type == "cuda"
+    out = dict(card=card)
+    v = Viewer(scene, width, height, shadows=True, verbose=False, device=device)
+    v.run_compute()
+    keys = itertools.cycle("ws")
+
+    def move_frame():
+        v.handle_key(next(keys))
+        v.run_compute()
+
+    move_frame()
+    reset_launches()
+    ms = [pipelined_ms(move_frame, VIEWER_FRAMES, device) for _ in range(VIEWER_REPS)]
+    launches = read_launches()
+    frames = VIEWER_FRAMES * VIEWER_REPS
+    if cuda and launches != dict(ZERO_LAUNCHES, k2=frames):
+        raise AssertionError(f"camera-moving Viewer frames launched {launches}, want K2 {frames}")
+    no_host_sync(move_frame, device)
+    out["camera_moving"] = dict(ms_per_frame=ms, frames=VIEWER_FRAMES, reps=VIEWER_REPS,
+                                launches=launches, k2_per_frame=launches["k2"] / frames,
+                                sync_debug_error_frame="passed" if cuda else None)
+    if cuda:
+        out["camera_moving"]["profile"] = device_profile(move_frame, VIEWER_FRAMES, device)
+
+    # moving geometry: host vertices every frame, as bench.py section 3 passes
+    base = scene.mesh.vertices.cpu().numpy()
+    offsets = itertools.count(1)
+
+    def geometry(i):
+        off = np.zeros(3, np.float32)
+        off[1] = 0.05 * i
+        return base + off
+
+    def refit_frame():
+        v.update_geometry(geometry(next(offsets)))
+        v.run_compute()
+
+    refit_frame()
+    kept = (v.renderer.tables.trace.nodes, v.renderer.tables.trace.tris,
+            v.renderer.tables.trace.attrs)
+    reset_launches()
+    ms = [pipelined_ms(refit_frame, REFIT_FRAMES, device) for _ in range(VIEWER_REPS)]
+    launches = read_launches()
+    frames = REFIT_FRAMES * VIEWER_REPS
+    if cuda and launches != dict(ZERO_LAUNCHES, k2=frames):
+        raise AssertionError(f"refit frames launched {launches}, want K2 {frames}")
+    if any(a is not b for a, b in zip(kept, (v.renderer.tables.trace.nodes,
+                                             v.renderer.tables.trace.tris,
+                                             v.renderer.tables.trace.attrs))):
+        raise AssertionError("a topology refit replaced a trace table")
+    no_host_sync(refit_frame, device)
+    fresh = pack_render_tables(v.scene)
+    bad = tables_equal(v.renderer.tables.trace, fresh.trace)
+    if bad:
+        raise AssertionError(f"refreshed trace tables differ from a fresh pack in {bad}")
+    out["refit_and_frame"] = dict(ms_per_frame=ms, frames=REFIT_FRAMES, reps=VIEWER_REPS,
+                                  launches=launches, k2_per_frame=launches["k2"] / frames,
+                                  sync_debug_error_frame="passed" if cuda else None,
+                                  tables_equal_fresh_pack=True)
+    out["refit_and_frame"].update(refit_frame_compare(v.renderer, "K2 on a refit scene",
+                                                      v._fb_dev))
+
+    # the refit and the rebuild alone, and the table refresh
+    vert = geometry(REFIT_FRAMES * VIEWER_REPS + 3)
+    refit = lambda: refit_scene(v.scene, vert)
+    rebuild = lambda: refit_scene(v.scene, vert, rebuild=True)
+    tables = pack_render_tables(v.scene).trace
+    refresh = lambda: refit_trace_tables(tables, refit_scene(tables.scene, vert))
+    for label, fn in (("refit", refit), ("rebuild", rebuild), ("refit_and_refresh", refresh)):
+        if cuda:
+            out[f"{label}_alone"] = device_profile(fn, REFIT_PROFILE_CALLS, device)
+            out[f"{label}_alone"]["ms"] = pipelined_ms(fn, REFIT_PROFILE_CALLS, device)
+    no_host_sync(rebuild, device)
+    rebuilt = rebuild()
+    rt = pack_trace_tables(rebuilt)
+    out["rebuild_tables"] = dict(nodes=int(rt.nodes.shape[0]), slots=int(rt.tris.shape[0]),
+                                 depth=rt.depth, stack=rt.stack,
+                                 bvh4_depth_read=wide_depth_of(rebuilt))
+    if rt.depth < out["rebuild_tables"]["bvh4_depth_read"]:
+        raise AssertionError(f"rebuilt tree deeper than its declared bound: {out['rebuild_tables']}")
+    if cuda:   # the refit on the card, bit for bit the CPU's
+        on_cpu = refit_scene(v.scene.to("cpu"), vert)
+        on_card = refit()
+        for name in ("tri_v0", "tri_e1", "tri_e2", "tri_den"):
+            if not torch.equal(getattr(on_cpu, name), getattr(on_card, name).cpu()):
+                raise AssertionError(f"refit {name} differs between the card and the CPU")
+        if not torch.equal(on_cpu.bvh.q_min, on_card.bvh.q_min.cpu()):
+            raise AssertionError("refit quad boxes differ between the card and the CPU")
+    out["lbvh_card_vs_cpu"] = lbvh_cpu_compare(v.scene)
+
+    # K2 on a rebuilt scene, through the Viewer's renderer and path tracer
+    r = Renderer(scene, width, height, shadows=True, device=device)
+    r.set_geometry(rebuilt)
+    reset_launches()
+    out["rebuilt_frame"] = refit_frame_compare(r, "K2 on a rebuilt scene")
+    out["rebuilt_frame"]["k2_launches"] = read_launches()["k2"]
+    if cuda and out["rebuilt_frame"]["k2_launches"] != 1:
+        raise AssertionError(f"rebuilt frame launched {read_launches()}")
+    pt = PathTracer(scene, 256, 256, device=device)
+    pt.set_geometry(rebuilt)
+    if tables_equal(pt.tables.render.trace, pack_bounce_tables(pt.scene).render.trace):
+        raise AssertionError("the path tracer's rebuilt tables differ from a fresh pack")
+    pt.step()
+    if not torch.isfinite(pt.image_device()).all():
+        raise AssertionError("path tracer on the rebuilt scene: image not finite")
+    del r, pt
+
+    # a textured Viewer after a scaling refit: K3 + K4 read the refreshed
+    # triangle rows and uv densities
+    tv = Viewer(tscene, width, height, shadows=True, verbose=False, device=device)
+    tv.run_compute()
+    tbase = tscene.mesh.vertices.cpu().numpy()
+    tv.update_geometry((tbase * np.float32(1.25)).astype(np.float32))
+    reset_launches()
+    tv.run_compute()
+    tl = read_launches()
+    if cuda and tl != dict(ZERO_LAUNCHES, k3=1, k4=1):
+        raise AssertionError(f"textured Viewer frame launched {tl}")
+    out["textured_scaled_refit"] = refit_frame_compare(tv.renderer, "K3 + K4 on a scaled refit",
+                                                       tv._fb_dev)
+    out["textured_scaled_refit"]["launches"] = tl
+    out["memory_stats"] = memory_stats(v.scene)
+    out["memory_stats_textured"] = memory_stats(tv.scene)
+    log(f"phase 21 viewer and refit {width}x{height}: {json.dumps(out)}")
+    return out
+
+
+def wide_depth_of(scene) -> int:
+    """The BVH4 depth of a scene, read back from the device (a check only)."""
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import wide_depth
+
+    b = scene.bvh
+    return wide_depth(b.q_child.cpu().numpy(), b.q_leafc.cpu().numpy()) if b.has_wide else 1
+
+
 def frame_bounds(tables, width, height, shade=None):
     """Bytes and FP32 operations of the phase 3-9 and 15 kernels on the
     1080p frame, shadows off (the times the kernels line reports): K1's
@@ -2184,11 +2437,15 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
                                                              device=device))
     k6t.update(phase_k6(degenerate, synth_size, synth_size, "synthetic_ior1_glass",
                         depths=(0, 1)))
+    # one light: the all-lights (NEE_ALL) textured instances on the main path's pools
+    one_light = pack_bounce_tables(make_courtyard_scene(
+        triangles, seed=0, lights=1, textured=True, texture_size=texture_size, device=device))
+    k6t.update(phase_k6(one_light, pt_size, pt_size, "textured_courtyard_1light", depths=(0, 1)))
     log(f"phase 11 K6 textured: {json.dumps(k6t)}")
     k5 = phase_k5(tbtables, synth, device, card, pt_size)
     if cuda:   # the kernel's stream exists only on the card
         phase_qmc(device, card, pt_size * pt_size)
-    del btables, tbtables, synth, degenerate
+    del btables, tbtables, synth, degenerate, one_light
 
     pt = {label: phase_pathtracer(sc, label, device, card, pt_size)
           for label, sc in (("courtyard", scene), ("textured_courtyard", tscene))}
@@ -2216,6 +2473,15 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     fly = {label: phase_fly(sc, label, pt_size, device, card)
            for label, sc in (("courtyard", scene), ("textured_courtyard", tscene))}
     ada = phase_adaptive(scene, pt_size, device, card)
+    vr = phase_viewer_refit(scene, tscene, width, height, device, card)
+    viewer_k2 = (vr["camera_moving"]["launches"]["k2"] + vr["refit_and_frame"]["launches"]["k2"]
+                 + vr["rebuilt_frame"].get("k2_launches", 0))
+    viewer_k3 = vr["textured_scaled_refit"]["launches"]["k3"]
+    viewer_k4 = vr["textured_scaled_refit"]["launches"]["k4"]
+    k2_launches += viewer_k2
+    k2_err = max(k2_err, vr["refit_and_frame"]["max_abs_err"], vr["rebuilt_frame"]["max_abs_err"])
+    k3_launches += viewer_k3
+    k4_launches += viewer_k4
     interactive = [gd["gbuffer"]["launches"], ada["launches"]] + [v["launches"]
                                                                   for v in fly.values()]
     k1_standalone = sum(v["k1_standalone"] for v in interactive)
@@ -2240,7 +2506,8 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              max_abs_err=max(k1["primary"]["t_abs"], k1["primary"]["normal_abs"],
                              k1["shadow"]["t_abs"], k1["shadow"]["normal_abs"]),
              ms=k1["ms"], plain_ms=k1["plain_ms"], **bound(fb.get("K1")), library_ms=None),
-        dict(name="K2 render_primary", route="cuda",
+        dict(name="K2 render_primary (also one launch per Viewer frame, on refit and rebuilt "
+                  "trees, phase 21)", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/render_primary.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:701",
              launches=k2_launches, max_abs_err=k2_err,
@@ -2267,7 +2534,8 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              source="gpu_raytracer_tpu_torch/csrc/texshade.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/texshade.py:463",
              launches=k4_launches,
-             max_abs_err=max(k4["max_abs_diff"].values()),
+             max_abs_err=max(max(k4["max_abs_diff"].values()),
+                             vr["textured_scaled_refit"]["max_abs_err"]),
              ms=k4["device_ms"], plain_ms=k4["plain_ms"], **bound(tfb.get("K4")),
              library_ms=None),
         dict(name="K5 sample_material (device function inside K6's textured launches, "

@@ -1,5 +1,5 @@
-"""Command-line application: the `render`, `pathtrace`, `export` and `info`
-subcommands.
+"""Command-line application: the `render`, `pathtrace`, `fly`, `export` and
+`info` subcommands.
 
     python -m gpu_raytracer_tpu_torch render \
         [--demo | --courtyard N [--textured] | --gltf FILE] \
@@ -8,8 +8,15 @@ subcommands.
         [--no-shadows] [--seed S] [--sampler qmc|rng] [--adaptive K] \
         [--denoise [--denoise-iters N]] [--checkpoint F] [--resume F] \
         [--linear] [--device cuda|cpu] -o out.png
+    python -m gpu_raytracer_tpu_torch fly [scene flags] [--script "w w d mouse:40,0 w"] \
+        [--frames-per-step N] [--shadows] [--pathtrace] [--device cuda|cpu] -o frames_dir
     python -m gpu_raytracer_tpu_torch export [scene flags] -o out.glb
     python -m gpu_raytracer_tpu_torch info --gltf FILE [--scene-index I]
+
+`fly` drives the Viewer through a script of keys (w/a/s/d/space/l/p/n/t/i)
+and mouse drags (mouse:dx,dy) and writes the frame after each step as
+frame_0000.png, ... in the output directory; `--pathtrace` path-traces the
+flight with temporal reprojection and the denoised preview.
 
 `--gltf` loads a .gltf or .glb file; a file that does not load gives the
 default scene and a message saying why. `export` writes the chosen scene as
@@ -107,6 +114,29 @@ def cmd_pathtrace(args, config):
     print(f"wrote {args.output} ({pt.samples} spp)")
 
 
+def cmd_fly(args, config):
+    from .engine.viewer import Viewer
+    from .utils.image import write_png
+
+    scene = _load_scene(args, config, "cpu")
+    v = Viewer(scene, args.width, args.height, config=config, shadows=args.shadows,
+               device=torch.device(args.device))
+    if args.pathtrace:
+        v.handle_key("p")
+    os.makedirs(args.output, exist_ok=True)
+    script = []
+    for tok in args.script.split():
+        if tok.startswith("mouse:"):
+            dx, dy = tok[6:].split(",")
+            script.append(("mouse", float(dx), float(dy)))
+        else:
+            script.append(("key", tok))
+    frames = v.fly_through(script, frames_per_step=args.frames_per_step)
+    for i, f in enumerate(frames):
+        write_png(os.path.join(args.output, f"frame_{i:04d}.png"), f)
+    print(f"wrote {len(frames)} frames to {args.output}/")
+
+
 def cmd_info(args, config):
     from .models.gltf import GltfError, GltfLoader
 
@@ -198,6 +228,19 @@ def main(argv=None):
     p.add_argument("--resume", type=str, default=None)
     add_config_args(p)
     p.set_defaults(fn=cmd_pathtrace)
+    p = sub.add_parser("fly", help="scripted interactive fly-through")
+    _add_scene_args(p)
+    p.add_argument("--script", type=str, default="w w d mouse:40,0 w",
+                   help="space-separated keys (w/a/s/d/space/l) and mouse:dx,dy")
+    p.add_argument("--frames-per-step", type=int, default=1)
+    p.add_argument("--shadows", action="store_true")
+    p.add_argument("--pathtrace", action="store_true",
+                   help="path-traced fly-through: temporal reprojection carries the "
+                        "accumulation across camera moves, frames-per-step samples at each "
+                        "stop, young frames present denoised")
+    add_config_args(p)
+    p.set_defaults(fn=cmd_fly, output="frames")
+
     p = sub.add_parser("export", help="write a scene as a binary glTF (.glb)")
     _add_scene_args(p, device=False)
     p.set_defaults(fn=cmd_export, output="out.glb")

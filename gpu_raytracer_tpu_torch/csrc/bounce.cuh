@@ -202,7 +202,9 @@ bounce_kernel(const BounceArgs a) {
       u = uv.x;
       v = uv.y;
     }
-    const MaterialSample m = sample_material<false>(
+    // the all-lights instances sample one map at a time (texsample.cuh
+    // sample_material): their light loop holds the registers the overlap takes
+    const MaterialSample m = sample_material<false, NEE != kNeeAll>(
         a.mats, TEXTURED ? a.maps : nullptr, a.atlas, a.present, a.n_levels, mid, u, v,
         a.tex_lod);
     float uu[kBounceDims];

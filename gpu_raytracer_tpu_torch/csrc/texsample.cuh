@@ -263,11 +263,38 @@ struct MaterialSample {
   float metallic, roughness, ior, transmission, occlusion;
 };
 
-template <bool FOOTPRINT>
+// What map slot k's RGBA `s` does to a material sample: base colour scales
+// the albedo, emissive the emission, the metallic-roughness map's B the
+// metallic and its G the roughness, occlusion's R is the ambient factor.
+__device__ __forceinline__ void apply_map(MaterialSample& m, int k, const float4& s) {
+  if (k == kMapBaseColor) {
+    m.albedo[0] = m.albedo[0] * s.x;
+    m.albedo[1] = m.albedo[1] * s.y;
+    m.albedo[2] = m.albedo[2] * s.z;
+  } else if (k == kMapMetallicRoughness) {
+    m.metallic = m.metallic * s.z;     // B channel
+    m.roughness = m.roughness * s.y;   // G channel
+  } else if (k == kMapOcclusion) {
+    m.occlusion = s.x;                 // R channel
+  } else {
+    m.emission[0] = m.emission[0] * s.x;
+    m.emission[1] = m.emission[1] * s.y;
+    m.emission[2] = m.emission[2] * s.z;
+  }
+}
+
+// OVERLAP: every map's loads in flight together (`sample_maps`), then each
+// applied. Else one map after the other, each applied as soon as it is
+// blended, so one map's quads and no sampled colour are live at a time: the
+// bounce kernel's all-lights instances take it, where the light loop that
+// follows needs the registers more (PERF.md). Both give the same bits: each
+// field is changed by one map only.
+template <bool FOOTPRINT, bool OVERLAP = true>
 __device__ __forceinline__ MaterialSample sample_material(
     const float* __restrict__ mats, const TexMeta* __restrict__ maps,
     const int2* __restrict__ atlas, int present, int n_levels, int mid, float u, float v,
     float x) {
+  constexpr int LOD = FOOTPRINT ? kLodNearest : kLodExplicit;
   const float* row = mats + mid * 16;
   MaterialSample m;
 #pragma unroll
@@ -280,27 +307,23 @@ __device__ __forceinline__ MaterialSample sample_material(
   m.transmission = row[8];
   m.roughness = row[9];
   m.occlusion = 1.0f;
-  if (maps == nullptr) return m;
+  if (maps == nullptr || RT_SAMPLER_OFF) return m;
+  if (!OVERLAP) {
+#pragma unroll
+    for (int k = 0; k < kMapSlots; ++k) {
+      if (!((present >> k) & 1)) continue;
+      const TexMeta t = maps[mid * kMapSlots + k];
+      if (t.has)
+        apply_map(m, k, finish_sample<LOD>(begin_sample<LOD>(maps, atlas, t, u, v, x, n_levels),
+                                           n_levels));
+    }
+    return m;
+  }
   float4 s[kMapSlots];
-  const int held = sample_maps<FOOTPRINT ? kLodNearest : kLodExplicit>(
-      maps, atlas, present, n_levels, mid, u, v, x, s);
-  if (held & (1 << kMapBaseColor)) {
-    const float4 b = s[kMapBaseColor];
-    m.albedo[0] = m.albedo[0] * b.x;
-    m.albedo[1] = m.albedo[1] * b.y;
-    m.albedo[2] = m.albedo[2] * b.z;
-  }
-  if (held & (1 << kMapMetallicRoughness)) {
-    m.metallic = m.metallic * s[kMapMetallicRoughness].z;     // B channel
-    m.roughness = m.roughness * s[kMapMetallicRoughness].y;   // G channel
-  }
-  if (held & (1 << kMapOcclusion)) m.occlusion = s[kMapOcclusion].x;   // R channel
-  if (held & (1 << kMapEmissive)) {
-    const float4 e = s[kMapEmissive];
-    m.emission[0] = m.emission[0] * e.x;
-    m.emission[1] = m.emission[1] * e.y;
-    m.emission[2] = m.emission[2] * e.z;
-  }
+  const int held = sample_maps<LOD>(maps, atlas, present, n_levels, mid, u, v, x, s);
+#pragma unroll
+  for (int k = 0; k < kMapSlots; ++k)
+    if ((held >> k) & 1) apply_map(m, k, s[k]);
   return m;
 }
 

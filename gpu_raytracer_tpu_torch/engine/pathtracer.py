@@ -40,15 +40,17 @@ None of them reads a value back to the host on a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, RaytracerConfig
-from ..models.scene import Scene
+from ..models.scene import Scene, upload
 from ..ops.camera_rays import generate_rays
 from ..ops.cuda.bounce import pack_bounce_tables, sample_materials
 from ..ops.cuda.render import set_camera
-from ..ops.cuda.traverse import trace
+from ..ops.cuda.traverse import refit_trace_tables, trace
 from ..ops.denoise import atrous_denoise
 from ..ops.linalg import cross, dot
 from ..ops.shading import material_textures
@@ -199,14 +201,6 @@ def warp_jitter(seed: int, warp_no: int, n: int, device) -> torch.Tensor:
     return torch.rand((n, 2), generator=gen, dtype=torch.float32, device=device)
 
 
-def _upload(a: np.ndarray, device) -> torch.Tensor:
-    """A host array on `device`; bound for a CUDA device it goes in one
-    pinned, non-blocking copy, so a first fly frame under
-    set_sync_debug_mode("error") never waits for the card."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
-
-
 def to_u8(img: torch.Tensor) -> torch.Tensor:
     """Linear [H,W,3] f32 -> sRGB-encoded u8 on the image's device."""
     return (torch.clamp(linear_to_srgb(img), 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
@@ -295,6 +289,18 @@ class PathTracer:
             return
         set_camera(self.tables.render, camera)
         self.scene = self.tables.scene
+        self.reset()
+
+    def set_geometry(self, scene: Scene) -> None:
+        """Take `scene`, a refit of this tracer's scene
+        (models/scene.py::refit_scene; the camera stays this tracer's): the
+        bounce tables follow it (ops/cuda/traverse.py::refit_trace_tables,
+        in place after a topology refit) and the accumulation restarts."""
+        scene = dataclasses.replace(scene.to(self.device), camera=self.scene.camera)
+        refit_trace_tables(self.tables.render.trace, scene)
+        if self.tables.shade is not None:
+            self.tables.shade.scene = scene
+        self.scene = scene
         self.reset()
 
     def _warp_jitter(self) -> torch.Tensor:
@@ -449,7 +455,7 @@ class PathTracer:
             sets = []
             for k in range(m):
                 idx = np.nonzero((px % a == k % a) & (py % b == k // a))[0]
-                sets.append(tuple(_upload(arr, self.device) for arr in (idx, px[idx], py[idx])))
+                sets.append(tuple(upload(arr, self.device) for arr in (idx, px[idx], py[idx])))
             self._coset_cache[m] = sets
         return self._coset_cache[m]
 

@@ -1,6 +1,7 @@
-"""Performance observability for the progressive path tracer: a frame
-counter with an FPS line every N frames, per-step times with P50/P95/P99
-and Mrays/s, and a wall-clock timer that waits for the device.
+"""Performance observability: a frame counter with an FPS line every N
+frames, per-frame phase times, per-step times with P50/P95/P99 and Mrays/s,
+a wall-clock timer that waits for the device, a completion fence, and a
+device trace (torch.profiler).
 
 Mrays/s keeps the reference's definition by default: one tile is
 128 x 128 pixels x 3 wavelength passes = 49,152 primary rays.
@@ -21,6 +22,15 @@ def percentile(sorted_vals: list[float], p: float) -> float:
         return 0.0
     idx = min(int(len(sorted_vals) * p), len(sorted_vals) - 1)
     return sorted_vals[idx]
+
+
+@dataclass
+class TimingBreakdown:
+    """Per-frame phase times."""
+
+    scene_update_ms: float = 0.0
+    compute_ms: float = 0.0
+    total_frame_ms: float = 0.0
 
 
 @dataclass
@@ -97,4 +107,49 @@ class Timer:
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.ms = (time.perf_counter() - self._t0) * 1000.0
+        return False
+
+
+def block_on(x):
+    """Wait until the device has finished the work that produced `x` (a
+    tensor, or a tuple / list / dict of them): a synchronise of the current
+    stream of each CUDA tensor's device; nothing for CPU tensors. Returns x."""
+    leaves = x.values() if isinstance(x, dict) else x if isinstance(x, (tuple, list)) else (x,)
+    for t in leaves:
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            torch.cuda.current_stream(t.device).synchronize()
+    return x
+
+
+class DeviceProfiler:
+    """torch.profiler over a block, CPU and CUDA activities; on exit the
+    trace goes to `log_dir` as a Chrome trace (Perfetto), and `profile`
+    holds the profiler for `key_averages()`.
+
+        with DeviceProfiler("trace_dir"):
+            renderer.render_device()
+    """
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.profile = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self.profile = profile(activities=acts)
+        self.profile.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.profile.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.profile.export_chrome_trace(os.path.join(self.log_dir, "trace.json"))
         return False

@@ -19,6 +19,8 @@ kernels do; the CPU route loops over every light, as its plain path does.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -29,6 +31,7 @@ from ..ops.camera_rays import generate_rays
 from ..ops.cuda.render import (MAX_LIGHTS, pack_render_tables, render_deferred, render_primary,
                                set_camera)
 from ..ops.cuda.texshade import pack_shade_tables, texture_shade
+from ..ops.cuda.traverse import refit_trace_tables
 from ..ops.linalg import dot, normalize
 from ..ops.shading import (hit_footprint, light_rows, light_sum, sample_light_index, shade,
                            shade_deferred)
@@ -244,6 +247,18 @@ class Renderer:
         set_camera(self.tables, camera)
         self.scene = self.tables.scene
 
+    def set_geometry(self, scene: Scene) -> None:
+        """Take `scene`, a refit of this renderer's scene
+        (models/scene.py::refit_scene; the camera stays the renderer's): the
+        tables follow it (ops/cuda/traverse.py::refit_trace_tables, in place
+        after a topology refit); the material, light and texture tables do
+        not change."""
+        scene = dataclasses.replace(scene.to(self.device), camera=self.scene.camera)
+        refit_trace_tables(self.tables.trace, scene)
+        if self.shade_tables is not None:
+            self.shade_tables.scene = scene
+        self.scene = scene
+
     def _light_u(self, n: int, salt: int = 0) -> torch.Tensor | None:
         """Per-ray uniforms [n] for the kernels' single-sample light choice
         (CUDA, more than MAX_LIGHTS lights) of the batch `salt` of frame
@@ -294,3 +309,10 @@ class Renderer:
         u8 = (torch.clamp(fb, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
         return self.to_image(u8.cpu().numpy())
 
+
+def render_image(scene: Scene, width: int, height: int, *, shadows: bool = False,
+                 sky=(0.0, 0.0, 0.0), config: RaytracerConfig = DEFAULT_CONFIG,
+                 device=None) -> np.ndarray:
+    """One frame -> host float32 [H,W,3] (a Renderer made and used once)."""
+    return Renderer(scene, width, height, config=config, shadows=shadows, sky=sky,
+                    device=device).render()

@@ -257,3 +257,41 @@ def build_bvh(vertices: np.ndarray, indices: np.ndarray,
             np.asarray([0], np.int32), np.asarray([0], np.int32),
             np.zeros((0,), np.int64), 1)
     return build_bvh_native(vertices, indices, leaf_size)
+
+
+def validate_bvh(res, num_triangles: int, allow_refs: bool = False) -> None:
+    """Check a binary tree: every triangle reachable, each child's box inside
+    its parent's (1e-6 slack), no triangle in two leaves (with `allow_refs`,
+    spatial-split builds that reference a triangle from several leaves,
+    coverage only). `res` is a BvhBuildResult, or any object with its node
+    arrays (NumPy or tensors) and `tri_order` (slot -> triangle, -1 for a
+    padding slot, which belongs to no triangle). Raises ValueError."""
+    a = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    left, right, node_min, node_max = a(res.left), a(res.right), a(res.node_min), a(res.node_max)
+    start, count, order = a(res.tri_start), a(res.tri_count), a(res.tri_order)
+    seen = np.zeros(num_triangles, bool)
+    stack = [0]
+    while stack:
+        n = stack.pop()
+        if left[n] == LEAF:
+            ids = order[start[n]:start[n] + count[n]]
+            ids = ids[ids >= 0]
+            if not allow_refs and seen[ids].any():
+                raise ValueError(f"leaf {n}: a triangle is in two leaves")
+            seen[ids] = True
+        else:
+            for ch in (int(left[n]), int(right[n])):
+                if ((node_min[ch] < node_min[n] - 1e-6).any()
+                        or (node_max[ch] > node_max[n] + 1e-6).any()):
+                    raise ValueError(f"node {ch}'s box is outside its parent {n}'s")
+                stack.append(ch)
+    if not seen.all():
+        raise ValueError(f"{int((~seen).sum())} triangles are in no leaf")
+
+
+def scene_tree(scene) -> BvhBuildResult:
+    """A scene's binary tree with its leaf slots' triangles (`tri_src`), as
+    `validate_bvh` reads it."""
+    b = scene.bvh
+    return BvhBuildResult(b.node_min, b.node_max, b.left, b.right, b.tri_start, b.tri_count,
+                          scene.tri_src, b.depth, leaf_align=b.leaf_align)

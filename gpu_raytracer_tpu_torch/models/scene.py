@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, RaytracerConfig
+from ..ops.lbvh import GROUP, build_lbvh_grouped_arrays, collapse4_device
 from ..ops.texture import uv_density_code
 from .bvh import Bvh, BvhBuildResult, align_leaves, build_bvh
 from .camera import Camera
@@ -223,6 +224,130 @@ def prepare_scene(camera: Camera, spheres: Spheres, mesh: Mesh,
     return scene.to(device)
 
 
+LBVH_DEPTH = 128   # Bvh.depth a rebuilt tree declares (no measured depth on the device)
+
+
+def upload(a, device) -> torch.Tensor:
+    """A host array (or tensor) on `device`. Bound for a CUDA device from the
+    host it goes through a pinned staging copy, non-blocking: a pageable
+    copy would make the host wait for the card. A NumPy array is copied,
+    never aliased."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, copy=t is not a)
+
+
+def _refit_core(vertices, indices, material_id, uv):
+    """The full rebuild over the minimal inputs (vertex positions and the
+    mesh's static topology): grouped LBVH with 8-slot leaves, the even-depth
+    BVH4 overlay, and the triangle tables in the new leaf order, padded to
+    8 * ceil(T/8) with degenerate slots (tri_src -1)."""
+    a, b, c = vertices[indices[:, 0]], vertices[indices[:, 1]], vertices[indices[:, 2]]
+    tri_min = torch.minimum(a, torch.minimum(b, c))
+    tri_max = torch.maximum(a, torch.maximum(b, c))
+    (nmin, nmax, left, right, tri_start, tri_count, hit, miss,
+     order) = build_lbvh_grouped_arrays(tri_min, tri_max)
+    quad = (collapse4_device(nmin, nmax, left, right, tri_start, tri_count)
+            if left.shape[0] > 1 else None)
+    o = order.long()
+    v0 = a[o]
+    e1 = b[o] - v0
+    e2 = c[o] - v0
+    mat = material_id.to(torch.int32)[o]
+    tuv = uv[indices][o]                        # [T,3,2]
+    srcs = order
+    pad = (-v0.shape[0]) % GROUP
+    if pad:
+        z = v0.new_zeros((pad, 3))
+        v0, e1, e2 = torch.cat([v0, z]), torch.cat([e1, z]), torch.cat([e2, z])
+        mat = torch.cat([mat, mat.new_zeros((pad,))])
+        tuv = torch.cat([tuv, tuv.new_zeros((pad, 3, 2))])
+        srcs = torch.cat([srcs, srcs.new_full((pad,), -1)])
+    return (nmin, nmax, left, right, tri_start, tri_count, hit, miss,
+            v0, e1, e2, mat, tuv, srcs, quad)
+
+
+def _refit_topology_core(vertices, indices, tri_src, bvh: Bvh):
+    """Topology-keeping refit: the tree (links, leaf ranges, quad children)
+    stays; the triangles are re-expanded from the moved vertices and the
+    boxes swept bottom-up again, the quad overlay's through q_src. No shape
+    changes, and the tree's tensors are the same objects."""
+    Tp = tri_src.shape[0]
+    dev = vertices.device
+    valid = (tri_src >= 0)[:, None]
+    idx = indices[torch.clamp(tri_src.long(), 0, indices.shape[0] - 1)]
+    a, b, c = vertices[idx[:, 0]], vertices[idx[:, 1]], vertices[idx[:, 2]]
+    zero = torch.zeros((), dtype=vertices.dtype, device=dev)
+    big = torch.full((), 3.0e38, dtype=vertices.dtype, device=dev)
+    v0 = torch.where(valid, a, zero)
+    e1 = torch.where(valid, b - a, zero)     # zero edges: det 0, never a hit
+    e2 = torch.where(valid, c - a, zero)
+    tmin = torch.where(valid, torch.minimum(a, torch.minimum(b, c)), big)
+    tmax = torch.where(valid, torch.maximum(a, torch.maximum(b, c)), -big)
+
+    leaf = (bvh.left < 0)[:, None]
+    N = bvh.left.shape[0]
+    nm = torch.full((N, 3), 3.0e38, dtype=vertices.dtype, device=dev)
+    nx = torch.full((N, 3), -3.0e38, dtype=vertices.dtype, device=dev)
+    start, count = bvh.tri_start.long(), bvh.tri_count.long()
+    for j in range(bvh.max_leaf):   # leaf boxes, one slot at a time
+        ok = (j < count)[:, None] & leaf
+        sidx = torch.clamp(start + j, 0, Tp - 1)
+        nm = torch.where(ok, torch.minimum(nm, tmin[sidx]), nm)
+        nx = torch.where(ok, torch.maximum(nx, tmax[sidx]), nx)
+    lc = torch.clamp(bvh.left.long(), 0, N - 1)
+    rc = torch.clamp(bvh.right.long(), 0, N - 1)
+    # bvh.depth sweeps of child gathers, the reference's fixed count: no
+    # convergence test, which would read the device
+    for _ in range(bvh.depth):
+        nm = torch.where(leaf, nm, torch.minimum(nm[lc], nm[rc]))
+        nx = torch.where(leaf, nx, torch.maximum(nx[lc], nx[rc]))
+    kw = {}
+    if bvh.q_src is not None:
+        okq = (bvh.q_src >= 0)[..., None]
+        qs = torch.clamp(bvh.q_src.long(), 0, N - 1)
+        far = torch.full((), 1e30, dtype=vertices.dtype, device=dev)
+        kw = dict(q_min=torch.where(okq, nm[qs], far), q_max=torch.where(okq, nx[qs], far))
+    return dataclasses.replace(bvh, node_min=nm, node_max=nx, **kw), v0, e1, e2
+
+
+def refit_scene(scene: Scene, vertices, rebuild: bool = False) -> Scene:
+    """The scene with its mesh moved to `vertices` [V,3] (same topology),
+    its BVH and triangle tables updated on the scene's device: no host round
+    trip (host vertices go up in one pinned, non-blocking copy).
+
+    * topology refit (default): keep the tree, re-expand the triangles and
+      sweep the boxes again (`_refit_topology_core`); every shape stays.
+    * full rebuild (`rebuild=True`): Morton codes, sort, Karras hierarchy
+      over aligned 8-slot leaf groups and the even-depth BVH4 overlay
+      (ops/lbvh.py), for large deformations where a kept tree degrades. The
+      BVH declares depth LBVH_DEPTH.
+
+    Both recompute the per-slot uv-density code (`tri_den`) from the moved
+    triangles: a non-rigid move changes every triangle's texel density."""
+    vertices = upload(vertices, scene.device).to(torch.float32)
+    mesh = dataclasses.replace(scene.mesh, vertices=vertices)
+    indices = scene.mesh.indices.long()
+    if not rebuild:
+        bvh, v0, e1, e2 = _refit_topology_core(vertices, indices, scene.tri_src, scene.bvh)
+        return dataclasses.replace(scene, mesh=mesh, bvh=bvh, tri_v0=v0, tri_e1=e1, tri_e2=e2,
+                                   tri_den=uv_density_code(e1, e2, scene.tri_uv))
+    (nmin, nmax, left, right, tri_start, tri_count, hit, miss,
+     v0, e1, e2, mat, tuv, srcs, quad) = _refit_core(vertices, indices, scene.mesh.material_id,
+                                                    scene.mesh.uv)
+    qkw = {}
+    if quad is not None:
+        qkw = dict(zip(("q_child", "q_leafc", "q_min", "q_max", "q_axis", "q_src"), quad))
+    bvh = Bvh(node_min=nmin, node_max=nmax, left=left, right=right, tri_start=tri_start,
+              tri_count=tri_count, hit_link=hit, miss_link=miss, leaf_align=GROUP,
+              max_leaf=GROUP, depth=LBVH_DEPTH, **qkw)
+    return dataclasses.replace(scene, mesh=mesh, bvh=bvh, tri_v0=v0, tri_e1=e1, tri_e2=e2,
+                               tri_mat=mat, tri_uv=tuv, tri_src=srcs,
+                               tri_den=uv_density_code(e1, e2, tuv))
+
+
 def build_default_scene(config: RaytracerConfig = DEFAULT_CONFIG,
                         device="cpu") -> Scene:
     """The demo scene: 4 materials, 6 spheres, 2 triangles, 1 point light,
@@ -252,3 +377,51 @@ def build_default_scene(config: RaytracerConfig = DEFAULT_CONFIG,
     lb.add_point((5.0, 7.0, 4.0), (1.0, 1.0, 1.0), 1.0, float("inf"))
     return prepare_scene(Camera.default(), spheres, mesh, mats.build(),
                          lb.build(), config=config, device=device)
+
+
+def memory_stats(scene: Scene) -> dict:
+    """Bytes of each part of the scene as it is held (tensor nbytes; nothing
+    is read from the device), with the triangle, vertex and node counts."""
+    def nbytes(obj) -> int:
+        if isinstance(obj, torch.Tensor):
+            return obj.nbytes
+        if isinstance(obj, np.ndarray):
+            return obj.nbytes
+        if dataclasses.is_dataclass(obj):
+            return sum(nbytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
+        return 0
+
+    tris = scene.mesh.num_triangles
+    verts = scene.mesh.num_vertices
+    stats = {
+        "spheres_bytes": nbytes(scene.spheres),
+        "mesh_bytes": nbytes(scene.mesh),
+        "expanded_tri_bytes": scene.tri_v0.nbytes * 3 + scene.tri_mat.nbytes,
+        "materials_bytes": nbytes(scene.materials),
+        "lights_bytes": nbytes(scene.lights),
+        "textures_bytes": nbytes(scene.textures),
+        "bvh_bytes": nbytes(scene.bvh),
+        "triangles": tris,
+        "vertices": verts,
+        "bvh_nodes": scene.bvh.num_nodes,
+    }
+    stats["total_bytes"] = sum(v for k, v in stats.items() if k.endswith("_bytes"))
+    # what sharing vertices saves against three corners stored per triangle
+    stats["dedup_savings_bytes"] = max(tris * 9 * 4 - verts * 12, 0)
+    return stats
+
+
+def print_memory_usage(scene: Scene) -> None:
+    s = memory_stats(scene)
+
+    def mb(b):
+        if b < 1024 * 1024:
+            return f"{b / 1024:8.2f} KB"
+        return f"{b / (1024 * 1024):8.2f} MB"
+    print("=== Scene memory usage ===")
+    for key in ("spheres_bytes", "mesh_bytes", "expanded_tri_bytes",
+                "materials_bytes", "lights_bytes", "textures_bytes", "bvh_bytes"):
+        print(f"  {key[:-6]:>14}: {mb(s[key])}")
+    print(f"  {'total':>14}: {mb(s['total_bytes'])}")
+    print(f"  triangles={s['triangles']} vertices={s['vertices']} "
+          f"bvh_nodes={s['bvh_nodes']} dedup_savings={mb(s['dedup_savings_bytes'])}")

@@ -26,8 +26,15 @@ The scene tables are laid out for the GPU here, once per scene:
 
 A single-leaf tree (no BVH4 overlay) becomes one node whose slot 0 is the
 leaf under an all-enclosing box. The per-thread stack holds at most
-3 x (BVH4 depth) + 1 entries; the host computes that bound and picks the
-smallest compiled stack that holds it, or raises.
+3 x (BVH4 depth) + 1 entries; the host computes that bound from a host-built
+tree, or takes LBVH_WIDE_DEPTH for a rebuilt one, and picks the smallest
+compiled stack that holds it, or raises.
+
+A refit scene (models/scene.py::refit_scene) takes its tables along in
+`refit_trace_tables`: after a topology refit the box words of every node
+line and the triangle and attribute rows are rewritten in place (the tables
+keep their shapes and device addresses); after a rebuild they are packed
+anew. Neither reads anything back from the device.
 """
 
 from __future__ import annotations
@@ -37,13 +44,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ...models.scene import Scene
+from ...models.scene import LBVH_DEPTH, Scene
 from ..texture import den_decode
 from ..trace import Hit, traverse_triangles
 from ..trace import trace as plain_trace
 from .build import check, load_kernels
 
 STACK_SIZES = (16, 32, 64, 128)   # compiled stack capacities (csrc/traverse.cu)
+# BVH4 levels of a rebuilt tree (Bvh.depth == LBVH_DEPTH), a bound known
+# without reading the tree: a Karras node's range strictly lengthens its
+# parent's common prefix, at most 63 bits of code and index tie-break, so
+# the binary tree has at most 62 levels of internal nodes; the even-depth
+# collapse keeps every other level, at most 31 (ops/lbvh.py::collapse4_device).
+# 32 levels need 3 * 32 + 1 = 97 stack entries: the 128-entry stack.
+LBVH_WIDE_DEPTH = 32
 NODE_WORDS = 32                   # f32 words of a node record
 NODE_BYTES = 4 * NODE_WORDS       # and its alignment: one 128-byte cache line
 _BIG = 3.0e38
@@ -90,8 +104,9 @@ def wide_arrays(scene: Scene):
     if bvh.has_wide:
         if bvh.q_child.shape[1] != 4:
             raise NotImplementedError("BVH width 8 is not ported yet")
-        return (bvh.q_min.float(), bvh.q_max.float(), bvh.q_child, bvh.q_leafc, bvh.q_axis,
-                wide_depth(bvh.q_child.cpu().numpy(), bvh.q_leafc.cpu().numpy()))
+        depth = (LBVH_WIDE_DEPTH if bvh.depth == LBVH_DEPTH else   # rebuilt: no host read
+                 wide_depth(bvh.q_child.cpu().numpy(), bvh.q_leafc.cpu().numpy()))
+        return bvh.q_min.float(), bvh.q_max.float(), bvh.q_child, bvh.q_leafc, bvh.q_axis, depth
     q_min = torch.full((1, 4, 3), 1e30, device=dev)
     q_max = torch.full((1, 4, 3), 1e30, device=dev)
     q_min[0, 0] = -_BIG
@@ -103,6 +118,12 @@ def wide_arrays(scene: Scene):
     return q_min, q_max, child, count, torch.zeros((1,), dtype=torch.int32, device=dev), 1
 
 
+def node_boxes(q_min, q_max) -> torch.Tensor:
+    """The 24 box words of each node record [Q,24]: lo_x[4] ... hi_z[4]."""
+    return torch.cat([q_min[:, :, 0], q_min[:, :, 1], q_min[:, :, 2],
+                      q_max[:, :, 0], q_max[:, :, 1], q_max[:, :, 2]], dim=1)
+
+
 def pack_nodes(q_min, q_max, q_child, q_leafc, q_axis) -> torch.Tensor:
     """[Q,32] f32 node records (the module docstring's layout) from the
     BVH4 arrays of `wide_arrays`."""
@@ -111,10 +132,8 @@ def pack_nodes(q_min, q_max, q_child, q_leafc, q_axis) -> torch.Tensor:
     code = torch.where(child < 0, torch.full_like(child, -1),
                        torch.where(count > 0, leaf, child))
     pad = torch.zeros((child.shape[0], 3), dtype=torch.float32, device=child.device)
-    return torch.cat(
-        [q_min[:, :, 0], q_min[:, :, 1], q_min[:, :, 2],
-         q_max[:, :, 0], q_max[:, :, 1], q_max[:, :, 2],
-         _bits(code), _bits(q_axis[:, None]), pad], dim=1).contiguous()
+    return torch.cat([node_boxes(q_min, q_max), _bits(code), _bits(q_axis[:, None]), pad],
+                     dim=1).contiguous()
 
 
 def unpack_nodes(nodes: torch.Tensor):
@@ -148,6 +167,29 @@ def pack_trace_tables(scene: Scene) -> TraceTables:
     attrs = torch.cat([scene.tri_uv.reshape(-1, 6), den_decode(scene.tri_den)[:, None],
                        zero], dim=1).contiguous()
     return TraceTables(scene, nodes, tris, attrs, depth, stack_capacity(depth))
+
+
+def refit_trace_tables(tables: TraceTables, scene: Scene) -> None:
+    """Point `tables` at `scene`, a refit of `tables.scene`
+    (models/scene.py::refit_scene). A topology refit keeps the tree's
+    tensors: the 24 box words of each node line, the triangle rows (v0, e1,
+    e2) and the attribute rows' density are rewritten in place, and the
+    child codes, axes, depth and stack stay. A rebuild brings another tree:
+    the tables are packed anew (a fresh, aligned node table). Either way
+    nothing is read back from the device."""
+    old = tables.scene
+    if scene.bvh.left is not old.bvh.left or scene.tri_v0.shape != old.tri_v0.shape:
+        fresh = pack_trace_tables(scene)
+        tables.nodes, tables.tris, tables.attrs = fresh.nodes, fresh.tris, fresh.attrs
+        tables.depth, tables.stack = fresh.depth, fresh.stack
+    else:
+        if scene.bvh.has_wide:
+            tables.nodes[:, :24] = node_boxes(scene.bvh.q_min.float(), scene.bvh.q_max.float())
+        tables.tris[:, 0:3] = scene.tri_v0
+        tables.tris[:, 4:7] = scene.tri_e1
+        tables.tris[:, 8:11] = scene.tri_e2
+        tables.attrs[:, 6] = den_decode(scene.tri_den)
+    tables.scene = scene
 
 
 def nodes_ptr(tables: TraceTables) -> int:

@@ -549,3 +549,80 @@ def test_fly_frame_on_the_card_matches_the_plain_path(cuda):
         assert got.dtype == torch.uint8 and got.shape == (64, 64, 3)
         equal = (got.cpu().int() - ref.int()).abs().amax(dim=2) == 0
         assert equal.float().mean().item() >= 0.99
+
+
+# ---- the Viewer and the geometry refit ----
+
+def _moved_vertices(scene, scale=1.2):
+    v = scene.mesh.vertices.cpu().numpy()
+    return (v * np.float32(scale) + np.float32([0.1, 0.3, -0.2])).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("textured", [False, True])
+@pytest.mark.parametrize("rebuild", [False, True])
+def test_refreshed_tables_equal_a_fresh_pack_on_the_card(cuda, textured, rebuild):
+    """Renderer.set_geometry / PathTracer.set_geometry take a refit scene's
+    tables along (in place after a topology refit): bit for bit a fresh
+    pack of the refit scene."""
+    from chip_smoke import tables_equal
+    from gpu_raytracer_tpu_torch.models.scene import refit_scene
+
+    scene = make_courtyard_scene(2000, seed=1, textured=textured, device=cuda)
+    r = Renderer(scene, 64, 48, shadows=True, device=cuda)
+    pt = PathTracer(scene, 32, 32, device=cuda)
+    nodes = r.tables.trace.nodes
+    refit = refit_scene(r.scene, _moved_vertices(scene), rebuild=rebuild)
+    r.set_geometry(refit)
+    pt.set_geometry(refit)
+    assert (r.tables.trace.nodes is nodes) == (not rebuild)
+    assert tables_equal(r.tables.trace, pack_render_tables(r.scene).trace) == []
+    assert tables_equal(pt.tables.render.trace, pack_bounce_tables(pt.scene).render.trace) == []
+
+
+@pytest.mark.cuda
+def test_lbvh_on_the_card_equals_the_cpu(cuda):
+    from chip_smoke import lbvh_cpu_compare
+
+    assert lbvh_cpu_compare(make_courtyard_scene(2000, seed=1, device=cuda))["quads"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rebuild", [False, True])
+def test_k2_frame_on_refit_and_rebuilt_scenes_matches_plain(cuda, rebuild):
+    from chip_smoke import refit_frame_compare
+    from gpu_raytracer_tpu_torch.models.scene import refit_scene
+
+    scene = make_courtyard_scene(2000, seed=1, device=cuda)
+    r = Renderer(scene, 96, 64, shadows=True, device=cuda)
+    r.set_geometry(refit_scene(r.scene, _moved_vertices(scene), rebuild=rebuild))
+    render_primary.launches = 0
+    stats = refit_frame_compare(r, f"K2 rebuild={rebuild}")
+    assert render_primary.launches == 1 and stats["max_abs_err"] <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("textured", [False, True])
+def test_viewer_frames_and_refit_never_wait(cuda, textured):
+    """A camera-moving Viewer frame, a topology refit + frame and a rebuild
+    run under set_sync_debug_mode("error"): nothing makes the host wait."""
+    from gpu_raytracer_tpu_torch.engine.viewer import Viewer
+    from gpu_raytracer_tpu_torch.models.scene import refit_scene
+
+    scene = make_courtyard_scene(2000, seed=1, textured=textured, device=cuda)
+    v = Viewer(scene, 96, 64, shadows=True, verbose=False, device=cuda)
+    v.run_compute()
+    moved = _moved_vertices(scene, 1.05)
+    v.update_geometry(moved)
+    v.run_compute()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        v.handle_key("w")
+        v.run_compute()
+        v.update_geometry(moved + np.float32(0.01))
+        v.run_compute()
+        refit_scene(v.scene, moved, rebuild=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(v._fb_dev).all()

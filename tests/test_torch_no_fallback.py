@@ -54,6 +54,22 @@ def test_port_never_imports_jax():
         "    pt.step()\n"
         "    assert pt.image().shape == (12, 16, 3) and pt.counters().rays_per_bounce[0] == 192\n"
         "    assert pt.fly_frame(scene.camera, m=4, u8=True).shape == (12, 16, 3)\n"
+        "from gpu_raytracer_tpu_torch.engine.viewer import Viewer\n"
+        "from gpu_raytracer_tpu_torch.engine import perf, progressive\n"
+        "from gpu_raytracer_tpu_torch.models.scene import memory_stats, refit_scene\n"
+        "from gpu_raytracer_tpu_torch.models.bvh import scene_tree, validate_bvh\n"
+        "from gpu_raytracer_tpu_torch.ops import lbvh\n"
+        "from gpu_raytracer_tpu_torch.utils import packing, yuv\n"
+        "v = Viewer(make_courtyard_scene(500, textured=True), 16, 12, shadows=True,\n"
+        "           verbose=False, device='cpu')\n"
+        "v.render_to_completion()\n"
+        "v.handle_key('p')\n"
+        "v.run_compute()\n"
+        "v.update_geometry(v.scene.mesh.vertices * 1.1)\n"
+        "assert v.materialize_frame(v.present_frame_packed()).shape == (12, 16, 3)\n"
+        "r = refit_scene(v.scene, v.scene.mesh.vertices, rebuild=True)\n"
+        "validate_bvh(scene_tree(r), r.num_triangles)\n"
+        "assert memory_stats(r)['triangles'] == r.num_triangles\n"
         "ada = AdaptivePathTracer(make_courtyard_scene(500), 64, 64, tiles_per_step=1,\n"
         "                         device='cpu')\n"
         "ada.step()\n"
@@ -428,3 +444,28 @@ def test_bounce_on_a_misaligned_node_table_raises_and_touches_nothing():
     assert torch.equal(r.origin, before) and not rad.any()
     bounce_mod.fused_bounce_(tables, r, rad, qmc=QmcStream(), shadows=True, do_rr=False)
     assert bounce_mod.fused_bounce_.launches == launches + 1 and rad.any()
+
+
+def test_refit_and_table_refresh_never_read_the_device():
+    """refit_scene (both modes) and the table refresh run on the meta device,
+    whose tensors hold no data: any read back to the host, a copy to the CPU
+    or a data-dependent shape raises there. So on a CUDA scene they stay on
+    the card and take no CPU path."""
+    from gpu_raytracer_tpu_torch.models.scene import refit_scene
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import (pack_trace_tables,
+                                                           refit_trace_tables)
+
+    scene = make_courtyard_scene(500, textured=True)
+    host = pack_trace_tables(scene)
+    meta = torch.device("meta")
+    tables = dataclasses.replace(host, scene=scene.to(meta), nodes=host.nodes.to(meta),
+                                 tris=host.tris.to(meta), attrs=host.attrs.to(meta))
+    v = torch.empty((scene.mesh.num_vertices, 3), device=meta)
+    refit = refit_scene(tables.scene, v)
+    nodes = tables.nodes
+    refit_trace_tables(tables, refit)       # in place
+    assert tables.nodes is nodes and tables.scene is refit
+    rebuilt = refit_scene(refit, v, rebuild=True)
+    refit_trace_tables(tables, rebuilt)     # packed anew, on the device
+    assert tables.nodes.device == meta and tables.stack == 128
+    assert all(t.device == meta for t in (rebuilt.tri_v0, rebuilt.tri_den, rebuilt.bvh.q_min))
