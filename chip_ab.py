@@ -7,7 +7,7 @@ in turn inside one run so that they share a card.
     python3 chip_ab.py --variants "RT_SHARED_STACK=0" "RT_RENDER_MIN_BLOCKS=8 RT_RENDER_BLOCK=64"
     python3 chip_ab.py --variants "kShadeMinBlocks=12"      # a csrc constant rewritten
     python3 chip_ab.py --one [--root DIR] [--defines "A=1 B=2"]   # one measurement, one JSON line
-    python3 chip_ab.py --sass                               # static SASS size of K1's loops
+    python3 chip_ab.py --sass                               # static SASS size of K1's loops (widths 4, 8)
 
 Unpack the other tree first (`git archive <commit> | tar -x -C build/parent`;
 build/ is git-ignored). Every measurement is its own process, run from this
@@ -50,6 +50,7 @@ import argparse
 import inspect
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -105,8 +106,8 @@ def measure(root: str, defines: list[str], label: str) -> dict:
     ptxas = cs.ptxas_summary(k.log)
     out["sass_untextured"] = sass_digest(k.path)
     out["ptxas"] = {name: v for name, v in ptxas.items()   # the 32-entry stack instances
-                    if "<32" in name or name.startswith(("texshade_kernel",
-                                                         "sample_materials_kernel"))}
+                    if re.search(r"<(?:[48], )?32[,>]", name)
+                    or name.startswith(("texshade_kernel", "sample_materials_kernel"))}
 
     def reading(fn):
         return [cs.timed(fn, LAUNCHES, device) for _ in range(REPEATS)]
@@ -216,63 +217,95 @@ def measure(root: str, defines: list[str], label: str) -> dict:
     return out
 
 
+# template arguments of the K2 and K6 kernels in a tree without a node-width
+# argument: such a tree's instances are the width-4 ones
+ARGS_WITHOUT_WIDTH = {"render_primary_kernel": 2, "bounce_kernel": 4, "traverse_kernel": 2}
+
+
+def instance_key(mangled: str) -> str | None:
+    """`kernel<width, stack, flags...>` of an untextured K2 or K6 instance
+    or a K1 closest-hit / any-hit instance from its mangled name (in
+    namespace rt, or in an anonymous one as K1 was before it took the width),
+    the width 4 filled in for a tree whose kernels do not take it; None for
+    any other function."""
+    m = re.match(r"_ZN.*?\d+(render_primary_kernel|bounce_kernel|traverse_kernel)"
+                 r"I((?:L[bi]\d+E)+)E", mangled)
+    if m is None:
+        return None
+    args = re.findall(r"L[bi](\d+)E", m.group(2))
+    if len(args) == ARGS_WITHOUT_WIDTH[m.group(1)]:
+        args = ["4", *args]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
 def sass_digest(lib_path: str) -> dict:
-    """A digest of each untextured K2 and K6 instance's SASS (cuobjdump of
-    the built objects): equal digests in two builds mean the same machine
-    code, which the texture sampler's changes must leave alone."""
+    """A digest of each untextured width-4 K2 and K6 instance's SASS and of
+    each width-4 K1 instance's (cuobjdump of the built objects), keyed by
+    `instance_key`: equal digests
+    in two builds mean the same machine code, which changes elsewhere (the
+    texture sampler, the width-8 instances, compiled in other objects) must
+    leave alone."""
     import glob
     import hashlib
-    import re
 
     from gpu_raytracer_tpu_torch.ops.cuda import build
 
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     out = {}
-    for obj in ("render_primary", "bounce"):
+    for obj in ("render_primary", "bounce", "traverse"):
         path = glob.glob(os.path.join(os.path.dirname(lib_path), f"*.{obj}.o"))[0]
         text = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
                               check=True).stdout
         for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s+Function :|\Z)", text,
                                      re.S):
-            out[name] = hashlib.sha256(body.encode()).hexdigest()[:16]
+            key = instance_key(name)
+            if key is not None:
+                out[key] = hashlib.sha256(body.encode()).hexdigest()[:16]
     return out
 
 
 def sass_loops(root: str) -> dict:
-    """Static SASS size of K1's closest-hit instance for a 32-entry stack,
-    from `cuobjdump -sass` of the built traverse object: its instruction
-    count, opcode histogram and loops (every backward branch: first and last
+    """Static SASS size of K1's closest-hit instances for a 32-entry stack,
+    at width 4 (the traverse object) and, where the tree has them, width 8
+    (traverse_w8), from `cuobjdump -sass`: each one's instruction count,
+    opcode histogram and loops (every backward branch: first and last
     address and the instructions between), a yardstick for how many
     instruction slots a node visit and a triangle test take."""
     import glob
-    import re
 
     sys.path.insert(0, root)
     from gpu_raytracer_tpu_torch.ops.cuda import build
 
     k = build.load_kernels()
-    objs = glob.glob(os.path.join(os.path.dirname(k.path), "*traverse.o"))
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", objs[0]], capture_output=True, text=True,
-                          check=True).stdout
     out = {}
-    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s+Function :|\Z)", text, re.S):
-        if "traverse_kernelILi32ELb0" not in name:
+    for width, obj, pattern in ((4, "traverse", r"traverse_kernelI(?:Li4E)?Li32ELb0"),
+                                (8, "traverse_w8", r"traverse_kernelILi8ELi32ELb0")):
+        objs = glob.glob(os.path.join(os.path.dirname(k.path), f"*.{obj}.o"))
+        if not objs:
             continue
-        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)([^;]*);", body)
-        addr = [int(a, 16) for a, _, _ in ins]
-        hist = {}
-        for _, op, _ in ins:
-            hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
-        loops = []
-        for a, op, rest in ins:
-            m = re.search(r"0x([0-9a-f]+)", rest)
-            if op.startswith("BRA") and m and int(m.group(1), 16) < int(a, 16):
-                lo, hi = int(m.group(1), 16), int(a, 16)
-                loops.append(dict(first=lo, last=hi,
-                                  instructions=sum(1 for x in addr if lo <= x <= hi)))
-        out = dict(function=name, instructions=len(ins), loops=loops,
-                   opcodes=dict(sorted(hist.items(), key=lambda kv: -kv[1])[:16]))
+        text = subprocess.run([tool, "-sass", objs[0]], capture_output=True, text=True,
+                              check=True).stdout
+        for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s+Function :|\Z)", text,
+                                     re.S):
+            if not re.search(pattern, name):
+                continue
+            ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)([^;]*);",
+                             body)
+            addr = [int(a, 16) for a, _, _ in ins]
+            hist = {}
+            for _, op, _ in ins:
+                hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
+            loops = []
+            for a, op, rest in ins:
+                m = re.search(r"0x([0-9a-f]+)", rest)
+                if op.startswith("BRA") and m and int(m.group(1), 16) < int(a, 16):
+                    lo, hi = int(m.group(1), 16), int(a, 16)
+                    loops.append(dict(first=lo, last=hi,
+                                      instructions=sum(1 for x in addr if lo <= x <= hi)))
+            out[f"width{width}"] = dict(function=name, instructions=len(ins), loops=loops,
+                                        opcodes=dict(sorted(hist.items(),
+                                                            key=lambda kv: -kv[1])[:16]))
     return out
 
 
@@ -353,7 +386,7 @@ def main() -> int:
                          "two measurements of the tree as it is")
     ap.add_argument("--out", help="a file to append every measurement's JSON line to")
     ap.add_argument("--sass", action="store_true",
-                    help="print the static SASS size of K1's closest-hit instance")
+                    help="print the static SASS size of K1's closest-hit instances")
     args = ap.parse_args()
     if args.sass:
         print(json.dumps(dict(sass=sass_loops(os.path.abspath(args.root)))), flush=True)
@@ -379,9 +412,12 @@ def main() -> int:
     if good:
         summary(good)
         digests = {r["label"]: r.get("sass_untextured") for r in good}
-        same = len({json.dumps(d, sort_keys=True) for d in digests.values()}) == 1
-        print(f"untextured K2 / K6 SASS identical in every build: {same} "
-              f"({len(next(iter(digests.values())) or {})} instances)", flush=True)
+        for kernel in ("render_primary_kernel", "bounce_kernel", "traverse_kernel"):
+            kept = [{k: v for k, v in (d or {}).items() if k.startswith(kernel + "<")}
+                    for d in digests.values()]
+            same = len({json.dumps(d, sort_keys=True) for d in kept}) == 1
+            print(f"{kernel} (width 4, untextured) SASS identical in every build: {same} "
+                  f"({len(kept[0])} instances)", flush=True)
     return 0 if len(good) == len(rows) and rows else 1
 
 

@@ -7,7 +7,7 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
   0. the card's name and power limit (nvidia-smi); a CUDA device is required;
   1. build the CUDA kernels from csrc/ with nvcc;
   2. build the 100k-triangle courtyard (host BVH build, tables to the card);
-  3. K1 (BVH4 traversal) against the plain traversal on every camera ray of
+  3. K1 (wide-BVH traversal, width 4) against the plain traversal on every camera ray of
      the 1920x1080 frame and on 262,144 shadow rays toward the point light;
   4. K2 (fused render) against the plain render_chunk on the full frame,
      shadows off and on, and on the default scene at 256x256;
@@ -103,11 +103,31 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      bit-equal to a fresh pack; the refit and the LBVH arrays on the card
      equal to the CPU's; K2 on the refit and on a rebuilt scene and a
      textured Viewer's K3 + K4 after a scaling refit against the plain path;
-     memory_stats of both scenes.
+     memory_stats of both scenes;
+ 22. BVH width 8 (config.bvh_width = 8) on both 100k courtyards: the scenes
+     built through make_courtyard_scene, sharing width 4's binary tree and
+     slots (asserted), the depth against the stack; K1 on the camera and
+     shadow rays, K2 (shadows off and on), K3 + K4, K2t and K6 (the main
+     path's pools) against their plain versions (phases 3-11's plain
+     outputs, kept in PLAIN_REFS: the same tree and slots give the same
+     plain path; K2t's and the refit frame's rendered here); the main paths (Renderer
+     frames, the fused textured render, PathTracer.step()) with the launch
+     counts of the width-8 instances, each timed in turns with width 4; the
+     4-spp images against phase 12's plain images; node visits and triangle
+     tests per ray, SIMT efficiency, registers and spills, the width-aware
+     bounds; a width-8 Viewer's topology refit (width-8 tables kept) and its
+     frame, then a rebuild (width-4 tables) and its frame (width 4's K2,
+     equal to a fresh renderer's);
+ 22b. the spatial-split 100k courtyard (config.bvh_spatial_splits): its
+     references and tree checked, K2 shadows off and on against
+     render_chunk on its own tree and timed in turns with the SAH tree's,
+     one PathTracer.step(), K6 on the depth-0 pool, node visits per camera
+     ray against the SAH tree's.
 K4, K5 (alone and inside textured K6) and K2t are held to 0.0 from their
 plain versions (SAMPLER_TOL), nearest and trilinear, all three wraps.
 Then the frame kernels' roofline bounds with the SIMT efficiency of the
-walk on camera and shadow rays (a counter in the kernel).
+walk on camera and shadow rays (a counter in the kernel), the profiler
+sessions each device-time reading needed, and the seconds of each phase.
 The card line, then the per-kernel JSON summary, then the last line
 {"ok": true, "device": {...}}.
 """
@@ -144,8 +164,34 @@ LIGHT_MEAN_TOL = 0.08      # |sum(mean) - sum(exact)| / sum(exact)
 ZOO_PT_SAMPLES = 2
 
 
+PHASE_SECONDS = {}     # seconds from the previous "phase" line to each one (the run's time)
+_last_phase = [time.perf_counter()]
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):
+        now = time.perf_counter()
+        key = " ".join(msg.split(" ", 3)[:2]).rstrip(":")
+        PHASE_SECONDS[key] = PHASE_SECONDS.get(key, 0.0) + now - _last_phase[0]
+        _last_phase[0] = now
     print(msg, flush=True)
+
+
+# The plain versions' outputs of the width-4 phases, kept under a key that
+# names the scene and the call (None: not kept). Phase 22's width-8 scenes
+# share the width-4 scenes' binary tree and triangle slots (asserted before
+# any use), so the plain path gives them the same outputs bit for bit, and
+# the width-8 kernels are held to these instead of to a second plain run.
+PLAIN_REFS = {}
+
+
+def plain_ref(key, fn):
+    """fn(), computed once per key and kept in PLAIN_REFS (key None: not kept)."""
+    if key is None:
+        return fn()
+    if key not in PLAIN_REFS:
+        PLAIN_REFS[key] = fn()
+    return PLAIN_REFS[key]
 
 
 def card_line() -> str:
@@ -212,9 +258,9 @@ def frame_pixels(width, height, device):
 
 
 def simt_efficiency(work) -> dict:
-    """SIMT efficiency of the walk's two bodies from traversal_work's [N,4]
+    """SIMT efficiency of the walk's two bodies from traversal_work's [N,5]
     counts: the lanes at work per warp iteration, as a share of 32."""
-    n, t, wn, wt = (float(x) for x in work.sum(dim=0).tolist())
+    n, t, wn, wt = (float(x) for x in work.sum(dim=0).tolist()[:4])
     return dict(node_body=n / (32.0 * wn) if wn else None,
                 triangle_body=t / (32.0 * wt) if wt else None)
 
@@ -226,15 +272,16 @@ def primary_rays(scene, width, height, px, py):
     return o.contiguous(), d.contiguous()
 
 
-def k1_compare(tables, o, d, max_t):
-    """Closest hit through K1 and the plain traversal -> (stats, tie mask)."""
+def k1_compare(tables, o, d, max_t, ref=None):
+    """Closest hit through K1 and the plain traversal (kept under `ref`,
+    plain_ref) -> (stats, tie mask)."""
     import torch
 
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
     from gpu_raytracer_tpu_torch.ops.trace import traverse_triangles
 
     kt, ks, kh, kn, km = traverse(tables, o, d, max_t)
-    pt, ps, ph, pn, pm = traverse_triangles(tables.scene, o, d, max_t)
+    pt, ps, ph, pn, pm = plain_ref(ref, lambda: traverse_triangles(tables.scene, o, d, max_t))
     if not torch.equal(kh, ph):
         raise AssertionError(f"K1 hit mask differs on {(kh != ph).sum().item()} rays")
     h = kh
@@ -257,10 +304,11 @@ def k1_compare(tables, o, d, max_t):
                 t_rel=t_rel, t_abs=t_abs, normal_abs=n_err), ties
 
 
-def phase_k1(scene, tables, width, height, n_shadow, device, card):
+def phase_k1(scene, tables, width, height, n_shadow, device, card, phase="3", ref=None):
     """K1 against the plain traversal on every camera ray of the frame (in
     the main path's order) and on n_shadow shadow rays from
-    those hits toward the point light -> (stats, per-pixel tie mask)."""
+    those hits toward the point light -> (stats, per-pixel tie mask). The
+    plain outputs and time are kept under `ref` (a scene's name, plain_ref)."""
     import numpy as np
     import torch
 
@@ -271,9 +319,10 @@ def phase_k1(scene, tables, width, height, n_shadow, device, card):
     px, py = frame_pixels(width, height, device)
     o, d = primary_rays(scene, width, height, px, py)
     far = torch.full((px.shape[0],), 3.4028234663852886e38, device=device)
-    prim, ties = k1_compare(tables, o, d, far)
+    key = (lambda *k: None if ref is None else (ref,) + k)
+    prim, ties = k1_compare(tables, o, d, far, ref=key("k1_camera"))
 
-    t, _, h, n, _ = traverse_triangles(scene, o, d, far)
+    t, _, h, n, _ = plain_ref(key("k1_camera"), lambda: traverse_triangles(scene, o, d, far))
     hits = torch.nonzero(h).squeeze(1).cpu().numpy()
     pick = np.sort(np.random.default_rng(0).choice(hits, min(n_shadow, hits.shape[0]),
                                                    replace=False))
@@ -286,31 +335,37 @@ def phase_k1(scene, tables, width, height, n_shadow, device, card):
     dist = torch.sqrt(dot(to_light, to_light))
     sd = (to_light / dist[:, None]).contiguous()
     smax = (dist - 1e-3).contiguous()
-    shadow, _ = k1_compare(tables, so, sd, torch.full_like(smax, 3.4028234663852886e38))
+    shadow, _ = k1_compare(tables, so, sd, torch.full_like(smax, 3.4028234663852886e38),
+                           ref=key("k1_shadow"))
     blocked = traverse(tables, so, sd, smax, any_hit=True)[2]
-    closest = traverse_triangles(scene, so, sd, smax)[2]
+    closest = plain_ref(key("k1_shadow_below"), lambda: traverse_triangles(scene, so, sd, smax))[2]
     if not torch.equal(blocked, closest):
         raise AssertionError(f"K1 any-hit differs from closest t < max_t on "
                              f"{(blocked != closest).sum().item()} shadow rays")
-    plain_anyhit = traverse_triangles(scene, so, sd, smax, any_hit=True)[2]
+    plain_anyhit = plain_ref(key("k1_shadow_any"),
+                             lambda: traverse_triangles(scene, so, sd, smax, any_hit=True))[2]
     if not torch.equal(blocked, plain_anyhit):
         raise AssertionError("K1 any-hit differs from the plain any-hit")
     ms = timed(lambda: traverse(tables, o, d, far), FRAMES, device)
-    plain_ms = timed(lambda: traverse_triangles(scene, o, d, far), PLAIN_FRAMES, device)
+    plain_ms = plain_ref(key("k1_plain_ms"), lambda: timed(
+        lambda: traverse_triangles(scene, o, d, far), PLAIN_FRAMES, device))
     stats = dict(primary=prim, shadow=shadow, shadow_blocked=int(blocked.sum()),
                  ms=ms, plain_ms=plain_ms, card=card)
-    log(f"phase 3 K1: {json.dumps(stats)}")
+    log(f"phase {phase} K1 (width {tables.width}): {json.dumps(stats)}")
     return stats, ties
 
 
-def k2_compare(scene, width, height, shadows, device, ties=None):
+def k2_compare(scene, width, height, shadows, device, ties=None, ref=None):
+    """Renderer's frame (K2 on the card) against the plain render_chunk,
+    kept under `ref` (a scene's name, plain_ref)."""
     import torch
 
     from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_chunk
 
     r = Renderer(scene, width, height, shadows=shadows, device=device)
     got = r.render_device()
-    ref = render_chunk(r.scene, r.px, r.py, width, height, shadows=shadows)
+    ref = plain_ref(None if ref is None else (ref, "frame", width, height, shadows),
+                    lambda: render_chunk(r.scene, r.px, r.py, width, height, shadows=shadows))
     if got.shape != (width * height, 3) or not torch.isfinite(got).all():
         raise AssertionError(f"K2 frame: shape {tuple(got.shape)}, finite "
                              f"{bool(torch.isfinite(got).all())}")
@@ -512,16 +567,17 @@ def phase_textured_scene(device, triangles, texture_size):
     return scene, tables, shade
 
 
-def gbuffer_compare(tables, px, py, width, height, shadows, ties):
-    """K3 against the plain G-buffer on the same pixels -> (stats, K3's
-    G-buffer)."""
+def gbuffer_compare(tables, px, py, width, height, shadows, ties, ref=None):
+    """K3 against the plain G-buffer on the same pixels (kept under `ref`, a
+    scene's name, plain_ref) -> (stats, K3's G-buffer)."""
     import torch
 
     from gpu_raytracer_tpu_torch.engine.renderer import render_gbuffer, split_gbuffer
     from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred
 
     got = render_deferred(tables, px, py, width, height, shadows=shadows)
-    ref = render_gbuffer(tables.scene, px, py, width, height, shadows=shadows)
+    ref = plain_ref(None if ref is None else (ref, "gbuffer", width, height, shadows),
+                    lambda: render_gbuffer(tables.scene, px, py, width, height, shadows=shadows))
     (gs, gm, guv, glam), (rs, rm, ruv, rlam) = split_gbuffer(got), split_gbuffer(ref)
     finite = all(bool(torch.isfinite(x).all()) for x in (gs, guv, glam))
     if got.shape != (2, px.shape[0], 4) or not finite:
@@ -591,17 +647,19 @@ def mip_boundary_mask(shade, gbuf, rel: float = 1e-6):
     return near & hit
 
 
-def primary_ties(tables, width, height, px, py):
+def primary_ties(tables, width, height, px, py, ref=None):
     """Camera rays whose closest triangle K1 and the plain traversal pick
-    differently at the exact same t."""
+    differently at the exact same t; `ref` (a scene's name) keeps the plain
+    hits of the frame's pixels (frame_pixels) as phase_k1 does."""
     import torch
 
     o, d = primary_rays(tables.scene, width, height, px, py)
     far = torch.full((px.shape[0],), 3.4028234663852886e38, device=px.device)
-    return k1_compare(tables.trace, o, d, far)[1]
+    return k1_compare(tables.trace, o, d, far,
+                      ref=None if ref is None else (ref, "k1_camera"))[1]
 
 
-def phase_k3(scene, tables, width, height, device, card):
+def phase_k3(scene, tables, width, height, device, card, ref=None):
     """Phase 7: K3 against the plain G-buffer on the full frame, shadows off
     and on, and on the synthetic scene (live spheres, so sphere uvs)."""
     import torch
@@ -610,11 +668,12 @@ def phase_k3(scene, tables, width, height, device, card):
     from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables, render_deferred
 
     px, py = frame_pixels(width, height, device)
-    ties = primary_ties(tables, width, height, px, py)
+    ties = primary_ties(tables, width, height, px, py, ref=ref)
     out, gbufs = {}, {}
     for shadows in (False, True):
         key = "courtyard_shadows" if shadows else "courtyard_no_shadows"
-        out[key], gbufs[shadows] = gbuffer_compare(tables, px, py, width, height, shadows, ties)
+        out[key], gbufs[shadows] = gbuffer_compare(tables, px, py, width, height, shadows, ties,
+                                                   ref=ref)
     synth = synthetic_textured_scene(0, mips=4, device=device)
     st = pack_render_tables(synth)
     spx, spy = frame_pixels(256, 256, device)
@@ -623,8 +682,8 @@ def phase_k3(scene, tables, width, height, device, card):
         key = f"synthetic_256_{'shadows' if shadows else 'no_shadows'}"
         out[key] = gbuffer_compare(st, spx, spy, 256, 256, shadows, sties)[0]
     out["ms"] = timed(lambda: render_deferred(tables, px, py, width, height), FRAMES, device)
-    out["plain_ms"] = timed(lambda: render_gbuffer(scene, px, py, width, height),
-                            PLAIN_FRAMES, device)
+    out["plain_ms"] = plain_ref(None if ref is None else (ref, "gbuffer_plain_ms"), lambda: timed(
+        lambda: render_gbuffer(scene, px, py, width, height), PLAIN_FRAMES, device))
     out["card"] = card
     log(f"phase 7 K3 {width}x{height}: {json.dumps(out)}")
     return out, gbufs[False], ties
@@ -669,7 +728,7 @@ def phase_k4(shade, gbuf, ties, device, card):
     return out
 
 
-def phase_textured_main(scene, width, height, device, card, ties):
+def phase_textured_main(scene, width, height, device, card, ties, ref=None):
     """Phase 9: the textured main path, Renderer.render_device() at full
     size (K3 then K4 on a CUDA device), warm, timed."""
     import torch
@@ -698,8 +757,8 @@ def phase_textured_main(scene, width, height, device, card, ties):
                                  f"K1 {k1} times in {FRAMES} frames")
         plain = lambda: render_deferred_chunk(r.scene, r.px, r.py, width, height,
                                               shadows=shadows, sky=r.sky)
-        ref = plain()
-        diff = (frame - ref).abs().amax(dim=1)
+        want = plain_ref(None if ref is None else (ref, "frame", width, height, shadows), plain)
+        diff = (frame - want).abs().amax(dim=1)
         err = diff[~ties].max().item()
         if err > RGB_TOL:
             raise AssertionError(f"textured frame max |diff| {err:.3g} outside ties")
@@ -722,7 +781,10 @@ F32_MAX = 3.4028234663852886e38
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (HBM3 peak rate)
 FP32_FLOPS_PER_S = 67e12    # H100 SXM FP32 outside the tensor cores
 # FP32 operations per unit of work, counted from the kernel sources:
-NODE_FLOPS = 100     # one BVH4 node: 4 slab tests of 6 sub, 6 mul, 10 min/max, 1 max, 2 compares
+SLAB_FLOPS = 25      # one child's slab test: 6 sub, 6 mul, 10 min/max, 1 max, 2 compares;
+                     # charged once per non-empty child slot of each visited node
+                     # (traversal_work's slots), at either width: the walk also tests a
+                     # record's empty slots, work that the closest hit does not need
 TRI_FLOPS = 54       # one Moller-Trumbore test (traverse.cuh leaf_test)
 SPHERE_FLOPS = 25    # one sphere test (render_common.cuh sphere_hit)
 SHADE_FLOPS = 120    # per hit: normal, one light's intensity, ambient, blend (K2, K3, K6)
@@ -755,9 +817,11 @@ def sampler_table_bytes(shade) -> int:
 
 
 def walk_flops(work) -> float:
-    """FP32 operations of K1 walks from traversal_work's (nodes, triangles)."""
+    """FP32 operations of K1 walks from traversal_work's counts: a slab test
+    per non-empty child slot of a visited node, a triangle test per
+    triangle."""
     w = work.sum(dim=0).tolist()
-    return float(w[0] * NODE_FLOPS + w[1] * TRI_FLOPS)
+    return float(w[4] * SLAB_FLOPS + w[1] * TRI_FLOPS)
 
 
 def camera_pool(tables, width, height, sample=0, seed=0):
@@ -804,7 +868,8 @@ def pools(tables, width, height, depths, tex_lod_bias=0.0):
                     qmc=qmc, **flags)
 
 
-def bounce_compare(tables, r, flags, *, depth=0, order=None, n_live=None, qmc=None, u=None):
+def bounce_compare(tables, r, flags, *, depth=0, order=None, n_live=None, qmc=None, u=None,
+                   ref=None):
     """K6 against its plain version on one pool, both in place on copies:
     over the WHOLE pool (so a lane the launch must not touch is held to bit
     equality) integer fields and `active` equal, float fields and the
@@ -812,19 +877,27 @@ def bounce_compare(tables, r, flags, *, depth=0, order=None, n_live=None, qmc=No
     the same lanes, outside live lanes whose closest triangle the two
     traversal orders pick differently at the exact same t (counted). The
     uniforms are `u` by position, or the QMC stream `qmc` at `depth`, which
-    the kernel computes itself."""
+    the kernel computes itself. The plain bounce's pool and radiance and
+    the plain hits are kept under `ref` (plain_ref)."""
     import torch
 
     from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce_
     from gpu_raytracer_tpu_torch.ops.wavefront import bounce_
 
     start = torch.full((r.count, 3), 0.25, dtype=torch.float32, device=tables.device)
-    got, grad, want, wrad = r.clone(), start.clone(), r.clone(), start.clone()
+    got, grad = r.clone(), start.clone()
     kw = dict(flags, depth=depth, order=order, n_live=n_live, qmc=qmc, u=u)
     fused_bounce_(tables, got, grad, **kw)
-    bounce_(tables.scene, want, wrad, **kw)
+
+    def plain():
+        want, wrad = r.clone(), start.clone()
+        bounce_(tables.scene, want, wrad, **kw)
+        return want, wrad
+
+    want, wrad = plain_ref(ref, plain)
     far = torch.full((r.count,), F32_MAX, device=tables.device)
-    ties = k1_compare(tables.render.trace, r.origin, r.direction, far)[1] & r.active
+    ties = k1_compare(tables.render.trace, r.origin, r.direction, far,
+                      ref=None if ref is None else ref + ("k1",))[1] & r.active
     keep = ~ties
     n_ties = int(ties.sum())
     for name in ("wavelength_channel", "ray_type", "bounce_depth", "active"):
@@ -861,13 +934,19 @@ def bounce_compare(tables, r, flags, *, depth=0, order=None, n_live=None, qmc=No
                 nan_lanes=int(torch.isnan(grad).any(dim=1).sum()))
 
 
-def phase_k6(tables, width, height, label, biases=(0.0,), depths=(0, 2)):
-    """K6 against the plain bounce on the main path's pools of one scene."""
+def phase_k6(tables, width, height, label, biases=(0.0,), depths=(0, 2), ref=None):
+    """K6 against the plain bounce on the main path's pools of one scene;
+    the pools (made by the plain bounce) and the plain outputs are kept
+    under `ref` (a scene's name, plain_ref)."""
     out = {}
     for bias in biases:
-        for depth, r, order, n_live, qmc, flags in pools(tables, width, height, depths, bias):
+        key = None if ref is None else (ref, "k6", width, height, bias)
+        made = plain_ref(None if key is None else key + ("pools", depths),
+                         lambda: list(pools(tables, width, height, depths, bias)))
+        for depth, r, order, n_live, qmc, flags in made:
             out[f"{label}_lod_bias{bias:g}_depth{depth}"] = bounce_compare(
-                tables, r, flags, depth=depth, order=order, n_live=n_live, qmc=qmc)
+                tables, r, flags, depth=depth, order=order, n_live=n_live, qmc=qmc,
+                ref=None if key is None else key + (depth,))
     return out
 
 
@@ -1078,6 +1157,8 @@ def median_stages(runs) -> dict:
 
 
 L2_FLUSH_BYTES = 256 << 20   # > 5x the H100's 50 MB L2
+PROFILE_SESSIONS = 3         # profiler sessions kernel_device_ms tries before it raises
+PROFILER_SESSIONS = {}       # kernel name -> sessions each kernel_device_ms call needed
 
 
 def kernel_device_ms(fn, words, calls: int, device) -> float:
@@ -1089,8 +1170,11 @@ def kernel_device_ms(fn, words, calls: int, device) -> float:
     memory, as its roofline bound counts them; back to back, a call finds
     the last one's inputs in the L2. Each word's time is the mean over the
     launches the profiler recorded (it has been seen to drop one of a
-    session's kernels); raises if it recorded none of a word's, or more than
-    one a call."""
+    session's kernels, and once to record none of a first session's); a
+    session that recorded none of a word's, or more than one a call, is
+    profiled again, and after PROFILE_SESSIONS such sessions it raises. The
+    sessions each call needed are listed in PROFILER_SESSIONS (the run
+    prints them), so that a recurring drop shows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1098,22 +1182,26 @@ def kernel_device_ms(fn, words, calls: int, device) -> float:
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     fn()
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize(device)
-    us, counts = dict.fromkeys(words, 0.0), dict.fromkeys(words, 0)
-    for e in prof.key_averages():
-        for w in words:
-            if w in e.key:
-                t = getattr(e, "self_device_time_total", None)
-                us[w] += e.self_cuda_time_total if t is None else t
-                counts[w] += e.count
-    if not all(0 < c <= calls for c in counts.values()):
-        raise RuntimeError(f"kernel_device_ms: the profiler saw {counts} launches in "
-                           f"{calls} calls")
-    return sum(us[w] / counts[w] for w in words) / 1e3
+    seen = []
+    for _ in range(PROFILE_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize(device)
+        us, counts = dict.fromkeys(words, 0.0), dict.fromkeys(words, 0)
+        for e in prof.key_averages():
+            for w in words:
+                if w in e.key:
+                    t = getattr(e, "self_device_time_total", None)
+                    us[w] += e.self_cuda_time_total if t is None else t
+                    counts[w] += e.count
+        seen.append(counts)
+        if all(0 < c <= calls for c in counts.values()):
+            PROFILER_SESSIONS.setdefault("+".join(words), []).append(len(seen))
+            return sum(us[w] / counts[w] for w in words) / 1e3
+    raise RuntimeError(f"kernel_device_ms: the profiler saw {seen} launches in {calls} calls "
+                       f"in each of {PROFILE_SESSIONS} sessions")
 
 
 def device_profile(fn, steps: int, device) -> dict:
@@ -1178,8 +1266,7 @@ def bounce_bound(tables, record):
     written (65), alive or not, and 4 bytes per uniform a live hit read."""
     import torch
 
-    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traversal_work
-    from gpu_raytracer_tpu_torch.ops.trace import trace
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import trace, traversal_work
     from gpu_raytracer_tpu_torch.ops.wavefront import pool_uniforms, sampled_shadow_rays
 
     scene, rt, sh = tables.scene, tables.render, tables.shade
@@ -1202,7 +1289,7 @@ def bounce_bound(tables, record):
         o, d = r.origin[sel].contiguous(), r.direction[sel].contiguous()
         far = torch.full((sel.shape[0],), F32_MAX, device=tables.device)
         closest = traversal_work(tr, o, d, far)
-        hit = trace(scene, o, d, max_t=far)
+        hit = trace(tr, o, d, max_t=far)     # K1, held to the plain walk in phases 3 and 10
         flops = walk_flops(closest)
         n_live_lanes, n_hit = int(sel.shape[0]), int(hit.hit.sum())
         if n_live_lanes != lives[k]:
@@ -1233,8 +1320,9 @@ def bounce_bound(tables, record):
                         + (n_hit * 4 * u_cols if given_u else 0)
                         + (8 if n_live is not None else 0) + tbytes)
         old_bytes += N * (53 + 65) + n_hit * 4 * u_cols + tbytes
-        walks.append(dict(live=n_live_lanes, hits=n_hit, shadow_rays=n_shadow,
+        walks.append(dict(live=n_live_lanes, hits=n_hit, shadow_rays=n_shadow, node_width=tr.width,
                           nodes=int(closest[:, 0].sum()), tris=int(closest[:, 1].sum()),
+                          live_slots=int(closest[:, 4].sum()),
                           simt_closest=simt_efficiency(closest), simt_shadow=shadow_simt))
     ms, by = bound_ms(total_bytes, total_flops)
     old_ms, old_by = bound_ms(old_bytes, total_flops)
@@ -1252,7 +1340,13 @@ def _launch_counters():
                 k5_standalone=(sample_materials, "launches"),
                 k2=(render_primary, "launches"), k2t=(render_primary, "textured_launches"),
                 k3=(render_deferred, "launches"),
-                k4=(texture_shade, "launches"), k1_standalone=(traverse, "launches"))
+                k4=(texture_shade, "launches"), k1_standalone=(traverse, "launches"),
+                # the width-8 instances (phase 22)
+                k6_w8=(fused_bounce_, "w8_launches"),
+                k5_w8=(fused_bounce_, "w8_material_launches"),
+                k2_w8=(render_primary, "w8_launches"),
+                k2t_w8=(render_primary, "w8_textured_launches"),
+                k3_w8=(render_deferred, "w8_launches"), k1_standalone_w8=(traverse, "w8_launches"))
 
 
 def reset_launches():
@@ -1264,14 +1358,16 @@ def read_launches() -> dict:
     return {k: getattr(fn, attr) for k, (fn, attr) in _launch_counters().items()}
 
 
-ZERO_LAUNCHES = dict(k6=0, k5=0, k5_standalone=0, k2=0, k2t=0, k3=0, k4=0, k1_standalone=0)
+ZERO_LAUNCHES = dict(k6=0, k5=0, k5_standalone=0, k2=0, k2t=0, k3=0, k4=0, k1_standalone=0,
+                     k6_w8=0, k5_w8=0, k2_w8=0, k2t_w8=0, k3_w8=0, k1_standalone_w8=0)
 
 
-def phase_pathtracer(scene, label, device, card, size):
+def phase_pathtracer(scene, label, device, card, size, keep=None):
     """Phase 12 for one scene: the main path, PathTracer.step() at
     PT_SIZE^2 (spectral, shadows, QMC-jittered anti-aliasing, depth 4):
     ms per sample, launch counts, the per-stage breakdown, the plain path
-    on the card, the 4-spp image against it, and the sort-skipped reading."""
+    on the card, the 4-spp image against it, and the sort-skipped reading.
+    The plain path's 4-spp image goes into `keep[label]` where given."""
     import torch
 
     from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
@@ -1338,6 +1434,8 @@ def phase_pathtracer(scene, label, device, card, size):
     if share < PT_IMAGE_SHARE:
         raise AssertionError(f"{label}: {share:.4%} of the 4-spp image within {RGB_TOL} "
                              f"of the plain path < {PT_IMAGE_SHARE:.1%}")
+    if keep is not None:
+        keep[label] = plain.image_device()
     k6 = lambda st: sum(v for k, v in st.items() if k.startswith("bounce"))
     out = dict(ms_per_spp=ms, plain_ms_per_spp=plain_ms, ms_per_spp_unsorted=ms_unsorted,
                launches=launches, active_per_depth=counts, stages_ms=stages,
@@ -2114,7 +2212,7 @@ def tables_equal(a, b) -> list:
     bad = [n for n in ("nodes", "tris", "attrs")
            if getattr(a, n).shape != getattr(b, n).shape
            or not torch.equal(getattr(a, n).view(torch.int32), getattr(b, n).view(torch.int32))]
-    return bad + [n for n in ("depth", "stack") if getattr(a, n) != getattr(b, n)]
+    return bad + [n for n in ("depth", "stack", "width") if getattr(a, n) != getattr(b, n)]
 
 
 def lbvh_cpu_compare(scene) -> dict:
@@ -2139,19 +2237,22 @@ def lbvh_cpu_compare(scene) -> dict:
     return dict(arrays=len(dev), nodes=int(dev[2].shape[0]), quads=int(dev[9].shape[0]))
 
 
-def refit_frame_compare(r, label, frame=None):
+def refit_frame_compare(r, label, frame=None, ref=None):
     """A frame of renderer `r` (K2, or K3 + K4 textured; `frame`, or a new
     one) on its current scene against the plain path on the same pixels,
     outside the camera rays whose closest triangle K1 and the plain walk
-    pick differently at the same t."""
+    pick differently at the same t. `ref` (a scene's name) reads the plain
+    frame and hits that phases 3-9 kept for the scene's frame pixels."""
     from gpu_raytracer_tpu_torch.engine.renderer import render_chunk, render_deferred_chunk
 
     if frame is None:
         frame = r.render_device()
     plain = render_deferred_chunk if r.textured else render_chunk
-    ref = plain(r.scene, r.px, r.py, r.width, r.height, shadows=r.shadows, sky=r.sky)
-    ties = primary_ties(r.tables, r.width, r.height, r.px, r.py)
-    diff = (frame - ref).abs().amax(dim=1)
+    ref_ = plain_ref(None if ref is None else (ref, "frame", r.width, r.height, r.shadows),
+                     lambda: plain(r.scene, r.px, r.py, r.width, r.height, shadows=r.shadows,
+                                   sky=r.sky))
+    ties = primary_ties(r.tables, r.width, r.height, r.px, r.py, ref=ref)
+    diff = (frame - ref_).abs().amax(dim=1)
     err = diff[~ties].max().item()
     n_ties = int(ties.sum())
     if err > RGB_TOL or n_ties > TIE_BUDGET * diff.shape[0]:
@@ -2357,8 +2458,10 @@ def frame_bounds(tables, width, height, shade=None):
     sph = N * tables.spheres.shape[0] * SPHERE_FLOPS
     n_hit = int(h.sum())
     tb = table_bytes(tr.nodes, tr.tris, tables.materials, tables.lights, tables.spheres)
-    out = dict(rays=N, hits=n_hit, nodes=int(work[:, 0].sum()), tris=int(work[:, 1].sum()),
+    out = dict(rays=N, hits=n_hit, node_width=tr.width, nodes=int(work[:, 0].sum()),
+               tris=int(work[:, 1].sum()), live_slots=int(work[:, 4].sum()),
                simt_efficiency=simt)
+    out["live_slots_per_visit"] = out["live_slots"] / max(out["nodes"], 1)
     out["K1"] = bound_ms(N * (28 + 24) + table_bytes(tr.nodes, tr.tris), walk)
     out["K2"] = bound_ms(N * (8 + 12) + tb, walk + sph + n_hit * SHADE_FLOPS)
     out["K3"] = bound_ms(N * (8 + 32) + tb + table_bytes(tr.attrs),
@@ -2377,6 +2480,372 @@ def frame_bounds(tables, width, height, shade=None):
         out["K2t"] = bound_ms(N * (8 + 12) + tb + table_bytes(tr.attrs) + sb,
                               walk + sph + n_hit * (SHADE_FLOPS + 30) + n_samples * TEXEL_FLOPS)
     return out
+
+# ---- BVH width 8 and the spatial-split tree (phase 22) ----
+
+def preorder_tree(scene):
+    """The scene's binary tree in left-first preorder -> NumPy (node_min,
+    node_max, tri_start, tri_count, leaf flags): equal results are the same
+    tree over the same slots, whatever the builder's node numbering."""
+    import numpy as np
+
+    b = scene.bvh
+    left, right = b.left.cpu().numpy(), b.right.cpu().numpy()
+    order, stack = [], [0]
+    while stack:
+        n = stack.pop()
+        order.append(n)
+        if left[n] >= 0:
+            stack += [int(right[n]), int(left[n])]
+    order = np.asarray(order)
+    return [t.cpu().numpy()[order] for t in (b.node_min, b.node_max, b.tri_start, b.tri_count)] \
+        + [left[order] < 0]
+
+
+def same_tree_and_slots(a, b) -> bool:
+    """Whether scenes a and b hold one binary tree over one leaf-ordered
+    triangle table (their wide overlays aside)."""
+    import numpy as np
+    import torch
+
+    slots = all(torch.equal(getattr(a, n).view(torch.int32), getattr(b, n).view(torch.int32))
+                for n in ("tri_v0", "tri_e1", "tri_e2", "tri_mat", "tri_src"))
+    return slots and all(np.array_equal(x, y) for x, y in zip(preorder_tree(a), preorder_tree(b)))
+
+
+def alternating_ms(fn4, fn8, n: int, device) -> dict:
+    """Median ms of n calls of fn4 (width 4) and fn8 (width 8), read in turns
+    w4, w8, w8, w4."""
+    out = dict(w4=[], w8=[])
+    for key, fn in (("w4", fn4), ("w8", fn8), ("w8", fn8), ("w4", fn4)):
+        out[key].append(timed(fn, n, device))
+    return out
+
+
+def main_path_launches(fn, n: int, device, want: dict, label: str) -> tuple[float, dict]:
+    """Median ms of n calls of fn with every launch count set to 0 before
+    and read after; on the card the counts must be `want` (ZERO_LAUNCHES
+    elsewhere)."""
+    reset_launches()
+    ms = timed(fn, n, device)
+    launches = read_launches()
+    if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, **want):
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    return ms, launches
+
+
+def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size, triangles,
+                 texture_size, shadow_rays, plain_images, device, card):
+    """Phase 22: BVH width 8 (config.bvh_width = 8) on both 100k courtyards.
+    The width-8 scenes built through the user's path, asserted to share
+    width 4's binary tree and slots, their stack asserted against their
+    depth; K1 on the camera and shadow rays, K2 (shadows off, on), K3 + K4,
+    K2t and K6 (the main path's pools, both courtyards) against their plain
+    versions; the main paths (Renderer frames, render_primary with the
+    shade tables, PathTracer.step()) with their launch counts, each timed in
+    turns with width 4 in this process; the 4-spp images against phase 12's
+    plain images; node visits and triangle tests per ray, SIMT efficiency,
+    the width-aware bounds, registers and spills; a topology refit of a
+    width-8 Viewer (tables kept, width 8) and its frame, then a rebuild
+    (width 4) and the frame after it. The same binary tree and slots give
+    the same plain path, so the plain outputs are phases 3-12's (PLAIN_REFS)
+    wherever the inputs are theirs; only K2t's frames (phase 15's are of the
+    GLB courtyard) and the refit frame (moved geometry) are rendered plain
+    here."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.config import RaytracerConfig
+    from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.engine.viewer import Viewer
+    from gpu_raytracer_tpu_torch.models.scene import refit_scene
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import pack_bounce_tables
+    from gpu_raytracer_tpu_torch.ops.cuda.build import load_kernels
+    from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
+                                                         render_primary)
+    from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
+    from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
+
+    cuda = device.type == "cuda"
+    cfg = RaytracerConfig(bvh_width=8)
+    out = dict(card=card)
+    t0 = time.perf_counter()
+    s8 = make_courtyard_scene(triangles, seed=0, config=cfg, device=device)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t8 = make_courtyard_scene(triangles, seed=0, textured=True, texture_size=texture_size,
+                              config=cfg, device=device)
+    tbuild_s = time.perf_counter() - t0
+    tab8, ttab8, shade8 = pack_render_tables(s8), pack_render_tables(t8), pack_shade_tables(t8)
+    tr4, tr8 = tables.trace, tab8.trace
+    for label, a, b in (("courtyard", scene, s8), ("textured courtyard", tscene, t8)):
+        if not same_tree_and_slots(a, b):
+            raise AssertionError(f"{label}: the width-8 scene has another binary tree or slots")
+    depth_read = wide_depth_of(s8)
+    if (tr8.width, ttab8.trace.width, tr8.nodes.shape[1]) != (8, 8, 64) \
+            or tr8.depth != depth_read or 7 * tr8.depth + 1 > tr8.stack:
+        raise AssertionError(f"width-8 tables: width {tr8.width}, {tuple(tr8.nodes.shape)}, "
+                             f"depth {tr8.depth} (read {depth_read}), stack {tr8.stack}")
+    ptxas = ptxas_summary(load_kernels().log) if cuda else {}
+    out["scene"] = dict(
+        build_s=build_s, textured_build_s=tbuild_s, slots=int(s8.tri_v0.shape[0]),
+        bvh8_nodes=int(tr8.nodes.shape[0]), bvh4_nodes=int(tr4.nodes.shape[0]),
+        bvh8_table_mb=tr8.nodes.numel() * 4 / 2**20, bvh4_table_mb=tr4.nodes.numel() * 4 / 2**20,
+        bvh8_depth=tr8.depth, bvh4_depth=tr4.depth, bvh8_stack=tr8.stack, bvh4_stack=tr4.stack,
+        shares_binary_tree_and_slots=True,
+        ptxas={k: v for k, v in ptxas.items()
+               if re.search(rf"<(8, {tr8.stack}|4, {tr4.stack})[,>]", k)})
+    log(f"phase 22 width-8 scenes: {json.dumps(out['scene'])}")
+
+    # K1: the camera and shadow rays against the plain walk, then in turns with width 4
+    out["k1"], ties = phase_k1(s8, tr8, width, height, shadow_rays, device, card, phase="22",
+                               ref="courtyard")
+    px, py = frame_pixels(width, height, device)
+    o, d = primary_rays(scene, width, height, px, py)
+    far = torch.full((px.shape[0],), F32_MAX, device=device)
+    out["k1"]["w4_w8_ms"] = alternating_ms(lambda: traverse(tr4, o, d, far),
+                                           lambda: traverse(tr8, o, d, far), FRAMES, device)
+    log(f"phase 22 K1 in turns with width 4: {json.dumps(out['k1']['w4_w8_ms'])}")
+    launches = dict(k2_w8=0, k2t_w8=0, k3_w8=0, k6_w8=0, k5_w8=0)   # the main paths
+
+    # K2: Renderer.render_device(), the main path, shadows off and on
+    out["k2"] = {}
+    for shadows in (False, True):
+        key = "shadows" if shadows else "no_shadows"
+        stats = k2_compare(s8, width, height, shadows, device, ties, ref="courtyard")
+        r4 = Renderer(scene, width, height, shadows=shadows, device=device)
+        r8 = Renderer(s8, width, height, shadows=shadows, device=device)
+        r4.render_device()
+        r8.render_device()
+        stats["ms"], got = main_path_launches(r8.render_device, FRAMES, device,
+                                              dict(k2_w8=FRAMES), f"width-8 K2 {key}")
+        launches["k2_w8"] += got["k2_w8"]
+        stats["w4_w8_ms"] = alternating_ms(r4.render_device, r8.render_device, FRAMES, device)
+        out["k2"][key] = stats
+        del r4, r8
+    log(f"phase 22 K2 width 8: {json.dumps(out['k2'])}")
+
+    # K3 (+ K4) and K2t on the textured courtyard
+    tties = primary_ties(ttab8, width, height, px, py, ref="textured_courtyard")
+    out["k3"] = {}
+    for shadows in (False, True):
+        key = "shadows" if shadows else "no_shadows"
+        out["k3"][key] = gbuffer_compare(ttab8, px, py, width, height, shadows, tties,
+                                         ref="textured_courtyard")[0]
+    rt8 = Renderer(t8, width, height, shadows=False, device=device)
+    rt8.render_device()
+    ms, got = main_path_launches(rt8.render_device, FRAMES, device, dict(k3_w8=FRAMES, k4=FRAMES),
+                                 "width-8 textured frames")
+    launches["k3_w8"] += got["k3_w8"]
+    out["k3"]["frame_ms"] = ms
+    out["k3"]["frame"] = refit_frame_compare(rt8, "K3 + K4 at width 8", ref="textured_courtyard")
+    out["k3"]["w4_w8_ms"] = alternating_ms(
+        lambda: render_deferred(ttables, px, py, width, height),
+        lambda: render_deferred(ttab8, px, py, width, height), FRAMES, device)
+    del rt8
+    near = mip_boundary_mask(shade8, render_deferred(ttab8, px, py, width, height))
+    out["k2t"] = {}
+    for shadows in (False, True):
+        key = "shadows" if shadows else "no_shadows"
+        stats, _ = primary_compare(ttab8, shade8, px, py, width, height, shadows, tties | near)
+        fused = lambda: render_primary(ttab8, px, py, width, height, shadows=shadows,
+                                       sky=(0.1, 0.2, 0.3), shade=shade8)
+        stats["ms"], got = main_path_launches(fused, FRAMES, device, dict(k2t_w8=FRAMES),
+                                              f"width-8 K2t {key}")
+        launches["k2t_w8"] += got["k2t_w8"]
+        stats["w4_w8_ms"] = alternating_ms(
+            lambda: render_primary(ttables, px, py, width, height, shadows=shadows,
+                                   sky=(0.1, 0.2, 0.3), shade=tshade), fused, FRAMES, device)
+        out["k2t"][key] = stats
+    log(f"phase 22 K3, K2t width 8: {json.dumps(dict(k3=out['k3'], k2t=out['k2t']))}")
+
+    # K6: the main path's pools, then PathTracer.step() on both courtyards
+    k6 = phase_k6(pack_bounce_tables(s8), pt_size, pt_size, "courtyard_w8", ref="courtyard")
+    k6.update(phase_k6(pack_bounce_tables(t8), pt_size, pt_size, "textured_courtyard_w8",
+                       ref="textured_courtyard"))
+    out["k6_pools"] = k6
+
+    def tracer(sc):
+        return PathTracer(sc, pt_size, pt_size, spectral=True, shadows=True, antialias=True,
+                          sampler="qmc", device=device)
+
+    out["pathtracer"] = {}
+    for label, sc4, sc8 in (("courtyard", scene, s8), ("textured_courtyard", tscene, t8)):
+        textured = sc8.textures.textured
+        pt8 = tracer(sc8)
+        pt8.step()
+        no_host_sync(pt8.step, device)
+        pt8.reset()
+        steps = PT_STEPS * (MAX_DEPTH + 1)
+        ms, got = main_path_launches(pt8.step, PT_STEPS, device,
+                                     dict(k6_w8=steps, k5_w8=steps if textured else 0),
+                                     f"width-8 PathTracer.step() on the {label}")
+        launches["k6_w8"] += got["k6_w8"]
+        launches["k5_w8"] += got["k5_w8"]
+        img = tracer(sc8)
+        for _ in range(PT_PLAIN_STEPS):
+            img.step()
+        diff = (img.image_device() - plain_images[label]).abs().amax(dim=2)
+        share = (diff <= RGB_TOL).float().mean().item()
+        if share < PT_IMAGE_SHARE:
+            raise AssertionError(f"width-8 {label}: {share:.4%} of the 4-spp image within "
+                                 f"{RGB_TOL} of the plain path < {PT_IMAGE_SHARE:.1%}")
+        stats = dict(ms_per_spp=ms, launches=got, image_share_within_tol=share,
+                     image_max_abs_diff=diff.max().item())
+        if cuda:
+            pt4 = tracer(sc4)
+            pt4.step()
+            prof = [device_profile(p.step, PT_STEPS, device) for p in (pt4, pt8, pt8, pt4)]
+            stats["k6_device_ms_per_spp"] = dict(w4=[prof[0]["k6_device_ms"],
+                                                     prof[3]["k6_device_ms"]],
+                                                 w8=[prof[1]["k6_device_ms"],
+                                                     prof[2]["k6_device_ms"]])
+            stats["device_ms_per_spp"] = dict(w4=[prof[0]["device_ms"], prof[3]["device_ms"]],
+                                              w8=[prof[1]["device_ms"], prof[2]["device_ms"]])
+            record = []
+            with recorded_bounces(record):
+                pt8.step()
+            stats["k6_bound"] = bounce_bound(pt8.tables, record)
+            record = []
+            with recorded_bounces(record):
+                pt4.step()
+            stats["k6_bound_w4"] = bounce_bound(pt4.tables, record)
+            del record, pt4
+        out["pathtracer"][label] = stats
+        del pt8, img
+    log(f"phase 22 K6 width 8: {json.dumps(dict(pools=k6, pathtracer=out['pathtracer']))}")
+
+    # the Viewer: a topology refit keeps width 8; a rebuild gives width 4
+    v = Viewer(s8, width, height, shadows=True, verbose=False, device=device)
+    v.run_compute()
+    base = s8.mesh.vertices.cpu().numpy()
+    moved = base.copy()
+    moved[:, 1] += 0.05
+    nodes = v.renderer.tables.trace.nodes
+    v.update_geometry(moved)
+    if v.renderer.tables.trace.width != 8 or v.renderer.tables.trace.nodes is not nodes:
+        raise AssertionError("a topology refit of a width-8 scene replaced its width-8 tables")
+    _, got = main_path_launches(v.run_compute, 1, device, dict(k2_w8=1),
+                                "the width-8 Viewer's refit frame")
+    launches["k2_w8"] += got["k2_w8"]
+    bad = tables_equal(v.renderer.tables.trace, pack_render_tables(v.scene).trace)
+    if bad:
+        raise AssertionError(f"width-8 refreshed tables differ from a fresh pack in {bad}")
+    out["viewer_refit"] = refit_frame_compare(v.renderer, "K2 width 8 after a topology refit",
+                                              v._fb_dev)
+    # the rebuilt tree's frame: phase 21 holds K2 on a rebuilt tree to the
+    # plain path; here the frame after set_geometry must be width 4's K2 on
+    # the new tables, bit for bit a fresh renderer's of the rebuilt scene
+    r = v.renderer
+    rebuilt = refit_scene(v.scene, moved, rebuild=True)
+    r.set_geometry(rebuilt)
+    if (r.tables.trace.width, r.tables.trace.nodes.shape[1]) != (4, 32):
+        raise AssertionError(f"a rebuild left width-{r.tables.trace.width} tables")
+    reset_launches()
+    frame = r.render_device()
+    got = read_launches()
+    if cuda and (got["k2"], got["k2_w8"]) != (1, 0):
+        raise AssertionError(f"the rebuilt width-8 scene's frame launched {got}")
+    fresh = Renderer(rebuilt, width, height, shadows=True, device=device).render_device()
+    if not torch.isfinite(frame).all() or not torch.equal(frame, fresh):
+        raise AssertionError("the frame after a rebuild differs from a fresh renderer's")
+    out["rebuilt_frame"] = dict(launches=got, equal_to_fresh_renderer=True,
+                                mean=frame.mean().item())
+    del v, r, rebuilt, fresh
+
+    if cuda:
+        out["bounds"] = dict(w8=frame_bounds(tab8, width, height),
+                             w8_textured=frame_bounds(ttab8, width, height, shade=shade8))
+        for key, fb in out["bounds"].items():
+            fb["nodes_per_ray"], fb["tris_per_ray"] = fb["nodes"] / fb["rays"], fb["tris"] / fb["rays"]
+    out["launches"] = launches
+    out["max_abs_err"] = dict(
+        k1=max(out["k1"]["primary"]["t_abs"], out["k1"]["primary"]["normal_abs"],
+               out["k1"]["shadow"]["t_abs"], out["k1"]["shadow"]["normal_abs"]),
+        k2=max([v["err"] for v in out["k2"].values()] + [out["viewer_refit"]["max_abs_err"]]),
+        k3=max([e for v in out["k3"].values() if isinstance(v, dict) and "S" in v
+                for e in (v["S"], v["uv"], v["lam_rel"])] + [out["k3"]["frame"]["max_abs_err"]]),
+        k2t=max(v["err"] for v in out["k2t"].values()),
+        k6=max(v["max_abs_err"] for v in k6.values()))
+    log(f"phase 22 width 8 summary: {json.dumps(dict(launches=launches, bounds=out.get('bounds'), max_abs_err=out['max_abs_err'], viewer_refit=out['viewer_refit'], rebuilt_frame=out['rebuilt_frame']))}")
+    return out
+
+
+def phase_sbvh(scene, tables, width, height, pt_size, triangles, device, card):
+    """Phase 22b: the spatial-split courtyard (config.bvh_spatial_splits,
+    the NumPy SBVH builder; ~9 s on the host): its references and tree
+    checked, K2 through Renderer (shadows off and on) against render_chunk
+    on its own tree, timed in turns with the SAH courtyard's, one
+    PathTracer.step() (K6 five times) and K6 on the depth-0 pool against the
+    plain bounce, node visits per camera ray against the SAH tree's."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.config import RaytracerConfig
+    from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.models.bvh import scene_tree, validate_bvh
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import pack_bounce_tables
+    from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traversal_work
+    from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
+
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    sb = make_courtyard_scene(triangles, seed=0, config=RaytracerConfig(bvh_spatial_splits=True),
+                              device=device)
+    build_s = time.perf_counter() - t0
+    tb = pack_render_tables(sb)
+    src = sb.tri_src[sb.tri_src >= 0]
+    if int(src.unique().numel()) != sb.num_triangles:
+        raise AssertionError("the spatial-split tree leaves a triangle out")
+    validate_bvh(scene_tree(sb), sb.num_triangles, allow_refs=True)
+    out = dict(card=card, build_s=build_s, binary_nodes=sb.bvh.num_nodes,
+               bvh4_nodes=int(tb.trace.nodes.shape[0]), bvh4_depth=tb.trace.depth,
+               stack=tb.trace.stack, slots=int(sb.tri_v0.shape[0]), references=int(src.numel()),
+               sah_binary_nodes=scene.bvh.num_nodes, sah_bvh4_nodes=int(tables.trace.nodes.shape[0]))
+    px, py = frame_pixels(width, height, device)
+    ties = primary_ties(tb, width, height, px, py)
+    launches = dict(k2=0, k6=0)
+    out["k2"] = {}
+    for shadows in (False, True):
+        key = "shadows" if shadows else "no_shadows"
+        stats = k2_compare(sb, width, height, shadows, device, ties)
+        r4 = Renderer(scene, width, height, shadows=shadows, device=device)
+        rs = Renderer(sb, width, height, shadows=shadows, device=device)
+        r4.render_device()
+        rs.render_device()
+        stats["ms"], got = main_path_launches(rs.render_device, FRAMES, device, dict(k2=FRAMES),
+                                              f"SBVH K2 {key}")
+        launches["k2"] += got["k2"]
+        ab = alternating_ms(r4.render_device, rs.render_device, FRAMES, device)
+        stats["sah_sbvh_ms"] = dict(sah=ab["w4"], sbvh=ab["w8"])
+        out["k2"][key] = stats
+        del r4, rs
+    pt = PathTracer(sb, pt_size, pt_size, spectral=True, shadows=True, antialias=True,
+                    sampler="qmc", device=device)
+    pt.step()
+    pt.reset()
+    ms, got = main_path_launches(pt.step, 1, device, dict(k6=MAX_DEPTH + 1),
+                                 "SBVH PathTracer.step()")
+    launches["k6"] += got["k6"]
+    if not torch.isfinite(pt.image_device()).all():
+        raise AssertionError("SBVH path tracer: image not finite")
+    out["pathtracer_step_ms"] = ms
+    out["k6_pools"] = phase_k6(pack_bounce_tables(sb), pt_size, pt_size, "sbvh", depths=(0,))
+    if cuda:
+        o, d = primary_rays(scene, width, height, px, py)
+        far = torch.full((px.shape[0],), F32_MAX, device=device)
+        per_ray = lambda w: dict(nodes=w[:, 0].sum().item() / w.shape[0],
+                                 tris=w[:, 1].sum().item() / w.shape[0])
+        out["camera_ray_work"] = dict(sah=per_ray(traversal_work(tables.trace, o, d, far)),
+                                      sbvh=per_ray(traversal_work(tb.trace, o, d, far)))
+    out["launches"] = launches
+    out["k2_err"] = max(v["err"] for v in out["k2"].values())
+    out["k6_err"] = max(v["max_abs_err"] for v in out["k6_pools"].values())
+    log(f"phase 22b spatial-split courtyard: {json.dumps(out)}")
+    return out
+
 
 def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTURE_SIZE,
         pt_size=PT_SIZE, synth_size=SYNTH_SIZE, zoo_triangles=ZOO_TRIANGLES, crop=CROP):
@@ -2402,9 +2871,11 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
                 builder_lib=os.path.relpath(builder.path, ROOT))
     log(f"phase 2 scene: {json.dumps(info)}")
 
-    k1, ties = phase_k1(scene, tables.trace, width, height, shadow_rays, device, card)
+    k1, ties = phase_k1(scene, tables.trace, width, height, shadow_rays, device, card,
+                        ref="courtyard")
     k2 = {f"courtyard_{'shadows' if s else 'no_shadows'}":
-          k2_compare(scene, width, height, s, device, ties) for s in (False, True)}
+          k2_compare(scene, width, height, s, device, ties, ref="courtyard")
+          for s in (False, True)}
     demo = build_default_scene(device=device)
     k2.update({f"default_256_{'shadows' if s else 'no_shadows'}":
                k2_compare(demo, 256, 256, s, device) for s in (False, True)})
@@ -2416,9 +2887,11 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     k2_launches = main["no_shadows"]["k2_launches"] + main["shadows"]["k2_launches"]
 
     tscene, ttables, tshade = phase_textured_scene(device, triangles, texture_size)
-    k3, gbuf, ties = phase_k3(tscene, ttables, width, height, device, card)
+    k3, gbuf, ties = phase_k3(tscene, ttables, width, height, device, card,
+                              ref="textured_courtyard")
     k4 = phase_k4(tshade, gbuf, ties, device, card)
-    tmain = phase_textured_main(tscene, width, height, device, card, ties)
+    tmain = phase_textured_main(tscene, width, height, device, card, ties,
+                                ref="textured_courtyard")
     k3_launches = tmain["no_shadows"]["k3_launches"] + tmain["shadows"]["k3_launches"]
     k4_launches = tmain["no_shadows"]["k4_launches"] + tmain["shadows"]["k4_launches"]
     k3_err = max(v[e] for v in k3.values() if isinstance(v, dict)
@@ -2426,10 +2899,11 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     del gbuf
 
     btables = pack_bounce_tables(scene)
-    k6 = phase_k6(btables, pt_size, pt_size, "courtyard")
+    k6 = phase_k6(btables, pt_size, pt_size, "courtyard", ref="courtyard")
     log(f"phase 10 K6 {pt_size}x{pt_size}: {json.dumps(k6)}")
     tbtables = pack_bounce_tables(tscene)
-    k6t = phase_k6(tbtables, pt_size, pt_size, "textured_courtyard", biases=(0.0, 1.0))
+    k6t = phase_k6(tbtables, pt_size, pt_size, "textured_courtyard", biases=(0.0, 1.0),
+                   ref="textured_courtyard")
     synth = pack_bounce_tables(synthetic_textured_scene(0, mips=4, device=device))
     k6t.update(phase_k6(synth, synth_size, synth_size, "synthetic", biases=(0.0, 1.0),
                         depths=(0, 1, 2)))
@@ -2447,7 +2921,8 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
         phase_qmc(device, card, pt_size * pt_size)
     del btables, tbtables, synth, degenerate, one_light
 
-    pt = {label: phase_pathtracer(sc, label, device, card, pt_size)
+    plain_images = {}   # phase 12's plain 4-spp images: phase 22's width-8 reference
+    pt = {label: phase_pathtracer(sc, label, device, card, pt_size, keep=plain_images)
           for label, sc in (("courtyard", scene), ("textured_courtyard", tscene))}
     k6_launches = sum(v["launches"]["k6"] for v in pt.values())
     k5_launches = sum(v["launches"]["k5"] for v in pt.values())
@@ -2489,6 +2964,14 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     k6_launches += sum(v["k6"] for v in interactive)
     k5_launches += sum(v["k5"] for v in interactive)
     k2t_err = max(v["err"] for v in k2t.values() if isinstance(v, dict))
+    w8 = phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size, triangles,
+                      texture_size, shadow_rays, plain_images, device, card)
+    del plain_images
+    PLAIN_REFS.clear()
+    sbvh = phase_sbvh(scene, tables, width, height, pt_size, triangles, device, card)
+    k2_launches += sbvh["launches"]["k2"]
+    k6_launches += sbvh["launches"]["k6"]
+    k2_err = max(k2_err, sbvh["k2_err"])
 
     fb = frame_bounds(tables, width, height) if cuda else {}
     tfb = frame_bounds(ttables, width, height, shade=tshade) if cuda else {}
@@ -2560,7 +3043,53 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              ms=ptc["profile"].get("k6_device_ms"), plain_ms=ptc["k6_plain_ms_per_spp"],
              bound_ms=kb.get("bound_ms"), bound_by=kb.get("bound_by"), library_ms=None),
     ]
+    w8l, w8e, w8b = w8["launches"], w8["max_abs_err"], w8.get("bounds", {})
+    w8pt = w8["pathtracer"]["courtyard"]
+    bound8 = lambda key, kernel: bound(w8b.get(key, {}).get(kernel))
+    mean = lambda xs: sum(xs) / len(xs)
+    w8_note = "width-8 instance (config.bvh_width=8, phase 22, 100k courtyard); plain_ms: "
+    kernels += [
+        dict(name="K1 bvh8_traverse (the width-8 walk, a device function in every width-8 K2, "
+                  "K2t, K3 and K6 launch, whose launches it counts; " + w8_note + "phase 3's "
+                  "plain walk, the same binary tree and slots; ms on the 1080p camera rays)",
+             route="cuda", source="gpu_raytracer_tpu_torch/csrc/traverse_w8.cu",
+             replaces="gpu_raytracer_tpu/ops/pallas/traverse.py:476",
+             launches=w8l["k2_w8"] + w8l["k2t_w8"] + w8l["k3_w8"] + w8l["k6_w8"],
+             max_abs_err=w8e["k1"], ms=w8["k1"]["ms"], plain_ms=w8["k1"]["plain_ms"],
+             **bound8("w8", "K1"), library_ms=None),
+        dict(name="K2 render_primary, " + w8_note + "phase 5's, the same binary tree and "
+                  "slots; ms: Renderer.render_device() at 1080p, shadows off",
+             route="cuda", source="gpu_raytracer_tpu_torch/csrc/render_primary_w8.cu",
+             replaces="gpu_raytracer_tpu/ops/pallas/render.py:701", launches=w8l["k2_w8"],
+             max_abs_err=w8e["k2"], ms=w8["k2"]["no_shadows"]["ms"],
+             plain_ms=main["no_shadows"]["plain_ms"], **bound8("w8", "K2"), library_ms=None),
+        dict(name="K2t render_primary_textured, " + w8_note + "phase 15's on the GLB courtyard "
+                  "(frame equal to the procedural one); ms on the textured courtyard, "
+                  "shadows off", route="cuda",
+             source="gpu_raytracer_tpu_torch/csrc/render_primary_textured_w8.cu",
+             replaces="gpu_raytracer_tpu/ops/pallas/render.py:363", launches=w8l["k2t_w8"],
+             max_abs_err=w8e["k2t"], ms=w8["k2t"]["no_shadows"]["ms"],
+             plain_ms=k2t["textured_courtyard_no_shadows"]["plain_ms"],
+             **bound8("w8_textured", "K2t"), library_ms=None),
+        dict(name="K3 render_deferred, " + w8_note + "phase 7's, the same binary tree and "
+                  "slots; ms: render_deferred at 1080p, shadows off", route="cuda",
+             source="gpu_raytracer_tpu_torch/csrc/render_deferred_w8.cu",
+             replaces="gpu_raytracer_tpu/ops/pallas/render.py:787", launches=w8l["k3_w8"],
+             max_abs_err=w8e["k3"], ms=mean(w8["k3"]["w4_w8_ms"]["w8"]), plain_ms=k3["plain_ms"],
+             **bound8("w8_textured", "K3"), library_ms=None),
+        dict(name="K6 bounce, " + w8_note + "phase 12's per sample on the same tree and slots; "
+                  f"ms: kernel device time per sample at {pt_size}^2 (torch.profiler)",
+             route="cuda", source="gpu_raytracer_tpu_torch/csrc/bounce_w8.cu",
+             replaces="gpu_raytracer_tpu/ops/pallas/bounce.py:505", launches=w8l["k6_w8"],
+             max_abs_err=w8e["k6"],
+             ms=mean(w8pt["k6_device_ms_per_spp"]["w8"]) if cuda else None,
+             plain_ms=ptc["k6_plain_ms_per_spp"],
+             bound_ms=(w8pt.get("k6_bound") or {}).get("bound_ms"),
+             bound_by=(w8pt.get("k6_bound") or {}).get("bound_by"), library_ms=None),
+    ]
     log(f"bounds 1080p: {json.dumps(dict(untextured=fb, textured=tfb))}")
+    log(f"profiler sessions per kernel_device_ms call: {json.dumps(PROFILER_SESSIONS)}")
+    log(f"seconds per phase (to its line from the one before): {json.dumps(PHASE_SECONDS)}")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
 

@@ -26,7 +26,7 @@ class RaytracerConfig:
     bvh_stack_depth: int = 64
     # Max triangles per BVH leaf; leaves are packed into 8-slot rows.
     bvh_leaf_size: int = 8
-    # Children per wide-BVH node; the port's traversal kernel takes 4.
+    # Children per wide-BVH node: 4 or 8, each with its own kernel instances.
     bvh_width: int = 4
     max_bounce_depth: int = 4
     russian_roulette_start: int = 2

@@ -1,19 +1,18 @@
-// K6 entry point and its untextured instances (the kernel is in bounce.cuh).
-// The textured instances compile in bounce_textured.cu, in parallel with this
-// file.
+// K6 entry point and its untextured width-4 instances (the kernel is in
+// bounce.cuh). The textured and the width-8 instances compile in
+// bounce_textured.cu, bounce_w8.cu and bounce_textured_w8.cu, in parallel
+// with this file.
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
-
-int rt_bounce_textured_launch(const rt::BounceArgs& a, int stack, int nee, int cont,
-                              cudaStream_t s);
 
 // One bounce of the pool in place (bounce.cuh): `order`, `n_live` and `u` may
 // be null; `qmc` points at 4 + 2 * 7 host words (pid_base, sample_base, hd,
 // chunk, the generators, the salts), read when `u` is null. Returns
 // cudaGetLastError() after the launch (0 = launched), or cudaErrorInvalidValue
-// for a stack capacity or flag that was not compiled.
-extern "C" int rt_bounce(const void* nodes, const void* tris, const void* attrs, int stack,
+// for a node width, stack capacity or flag that was not compiled.
+extern "C" int rt_bounce(const void* nodes, const void* tris, const void* attrs, int width,
+                         int stack,
                          const void* mats, int n_mats, const void* lights, int n_lights,
                          const void* spheres, int n_spheres, const void* maps, const void* atlas,
                          int present, int n_levels, int textured, float tex_lod, void* o,
@@ -22,7 +21,7 @@ extern "C" int rt_bounce(const void* nodes, const void* tris, const void* attrs,
                          const void* u, const unsigned* qmc, int nee, int cont, void* stream) {
   if (n <= 0) return 0;
   rt::BounceArgs a;
-  a.nodes = static_cast<const rt::Node4*>(nodes);
+  a.nodes = nodes;
   a.tris = static_cast<const float4*>(tris);
   a.attrs = static_cast<const float4*>(attrs);
   a.mats = static_cast<const float*>(mats);
@@ -51,6 +50,11 @@ extern "C" int rt_bounce(const void* nodes, const void* tris, const void* attrs,
   a.u = static_cast<const float*>(u);
   a.qmc = rt::qmc_stream(qmc);
   auto s = static_cast<cudaStream_t>(stream);
-  return textured ? rt_bounce_textured_launch(a, stack, nee, cont, s)
-                  : rt::launch_bounce<false>(a, stack, nee, cont, s);
+  if (width == 4)
+    return textured ? rt::launch_bounce_textured(a, stack, nee, cont, s)
+                    : rt::launch_bounce<4, false>(a, stack, nee, cont, s);
+  if (width == 8)
+    return textured ? rt::launch_bounce_textured_w8(a, stack, nee, cont, s)
+                    : rt::launch_bounce_w8(a, stack, nee, cont, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -29,7 +29,9 @@
 // Built with -fmad=false it then rounds like the plain version run on the card.
 //
 // Launch flags are template parameters, so each launch compiles to the
-// branches it takes: the traversal stack, textured or not, the lighting mode
+// branches it takes: the node records' width (4 or 8, the width-8 instances in
+// bounce_w8.cu and bounce_textured_w8.cu), the traversal stack, textured or
+// not, the lighting mode
 // (none, every light, one sampled light) and the continuation (none at the
 // last depth, with or without roulette). Where the uniforms come from is a
 // runtime branch on a pointer that is the same for the whole launch.
@@ -112,7 +114,7 @@ inline QmcStream qmc_stream(const unsigned* w) {
 }
 
 struct BounceArgs {
-  const Node4* nodes;
+  const void* nodes;      // Node<W> records of the launch's width
   const float4* tris;
   const float4* attrs;
   const float* mats;
@@ -171,9 +173,10 @@ __device__ __forceinline__ void qmc_uniforms(const QmcStream& q, int lane, float
   }
 }
 
-template <int STACK, bool TEXTURED, int NEE, int CONT>
+template <int W, int STACK, bool TEXTURED, int NEE, int CONT>
 __global__ void __launch_bounds__(kBounceBlock, kBounceMinBlocks)
 bounce_kernel(const BounceArgs a) {
+  const Node<W>* nodes = static_cast<const Node<W>*>(a.nodes);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   if (a.n_live != nullptr && i >= *a.n_live) return;
@@ -189,7 +192,7 @@ bounce_kernel(const BounceArgs a) {
   float rad[3] = {0.0f, 0.0f, 0.0f};
   const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
   Surface s;
-  if (!closest_surface<STACK>(a.nodes, a.tris, a.spheres, a.n_spheres, ray, s)) {
+  if (!closest_surface<W, STACK>(nodes, a.tris, a.spheres, a.n_spheres, ray, s)) {
     const float sky[3] = {0.1f, 0.2f, 0.3f};
 #pragma unroll
     for (int c = 0; c < 3; ++c) rad[c] = sky[c] * thr[c] + 0.0f;
@@ -224,7 +227,7 @@ bounce_kernel(const BounceArgs a) {
                          a.n_lights - 1);
       const float* L = a.lights + li * kLightWords;
       const float I =
-          light_intensity<STACK>(L, s, true, a.nodes, a.tris, a.spheres, a.n_spheres);
+          light_intensity<W, STACK>(L, s, true, nodes, a.tris, a.spheres, a.n_spheres);
       const float gate = I > 0.0f ? 1.0f : 0.0f;
       const float w = brdf * I * gate * static_cast<float>(a.n_lights);
 #pragma unroll
@@ -235,8 +238,8 @@ bounce_kernel(const BounceArgs a) {
       float sum[3] = {0.0f, 0.0f, 0.0f};
       for (int li = 0; li < a.n_lights; ++li) {
         const float* L = a.lights + li * kLightWords;
-        const float I = light_intensity<STACK>(L, s, NEE == kNeeAll, a.nodes, a.tris,
-                                               a.spheres, a.n_spheres);
+        const float I = light_intensity<W, STACK>(L, s, NEE == kNeeAll, nodes, a.tris,
+                                                  a.spheres, a.n_spheres);
         const float gate = I > 0.0f ? 1.0f : 0.0f;
 #pragma unroll
         for (int c = 0; c < 3; ++c) sum[c] = sum[c] + m.albedo[c] * brdf * (I * gate) * L[4 + c];
@@ -373,14 +376,14 @@ bounce_kernel(const BounceArgs a) {
   if (!alive) a.active[lane] = 0;
 }
 
-// Launch the instance of the given flags for `stack`; returns
+// Launch the width-W instance of the given flags for `stack`; returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a stack capacity or flag
 // that was not compiled.
-template <bool TEXTURED>
+template <int W, bool TEXTURED>
 int launch_bounce(const BounceArgs& a, int stack, int nee, int cont, cudaStream_t s) {
   const dim3 block(kBounceBlock);
   const dim3 grid((a.n + kBounceBlock - 1) / kBounceBlock);
-#define RT_LAUNCH_NC(S, N, C) bounce_kernel<S, TEXTURED, N, C><<<grid, block, 0, s>>>(a)
+#define RT_LAUNCH_NC(S, N, C) bounce_kernel<W, S, TEXTURED, N, C><<<grid, block, 0, s>>>(a)
 #define RT_LAUNCH_N(S, N)                                       \
   switch (cont) {                                               \
     case kContinue: RT_LAUNCH_NC(S, N, kContinue); break;       \
@@ -395,11 +398,19 @@ int launch_bounce(const BounceArgs& a, int stack, int nee, int cont, cudaStream_
     case kNeeSampled: RT_LAUNCH_N(S, kNeeSampled); break;       \
     default: return static_cast<int>(cudaErrorInvalidValue);    \
   }
-  RT_SWITCH_STACK(stack, RT_LAUNCH)
+  RT_SWITCH_STACK(W, stack, RT_LAUNCH)
 #undef RT_LAUNCH
 #undef RT_LAUNCH_N
 #undef RT_LAUNCH_NC
   return static_cast<int>(cudaGetLastError());
 }
+
+// The instances outside bounce.cu, each in a source of its own so that they
+// compile in parallel: textured width 4 (bounce_textured.cu), untextured and
+// textured width 8 (bounce_w8.cu, bounce_textured_w8.cu).
+int launch_bounce_textured(const BounceArgs& a, int stack, int nee, int cont, cudaStream_t s);
+int launch_bounce_w8(const BounceArgs& a, int stack, int nee, int cont, cudaStream_t s);
+int launch_bounce_textured_w8(const BounceArgs& a, int stack, int nee, int cont,
+                              cudaStream_t s);
 
 }  // namespace rt

@@ -1,5 +1,7 @@
 // Device functions shared by the primary-render kernels: K2 and K2t
-// (render_primary.cuh) and K3 (render_deferred.cu). One pixel per thread.
+// (render_primary.cuh) and K3 (render_deferred.cuh). One pixel per thread.
+// The traversing ones take the node records' width W (4 or 8) as their first
+// template argument.
 //
 // Camera ray from the pixel coordinates, the exhaustive sphere pass, K1's
 // closest hit pruned at the sphere's t (strict <: the sphere wins a tie), the
@@ -83,8 +85,8 @@ struct Surface {
 
 // Spheres exhaustively (first closest wins), then the triangles pruned at the
 // sphere t. Returns false on a miss.
-template <int STACK>
-__device__ __forceinline__ bool closest_surface(const Node4* __restrict__ nodes,
+template <int W, int STACK>
+__device__ __forceinline__ bool closest_surface(const Node<W>* __restrict__ nodes,
                                                 const float4* __restrict__ tris,
                                                 const float* __restrict__ spheres,
                                                 int n_spheres, const Ray& ray, Surface& s) {
@@ -97,7 +99,7 @@ __device__ __forceinline__ bool closest_surface(const Node4* __restrict__ nodes,
       sph_i = k;
     }
   }
-  const TriHit tri = traverse_bvh4<STACK, false>(nodes, tris, ray, sph_t);
+  const TriHit tri = traverse_bvh<W, STACK, false>(nodes, tris, ray, sph_t);
   const bool use_tri = tri.slot >= 0;
   if (!use_tri && sph_i < 0) return false;
   s.t = use_tri ? tri.t : sph_t;
@@ -121,9 +123,9 @@ __device__ __forceinline__ bool closest_surface(const Node4* __restrict__ nodes,
 
 // Intensity of light row L at the surface, times 0 when a shadow ray finds a
 // blocker (only traced where the light contributes), before the > 0 gate.
-template <int STACK>
+template <int W, int STACK>
 __device__ __forceinline__ float light_intensity(const float* __restrict__ L, const Surface& s,
-                                                 bool shadows, const Node4* __restrict__ nodes,
+                                                 bool shadows, const Node<W>* __restrict__ nodes,
                                                  const float4* __restrict__ tris,
                                                  const float* __restrict__ spheres,
                                                  int n_spheres) {
@@ -152,7 +154,7 @@ __device__ __forceinline__ float light_intensity(const float* __restrict__ L, co
       float st;
       blocked = sphere_hit(spheres + k * kSphereWords, sray, smax, st);
     }
-    if (!blocked) blocked = traverse_bvh4<STACK, true>(nodes, tris, sray, smax).slot >= 0;
+    if (!blocked) blocked = traverse_bvh<W, STACK, true>(nodes, tris, sray, smax).slot >= 0;
     I = I * (blocked ? 0.0f : 1.0f);
   }
   return I;
@@ -161,14 +163,14 @@ __device__ __forceinline__ float light_intensity(const float* __restrict__ L, co
 // Single-sample light selection (ops/shading.py with `light_index`): the one
 // light min(int(u * n_lights), n_lights - 1), its shadowed intensity behind
 // the > 0 gate and weighted by the light count in `Ig`; returns its row.
-template <int STACK>
+template <int W, int STACK>
 __device__ __forceinline__ const float* sampled_light(
     const float* __restrict__ lights, int n_lights, float u, const Surface& s, bool shadows,
-    const Node4* __restrict__ nodes, const float4* __restrict__ tris,
+    const Node<W>* __restrict__ nodes, const float4* __restrict__ tris,
     const float* __restrict__ spheres, int n_spheres, float& Ig) {
   const int li = min(static_cast<int>(u * static_cast<float>(n_lights)), n_lights - 1);
   const float* L = lights + li * kLightWords;
-  const float I = light_intensity<STACK>(L, s, shadows, nodes, tris, spheres, n_spheres);
+  const float I = light_intensity<W, STACK>(L, s, shadows, nodes, tris, spheres, n_spheres);
   const float gate = I > 0.0f ? 1.0f : 0.0f;
   Ig = (I * gate) * static_cast<float>(n_lights);
   return L;
@@ -222,16 +224,5 @@ __device__ __forceinline__ float dispersion_blend(float lit, float ior, float tr
   const float blended = lit * (1.0f - trans) + transmitted * trans;
   return trans > 0.0f ? blended : lit;
 }
-
-// Stack capacities compiled for every traversing kernel (ops/cuda/traverse.py
-// STACK_SIZES): expands LAUNCH(S) once per capacity in a switch on `stack`.
-#define RT_SWITCH_STACK(stack, LAUNCH)                      \
-  switch (stack) {                                          \
-    case 16: LAUNCH(16); break;                             \
-    case 32: LAUNCH(32); break;                             \
-    case 64: LAUNCH(64); break;                             \
-    case 128: LAUNCH(128); break;                           \
-    default: return static_cast<int>(cudaErrorInvalidValue); \
-  }
 
 }  // namespace rt

@@ -1,107 +1,28 @@
-// K3: the deferred trace, phase 1 of the textured render, one pixel per thread.
-//
-// Replaces the TPU kernel gpu_raytracer_tpu/ops/pallas/render.py
-// pallas_render_deferred -> _kernel_deferred (pallas_call at :787): camera ray
-// -> exhaustive sphere pass -> K1 closest hit pruned at the sphere's t -> per
-// light the shadowed intensity I (render_common.cuh, shared with K2) ->
-// the material-independent light sum S = sum of (I * gate) * colour in light
-// order, or with `light_u` (the TPU kernel's branch above 16 lights) the one
-// sampled light's (I * gate) * L * colour. It writes the G-buffer as two
-// planes of one float4 per ray, [2, n, 4]:
-//   plane 0: (S.r, S.g, S.b, material id as int bits),
-//   plane 1: (u, v, mip footprint, 0),
-// with material -1 and zeros for a miss (engine/renderer.py::split_gbuffer
-// reads both layouts). Each store of a warp is one contiguous 512-byte run,
-// and K4 (texshade.cu), which applies the materials and textures, reads
-// plane 1 for hits only.
-//
-// The hit's texture coordinates: for a triangle, its Moller-Trumbore
-// barycentrics recomputed once for the winner in the plain version's
-// operation order (ops/trace.py::mt_bary) and its corner uvs interpolated as
-// uv0 * (1 - u - v) + uv1 * u + uv2 * v from the per-slot attribute table
-// (ops/cuda/traverse.py); for a sphere, equirectangular from the unit normal
-// with atan2f / asinf (the TPU kernel's polynomial atan2 is not needed). The
-// footprint is t * (2 tan(fov/2) / H) * density, the density decoded on the
-// host from the scene's 14-bit code; 0 for a sphere.
-//
-// What bounds it on an H100: as K2, the traversals (latency- and
-// divergence-bound, traverse.cuh); the winner's attribute record is one more
-// 32-byte read, 32 bytes out per ray. Splitting shading off lets
-// the texture reads run in K4 on rays already sorted out from the sky.
+// K3: the entry point and the width-4 instances of the deferred trace
+// (render_deferred.cuh).
 #include <cuda_runtime.h>
 
-#include "render_common.cuh"
-
-namespace {
-
-template <int STACK>
-__global__ void __launch_bounds__(rt::kRenderBlock, rt::kRenderMinBlocks)
-render_deferred_kernel(const rt::Node4* __restrict__ nodes, const float4* __restrict__ tris,
-                       const float4* __restrict__ attrs, const float* __restrict__ cam,
-                       const float* __restrict__ lights, int n_lights,
-                       const float* __restrict__ spheres, int n_spheres,
-                       const int* __restrict__ px, const int* __restrict__ py, int n, int width,
-                       int height, int shadows, float pix_scale,
-                       const float* __restrict__ light_u, float4* __restrict__ gbuf) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-
-  const rt::Ray ray = rt::camera_ray(cam, px[i], py[i], width, height);
-  rt::Surface s;
-  if (!rt::closest_surface<STACK>(nodes, tris, spheres, n_spheres, ray, s)) {
-    gbuf[i] = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(-1));
-    gbuf[n + i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    return;
-  }
-
-  float S[3] = {0.0f, 0.0f, 0.0f};
-  if (light_u != nullptr) {
-    float Ig;
-    const float* L = rt::sampled_light<STACK>(lights, n_lights, light_u[i], s, shadows != 0,
-                                              nodes, tris, spheres, n_spheres, Ig);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) S[c] = Ig * L[4 + c];
-  } else {
-    for (int li = 0; li < n_lights; ++li) {
-      const float* L = lights + li * rt::kLightWords;
-      const float I = rt::light_intensity<STACK>(L, s, shadows != 0, nodes, tris, spheres,
-                                                 n_spheres);
-      const float gate = I > 0.0f ? 1.0f : 0.0f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) S[c] = S[c] + (I * gate) * L[4 + c];
-    }
-  }
-
-  float density;
-  const float2 uv = rt::surface_uv(tris, attrs, ray, s, density);
-  const float lam = s.slot >= 0 ? s.t * pix_scale * density : 0.0f;
-  gbuf[i] = make_float4(S[0], S[1], S[2], __int_as_float(s.mat));
-  gbuf[n + i] = make_float4(uv.x, uv.y, lam, 0.0f);
-}
-
-}  // namespace
+#include "render_deferred.cuh"
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a stack capacity that was not compiled.
-// `light_u` null: every light is looped over.
+// cudaErrorInvalidValue for a node width or stack capacity that was not
+// compiled. `light_u` null: every light is looped over.
 extern "C" int rt_render_deferred(const void* nodes, const void* tris, const void* attrs,
-                                  int stack, const void* cam, const void* lights, int n_lights,
-                                  const void* spheres, int n_spheres, const void* px,
-                                  const void* py, int n, int width, int height, int shadows,
-                                  float pix_scale, const void* light_u, void* gbuf,
+                                  int node_width, int stack, const void* cam, const void* lights,
+                                  int n_lights, const void* spheres, int n_spheres,
+                                  const void* px, const void* py, int n, int width, int height,
+                                  int shadows, float pix_scale, const void* light_u, void* gbuf,
                                   void* stream) {
   if (n <= 0) return 0;
-  const dim3 block(rt::kRenderBlock);
-  const dim3 grid((n + rt::kRenderBlock - 1) / rt::kRenderBlock);
+  const rt::DeferredLaunch a{nodes, static_cast<const float4*>(tris),
+                             static_cast<const float4*>(attrs), static_cast<const float*>(cam),
+                             static_cast<const float*>(lights), n_lights,
+                             static_cast<const float*>(spheres), n_spheres,
+                             static_cast<const int*>(px), static_cast<const int*>(py), n, width,
+                             height, shadows, pix_scale, static_cast<const float*>(light_u),
+                             static_cast<float4*>(gbuf)};
   auto s = static_cast<cudaStream_t>(stream);
-#define RT_LAUNCH(S)                                                                           \
-  render_deferred_kernel<S><<<grid, block, 0, s>>>(                                            \
-      static_cast<const rt::Node4*>(nodes), static_cast<const float4*>(tris),                 \
-      static_cast<const float4*>(attrs), static_cast<const float*>(cam),                      \
-      static_cast<const float*>(lights), n_lights, static_cast<const float*>(spheres),        \
-      n_spheres, static_cast<const int*>(px), static_cast<const int*>(py), n, width, height,  \
-      shadows, pix_scale, static_cast<const float*>(light_u), static_cast<float4*>(gbuf))
-  RT_SWITCH_STACK(stack, RT_LAUNCH)
-#undef RT_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  if (node_width == 4) return rt::launch_render_deferred<4>(a, stack, s);
+  if (node_width == 8) return rt::render_deferred_w8(a, stack, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,8 @@
 // K2 and K2t: the fused primary render, one pixel per thread, untextured
 // (TEXTURED = false, instantiated in render_primary.cu) and textured
-// (TEXTURED = true, render_primary_textured.cu).
+// (TEXTURED = true, render_primary_textured.cu), for node tables of width 4;
+// the width-8 instances compile in render_primary_w8.cu and
+// render_primary_textured_w8.cu.
 //
 // Replaces the TPU kernel gpu_raytracer_tpu/ops/pallas/render.py
 // pallas_render_primary -> _kernel (pallas_call at :701), both branches:
@@ -67,9 +69,9 @@ struct PrimaryTextures {
   float pix_scale;        // 2 tan(fov/2) / height
 };
 
-template <int STACK, bool TEXTURED>
+template <int W, int STACK, bool TEXTURED>
 __global__ void __launch_bounds__(kRenderBlock, kRenderMinBlocks)
-render_primary_kernel(const Node4* __restrict__ nodes, const float4* __restrict__ tris,
+render_primary_kernel(const Node<W>* __restrict__ nodes, const float4* __restrict__ tris,
                       const float* __restrict__ cam, const float* __restrict__ mats,
                       int n_mats, const float* __restrict__ lights, int n_lights,
                       const float* __restrict__ spheres, int n_spheres,
@@ -82,7 +84,7 @@ render_primary_kernel(const Node4* __restrict__ nodes, const float4* __restrict_
 
   const Ray ray = camera_ray(cam, px[i], py[i], width, height);
   Surface s;
-  if (!closest_surface<STACK>(nodes, tris, spheres, n_spheres, ray, s)) {
+  if (!closest_surface<W, STACK>(nodes, tris, spheres, n_spheres, ray, s)) {
     rgb[3 * i] = sky_r;
     rgb[3 * i + 1] = sky_g;
     rgb[3 * i + 2] = sky_b;
@@ -108,15 +110,15 @@ render_primary_kernel(const Node4* __restrict__ nodes, const float4* __restrict_
   float sum[3] = {0.0f, 0.0f, 0.0f};
   if (light_u != nullptr) {
     float Ig;
-    const float* L = sampled_light<STACK>(lights, n_lights, light_u[i], s, shadows != 0, nodes,
+    const float* L = sampled_light<W, STACK>(lights, n_lights, light_u[i], s, shadows != 0, nodes,
                                           tris, spheres, n_spheres, Ig);
 #pragma unroll
     for (int c = 0; c < 3; ++c) sum[c] = m.albedo[c] * brdf * Ig * L[4 + c];
   } else {
     for (int li = 0; li < n_lights; ++li) {
       const float* L = lights + li * kLightWords;
-      const float I = light_intensity<STACK>(L, s, shadows != 0, nodes, tris, spheres,
-                                             n_spheres);
+      const float I = light_intensity<W, STACK>(L, s, shadows != 0, nodes, tris, spheres,
+                                                n_spheres);
       const float gate = I > 0.0f ? 1.0f : 0.0f;
 #pragma unroll
       for (int c = 0; c < 3; ++c) sum[c] = sum[c] + m.albedo[c] * brdf * (I * gate) * L[4 + c];
@@ -135,5 +137,45 @@ render_primary_kernel(const Node4* __restrict__ nodes, const float4* __restrict_
     rgb[3 * i + c] = invalid ? magenta[c] : dispersion_blend(lit, m.ior, m.transmission, c);
   }
 }
+
+// The arguments of one K2 / K2t launch (host side).
+struct PrimaryLaunch {
+  const void* nodes;
+  const float4* tris;
+  const float* cam;
+  const float* mats;
+  int n_mats;
+  const float* lights;
+  int n_lights;
+  const float* spheres;
+  int n_spheres;
+  PrimaryTextures tex;
+  const int* px;
+  const int* py;
+  int n, width, height, shadows;
+  float sky_r, sky_g, sky_b;
+  const float* light_u;
+  float* rgb;
+};
+
+// Launch the width-W instance for `stack`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a stack capacity that was not compiled.
+template <int W, bool TEXTURED>
+int launch_render_primary(const PrimaryLaunch& a, int stack, cudaStream_t s) {
+  const dim3 block(kRenderBlock);
+  const dim3 grid((a.n + kRenderBlock - 1) / kRenderBlock);
+#define RT_LAUNCH(S)                                                                          \
+  render_primary_kernel<W, S, TEXTURED><<<grid, block, 0, s>>>(                               \
+      static_cast<const Node<W>*>(a.nodes), a.tris, a.cam, a.mats, a.n_mats, a.lights,       \
+      a.n_lights, a.spheres, a.n_spheres, a.tex, a.px, a.py, a.n, a.width, a.height,         \
+      a.shadows, a.sky_r, a.sky_g, a.sky_b, a.light_u, a.rgb)
+  RT_SWITCH_STACK(W, stack, RT_LAUNCH)
+#undef RT_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The width-8 instances (render_primary_w8.cu, render_primary_textured_w8.cu).
+int render_primary_w8(const PrimaryLaunch& a, int stack, cudaStream_t s);
+int render_primary_textured_w8(const PrimaryLaunch& a, int stack, cudaStream_t s);
 
 }  // namespace rt

@@ -1,0 +1,6 @@
+// K2t's width-8 instances (render_primary.cuh), compiled beside the width-4 ones.
+#include "render_primary.cuh"
+
+int rt::render_primary_textured_w8(const PrimaryLaunch& a, int stack, cudaStream_t s) {
+  return launch_render_primary<8, true>(a, stack, s);
+}

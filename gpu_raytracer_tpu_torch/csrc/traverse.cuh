@@ -1,15 +1,19 @@
-// K1: BVH4 closest-hit / any-hit traversal, one ray per thread (device code).
+// K1: wide-BVH closest-hit / any-hit traversal, one ray per thread (device
+// code), over nodes of width 4 or 8 (walk_bvh<W>).
 //
 // Replaces the TPU kernel gpu_raytracer_tpu/ops/pallas/traverse.py
-// (traverse_best -> _ordered_traverse4 / _leaf_test / _normalize_best), which
-// walks one shared cursor per 1024-8192-ray packet over 128-lane VMEM rows.
-// Here every thread walks its own ray with its own stack, over tables laid out
-// for this card by ops/cuda/traverse.py::pack_trace_tables:
-//   nodes: one 128-byte record per BVH4 node, 128-byte aligned, so a node is
-//          one cache line (four 32-byte sectors): six float4 of child boxes,
-//          one int4 of child codes (a wide node id >= 0, a leaf already as its
-//          stack code -1 - (first slot << 4 | count), or -1 for an empty
-//          slot), and 16 bytes whose first word is the sort axis;
+// (traverse_best -> _ordered_traverse4 / _leaf_test / _normalize_best), both
+// of its widths, which walks one shared cursor per 1024-8192-ray packet over
+// 128-lane VMEM rows. Here every thread walks its own ray with its own stack,
+// over tables laid out for this card by ops/cuda/traverse.py::pack_trace_tables:
+//   nodes: one record per wide node, Node<W>, 128-byte aligned. At width 4 a
+//          node is one cache line (four 32-byte sectors): six float4 of child
+//          boxes, one int4 of child codes (a wide node id >= 0, a leaf already
+//          as its stack code -1 - (first slot << 4 | count), or -1 for an
+//          empty slot), and 16 bytes whose first word is the sort axis. At
+//          width 8 it is two lines: twelve float4 of boxes (lo_x[8] ...
+//          hi_z[8], each plane two float4), two int4 of codes, the axis and
+//          28 pad bytes;
 //   tris:  three float4 per leaf-ordered triangle slot (v0|mat, e1, e2).
 //
 // What bounds it on an H100: instruction throughput, then the latency of dependent
@@ -57,6 +61,25 @@
 // and, per warp, the iterations of each body and the lanes active in them
 // (SIMT efficiency; the card's profilers are not available everywhere).
 //
+// Width 8 keeps that design: walk_bvh<W> is one loop, leaf step and culling
+// pop for both widths, with the child loads, the one-child shortcut and the
+// ordering written per width inside it. A width-8 visit loads two
+// lines (twelve float4 of boxes, two int4 of codes, the axis) and tests eight
+// boxes; the tame test's near and far plane of an axis are each two float4,
+// picked by the direction's sign as at width 4. Its children are ordered by
+// insertion: each live child's place in the visit order is the number of
+// children before it, by entry distance and, on equal distances, by the
+// stored order (forward or backward along the axis, as register swaps), 28
+// compares whose results add into a 4-bit rank per child in one register;
+// the nearest is entered, the others are stored straight into their stack
+// slots, far first. That is the order the width-4 network gives (stable), and
+// nothing but the stack is indexed dynamically. Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W (PERF.md): a 1080p camera ray visits 8.0 width-8 nodes
+// against 12.2 width-4 ones, and the width-8 kernels take 5-29% longer: the
+// walk is issue-bound, and the width-8 node loop is 480 SASS instructions
+// against 217 (chip_ab.py --sass; the frame kernels also spill at their
+// register cap).
+//
 // Semantics kept from the reference traversal (ops/pallas/traverse.py:537-538
 // and :242-245): slab entry clamped at 0, accept ce <= tmax && ce < best_t
 // (a NaN slab, from a zero direction component on a box plane, rejects);
@@ -96,13 +119,19 @@ constexpr int kRenderMinBlocks = RT_RENDER_MIN_BLOCKS;
 constexpr int kBounceBlock = RT_BOUNCE_BLOCK;
 constexpr int kBounceMinBlocks = RT_BOUNCE_MIN_BLOCKS;
 
-struct __align__(128) Node4 {
-  float4 lo_x, lo_y, lo_z, hi_x, hi_y, hi_z;
-  int4 code;   // per child: wide node id | leaf code (< -1) | -1 empty
-  int axis;    // axis the children are sorted on (by centroid)
-  int pad0, pad1, pad2;
+// One wide node of W = 4 or 8 children: the child boxes as six planes of W
+// floats, lo_x[W], lo_y[W], lo_z[W], hi_x[W], hi_y[W], hi_z[W] (W / 4 float4
+// each), then the child codes, the sort axis and W - 1 pad words.
+template <int W>
+struct __align__(128) Node {
+  static_assert(W == 4 || W == 8, "the wide BVH has 4 or 8 children per node");
+  float4 box[6 * (W / 4)];
+  int4 code[W / 4];   // per child: wide node id | leaf code (< -1) | -1 empty
+  int axis;           // axis the children are sorted on (by centroid)
+  int pad[W - 1];
 };
-static_assert(sizeof(Node4) == 128, "Node4 must match the 32-word host record");
+static_assert(sizeof(Node<4>) == 128, "Node<4> must match the 32-word host record");
+static_assert(sizeof(Node<8>) == 256, "Node<8> must match the 64-word host record");
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -132,13 +161,16 @@ struct TriHit {
 __device__ __forceinline__ bool is_nan(float x) { return x != x; }
 
 // The work of one walk, counted only by the COUNT instances: node records
-// slab-tested and triangles intersected by this ray (the roofline bound's
-// operation count), and the iterations of the node body and of the triangle
-// body that this lane led as the lowest active lane of its warp. Summed over
-// a launch, nodes / (32 * warp_nodes) is the SIMT efficiency of the node
-// body (the share of a warp's lanes at work in it), and the same for tris.
+// visited and triangles intersected by this ray, the iterations of the node
+// body and of the triangle body that this lane led as the lowest active lane
+// of its warp, and the non-empty child slots of the visited records (the
+// slab tests the closest hit needs: the roofline bound's operation count; a
+// visit also tests its empty slots, which the bound does not charge). Summed
+// over a launch, nodes / (32 * warp_nodes) is the SIMT efficiency of the
+// node body (the share of a warp's lanes at work in it), and the same for
+// tris.
 struct Work {
-  int nodes, tris, warp_nodes, warp_tris;
+  int nodes, tris, warp_nodes, warp_tris, slots;
 };
 
 // One more iteration of a body: `mine` counts the lane, `led` the warp.
@@ -246,69 +278,169 @@ __device__ __forceinline__ bool leaf_test(const float4* __restrict__ tris, int f
   return false;
 }
 
-// The walk of one ray, TAME for a ray that is_tame (the lean slab test).
-template <int STACK, bool ANY_HIT, bool TAME, bool COUNT>
-__device__ __forceinline__ TriHit walk_bvh4(const Node4* __restrict__ nodes,
-                                            const float4* __restrict__ tris, const Ray& r,
-                                            float max_t, Work* work) {
+// The walk of one ray over Node<W> records, TAME for a ray that is_tame (the
+// lean slab test): one while-while loop, leaf step and culling pop for both
+// widths. The child loads, the one-child shortcut and the ordering of two or
+// more children ahead are written per width, in `if constexpr` blocks of
+// this one function: moving them (or the pop) into inlined helpers changed
+// the width-4 kernels' machine code (PERF.md), which must stay as it
+// was measured.
+template <int W, int STACK, bool ANY_HIT, bool TAME, bool COUNT>
+__device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
+                                           const float4* __restrict__ tris, const Ray& r,
+                                           float max_t, Work* work) {
+  constexpr int P = W / 4;   // float4 per plane of a record
   TriHit best{max_t, -1};
   Entry stack[STACK];
   int sp = 0;
   int cur = 0;   // the root node
-  // float4 index of each axis' near and far planes in a record (lo at 0-2, hi at 3-5)
-  const int near_x = r.dx > 0.0f ? 0 : 3, near_y = r.dy > 0.0f ? 1 : 4;
-  const int near_z = r.dz > 0.0f ? 2 : 5;
+  // float4 index of each axis' near plane in a record (lo planes at 0, P,
+  // 2P; hi planes at 3P, 4P, 5P); the far plane is the other one
+  const int near_x = r.dx > 0.0f ? 0 : 3 * P, near_y = r.dy > 0.0f ? P : 4 * P;
+  const int near_z = r.dz > 0.0f ? 2 * P : 5 * P;
   while (true) {
     // ---- internal nodes, until this lane holds a leaf ----
     while (cur >= 0) {
       if (COUNT) count_iteration(work->nodes, work->warp_nodes);
       const float4* rec = reinterpret_cast<const float4*>(nodes + cur);
-      const int4 code = __ldg(reinterpret_cast<const int4*>(rec + 6));
-      const int axis = __ldg(reinterpret_cast<const int*>(rec + 7));
-      float e0, e1, e2, e3;   // the four children's entry distances, stored order
-      if (TAME) {
-        const float4 nx = __ldg(rec + near_x), ny = __ldg(rec + near_y);
-        const float4 nz = __ldg(rec + near_z), fx = __ldg(rec + (3 - near_x));
-        const float4 fy = __ldg(rec + (5 - near_y)), fz = __ldg(rec + (7 - near_z));
-        e0 = child_entry_tame(nx.x, ny.x, nz.x, fx.x, fy.x, fz.x, code.x, r, best.t);
-        e1 = child_entry_tame(nx.y, ny.y, nz.y, fx.y, fy.y, fz.y, code.y, r, best.t);
-        e2 = child_entry_tame(nx.z, ny.z, nz.z, fx.z, fy.z, fz.z, code.z, r, best.t);
-        e3 = child_entry_tame(nx.w, ny.w, nz.w, fx.w, fy.w, fz.w, code.w, r, best.t);
-      } else {
-        const float4 lo_x = __ldg(rec + 0), lo_y = __ldg(rec + 1), lo_z = __ldg(rec + 2);
-        const float4 hi_x = __ldg(rec + 3), hi_y = __ldg(rec + 4), hi_z = __ldg(rec + 5);
-        e0 = child_entry(lo_x.x, lo_y.x, lo_z.x, hi_x.x, hi_y.x, hi_z.x, code.x, r, best.t);
-        e1 = child_entry(lo_x.y, lo_y.y, lo_z.y, hi_x.y, hi_y.y, hi_z.y, code.y, r, best.t);
-        e2 = child_entry(lo_x.z, lo_y.z, lo_z.z, hi_x.z, hi_y.z, hi_z.z, code.z, r, best.t);
-        e3 = child_entry(lo_x.w, lo_y.w, lo_z.w, hi_x.w, hi_y.w, hi_z.w, code.w, r, best.t);
-      }
-      // one child ahead (most visits): nothing to order, nothing to push
-      if ((e0 < kInf) + (e1 < kInf) + (e2 < kInf) + (e3 < kInf) == 1) {
-        cur = e0 < kInf ? code.x : e1 < kInf ? code.y : e2 < kInf ? code.z : code.w;
-        continue;
-      }
-      const float d_axis = axis == 0 ? r.dx : axis == 1 ? r.dy : r.dz;
-      const bool forward = d_axis >= 0.0f;
-      // the children's order along the ray, then by entry distance, equal
-      // distances (and the misses at +inf, last) keeping that order
-      float c0 = forward ? e0 : e3, c1 = forward ? e1 : e2;
-      float c2 = forward ? e2 : e1, c3 = forward ? e3 : e0;
-      int k0 = forward ? code.x : code.w, k1 = forward ? code.y : code.z;
-      int k2 = forward ? code.z : code.y, k3 = forward ? code.w : code.x;
-      order_pair(c0, k0, c1, k1);
-      order_pair(c2, k2, c3, k3);
-      order_pair(c1, k1, c2, k2);
-      order_pair(c0, k0, c1, k1);
-      order_pair(c2, k2, c3, k3);
-      order_pair(c1, k1, c2, k2);
+      if constexpr (W == 4) {
+        const int4 code = __ldg(reinterpret_cast<const int4*>(rec + 6));
+        const int axis = __ldg(reinterpret_cast<const int*>(rec + 7));
+        if constexpr (COUNT)
+          work->slots += (code.x != -1) + (code.y != -1) + (code.z != -1) + (code.w != -1);
+        float e0, e1, e2, e3;   // the four children's entry distances, stored order
+        if (TAME) {
+          const float4 nx = __ldg(rec + near_x), ny = __ldg(rec + near_y);
+          const float4 nz = __ldg(rec + near_z), fx = __ldg(rec + (3 - near_x));
+          const float4 fy = __ldg(rec + (5 - near_y)), fz = __ldg(rec + (7 - near_z));
+          e0 = child_entry_tame(nx.x, ny.x, nz.x, fx.x, fy.x, fz.x, code.x, r, best.t);
+          e1 = child_entry_tame(nx.y, ny.y, nz.y, fx.y, fy.y, fz.y, code.y, r, best.t);
+          e2 = child_entry_tame(nx.z, ny.z, nz.z, fx.z, fy.z, fz.z, code.z, r, best.t);
+          e3 = child_entry_tame(nx.w, ny.w, nz.w, fx.w, fy.w, fz.w, code.w, r, best.t);
+        } else {
+          const float4 lo_x = __ldg(rec + 0), lo_y = __ldg(rec + 1), lo_z = __ldg(rec + 2);
+          const float4 hi_x = __ldg(rec + 3), hi_y = __ldg(rec + 4), hi_z = __ldg(rec + 5);
+          e0 = child_entry(lo_x.x, lo_y.x, lo_z.x, hi_x.x, hi_y.x, hi_z.x, code.x, r, best.t);
+          e1 = child_entry(lo_x.y, lo_y.y, lo_z.y, hi_x.y, hi_y.y, hi_z.y, code.y, r, best.t);
+          e2 = child_entry(lo_x.z, lo_y.z, lo_z.z, hi_x.z, hi_y.z, hi_z.z, code.z, r, best.t);
+          e3 = child_entry(lo_x.w, lo_y.w, lo_z.w, hi_x.w, hi_y.w, hi_z.w, code.w, r, best.t);
+        }
+        // one child ahead (most visits): nothing to order, nothing to push
+        if ((e0 < kInf) + (e1 < kInf) + (e2 < kInf) + (e3 < kInf) == 1) {
+          cur = e0 < kInf ? code.x : e1 < kInf ? code.y : e2 < kInf ? code.z : code.w;
+          continue;
+        }
+        const float d_axis = axis == 0 ? r.dx : axis == 1 ? r.dy : r.dz;
+        const bool forward = d_axis >= 0.0f;
+        // the children's order along the ray, then by entry distance, equal
+        // distances (and the misses at +inf, last) keeping that order: six
+        // adjacent compare-exchanges on registers
+        float c0 = forward ? e0 : e3, c1 = forward ? e1 : e2;
+        float c2 = forward ? e2 : e1, c3 = forward ? e3 : e0;
+        int k0 = forward ? code.x : code.w, k1 = forward ? code.y : code.z;
+        int k2 = forward ? code.z : code.y, k3 = forward ? code.w : code.x;
+        order_pair(c0, k0, c1, k1);
+        order_pair(c2, k2, c3, k3);
+        order_pair(c1, k1, c2, k2);
+        order_pair(c0, k0, c1, k1);
+        order_pair(c2, k2, c3, k3);
+        order_pair(c1, k1, c2, k2);
 
-      if (c0 < kInf) {
-        // enter the nearest child now; the others wait, far first
-        cur = k0;
-        if (c3 < kInf) stack[sp++] = Entry{k3, c3};
-        if (c2 < kInf) stack[sp++] = Entry{k2, c2};
-        if (c1 < kInf) stack[sp++] = Entry{k1, c1};
-        continue;
+        if (c0 < kInf) {
+          // enter the nearest child now; the others wait, far first
+          cur = k0;
+          if (c3 < kInf) stack[sp++] = Entry{k3, c3};
+          if (c2 < kInf) stack[sp++] = Entry{k2, c2};
+          if (c1 < kInf) stack[sp++] = Entry{k1, c1};
+          continue;
+        }
+      } else {
+        int code[8];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int4 c = __ldg(reinterpret_cast<const int4*>(rec + 6 * P + h));
+          code[4 * h] = c.x;
+          code[4 * h + 1] = c.y;
+          code[4 * h + 2] = c.z;
+          code[4 * h + 3] = c.w;
+        }
+        float e[8];   // the eight children's entry distances, stored order
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {   // children 4h .. 4h + 3
+          float4 ax, ay, az, bx, by, bz;   // near and far planes, or lo and hi
+          if (TAME) {
+            ax = __ldg(rec + near_x + h);
+            ay = __ldg(rec + near_y + h);
+            az = __ldg(rec + near_z + h);
+            bx = __ldg(rec + (3 * P - near_x) + h);
+            by = __ldg(rec + (5 * P - near_y) + h);
+            bz = __ldg(rec + (7 * P - near_z) + h);
+          } else {
+            ax = __ldg(rec + h);
+            ay = __ldg(rec + P + h);
+            az = __ldg(rec + 2 * P + h);
+            bx = __ldg(rec + 3 * P + h);
+            by = __ldg(rec + 4 * P + h);
+            bz = __ldg(rec + 5 * P + h);
+          }
+          const float ax_[4] = {ax.x, ax.y, ax.z, ax.w}, ay_[4] = {ay.x, ay.y, ay.z, ay.w};
+          const float az_[4] = {az.x, az.y, az.z, az.w}, bx_[4] = {bx.x, bx.y, bx.z, bx.w};
+          const float by_[4] = {by.x, by.y, by.z, by.w}, bz_[4] = {bz.x, bz.y, bz.z, bz.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            e[4 * h + c] = TAME ? child_entry_tame(ax_[c], ay_[c], az_[c], bx_[c], by_[c],
+                                                   bz_[c], code[4 * h + c], r, best.t)
+                                : child_entry(ax_[c], ay_[c], az_[c], bx_[c], by_[c], bz_[c],
+                                              code[4 * h + c], r, best.t);
+        }
+        int live = 0;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          live += e[c] < kInf;
+          if constexpr (COUNT) work->slots += code[c] != -1;
+        }
+        // one child ahead (most visits): nothing to order, nothing to push
+        if (live == 1) {
+          int only = code[7];
+#pragma unroll
+          for (int c = 6; c >= 0; --c) only = e[c] < kInf ? code[c] : only;
+          cur = only;
+          continue;
+        }
+        if (live > 1) {
+          const int axis = __ldg(reinterpret_cast<const int*>(rec + 7 * P));
+          const float d_axis = axis == 0 ? r.dx : axis == 1 ? r.dy : r.dz;
+          const bool forward = d_axis >= 0.0f;
+          // the children in their order along the ray (stored order, forward
+          // or backward), as register swaps
+          float v[8];
+          int k[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            v[c] = forward ? e[c] : e[7 - c];
+            k[c] = forward ? code[c] : code[7 - c];
+          }
+          // a stable insertion: child c's rank (at bits 4c) counts the
+          // children before it, nearer or at the same distance and earlier
+          // in that order
+          unsigned rank = 0u;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = i + 1; j < 8; ++j) rank += v[i] <= v[j] ? 1u << (4 * j) : 1u << (4 * i);
+          // enter the nearest child now; the others wait, far first: rank q
+          // (1 .. live - 1) in slot sp + live - 1 - q, so the next nearest is on top
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int q = static_cast<int>((rank >> (4 * c)) & 15u);
+            if (v[c] < kInf) {
+              if (q == 0) cur = k[c];
+              else stack[sp + live - 1 - q] = Entry{k[c], v[c]};
+            }
+          }
+          sp += live - 1;
+          continue;
+        }
       }
       // nothing ahead in this node: the topmost entry that a hit found since
       // its push does not cull
@@ -338,15 +470,33 @@ __device__ __forceinline__ TriHit walk_bvh4(const Node4* __restrict__ nodes,
   }
 }
 
-// Closest hit (or any hit) of triangles strictly below max_t.
-template <int STACK, bool ANY_HIT, bool COUNT = false>
-__device__ TriHit traverse_bvh4(const Node4* __restrict__ nodes,
-                                const float4* __restrict__ tris, const Ray& r,
-                                float max_t, Work* work = nullptr) {
+// Closest hit (or any hit) of triangles strictly below max_t, through the
+// walk of the node records' width W.
+template <int W, int STACK, bool ANY_HIT, bool COUNT = false>
+__device__ TriHit traverse_bvh(const Node<W>* __restrict__ nodes,
+                               const float4* __restrict__ tris, const Ray& r,
+                               float max_t, Work* work = nullptr) {
   if (0.0f >= max_t) return TriHit{max_t, -1};   // no ray: the root is culled unread
-  return is_tame(r) ? walk_bvh4<STACK, ANY_HIT, true, COUNT>(nodes, tris, r, max_t, work)
-                    : walk_bvh4<STACK, ANY_HIT, false, COUNT>(nodes, tris, r, max_t, work);
+  return is_tame(r) ? walk_bvh<W, STACK, ANY_HIT, true, COUNT>(nodes, tris, r, max_t, work)
+                    : walk_bvh<W, STACK, ANY_HIT, false, COUNT>(nodes, tris, r, max_t, work);
 }
+
+// Stack capacities compiled for every traversing kernel at width W
+// (ops/cuda/traverse.py WIDE_STACK_SIZES): expands LAUNCH(S) once per
+// capacity in a switch on `stack`; 16 entries only at width 4.
+#define RT_SWITCH_STACK(W, stack, LAUNCH)                    \
+  switch (stack) {                                           \
+    case 16:                                                 \
+      if constexpr (W == 4) {                                \
+        LAUNCH(16);                                          \
+        break;                                               \
+      }                                                      \
+      return static_cast<int>(cudaErrorInvalidValue);        \
+    case 32: LAUNCH(32); break;                              \
+    case 64: LAUNCH(64); break;                              \
+    case 128: LAUNCH(128); break;                            \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
 
 // Unit geometric normal and material of a winning slot.
 __device__ __forceinline__ void tri_attributes(const float4* __restrict__ tris, int slot,

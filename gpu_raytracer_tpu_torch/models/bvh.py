@@ -1,9 +1,15 @@
-"""BVH: flattened node model, host-side build, leaf packing and BVH4 collapse.
+"""BVH: flattened node model, host-side builds, leaf packing and the wide
+(4- or 8-child) collapse.
 
 Nodes hold an AABB, left/right children (-1 = leaf) and a contiguous
 (start, count) range of leaf-ordered triangles. Threaded hit/miss links give
-the left-first DFS order that the plain traversal walks; the width-4 overlay
-(`q_*`) is what the CUDA traversal kernel walks.
+the left-first DFS order that the plain traversal walks; the wide overlay
+(`q_*`, width 4 or 8) is what the CUDA traversal kernels walk.
+
+Three host builders make the binary tree: the native binned-SAH builder
+(`build_bvh`, the default), its NumPy twin (`build_bvh(..., use_native=False)`,
+a choice of the caller, never a fallback) and the spatial-split builder
+(`build_bvh_spatial`), whose leaves may reference a triangle more than once.
 """
 
 from __future__ import annotations
@@ -13,7 +19,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .geometry import triangle_aabbs
+
 LEAF = -1  # child sentinel
+WIDTHS = (4, 8)   # children per node of the wide overlay
 
 
 @dataclass
@@ -32,13 +41,14 @@ class Bvh:
     leaf_align: int = 1
     # upper bound on triangles per leaf
     max_leaf: int = 4
-    # width-4 overlay (collapse4); None for a single-leaf tree
-    q_child: torch.Tensor | None = None   # [Q,4] i32: wide id | tri_start | -1
-    q_leafc: torch.Tensor | None = None   # [Q,4] i32 leaf tri count (0 = internal/empty)
-    q_min: torch.Tensor | None = None     # [Q,4,3] f32
-    q_max: torch.Tensor | None = None     # [Q,4,3] f32
+    # wide overlay of w = 4 or 8 children (collapse4); None for a single-leaf
+    # tree. A rebuilt tree (ops/lbvh.py) is always width 4.
+    q_child: torch.Tensor | None = None   # [Q,w] i32: wide id | tri_start | -1
+    q_leafc: torch.Tensor | None = None   # [Q,w] i32 leaf tri count (0 = internal/empty)
+    q_min: torch.Tensor | None = None     # [Q,w,3] f32
+    q_max: torch.Tensor | None = None     # [Q,w,3] f32
     q_axis: torch.Tensor | None = None    # [Q] i32 axis the children are sorted on
-    q_src: torch.Tensor | None = None     # [Q,4] i32 binary node behind each slot
+    q_src: torch.Tensor | None = None     # [Q,w] i32 binary node behind each slot
     # max binary tree depth + 2
     depth: int = 64
 
@@ -83,17 +93,18 @@ class BvhBuildResult:
         self.leaf_align = leaf_align
 
     def to_tensors(self, width: int = 4) -> Bvh:
+        """The tree as tensors with its `width`-wide overlay (4 or 8),
+        collapsed by the native library."""
         from .bvh_native import collapse4_native
 
+        if width not in WIDTHS:
+            raise ValueError(f"bvh_width={width}: the wide overlay takes 4 or 8 children")
         hit_link, miss_link = compute_links(self.left, self.right)
         leaf_counts = np.asarray(self.tri_count)[np.asarray(self.left) < 0]
         max_leaf = int(leaf_counts.max()) if leaf_counts.size else 0
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
         quad = {}
         if self.left.shape[0] > 1:
-            if width != 4:
-                raise NotImplementedError(
-                    f"bvh_width={width}: the port's traversal takes a width-4 BVH")
             qc, ql, qmn, qmx, qax, qsrc = collapse4_native(
                 self.left, self.right, self.tri_start, self.tri_count,
                 self.node_min, self.node_max, width=width)
@@ -243,20 +254,306 @@ def align_leaves(res: BvhBuildResult, align: int = 8) -> BvhBuildResult:
                           leaf_align=align)
 
 
-def build_bvh(vertices: np.ndarray, indices: np.ndarray,
-              leaf_size: int = 4) -> BvhBuildResult:
-    """Binned-SAH top-down build through the native builder (root = node 0)."""
-    from .bvh_native import build_bvh_native
+_SAH_BINS = 16
 
+
+def _empty_build() -> BvhBuildResult:
+    return BvhBuildResult(
+        np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32),
+        np.asarray([LEAF], np.int32), np.asarray([LEAF], np.int32),
+        np.asarray([0], np.int32), np.asarray([0], np.int32),
+        np.zeros((0,), np.int64), 1)
+
+
+def _areas(mn, mx):
+    """Surface areas of the boxes (mn[k], mx[k])."""
+    d = np.maximum(mx - mn, 0.0)
+    return 2.0 * (d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0])
+
+
+def _area(mn, mx):
+    d = np.maximum(mx - mn, 0.0)
+    return 2.0 * (d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
+
+
+def build_bvh(vertices: np.ndarray, indices: np.ndarray, leaf_size: int = 4,
+              use_native: bool = True) -> BvhBuildResult:
+    """Binned-SAH top-down build (root = node 0): through the native builder,
+    or with `use_native=False` in NumPy, the same algorithm node for node
+    (the native builder numbers nodes as its worker threads finish; the NumPy
+    build numbers them depth first). A native library that does not load
+    raises: the NumPy build is never taken in its place."""
     vertices = np.asarray(vertices, np.float32)
     indices = np.asarray(indices, np.uint32)
-    if indices.shape[0] == 0:
-        return BvhBuildResult(
-            np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32),
-            np.asarray([LEAF], np.int32), np.asarray([LEAF], np.int32),
-            np.asarray([0], np.int32), np.asarray([0], np.int32),
-            np.zeros((0,), np.int64), 1)
-    return build_bvh_native(vertices, indices, leaf_size)
+    T = indices.shape[0]
+    if T == 0:
+        return _empty_build()
+    if use_native:
+        from .bvh_native import build_bvh_native
+
+        return build_bvh_native(vertices, indices, leaf_size)
+
+    tmin, tmax = triangle_aabbs(vertices, indices)
+    centroid = 0.5 * (tmin + tmax)
+    order = np.arange(T, dtype=np.int64)
+    # every leaf holds >= 1 triangle: at most 2T - 1 nodes
+    cap = max(2 * T + 2, 16)
+    node_min = np.zeros((cap, 3), np.float32)
+    node_max = np.zeros((cap, 3), np.float32)
+    left = np.full(cap, LEAF, np.int32)
+    right = np.full(cap, LEAF, np.int32)
+    tri_start = np.zeros(cap, np.int32)
+    tri_count = np.zeros(cap, np.int32)
+    n_nodes = 1
+    max_depth = 1
+
+    stack = [(0, 0, T, 1)]   # (node, lo, hi, depth) over ranges of `order`
+    while stack:
+        node, lo, hi, depth = stack.pop()
+        max_depth = max(max_depth, depth)
+        ids = order[lo:hi]
+        node_min[node] = tmin[ids].min(axis=0)
+        node_max[node] = tmax[ids].max(axis=0)
+        count = hi - lo
+        if count <= leaf_size:
+            tri_start[node] = lo
+            tri_count[node] = count
+            continue
+
+        cen = centroid[ids]
+        cmin, cmax = cen.min(axis=0), cen.max(axis=0)
+        extent = cmax - cmin
+        axis = int(np.argmax(extent))
+        if extent[axis] <= 0.0:   # every centroid the same: split by index
+            mid = lo + count // 2
+        else:
+            scale = _SAH_BINS * (1.0 - 1e-6) / extent[axis]
+            bins = ((cen[:, axis] - cmin[axis]) * scale).astype(np.int32)
+            bins = np.clip(bins, 0, _SAH_BINS - 1)
+            bin_cnt = np.bincount(bins, minlength=_SAH_BINS)
+            bin_min = np.full((_SAH_BINS, 3), np.inf, np.float32)
+            bin_max = np.full((_SAH_BINS, 3), -np.inf, np.float32)
+            for a in range(3):
+                np.minimum.at(bin_min[:, a], bins, tmin[ids][:, a])
+                np.maximum.at(bin_max[:, a], bins, tmax[ids][:, a])
+            # prefix and suffix sweeps: the SAH cost of the B - 1 planes
+            lmin = np.minimum.accumulate(bin_min, axis=0)
+            lmax = np.maximum.accumulate(bin_max, axis=0)
+            rmin = np.minimum.accumulate(bin_min[::-1], axis=0)[::-1]
+            rmax = np.maximum.accumulate(bin_max[::-1], axis=0)[::-1]
+            lcnt = np.cumsum(bin_cnt)
+            rcnt = count - lcnt
+            cost = _areas(lmin, lmax)[:-1] * lcnt[:-1] + _areas(rmin[1:], rmax[1:]) * rcnt[:-1]
+            cost = np.where((lcnt[:-1] == 0) | (rcnt[:-1] == 0), np.inf, cost)
+            best = int(np.argmin(cost))
+            if not np.isfinite(cost[best]):
+                mid = lo + count // 2
+            else:
+                go_left = bins <= best
+                order[lo:hi] = np.concatenate([ids[go_left], ids[~go_left]])
+                mid = lo + int(np.count_nonzero(go_left))
+        if mid == lo or mid == hi:
+            mid = lo + count // 2
+        l_idx, r_idx = n_nodes, n_nodes + 1
+        n_nodes += 2
+        if n_nodes > cap:
+            raise RuntimeError("BVH node capacity exceeded")
+        left[node] = l_idx
+        right[node] = r_idx
+        stack.append((r_idx, mid, hi, depth + 1))
+        stack.append((l_idx, lo, mid, depth + 1))
+
+    return BvhBuildResult(node_min[:n_nodes].copy(), node_max[:n_nodes].copy(),
+                          left[:n_nodes].copy(), right[:n_nodes].copy(),
+                          tri_start[:n_nodes].copy(), tri_count[:n_nodes].copy(),
+                          order, max_depth)
+
+
+def build_bvh_spatial(vertices: np.ndarray, indices: np.ndarray, leaf_size: int = 8,
+                      bins: int = 16, alpha: float = 1e-5,
+                      max_dup: float = 1.35) -> BvhBuildResult:
+    """Spatial-split (SBVH) top-down build, binned (Stich et al. 2009): at
+    each node the binned-SAH object split competes with a spatial split that
+    bins the reference boxes clipped to each bin along the node's widest
+    axis; a triangle straddling the chosen plane is referenced by both
+    children, each with its box clipped at the plane. Spatial splits are
+    only tried where the object split's children overlap (SA(L and R) /
+    SA(root) > alpha) and the references stay under max_dup * T.
+
+    `tri_order` may reference a triangle more than once: the triangle
+    tables, the leaf packing, the collapse and the refit all gather by id.
+    Duplicates add candidate tests and never change a closest or any hit."""
+    vertices = np.asarray(vertices, np.float32)
+    indices = np.asarray(indices, np.uint32)
+    T = indices.shape[0]
+    if T == 0:
+        return _empty_build()
+    tmin, tmax = triangle_aabbs(vertices, indices)
+
+    max_refs = int(T * max_dup) + 64
+    rtri = np.empty(max_refs, np.int64)        # reference -> triangle
+    rmin = np.empty((max_refs, 3), np.float32)   # reference boxes, clipped
+    rmax = np.empty((max_refs, 3), np.float32)
+    rtri[:T] = np.arange(T)
+    rmin[:T] = tmin
+    rmax[:T] = tmax
+    n_refs = T
+
+    cap = 2 * max_refs + 2
+    node_min = np.zeros((cap, 3), np.float32)
+    node_max = np.zeros((cap, 3), np.float32)
+    left = np.full(cap, LEAF, np.int32)
+    right = np.full(cap, LEAF, np.int32)
+    tri_start = np.zeros(cap, np.int32)
+    tri_count = np.zeros(cap, np.int32)
+    out_order = np.empty(max_refs, np.int64)
+    out_n = 0
+    n_nodes = 1
+    max_depth = 1
+    root_sa = max(_area(tmin.min(0), tmax.max(0)), 1e-30)
+
+    stack = [(0, np.arange(T, dtype=np.int64), 1)]   # (node, reference ids, depth)
+    while stack:
+        node, ids, depth = stack.pop()
+        max_depth = max(max_depth, depth)
+        bmin = rmin[ids].min(axis=0)
+        bmax = rmax[ids].max(axis=0)
+        node_min[node] = bmin
+        node_max[node] = bmax
+        count = ids.shape[0]
+        if count <= leaf_size:
+            tri_start[node] = out_n
+            tri_count[node] = count
+            out_order[out_n:out_n + count] = rtri[ids]
+            out_n += count
+            continue
+
+        # ---- object split: binned SAH on the reference centroids ----
+        cen = 0.5 * (rmin[ids] + rmax[ids])
+        cmin, cmax = cen.min(axis=0), cen.max(axis=0)
+        extent = cmax - cmin
+        axis = int(np.argmax(extent))
+        obj_mask = None
+        obj_cost = np.inf
+        obj_overlap = np.inf
+        if extent[axis] > 0.0:
+            scale = bins * (1.0 - 1e-6) / extent[axis]
+            b = np.clip(((cen[:, axis] - cmin[axis]) * scale).astype(np.int32), 0, bins - 1)
+            bin_cnt = np.bincount(b, minlength=bins)
+            bin_min = np.full((bins, 3), np.inf, np.float32)
+            bin_max = np.full((bins, 3), -np.inf, np.float32)
+            for a in range(3):
+                np.minimum.at(bin_min[:, a], b, rmin[ids][:, a])
+                np.maximum.at(bin_max[:, a], b, rmax[ids][:, a])
+            lmin = np.minimum.accumulate(bin_min, axis=0)
+            lmax = np.maximum.accumulate(bin_max, axis=0)
+            gmin = np.minimum.accumulate(bin_min[::-1], axis=0)[::-1]
+            gmax = np.maximum.accumulate(bin_max[::-1], axis=0)[::-1]
+            lcnt = np.cumsum(bin_cnt)
+            rcnt = count - lcnt
+            cost = _areas(lmin, lmax)[:-1] * lcnt[:-1] + _areas(gmin[1:], gmax[1:]) * rcnt[:-1]
+            cost = np.where((lcnt[:-1] == 0) | (rcnt[:-1] == 0), np.inf, cost)
+            best = int(np.argmin(cost))
+            if np.isfinite(cost[best]):
+                obj_cost = float(cost[best])
+                obj_mask = b <= best
+                omn = np.maximum(lmin[best], gmin[best + 1])
+                omx = np.minimum(lmax[best], gmax[best + 1])
+                obj_overlap = _area(omn, omx) if (omx > omn).all() else 0.0
+
+        # ---- spatial split: chopped binning along the node's widest axis,
+        # tried only where the object split's children overlap and the
+        # reference budget has room ----
+        sp_cost = np.inf
+        sp_plane = 0.0
+        sp_axis = int(np.argmax(bmax - bmin))
+        headroom = max_refs - n_refs - count
+        if (headroom > 0 and (not np.isfinite(obj_cost) or obj_overlap / root_sa > alpha)
+                and bmax[sp_axis] - bmin[sp_axis] > 0.0):
+            ext = bmax[sp_axis] - bmin[sp_axis]
+            inv = bins / ext
+            lo = rmin[ids][:, sp_axis]
+            hi = rmax[ids][:, sp_axis]
+            eb = np.clip(((lo - bmin[sp_axis]) * inv).astype(np.int32), 0, bins - 1)
+            xb = np.clip(((hi - bmin[sp_axis]) * inv - 1e-9).astype(np.int32), 0, bins - 1)
+            xb = np.maximum(xb, eb)
+            edges = bmin[sp_axis] + np.arange(bins + 1) * (ext / bins)
+            sbin_min = np.full((bins, 3), np.inf, np.float32)
+            sbin_max = np.full((bins, 3), -np.inf, np.float32)
+            for bi in range(bins):
+                m = (eb <= bi) & (xb >= bi)
+                if not m.any():
+                    continue
+                cm = rmin[ids][m].copy()
+                cM = rmax[ids][m].copy()
+                cm[:, sp_axis] = np.maximum(cm[:, sp_axis], edges[bi])
+                cM[:, sp_axis] = np.minimum(cM[:, sp_axis], edges[bi + 1])
+                sbin_min[bi] = np.minimum(sbin_min[bi], cm.min(axis=0))
+                sbin_max[bi] = np.maximum(sbin_max[bi], cM.max(axis=0))
+            ecnt = np.bincount(eb, minlength=bins)
+            xcnt = np.bincount(xb, minlength=bins)
+            slmin = np.minimum.accumulate(sbin_min, axis=0)
+            slmax = np.maximum.accumulate(sbin_max, axis=0)
+            srmin = np.minimum.accumulate(sbin_min[::-1], axis=0)[::-1]
+            srmax = np.maximum.accumulate(sbin_max[::-1], axis=0)[::-1]
+            nl = np.cumsum(ecnt)              # references entering at or before bin i
+            nr = count - np.cumsum(xcnt)      # references leaving after bin i
+            scost = _areas(slmin, slmax)[:-1] * nl[:-1] + _areas(srmin[1:], srmax[1:]) * nr[:-1]
+            dup = nl[:-1] + nr[:-1] - count   # straddling copies per plane
+            scost = np.where((nl[:-1] == 0) | (nr[:-1] == 0) | (dup > headroom), np.inf, scost)
+            sbest = int(np.argmin(scost))
+            if np.isfinite(scost[sbest]):
+                sp_cost = float(scost[sbest])
+                sp_plane = float(edges[sbest + 1])
+
+        # ---- the cheaper split ----
+        if sp_cost < obj_cost:
+            lo = rmin[ids][:, sp_axis]
+            hi = rmax[ids][:, sp_axis]
+            left_only = hi <= sp_plane
+            # a reference flat on the plane (lo == hi == plane) goes left only:
+            # in both children it would be one record clipped twice
+            right_only = (lo >= sp_plane) & ~left_only
+            strad = ~(left_only | right_only)
+            n_l = int(left_only.sum() + strad.sum())
+            n_r = int(right_only.sum() + strad.sum())
+            if n_l == 0 or n_r == 0 or (n_l >= count and n_r >= count):
+                # degenerate (every reference straddles: both children would
+                # be the parent): a median split, decided before any clip
+                lids, rids = ids[: count // 2], ids[count // 2:]
+            else:
+                sid = ids[strad]
+                rmax[sid, sp_axis] = sp_plane          # the left keeps them, clipped
+                k = sid.shape[0]
+                new_ids = np.arange(n_refs, n_refs + k, dtype=np.int64)
+                rtri[new_ids] = rtri[sid]              # the right gets clipped copies
+                rmin[new_ids] = rmin[sid]
+                rmin[new_ids, sp_axis] = sp_plane
+                rmax[new_ids] = rmax[sid]
+                rmax[new_ids, sp_axis] = hi[strad]     # `hi` was read before the clip
+                n_refs += k
+                lids = np.concatenate([ids[left_only], sid])
+                rids = np.concatenate([ids[right_only], new_ids])
+        elif obj_mask is not None:
+            lids, rids = ids[obj_mask], ids[~obj_mask]
+            if lids.size == 0 or rids.size == 0:
+                lids, rids = ids[: count // 2], ids[count // 2:]
+        else:
+            lids, rids = ids[: count // 2], ids[count // 2:]
+
+        l_idx, r_idx = n_nodes, n_nodes + 1
+        n_nodes += 2
+        if n_nodes > cap:
+            raise RuntimeError("SBVH node capacity exceeded")
+        left[node] = l_idx
+        right[node] = r_idx
+        stack.append((r_idx, rids, depth + 1))
+        stack.append((l_idx, lids, depth + 1))
+
+    return BvhBuildResult(node_min[:n_nodes].copy(), node_max[:n_nodes].copy(),
+                          left[:n_nodes].copy(), right[:n_nodes].copy(),
+                          tri_start[:n_nodes].copy(), tri_count[:n_nodes].copy(),
+                          out_order[:out_n].copy(), max_depth)
 
 
 def validate_bvh(res, num_triangles: int, allow_refs: bool = False) -> None:

@@ -3,8 +3,10 @@
 The repository ships the builder compiled (`csrc/libbvh_builder.so`); the
 JAX package loads the same file, which is what keeps the two packages' trees
 bit-equal. Where that library does not load on this host, the source is
-compiled with g++ into `build/`. There is no NumPy builder in this package
-yet, so `load_builder` raises when neither works.
+compiled with g++ into `build/`. `load_builder` raises when neither works:
+the NumPy builder (models/bvh.py::build_bvh with use_native=False) is a
+choice the caller makes, never taken in the native builder's place.
+`collapse4_native` collapses a binary tree into its 4- or 8-wide overlay.
 """
 
 from __future__ import annotations

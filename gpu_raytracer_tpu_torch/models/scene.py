@@ -18,7 +18,7 @@ import torch
 from ..config import DEFAULT_CONFIG, RaytracerConfig
 from ..ops.lbvh import GROUP, build_lbvh_grouped_arrays, collapse4_device
 from ..ops.texture import uv_density_code
-from .bvh import Bvh, BvhBuildResult, align_leaves, build_bvh
+from .bvh import Bvh, BvhBuildResult, align_leaves, build_bvh, build_bvh_spatial
 from .camera import Camera
 from .geometry import Mesh, Spheres, Textures, dedup_triangles
 from .light import LightBuilder, Lights
@@ -173,10 +173,10 @@ def prepare_scene(camera: Camera, spheres: Spheres, mesh: Mesh,
                   textures: Textures | None = None,
                   config: RaytracerConfig = DEFAULT_CONFIG,
                   device="cpu") -> Scene:
-    """Build the BVH on the host, reorder triangles into leaf order,
+    """Build the BVH on the host (binned SAH, or with
+    `config.bvh_spatial_splits` the spatial-split builder; its wide overlay
+    `config.bvh_width` children across), reorder triangles into leaf order,
     precompute edges, and move the scene to `device`."""
-    if config.bvh_spatial_splits:
-        raise NotImplementedError("the spatial-split (SBVH) builder is not ported yet")
 
     camera = dataclasses.replace(
         camera, direction=torch.from_numpy(_unit(camera.direction.numpy())),
@@ -206,7 +206,8 @@ def prepare_scene(camera: Camera, spheres: Spheres, mesh: Mesh,
     textured = textures is not None and textures.textured
     big = indices.shape[0] > 1_200_000
     align = 12 if ((big or config.bvh_leaf_size > 8) and not textured) else 8
-    bvh_result = align_leaves(build_bvh(vertices, indices, leaf_size=align), align)
+    build = build_bvh_spatial if config.bvh_spatial_splits else build_bvh
+    bvh_result = align_leaves(build(vertices, indices, leaf_size=align), align)
     v0, e1, e2, mat, tuv, src = _expand_triangles(
         vertices, indices, material_id, muv, bvh_result.tri_order,
         pad_to=max(config.bvh_leaf_size, bvh_result.leaf_align, 8))

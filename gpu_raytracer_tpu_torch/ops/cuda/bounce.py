@@ -5,7 +5,9 @@ K6 replaces the TPU kernel `gpu_raytracer_tpu/ops/pallas/bounce.py`
 (`pallas_bounce` -> `_kernel`). Kernel source: csrc/bounce.cuh (instances
 in csrc/bounce.cu and csrc/bounce_textured.cu), which reuses K2's sphere
 pass, K1's closest and any-hit traversal, the per-light intensity and the
-dispersion blend (csrc/render_common.cuh). `fused_bounce_` is its wrapper:
+dispersion blend (csrc/render_common.cuh), at the node table's width (the
+width-8 instances compile in csrc/bounce_w8.cu and bounce_textured_w8.cu).
+`fused_bounce_` is its wrapper:
 it updates the pool and the radiance IN PLACE, visits only the live lanes
 in the coherence order it is handed, and on the card computes each lane's
 QMC uniforms inside the kernel. Its plain version is
@@ -42,7 +44,7 @@ from .build import check, load_kernels
 from ..sampler import MASK32, QmcStream, lattice_words, mul32, pcg_hash
 from .render import RenderTables, pack_render_tables
 from .texshade import ShadeTables, pack_shade_tables
-from .traverse import nodes_ptr
+from .traverse import count_launch, nodes_ptr
 
 # lighting modes and continuations of the kernel (csrc/bounce.cuh)
 NEE_NONE, NEE_ALL, NEE_SAMPLED = 0, 1, 2
@@ -159,11 +161,11 @@ def fused_bounce_(tables: BounceTables, r, radiance: torch.Tensor, *, depth: int
     stream = torch.cuda.current_stream(dev).cuda_stream
     tr = rt.trace
     nodes = nodes_ptr(tr)
-    fused_bounce_.launches += 1
+    count_launch(fused_bounce_, tr)
     if textured:
-        fused_bounce_.material_launches += 1
+        count_launch(fused_bounce_, tr, "material_launches")
     check(k.lib.rt_bounce(
-        nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack,
+        nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.width, tr.stack,
         rt.materials.data_ptr(), rt.materials.shape[0], rt.lights.data_ptr(), n_lights,
         rt.spheres.data_ptr(), rt.spheres.shape[0], maps, atlas,
         sh.present if textured else 0, sh.n_levels if textured else 1, int(textured),
@@ -173,8 +175,10 @@ def fused_bounce_(tables: BounceTables, r, radiance: torch.Tensor, *, depth: int
         ptr(n_live), ptr(u), words, nee, cont, stream), "rt_bounce")
 
 
-fused_bounce_.launches = 0            # K6 launches
-fused_bounce_.material_launches = 0   # of which textured: each runs K5 per hit
+fused_bounce_.launches = 0               # K6 launches at width 4
+fused_bounce_.material_launches = 0      # of which textured: each runs K5 per hit
+fused_bounce_.w8_launches = 0            # K6 launches at width 8
+fused_bounce_.w8_material_launches = 0   # of which textured
 
 
 def fused_bounce(tables: BounceTables, r, u: torch.Tensor, *, shadows: bool, do_rr: bool,

@@ -27,11 +27,15 @@ from dataclasses import dataclass
 PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG), "build", "cuda")
+# the width-8 instances of the traversing kernels (*_w8.cu) compile in
+# sources of their own, in parallel with the width-4 ones
 SOURCES = ("traverse.cu", "render_primary.cu", "render_primary_textured.cu",
            "render_deferred.cu", "texshade.cu", "bounce.cu", "bounce_textured.cu",
-           "materials.cu", "qmc.cu")
-HEADERS = ("traverse.cuh", "render_common.cuh", "render_primary.cuh", "texsample.cuh",
-           "bounce.cuh")
+           "materials.cu", "qmc.cu", "traverse_w8.cu", "render_primary_w8.cu",
+           "render_primary_textured_w8.cu", "render_deferred_w8.cu", "bounce_w8.cu",
+           "bounce_textured_w8.cu")
+HEADERS = ("traverse.cuh", "traverse_kernels.cuh", "render_common.cuh", "render_primary.cuh",
+           "render_deferred.cuh", "texsample.cuh", "bounce.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -41,34 +45,39 @@ _p = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
 ARGTYPES = {
-    # nodes, tris, stack, orig, dirn, max_t, n, any_hit,
+    # every traversing entry takes the node table's width (4 or 8) before
+    # the stack capacity, and launches that width's instance
+    # nodes, tris, node width, stack, orig, dirn, max_t, n, any_hit,
     # t_out, slot_out, normal_out, mat_out, stream
-    "rt_traverse": [_p, _p, _i, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p],
-    # nodes, tris, stack, orig, dirn, max_t, n, any_hit, work_out, stream
-    "rt_traverse_work": [_p, _p, _i, _p, _p, _p, _i, _i, _p, _p],
-    # nodes, tris, stack, camera, materials, n_mats, lights, n_lights,
-    # spheres, n_spheres, px, py, n, width, height, shadows,
+    "rt_traverse": [_p, _p, _i, _i, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p],
+    # nodes, tris, node width, stack, orig, dirn, max_t, n, any_hit, work_out, stream
+    "rt_traverse_work": [_p, _p, _i, _i, _p, _p, _p, _i, _i, _p, _p],
+    # nodes, tris, node width, stack, camera, materials, n_mats, lights,
+    # n_lights, spheres, n_spheres, px, py, n, width, height, shadows,
     # sky_r, sky_g, sky_b, light_u (null: every light), rgb_out, stream
-    "rt_render_primary": [_p, _p, _i, _p, _p, _i, _p, _i, _p, _i, _p, _p, _i,
+    "rt_render_primary": [_p, _p, _i, _i, _p, _p, _i, _p, _i, _p, _i, _p, _p, _i,
                           _i, _i, _i, _f, _f, _f, _p, _p, _p],
-    # nodes, tris, attrs, stack, camera, materials, n_mats, lights, n_lights,
-    # spheres, n_spheres, maps, atlas, present, n_levels, pix_scale, px, py, n,
-    # width, height, shadows, sky_r, sky_g, sky_b, light_u, rgb_out, stream
-    "rt_render_primary_textured": [_p, _p, _p, _i, _p, _p, _i, _p, _i, _p, _i, _p, _p, _i,
-                                   _i, _f, _p, _p, _i, _i, _i, _i, _f, _f, _f, _p, _p, _p],
-    # nodes, tris, attrs, stack, camera, lights, n_lights, spheres, n_spheres,
-    # px, py, n, width, height, shadows, pix_scale, light_u, gbuf_out, stream
-    "rt_render_deferred": [_p, _p, _p, _i, _p, _p, _i, _p, _i, _p, _p, _i, _i, _i, _i,
+    # nodes, tris, attrs, node width, stack, camera, materials, n_mats,
+    # lights, n_lights, spheres, n_spheres, maps, atlas, present, n_levels,
+    # pix_scale, px, py, n, width, height, shadows, sky_r, sky_g, sky_b,
+    # light_u, rgb_out, stream
+    "rt_render_primary_textured": [_p, _p, _p, _i, _i, _p, _p, _i, _p, _i, _p, _i, _p, _p,
+                                   _i, _i, _f, _p, _p, _i, _i, _i, _i, _f, _f, _f, _p, _p,
+                                   _p],
+    # nodes, tris, attrs, node width, stack, camera, lights, n_lights,
+    # spheres, n_spheres, px, py, n, width, height, shadows, pix_scale,
+    # light_u, gbuf_out, stream
+    "rt_render_deferred": [_p, _p, _p, _i, _i, _p, _p, _i, _p, _i, _p, _p, _i, _i, _i, _i,
                            _f, _p, _p, _p],
     # gbuf, n, materials, n_mats, maps, atlas, present, n_levels, trilinear,
     # sky_r, sky_g, sky_b, rgb_out, stream
     "rt_texture_shade": [_p, _i, _p, _i, _p, _p, _i, _i, _i, _f, _f, _f, _p, _p],
-    # nodes, tris, attrs, stack, materials, n_mats, lights, n_lights, spheres,
-    # n_spheres, maps, atlas, present, n_levels, textured, tex_lod,
-    # the pool in place: origin, direction, throughput, medium, channel,
-    # ray_type, depth, active, radiance; n, order, n_live, u (each may be
-    # null), qmc (host words, read when u is null), nee, cont, stream
-    "rt_bounce": [_p, _p, _p, _i, _p, _i, _p, _i, _p, _i, _p, _p, _i, _i, _i, _f,
+    # nodes, tris, attrs, node width, stack, materials, n_mats, lights,
+    # n_lights, spheres, n_spheres, maps, atlas, present, n_levels, textured,
+    # tex_lod, the pool in place: origin, direction, throughput, medium,
+    # channel, ray_type, depth, active, radiance; n, order, n_live, u (each
+    # may be null), qmc (host words, read when u is null), nee, cont, stream
+    "rt_bounce": [_p, _p, _p, _i, _i, _p, _i, _p, _i, _p, _i, _p, _p, _i, _i, _i, _f,
                   _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _i, _p],
     # qmc (host words), n, u_out, stream
     "rt_qmc_uniforms": [_p, _i, _p, _p],

@@ -14,6 +14,10 @@ launch with no G-buffer; instantiated in csrc/render_primary_textured.cu.
 Its plain version is `render_chunk` on the textured scene (`trilinear=False`).
 `render_primary` launches it for a textured scene.
 
+Every launch takes the instance of the node table's width (4 or 8,
+`TraceTables.width`), counted apart: `launches` at width 4, `w8_launches`
+at width 8 (and `w8_textured_launches` beside `textured_launches`).
+
 K3 replaces `pallas_render_deferred` -> `_kernel_deferred` of the same file:
 the first phase of the textured render. Kernel source:
 csrc/render_deferred.cu, which shares K2's camera ray, sphere pass and
@@ -54,7 +58,7 @@ from ..f16 import unpack_f16_high, unpack_f16_low
 from ..linalg import cross, normalize
 from ..shading import pixel_footprint_scale
 from .build import check, load_kernels
-from .traverse import TraceTables, nodes_ptr, pack_trace_tables
+from .traverse import TraceTables, count_launch, nodes_ptr, pack_trace_tables
 
 MAX_LIGHTS = 16   # above this `Renderer` hands the kernels a `light_u`, as the JAX package
 
@@ -185,21 +189,23 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     frame_args = (px.data_ptr(), py.data_ptr(), N, width, height, int(shadows), sky_r, sky_g,
                   sky_b, _light_u_ptr(tables, light_u), rgb.data_ptr(), stream)
     if textured:
-        render_primary.textured_launches += 1
+        count_launch(render_primary, tr, "textured_launches")
         check(k.lib.rt_render_primary_textured(
-            nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack, *scene_args,
+            nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.width, tr.stack, *scene_args,
             shade.maps.data_ptr(), shade.atlas.data_ptr(), shade.present, shade.n_levels,
             pixel_footprint_scale(tables.fov_scale, height), *frame_args),
             "rt_render_primary_textured")
     else:
-        render_primary.launches += 1
-        check(k.lib.rt_render_primary(nodes, tr.tris.data_ptr(), tr.stack,
+        count_launch(render_primary, tr)
+        check(k.lib.rt_render_primary(nodes, tr.tris.data_ptr(), tr.width, tr.stack,
                                       *scene_args, *frame_args), "rt_render_primary")
     return rgb
 
 
-render_primary.launches = 0            # K2
-render_primary.textured_launches = 0   # K2t
+render_primary.launches = 0               # K2
+render_primary.textured_launches = 0      # K2t
+render_primary.w8_launches = 0            # K2, width 8
+render_primary.w8_textured_launches = 0   # K2t, width 8
 
 
 def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
@@ -223,9 +229,9 @@ def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     pix = pixel_footprint_scale(tables.fov_scale, height)
     stream = torch.cuda.current_stream(px.device).cuda_stream
     nodes = nodes_ptr(tr)
-    render_deferred.launches += 1
+    count_launch(render_deferred, tr)
     check(k.lib.rt_render_deferred(
-        nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.stack,
+        nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.width, tr.stack,
         tables.camera.data_ptr(), tables.lights.data_ptr(), tables.lights.shape[0],
         tables.spheres.data_ptr(), tables.spheres.shape[0], px.data_ptr(), py.data_ptr(),
         N, width, height, int(shadows), pix, _light_u_ptr(tables, light_u), gbuf.data_ptr(),
@@ -233,4 +239,5 @@ def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     return gbuf
 
 
-render_deferred.launches = 0
+render_deferred.launches = 0      # width 4
+render_deferred.w8_launches = 0   # width 8

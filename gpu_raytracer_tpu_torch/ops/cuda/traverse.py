@@ -1,4 +1,5 @@
-"""K1: BVH4 closest-hit / any-hit traversal, one ray per thread (CUDA).
+"""K1: wide-BVH (4 or 8 children) closest-hit / any-hit traversal, one ray
+per thread (CUDA).
 
 Replaces the TPU kernel `gpu_raytracer_tpu/ops/pallas/traverse.py`
 (`pallas_packet_traverse` -> `traverse_best` -> `_ordered_traverse4`).
@@ -10,13 +11,17 @@ triangles through K1: the path tracer's G-buffer and temporal warp.
 
 The scene tables are laid out for the GPU here, once per scene:
 
-  * nodes [Q,32] f32: one 128-byte record per BVH4 node, 128-byte aligned
-    (one cache line): child boxes as lo_x[4], lo_y[4], lo_z[4], hi_x[4],
-    hi_y[4], hi_z[4], then code[4] (a wide node id >= 0, or a leaf as the
-    traversal stack's leaf code -1 - (first triangle slot << 4 | count), or
-    -1 for an empty slot), the axis the children are sorted on, 3 pad
-    words. The integer fields are int32 bit patterns in the f32 tensor;
-    `unpack_nodes` reads a table back.
+  * nodes [Q,8w] f32, w = 4 or 8 the BVH's width (`TraceTables.width`):
+    one record per wide node, 128-byte aligned: child boxes as lo_x[w],
+    lo_y[w], lo_z[w], hi_x[w], hi_y[w], hi_z[w], then code[w] (a wide node
+    id >= 0, or a leaf as the traversal stack's leaf code -1 - (first
+    triangle slot << 4 | count), or -1 for an empty slot), the axis the
+    children are sorted on, w - 1 pad words. A width-4 record is 32 words,
+    one 128-byte cache line; a width-8 record 64 words, two lines (twelve
+    float4 of boxes, two int4 of codes, the axis). The integer fields are
+    int32 bit patterns in the f32 tensor; `unpack_nodes` reads a table
+    back. Each width has its own kernel instances, chosen by the width the
+    tables carry: a width-8 table launches the width-8 walk or raises.
   * tris [Tp,12] f32: three float4 per leaf-ordered triangle slot:
     (v0, material as int32 bits), (e1, 0), (e2, 0).
 
@@ -24,17 +29,19 @@ The scene tables are laid out for the GPU here, once per scene:
     density, 0): what the deferred trace kernel reads once for the winner
     of a textured scene (its uv and mip footprint).
 
-A single-leaf tree (no BVH4 overlay) becomes one node whose slot 0 is the
-leaf under an all-enclosing box. The per-thread stack holds at most
-3 x (BVH4 depth) + 1 entries; the host computes that bound from a host-built
-tree, or takes LBVH_WIDE_DEPTH for a rebuilt one, and picks the smallest
-compiled stack that holds it, or raises.
+A single-leaf tree (no wide overlay) becomes one width-4 node whose slot 0
+is the leaf under an all-enclosing box. The per-thread stack holds at most
+(w - 1) x (wide depth) + 1 entries; the host computes that bound from a
+host-built tree, or takes LBVH_WIDE_DEPTH for a rebuilt one (always width
+4), and picks the smallest stack compiled for the width that holds it, or
+raises.
 
 A refit scene (models/scene.py::refit_scene) takes its tables along in
 `refit_trace_tables`: after a topology refit the box words of every node
 line and the triangle and attribute rows are rewritten in place (the tables
 keep their shapes and device addresses); after a rebuild they are packed
-anew. Neither reads anything back from the device.
+anew, at width 4 whatever the width before. Neither reads anything back
+from the device.
 """
 
 from __future__ import annotations
@@ -50,7 +57,9 @@ from ..trace import Hit, traverse_triangles
 from ..trace import trace as plain_trace
 from .build import check, load_kernels
 
-STACK_SIZES = (16, 32, 64, 128)   # compiled stack capacities (csrc/traverse.cu)
+STACK_SIZES = (16, 32, 64, 128)   # stack capacities compiled at width 4 (csrc/traverse.cu)
+# and at width 8, where 16 entries would hold only a two-level tree
+WIDE_STACK_SIZES = {4: STACK_SIZES, 8: (32, 64, 128)}
 # BVH4 levels of a rebuilt tree (Bvh.depth == LBVH_DEPTH), a bound known
 # without reading the tree: a Karras node's range strictly lengthens its
 # parent's common prefix, at most 63 bits of code and index tie-break, so
@@ -58,19 +67,20 @@ STACK_SIZES = (16, 32, 64, 128)   # compiled stack capacities (csrc/traverse.cu)
 # collapse keeps every other level, at most 31 (ops/lbvh.py::collapse4_device).
 # 32 levels need 3 * 32 + 1 = 97 stack entries: the 128-entry stack.
 LBVH_WIDE_DEPTH = 32
-NODE_WORDS = 32                   # f32 words of a node record
-NODE_BYTES = 4 * NODE_WORDS       # and its alignment: one 128-byte cache line
+NODE_WORDS = 32                   # f32 words of a width-4 node record (8 per child slot)
+NODE_BYTES = 4 * NODE_WORDS       # the alignment of every node table: one 128-byte line
 _BIG = 3.0e38
 
 
 @dataclass
 class TraceTables:
     scene: Scene            # the scene the tables were packed from (plain path)
-    nodes: torch.Tensor     # [Q,32] f32, 128-byte aligned on the card
+    nodes: torch.Tensor     # [Q,8*width] f32, 128-byte aligned on the card
     tris: torch.Tensor      # [Tp,12] f32
     attrs: torch.Tensor     # [Tp,8] f32 winner attributes (uvs, density)
-    depth: int              # BVH4 levels of internal nodes
+    depth: int              # wide levels of internal nodes
     stack: int              # compiled stack capacity the kernels use
+    width: int = 4          # children per node record: 4 or 8
 
     @property
     def device(self) -> torch.device:
@@ -95,15 +105,13 @@ def wide_depth(q_child: np.ndarray, q_leafc: np.ndarray) -> int:
 
 
 def wide_arrays(scene: Scene):
-    """The BVH4 of a scene as (q_min [Q,4,3] f32, q_max [Q,4,3] f32, q_child
-    [Q,4] i32, q_leafc [Q,4] i32, q_axis [Q] i32, depth). A single-leaf tree
-    (no BVH4 overlay) becomes one node whose slot 0 is the leaf under a box
-    no ray misses, slots 1-3 empty."""
+    """The wide overlay of a scene as (q_min [Q,w,3] f32, q_max [Q,w,3] f32,
+    q_child [Q,w] i32, q_leafc [Q,w] i32, q_axis [Q] i32, depth), w = 4 or 8.
+    A single-leaf tree (no overlay) becomes one width-4 node whose slot 0 is
+    the leaf under a box no ray misses, slots 1-3 empty."""
     bvh = scene.bvh
     dev = scene.device
     if bvh.has_wide:
-        if bvh.q_child.shape[1] != 4:
-            raise NotImplementedError("BVH width 8 is not ported yet")
         depth = (LBVH_WIDE_DEPTH if bvh.depth == LBVH_DEPTH else   # rebuilt: no host read
                  wide_depth(bvh.q_child.cpu().numpy(), bvh.q_leafc.cpu().numpy()))
         return bvh.q_min.float(), bvh.q_max.float(), bvh.q_child, bvh.q_leafc, bvh.q_axis, depth
@@ -119,36 +127,40 @@ def wide_arrays(scene: Scene):
 
 
 def node_boxes(q_min, q_max) -> torch.Tensor:
-    """The 24 box words of each node record [Q,24]: lo_x[4] ... hi_z[4]."""
+    """The 6w box words of each node record [Q,6w]: lo_x[w] ... hi_z[w]."""
     return torch.cat([q_min[:, :, 0], q_min[:, :, 1], q_min[:, :, 2],
                       q_max[:, :, 0], q_max[:, :, 1], q_max[:, :, 2]], dim=1)
 
 
 def pack_nodes(q_min, q_max, q_child, q_leafc, q_axis) -> torch.Tensor:
-    """[Q,32] f32 node records (the module docstring's layout) from the
-    BVH4 arrays of `wide_arrays`."""
+    """[Q,8w] f32 node records (the module docstring's layout) from the
+    wide arrays of `wide_arrays`, w = q_child.shape[1] (4 or 8)."""
+    width = q_child.shape[1]
+    if width not in WIDE_STACK_SIZES:
+        raise ValueError(f"pack_nodes: {width} children per node; the kernels take 4 or 8")
     child, count = q_child.to(torch.int32), q_leafc.to(torch.int32)
     leaf = -1 - ((child << 4) | count)
     code = torch.where(child < 0, torch.full_like(child, -1),
                        torch.where(count > 0, leaf, child))
-    pad = torch.zeros((child.shape[0], 3), dtype=torch.float32, device=child.device)
+    pad = torch.zeros((child.shape[0], width - 1), dtype=torch.float32, device=child.device)
     return torch.cat([node_boxes(q_min, q_max), _bits(code), _bits(q_axis[:, None]), pad],
                      dim=1).contiguous()
 
 
 def unpack_nodes(nodes: torch.Tensor):
-    """Node records [Q,32] f32 -> (q_min, q_max, q_child, q_leafc, q_axis),
+    """Node records [Q,8w] f32 -> (q_min, q_max, q_child, q_leafc, q_axis),
     the arrays `pack_nodes` was given."""
-    boxes = nodes[:, :24].reshape(-1, 6, 4)
+    w = nodes.shape[1] // 8
+    boxes = nodes[:, :6 * w].reshape(-1, 6, w)
     q_min = boxes[:, 0:3].transpose(1, 2).contiguous()
     q_max = boxes[:, 3:6].transpose(1, 2).contiguous()
-    ints = nodes[:, 24:29].contiguous().view(torch.int32)
-    code = ints[:, :4]
+    ints = nodes[:, 6 * w:7 * w + 1].contiguous().view(torch.int32)
+    code = ints[:, :w]
     packed = -1 - code
     is_leaf = code < -1
     child = torch.where(is_leaf, packed >> 4, code)
     count = torch.where(is_leaf, packed & 15, torch.zeros_like(code))
-    return q_min, q_max, child, count, ints[:, 4]
+    return q_min, q_max, child, count, ints[:, w]
 
 
 def pack_trace_tables(scene: Scene) -> TraceTables:
@@ -161,12 +173,13 @@ def pack_trace_tables(scene: Scene) -> TraceTables:
                          f"triangle slots do not fit the kernels' 4+27-bit leaf code")
     q_min, q_max, child, count, axis, depth = wide_arrays(scene)
     nodes = pack_nodes(q_min, q_max, child, count, axis)
+    width = child.shape[1]
     zero = torch.zeros((scene.tri_v0.shape[0], 1), dtype=torch.float32, device=dev)
     tris = torch.cat([scene.tri_v0, _bits(scene.tri_mat[:, None]),
                       scene.tri_e1, zero, scene.tri_e2, zero], dim=1).contiguous()
     attrs = torch.cat([scene.tri_uv.reshape(-1, 6), den_decode(scene.tri_den)[:, None],
                        zero], dim=1).contiguous()
-    return TraceTables(scene, nodes, tris, attrs, depth, stack_capacity(depth))
+    return TraceTables(scene, nodes, tris, attrs, depth, stack_capacity(depth, width), width)
 
 
 def refit_trace_tables(tables: TraceTables, scene: Scene) -> None:
@@ -175,16 +188,17 @@ def refit_trace_tables(tables: TraceTables, scene: Scene) -> None:
     tensors: the 24 box words of each node line, the triangle rows (v0, e1,
     e2) and the attribute rows' density are rewritten in place, and the
     child codes, axes, depth and stack stay. A rebuild brings another tree:
-    the tables are packed anew (a fresh, aligned node table). Either way
-    nothing is read back from the device."""
+    the tables are packed anew (a fresh, aligned node table of the rebuilt
+    tree's width, 4). Either way nothing is read back from the device."""
     old = tables.scene
     if scene.bvh.left is not old.bvh.left or scene.tri_v0.shape != old.tri_v0.shape:
         fresh = pack_trace_tables(scene)
         tables.nodes, tables.tris, tables.attrs = fresh.nodes, fresh.tris, fresh.attrs
-        tables.depth, tables.stack = fresh.depth, fresh.stack
+        tables.depth, tables.stack, tables.width = fresh.depth, fresh.stack, fresh.width
     else:
         if scene.bvh.has_wide:
-            tables.nodes[:, :24] = node_boxes(scene.bvh.q_min.float(), scene.bvh.q_max.float())
+            tables.nodes[:, :6 * tables.width] = node_boxes(scene.bvh.q_min.float(),
+                                                            scene.bvh.q_max.float())
         tables.tris[:, 0:3] = scene.tri_v0
         tables.tris[:, 4:7] = scene.tri_e1
         tables.tris[:, 8:11] = scene.tri_e2
@@ -194,13 +208,16 @@ def refit_trace_tables(tables: TraceTables, scene: Scene) -> None:
 
 def nodes_ptr(tables: TraceTables) -> int:
     """The node table's device address for a kernel launch: the kernels read
-    a record as one aligned 128-byte line, so any other alignment (a view
-    into a larger buffer) or shape is refused."""
+    a record as whole aligned 128-byte lines (one at width 4, two at width
+    8), so any other alignment (a view into a larger buffer) or shape, or a
+    table whose records are not of the tables' width, is refused."""
     nodes = tables.nodes
-    if (nodes.dtype != torch.float32 or nodes.dim() != 2 or nodes.shape[1] != NODE_WORDS
-            or not nodes.is_contiguous()):
-        raise ValueError(f"nodes: want contiguous float32 [Q,{NODE_WORDS}], got {nodes.dtype} "
-                         f"{tuple(nodes.shape)}")
+    words = 8 * tables.width
+    if (tables.width not in WIDE_STACK_SIZES or nodes.dtype != torch.float32
+            or nodes.dim() != 2 or nodes.shape[1] != words or not nodes.is_contiguous()):
+        raise ValueError(f"nodes: want contiguous float32 [Q,{words}] (width 4: [Q,32], "
+                         f"width 8: [Q,64]), got {nodes.dtype} {tuple(nodes.shape)} at width "
+                         f"{tables.width}")
     ptr = nodes.data_ptr()
     if ptr % NODE_BYTES:
         raise ValueError(f"nodes: the table starts at {ptr:#x}, not on a {NODE_BYTES}-byte "
@@ -208,15 +225,19 @@ def nodes_ptr(tables: TraceTables) -> int:
     return ptr
 
 
-def stack_capacity(depth: int) -> int:
-    """The smallest compiled stack that holds a traversal of a BVH4 with
-    `depth` levels of internal nodes: each level leaves at most 3 siblings
-    behind and the deepest pushes 4, so 3 * depth + 1 entries."""
-    need = 3 * depth + 1
-    fits = [s for s in STACK_SIZES if s >= need]
+def stack_capacity(depth: int, width: int = 4) -> int:
+    """The smallest stack compiled for `width` that holds a traversal of a
+    wide BVH with `depth` levels of internal nodes: each level leaves at most
+    width - 1 siblings behind, so (width - 1) * depth + 1 entries (3 * depth
+    + 1 at width 4)."""
+    sizes = WIDE_STACK_SIZES.get(width)
+    if sizes is None:
+        raise ValueError(f"width {width}: the kernels are compiled for widths 4 and 8")
+    need = (width - 1) * depth + 1
+    fits = [s for s in sizes if s >= need]
     if not fits:
-        raise ValueError(f"BVH4 depth {depth} needs a {need}-entry traversal stack; "
-                         f"the kernels are compiled for at most {STACK_SIZES[-1]}")
+        raise ValueError(f"width-{width} depth {depth} needs a {need}-entry traversal stack; "
+                         f"the kernels are compiled for at most {sizes[-1]}")
     return fits[0]
 
 
@@ -239,7 +260,9 @@ def traverse(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
     miss; material [N] or -1). With any_hit the ray stops at the first
     blocker found: only hit (and the blocker's t and slot) are defined, and
     which blocker is found depends on the traversal order. CUDA tensors
-    launch the kernel, CPU tensors take the plain version."""
+    launch the kernel instance of the tables' width (counted in `launches`
+    at width 4, `w8_launches` at width 8), CPU tensors take the plain
+    version."""
     N = _check_rays(tables, orig, dirn, max_t)
     if orig.device.type == "cpu":
         return traverse_triangles(tables.scene, orig, dirn, max_t, any_hit=any_hit)
@@ -252,15 +275,23 @@ def traverse(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
     mat = torch.empty((N,), dtype=torch.int32, device=orig.device)
     stream = torch.cuda.current_stream(orig.device).cuda_stream
     nodes = nodes_ptr(tables)
-    traverse.launches += 1
-    check(k.lib.rt_traverse(nodes, tables.tris.data_ptr(), tables.stack,
+    count_launch(traverse, tables)
+    check(k.lib.rt_traverse(nodes, tables.tris.data_ptr(), tables.width, tables.stack,
                             orig.data_ptr(), dirn.data_ptr(), max_t.data_ptr(), N,
                             int(any_hit), t.data_ptr(), slot.data_ptr(),
                             normal.data_ptr(), mat.data_ptr(), stream), "rt_traverse")
     return t, slot, slot >= 0, normal, mat
 
 
-traverse.launches = 0
+traverse.launches = 0      # width 4
+traverse.w8_launches = 0   # width 8
+
+
+def count_launch(wrapper, tables: TraceTables, kind: str = "launches") -> None:
+    """Add one to the wrapper's count of launches of the instance of the
+    tables' width: `kind` at width 4, "w8_" + `kind` at width 8."""
+    name = kind if tables.width == 4 else f"w8_{kind}"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def trace(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor, max_t=None) -> Hit:
@@ -282,21 +313,25 @@ def trace(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor, max_t=Non
 
 def traversal_work(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
                    max_t: torch.Tensor, any_hit: bool = False) -> torch.Tensor:
-    """The work of K1's own walk for each ray -> [N,4] int32: node records
-    slab-tested, triangles intersected (the operation count of the kernels'
-    roofline bound), and the iterations of the node body and of the
-    triangle body that the ray's lane led for its warp of 32 consecutive
-    rays, so that over a launch sum(nodes) / (32 * sum(warp nodes)) is the
-    SIMT efficiency of the node body, and the same for the triangles. A
-    measurement on the card, only for CUDA tensors: the plain traversal
-    walks the binary tree, a different count."""
+    """The work of K1's own walk for each ray -> [N,5] int32: node records
+    visited, triangles intersected, the iterations of the node body and of
+    the triangle body that the ray's lane led for its warp of 32 consecutive
+    rays, and the non-empty child slots of the visited records. Over a
+    launch sum(nodes) / (32 * sum(warp nodes)) is the SIMT efficiency of the
+    node body, and the same for the triangles; the slots and the triangles
+    are the slab and triangle tests the closest hit needs (the operation
+    count of the kernels' roofline bound: a visit also slab-tests its empty
+    slots, work the function does not need). A measurement on the card,
+    only for CUDA tensors: the plain traversal walks the binary tree, a
+    different count. A node is a record of the tables' width."""
     N = _check_rays(tables, orig, dirn, max_t)
     if orig.device.type != "cuda":
         raise ValueError(f"traversal_work: counts the CUDA walk, got {orig.device}")
     k = load_kernels()
-    work = torch.empty((N, 4), dtype=torch.int32, device=orig.device)
+    work = torch.empty((N, 5), dtype=torch.int32, device=orig.device)
     stream = torch.cuda.current_stream(orig.device).cuda_stream
-    check(k.lib.rt_traverse_work(nodes_ptr(tables), tables.tris.data_ptr(), tables.stack,
+    check(k.lib.rt_traverse_work(nodes_ptr(tables), tables.tris.data_ptr(), tables.width,
+                                 tables.stack,
                                  orig.data_ptr(), dirn.data_ptr(), max_t.data_ptr(), N,
                                  int(any_hit), work.data_ptr(), stream), "rt_traverse_work")
     return work

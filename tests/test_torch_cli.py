@@ -65,16 +65,39 @@ def test_pathtrace_denoise_and_adaptive(tmp_path, mode):
 
 
 def test_render_refuses_unported_scenes(tmp_path):
-    """What the port still lacks raises; a glTF file that does not load is
-    not among it: the default scene is rendered and the message says why."""
-    proc = _run(["--courtyard", "500", "--bvh-width", "8", "--device", "cpu", "-o", "x.png"],
-                tmp_path)
-    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
+    """BVH width 8 renders; a glTF file that does not load is not refused
+    either: the default scene is rendered and the message says why."""
+    proc = _run(["--courtyard", "500", "--bvh-width", "8", "--width", "16", "--height", "12",
+                 "--device", "cpu", "-o", "w8.png"], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert _png_size(tmp_path / "w8.png") == (16, 12)
     proc = _run(["--gltf", "absent.glb", "--width", "16", "--height", "12", "--device", "cpu",
                  "-o", "x.png"], tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "Failed to load glTF scene 'absent.glb'" in proc.stderr
     assert "using default scene" in proc.stderr and _png_size(tmp_path / "x.png") == (16, 12)
+
+
+W8, SBVH = ["--bvh-width", "8"], ["--bvh-spatial-splits", "true"]
+
+
+@pytest.mark.parametrize("command, bvh", [("render", W8), ("render", SBVH),
+                                          ("render", W8 + SBVH), ("pathtrace", W8 + SBVH),
+                                          ("fly", W8 + SBVH)])
+def test_commands_take_width8_and_spatial_splits(tmp_path, command, bvh):
+    """render builds the width-8 and the spatial-split BVH, alone and
+    together; pathtrace and fly build both together; each writes its frames."""
+    out = tmp_path / ("frames" if command == "fly" else "x.png")
+    extra = {"render": ["--shadows"], "pathtrace": ["--spp", "1"],
+             "fly": ["--script", "w d", "--shadows"]}[command]
+    proc = _run(["--courtyard", "500", *bvh, "--width", "16", "--height", "12", *extra,
+                 "--device", "cpu", "-o", str(out)], tmp_path, command)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    if command == "fly":
+        assert sorted(os.listdir(out)) == ["frame_0000.png", "frame_0001.png"]
+        assert _png_size(out / "frame_0001.png") == (16, 12)
+    else:
+        assert _png_size(out) == (16, 12)
 
 
 @pytest.fixture(scope="module")

@@ -626,3 +626,135 @@ def test_viewer_frames_and_refit_never_wait(cuda, textured):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(v._fb_dev).all()
+
+
+WIDE = {"w8": dict(bvh_width=8), "sbvh": dict(bvh_spatial_splits=True),
+        "sbvh_w8": dict(bvh_width=8, bvh_spatial_splits=True)}
+
+
+def _wide_scene(name, cuda, **kw):
+    from gpu_raytracer_tpu_torch.config import RaytracerConfig
+
+    return make_courtyard_scene(2000, seed=1, config=RaytracerConfig(**WIDE[name]), device=cuda,
+                                **kw)
+
+
+def _counter(name, wrapper, kind="launches"):
+    """The launch count of the instance `name`'s tables take."""
+    return getattr(wrapper, kind if WIDE[name].get("bvh_width", 4) == 4 else f"w8_{kind}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_wide_and_sbvh_traverse_kernel_matches_plain(cuda, name):
+    """K1 at width 8 and on the spatial-split tree against the plain walk:
+    closest hits of camera and random rays, and any-hit below a max t."""
+    scene = _wide_scene(name, cuda)
+    tables = pack_trace_tables(scene)
+    assert tables.width == WIDE[name].get("bvh_width", 4)
+    rng = np.random.default_rng(3)
+    n = 8192
+    o = torch.from_numpy(rng.uniform(-20, 20, (n, 3)).astype(np.float32)).to(cuda)
+    o[: n // 2] = scene.camera.position
+    d = rng.normal(size=(n, 3))
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)).to(cuda)
+    far = torch.full((n,), 3.4028234663852886e38, device=cuda)
+    before = _counter(name, traverse)
+    ties = k1_compare(tables, o, d, far)[1]
+    assert _counter(name, traverse) == before + 1
+    assert ties.sum().item() <= n * 1e-3
+    max_t = torch.from_numpy(rng.uniform(0, 20, n).astype(np.float32)).to(cuda)
+    blocked = traverse(tables, o, d, max_t, any_hit=True)[2]
+    assert torch.equal(blocked, traverse_triangles(scene, o, d, max_t, any_hit=True)[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shadows", [False, True])
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_wide_and_sbvh_render_kernel_matches_plain(cuda, name, shadows):
+    """K2 at width 8 and on the spatial-split tree: one launch of the
+    instance of the tables' width, the frame against render_chunk."""
+    scene = _wide_scene(name, cuda)
+    W, H = 160, 120
+    r = Renderer(scene, W, H, shadows=shadows, sky=SKY, device=cuda)
+    before = _counter(name, render_primary)
+    got = r.render_device()
+    assert _counter(name, render_primary) == before + 1
+    want = render_chunk(r.scene, r.px, r.py, W, H, shadows=shadows, sky=SKY)
+    o, d = generate_rays(r.scene.camera, W, H, r.px, r.py)
+    far = torch.full((W * H,), 3.4028234663852886e38, device=cuda)
+    ties = k1_compare(r.tables.trace, o.contiguous(), d.contiguous(), far)[1]
+    diff = (got - want).abs().amax(dim=1)
+    assert diff[~ties].max().item() <= 1e-5
+    assert ties.sum().item() <= W * H * 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("textured", [False, True])
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_wide_and_sbvh_bounce_kernel_matches_plain(cuda, name, textured):
+    """K6 at width 8 and on the spatial-split tree against the plain bounce
+    on the path tracer's pools (depths 0, 1 and the last)."""
+    tables = pack_bounce_tables(_wide_scene(name, cuda, textured=textured))
+    before = _counter(name, fused_bounce_)
+    launches = 0
+    for depth, r, order, n_live, qmc, flags in pools(tables, 128, 128, (0, 1, 4)):
+        bounce_compare(tables, r, flags, depth=depth, order=order, n_live=n_live, qmc=qmc)
+        launches += 1
+    assert _counter(name, fused_bounce_) == before + launches
+
+
+@pytest.mark.cuda
+def test_width8_refit_keeps_width8_and_rebuild_drops_to_width4_on_the_card(cuda):
+    """A topology refit of a width-8 scene keeps its width-8 tables (in
+    place) and the next frame launches the width-8 K2; a rebuild brings
+    width-4 tables and the next frame launches the width-4 K2."""
+    from chip_smoke import refit_frame_compare
+    from gpu_raytracer_tpu_torch.models.scene import refit_scene
+
+    scene = _wide_scene("w8", cuda)
+    r = Renderer(scene, 96, 64, shadows=True, device=cuda)
+    nodes = r.tables.trace.nodes
+    r.set_geometry(refit_scene(r.scene, _moved_vertices(scene)))
+    assert r.tables.trace.width == 8 and r.tables.trace.nodes is nodes
+    w4, w8 = render_primary.launches, render_primary.w8_launches
+    assert refit_frame_compare(r, "K2 width-8 refit")["max_abs_err"] <= 1e-5
+    assert (render_primary.launches, render_primary.w8_launches) == (w4, w8 + 1)
+    r.set_geometry(refit_scene(r.scene, _moved_vertices(scene), rebuild=True))
+    assert r.tables.trace.width == 4 and r.tables.trace.nodes.shape[1] == 32
+    assert refit_frame_compare(r, "K2 after a rebuild")["max_abs_err"] <= 1e-5
+    assert (render_primary.launches, render_primary.w8_launches) == (w4 + 1, w8 + 1)
+
+
+@pytest.mark.cuda
+def test_traversal_work_counts_the_live_child_slots_of_each_visit(cuda):
+    """traversal_work's counts on one tree at both widths: every visit has
+    2 .. width non-empty child slots, width 8 visits fewer records than
+    width 4, no ray with max_t 0 visits any, and the SIMT efficiencies are
+    shares."""
+    from chip_smoke import simt_efficiency, walk_flops
+    from gpu_raytracer_tpu_torch.config import RaytracerConfig
+    from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traversal_work
+
+    W, H = 96, 64
+    work = {}
+    for width in (4, 8):
+        scene = make_courtyard_scene(2000, seed=1, config=RaytracerConfig(bvh_width=width),
+                                     device=cuda)
+        tables = pack_trace_tables(scene)
+        px, py = (torch.from_numpy(a).to(cuda) for a in tiled_pixel_order(W, H))
+        o, d = generate_rays(scene.camera, W, H, px, py)
+        far = torch.full((W * H,), 3.4028234663852886e38, device=cuda)
+        w = traversal_work(tables, o.contiguous(), d.contiguous(), far)
+        assert w.shape == (W * H, 5)
+        nodes, slots = w[:, 0].long(), w[:, 4].long()
+        assert (nodes >= 1).all() and (slots >= 2 * nodes).all()
+        assert (slots <= width * nodes).all()
+        assert walk_flops(w) == float(slots.sum() * 25 + w[:, 1].long().sum() * 54)
+        eff = simt_efficiency(w)
+        assert 0.0 < eff["node_body"] <= 1.0 and 0.0 < eff["triangle_body"] <= 1.0
+        none = traversal_work(tables, o.contiguous(), d.contiguous(), torch.zeros_like(far))
+        assert int(none.sum()) == 0
+        work[width] = w
+    assert int(work[8][:, 0].sum()) < int(work[4][:, 0].sum())

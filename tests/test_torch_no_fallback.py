@@ -369,11 +369,54 @@ def test_gbuffer_and_warp_trace_through_the_kernel_wrappers(monkeypatch):
     assert seen == ["k1", "k5"] * 2 + ["k1", "k1", "k5"]
 
 
-def test_unported_inputs_raise():
-    with pytest.raises(NotImplementedError):
-        make_courtyard_scene(500, config=RaytracerConfig(bvh_width=8))
-    with pytest.raises(NotImplementedError):
-        make_courtyard_scene(500, config=RaytracerConfig(bvh_spatial_splits=True))
+def test_unported_inputs_raise(monkeypatch):
+    """BVH width 8, spatial splits and both build, and a width-8 table on a
+    CUDA tensor goes to the width-8 kernel instance or raises: the wrappers
+    never take the plain walk or a width-4 instance for it. Only another
+    width than 4 or 8 is refused."""
+    from gpu_raytracer_tpu_torch.engine import renderer
+    from gpu_raytracer_tpu_torch.ops import trace as plain
+    from gpu_raytracer_tpu_torch.ops.cuda import render as render_mod
+    from gpu_raytracer_tpu_torch.ops.cuda import traverse as k1
+
+    for kw in (dict(bvh_width=8), dict(bvh_spatial_splits=True),
+               dict(bvh_width=8, bvh_spatial_splits=True)):
+        scene = make_courtyard_scene(500, config=RaytracerConfig(**kw))
+        assert scene.bvh.q_child.shape[1] == kw.get("bvh_width", 4)
+        tables = pack_render_tables(scene)
+        assert tables.trace.width == kw.get("bvh_width", 4)
+        assert tables.trace.nodes.shape[1] == 8 * tables.trace.width
+    with pytest.raises(ValueError, match="4 or 8"):
+        make_courtyard_scene(500, config=RaytracerConfig(bvh_width=2))
+
+    class CudaTyped(torch.Tensor):
+        """A CPU tensor that says it lies on a CUDA device."""
+        device = torch.device("cuda", 0)
+
+    scene = make_courtyard_scene(500, config=RaytracerConfig(bvh_width=8))
+    rt = pack_render_tables(scene)
+    cuda_trace = dataclasses.replace(rt.trace, nodes=rt.trace.nodes.as_subclass(CudaTyped))
+    cuda_rt = dataclasses.replace(rt, trace=cuda_trace)
+    refuse = lambda *a, **k: pytest.fail("the plain version was taken")
+    monkeypatch.setattr(plain, "bvh_traverse_threaded", refuse)
+    monkeypatch.setattr(k1, "traverse_triangles", refuse)
+    monkeypatch.setattr(renderer, "render_chunk", refuse)
+    no_nvcc = lambda: (_ for _ in ()).throw(RuntimeError("nvcc not found"))
+    monkeypatch.setattr(k1, "load_kernels", no_nvcc)
+    monkeypatch.setattr(render_mod, "load_kernels", no_nvcc)
+    o = scene.camera.position.expand(64, 3).contiguous().as_subclass(CudaTyped)
+    d = torch.nn.functional.normalize(torch.randn(64, 3), dim=1).as_subclass(CudaTyped)
+    far = torch.full((64,), 3.0e38).as_subclass(CudaTyped)
+    py, px = (a.reshape(-1).to(torch.int32).contiguous().as_subclass(CudaTyped)
+              for a in torch.meshgrid(torch.arange(12), torch.arange(16), indexing="ij"))
+    counts = lambda: (k1.traverse.launches, k1.traverse.w8_launches,
+                      render_primary.launches, render_primary.w8_launches)
+    before = counts()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        k1.traverse(cuda_trace, o, d, far)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        render_primary(cuda_rt, px, py, 16, 12, shadows=True)
+    assert counts() == before
 
 
 def test_in_place_bounce_takes_the_plain_version_only_on_cpu(monkeypatch):
