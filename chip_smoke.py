@@ -122,7 +122,34 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      references and tree checked, K2 shadows off and on against
      render_chunk on its own tree and timed in turns with the SAH tree's,
      one PathTracer.step(), K6 on the depth-0 pool, node visits per camera
-     ray against the SAH tree's.
+     ray against the SAH tree's;
+ 23. the HTTP server (engine/server.py::ViewerServer on 127.0.0.1, port 0)
+     around a CUDA Viewer of the 100k courtyard with shadows, at 640x360 (the
+     serve default) and 1920x1080, and of the textured one at 640x360; two
+     /stream clients read with urllib: camera-moving frames (the frame's
+     kernels once per served frame: K2, or K3 + K4), a /key and /drag, the
+     settled PNG part decoded to exactly framebuffer_u8 and the served frame
+     (K2, or K3 + K4) held to the plain path, still-camera frames,
+     path-traced frames after 'p' (K6 five times a frame, the pinned YUV
+     present) and one served frame's five K6 launches held to the plain
+     bounce on their pools, /resize, stop() and no server thread left; served frames per
+     second, the producer's frame split (compute between CUDA events;
+     present, quantise, materialise and PNG encode in host ms), launches per
+     frame and the device's busy share (torch.profiler);
+ 23b. NativeWindow (engine/window.py) on a CUDA Viewer through the tests'
+     stand-in Tk (tests/fake_tk.py): K2 a tick, the settled PPM equal to
+     framebuffer_u8 and its K2 frame held to the plain path, a resize, K6 five times a path-traced tick;
+     window_available() of the machine;
+ 23c. K2's frame (Renderer at 48x48, the default scene and the 2,000-triangle
+     courtyard) against the port's NumPy oracle (reference/cpu_tracer.py,
+     its rows over spawned processes): RMSE <= 1e-5 without shadows, and
+     with shadows on the pixels no shadow ray darkens (the oracle casts
+     none), the others no brighter;
+ 23d. the courtyard atlas's disk cache: a cold 4096-texel build and a load
+     from the file in a temporary directory, bit-equal;
+ 23e. the single-leaf tree's walk (the default scene; the JAX package's
+     binary `_ordered_traverse`): K1 over its synthesised width-4 root on
+     the 256x256 camera rays against the plain walk, timed, with its bound.
 K4, K5 (alone and inside textured K6) and K2t are held to 0.0 from their
 plain versions (SAMPLER_TOL), nearest and trilinear, all three wraps.
 Then the frame kernels' roofline bounds with the SIMT efficiency of the
@@ -141,6 +168,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2847,6 +2875,569 @@ def phase_sbvh(scene, tables, width, height, pt_size, triangles, device, card):
     return out
 
 
+SERVE_SIZES = ((640, 360), (1920, 1080))   # the serve command's default, and 1080p
+SERVE_MAX_FPS = 30.0       # the serve command's default cap
+SERVE_FRAMES = 24          # served frames of a camera-moving reading
+SERVE_STILL_S = 1.5        # seconds of a still-camera reading
+SERVE_PT_FRAMES = 6        # path-traced frames after the 'p' key
+HTTP_TIMEOUT = 120.0       # seconds: every request, every read of a stream, every wait
+THREAD_EXIT_S = 5.0        # after stop(), the server's threads are gone within this
+WINDOW_SIZE = (640, 360)
+WINDOW_TICKS = 4
+ORACLE_SIZE = 48
+ORACLE_TRIANGLES = 2000
+ORACLE_RMSE = 1e-5         # tests/test_torch_render.py's bound
+ORACLE_WORKERS = 6         # processes the oracle's rows are split over
+
+
+class StreamClient:
+    """A /stream client over urllib; every read bounded by HTTP_TIMEOUT."""
+
+    def __init__(self, server):
+        import urllib.request
+
+        self.resp = urllib.request.urlopen(f"http://{server.host}:{server.port}/stream",
+                                           timeout=HTTP_TIMEOUT)
+
+    def part(self) -> bytes:
+        """The next PNG part of the multipart stream."""
+        from gpu_raytracer_tpu_torch.engine.server import BOUNDARY
+
+        line = self.resp.readline()
+        if line != b"--" + BOUNDARY + b"\r\n":
+            raise AssertionError(f"stream: {line[:60]!r} where a part starts")
+        length = None
+        while True:
+            line = self.resp.readline()
+            if line in (b"\r\n", b""):
+                break
+            name, _, value = line.decode().partition(":")
+            if name.lower() == "content-length":
+                length = int(value)
+        png = self.resp.read(length)
+        if len(png) != length or self.resp.read(2) != b"\r\n":
+            raise AssertionError("stream: a part cut short")
+        return png
+
+    def close(self) -> None:
+        self.resp.close()
+
+
+def http(server, method: str, path: str):
+    """One request to the server -> its JSON answer (the page's bytes for /)."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://{server.host}:{server.port}{path}", method=method)
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+        body = r.read()
+    return body if path == "/" else json.loads(body)
+
+
+def wait_until(cond, what: str) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > HTTP_TIMEOUT:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+class ServeProbe:
+    """The producer's frame split without a hook in the package: wraps the
+    served Viewer's run_compute (CUDA events around it; a camera move before
+    it while `moving`), present_frame_packed and materialize_frame (host
+    ms), and engine/viewer.py's to_u8 (the host quantise inside a Whitted
+    present) and engine/server.py's encode_png (host ms) for the run."""
+
+    LISTS = ("events", "compute", "present", "quantise", "materialize", "encode", "handles")
+
+    def __init__(self, server, device):
+        import torch
+
+        from gpu_raytracer_tpu_torch.engine import server as server_module
+        from gpu_raytracer_tpu_torch.engine import viewer as viewer_module
+
+        self.server, self.device = server, device
+        self.moving = False
+        self._keys = itertools.cycle("ws")
+        self.clear()
+        v = server.viewer
+        run_compute, present = v.run_compute, v.present_frame_packed
+        materialize, to_u8, encode = v.materialize_frame, viewer_module.to_u8, server_module.encode_png
+        cuda = device.type == "cuda"
+
+        def timed_into(name, fn):
+            def wrapped(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                getattr(self, name).append((time.perf_counter() - t0) * 1e3)
+                return out
+            return wrapped
+
+        def compute():
+            if self.moving:
+                v.handle_key(next(self._keys))
+            if cuda:
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+            t0 = time.perf_counter()
+            n = run_compute()
+            self.compute.append((time.perf_counter() - t0) * 1e3)
+            if cuda:
+                b.record()
+                self.events.append((a, b))
+            return n
+
+        def present_packed():
+            h = timed_into("present", present)()
+            self.handles.append(h)
+            return h
+
+        v.run_compute = compute
+        v.present_frame_packed = present_packed
+        v.materialize_frame = timed_into("materialize", materialize)
+        viewer_module.to_u8 = timed_into("quantise", to_u8)
+        server_module.encode_png = timed_into("encode", encode)
+
+        def restore():
+            for k in ("run_compute", "present_frame_packed", "materialize_frame"):
+                v.__dict__.pop(k, None)
+            viewer_module.to_u8 = to_u8
+            server_module.encode_png = encode
+        self.restore = restore
+
+    def clear(self) -> None:
+        for name in self.LISTS:
+            setattr(self, name, [])
+
+    def window(self, clients, frames=None, seconds=None, moving=False, profile=False) -> dict:
+        """Serve `frames` frames (or `seconds`) to `clients`, each reading
+        every part it is sent: frames per second at the producer, the
+        frame's split, the launches of the window (checked per frame by
+        the caller), the device's busy share (torch.profiler, `profile`)."""
+        import contextlib
+
+        import torch
+
+        s = self.server
+        cuda = self.device.type == "cuda"
+        prof = None
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            prof = torch_profile(activities=[ProfilerActivity.CUDA])
+        with prof if prof is not None else contextlib.nullcontext():
+            with s._lock:
+                self.clear()
+                reset_launches()
+                self.moving = moving
+                seq0, t0 = s._seq, time.perf_counter()
+            parts = 0
+            while (s._seq - seq0 < frames) if frames else (time.perf_counter() - t0 < seconds):
+                for c in clients:
+                    c.part()
+                parts += 1
+            with s._lock:
+                self.moving = False
+                seq1, t1 = s._seq, time.perf_counter()
+                launches = read_launches()
+                split = {k: list(getattr(self, k)) for k in self.LISTS}
+            if cuda:
+                torch.cuda.synchronize(self.device)
+        n, served = len(split["compute"]), seq1 - seq0
+        if abs(n - served) > 1:
+            raise AssertionError(f"{n} frames computed for {served} served")
+        med = lambda xs: statistics.median(xs) if xs else None
+        out = dict(frames=served, computed=n, parts_per_client=parts,
+                   fps=served / (t1 - t0), wall_ms=(t1 - t0) * 1e3, launches=launches,
+                   launches_per_frame={k: c / n for k, c in launches.items() if c} if n else {},
+                   compute_device_ms=med([a.elapsed_time(b) for a, b in split["events"]])
+                   if cuda else None,
+                   compute_host_ms=med(split["compute"]), present_ms=med(split["present"]),
+                   quantise_ms=med(split["quantise"]), materialize_ms=med(split["materialize"]),
+                   encode_ms=med(split["encode"]),
+                   handles=sorted({type(h).__name__ + str(tuple(getattr(h, "shape", ())))
+                                   for h in split["handles"]}))
+        if prof is not None:
+            device_us = 0.0
+            for e in prof.key_averages():
+                t = getattr(e, "self_device_time_total", None)
+                device_us += e.self_cuda_time_total if t is None else t
+            out["device_busy_share"] = device_us / 1e3 / out["wall_ms"]
+        return out
+
+
+def settled_png(server) -> bytes:
+    """The part a new client gets once the camera stands still and the
+    frame is complete (two frames later, through the pipelined present)."""
+    def complete():
+        with server._lock:
+            return server.viewer.progressive.complete
+    wait_until(complete, "a complete frame")
+    seq = server._seq
+    wait_until(lambda: server._seq >= seq + 2, "two more frames")
+    c = StreamClient(server)
+    try:
+        return c.part()
+    finally:
+        c.close()
+
+
+def served_bounces_compare(v) -> dict:
+    """One frame of path-tracing Viewer `v` with its K6 launches recorded,
+    each held to the plain bounce on the same pool (bounce_compare), at the
+    lane count the Viewer serves. The caller holds the server's lock."""
+    record = []
+    with recorded_bounces(record):
+        v.run_compute()
+    if v._pt is None or (v.device.type == "cuda" and len(record) != MAX_DEPTH + 1):
+        raise AssertionError(f"a served path-traced frame made {len(record)} K6 launches")
+    out = {}
+    for r, kw in record:
+        flags = dict(kw)
+        args = {k: flags.pop(k, None) for k in ("depth", "order", "n_live", "qmc", "u")}
+        out[f"depth{args['depth']}"] = bounce_compare(v._pt.tables, r, flags, **args)
+    return out
+
+
+def serve_reading(scene, width, height, device, pathtrace: bool) -> dict:
+    """One ViewerServer on 127.0.0.1 (port 0) around a Viewer of `scene`
+    with shadows, two /stream clients: camera-moving frames (the frame's
+    kernels once per served frame), a key and a drag over HTTP, the
+    settled part against framebuffer_u8 and the frame against the plain
+    path, still-camera frames, path-traced frames after 'p' (K6 five times a
+    frame, the YUV present) and one frame's K6 launches against the plain
+    bounce, a resize, stop() and no thread of the server left."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.server import ViewerServer
+    from gpu_raytracer_tpu_torch.engine.viewer import Viewer
+    from gpu_raytracer_tpu_torch.models.gltf import decode_png
+
+    cuda = device.type == "cuda"
+    textured = scene.textures.textured
+    frame_kernels = dict(k3=1, k4=1) if textured else dict(k2=1)
+    v = Viewer(scene, width, height, shadows=True, verbose=False, device=device)
+    v.run_compute()            # the first frame before any request
+    if cuda:
+        torch.cuda.synchronize(device)
+    before = set(threading.enumerate())
+    s = ViewerServer(v, host="127.0.0.1", port=0, max_fps=SERVE_MAX_FPS)
+    probe = ServeProbe(s, device)
+    out = dict(size=f"{width}x{height}", textured=textured, max_fps=SERVE_MAX_FPS)
+    clients = []
+    launches = dict(ZERO_LAUNCHES)
+
+    def check(label, w, per_frame, free=()):
+        """The window's launches: per_frame[k] a computed frame of each
+        kernel, none of the others outside `free`."""
+        want = {k: per_frame.get(k, 0) * w["computed"] for k in ZERO_LAUNCHES if k not in free}
+        if cuda and {k: c for k, c in w["launches"].items() if k not in free} != want:
+            raise AssertionError(f"{label}: {w['launches']} for {w['computed']} frames, "
+                                 f"want {want}")
+        for k, c in w["launches"].items():
+            launches[k] += c
+        out[label] = w
+
+    try:
+        s.start()
+        if b"/stream" not in http(s, "GET", "/"):
+            raise AssertionError("the page does not stream")
+        clients = [StreamClient(s), StreamClient(s)]
+        for c in clients:
+            c.part()
+        check("moving", probe.window(clients, frames=SERVE_FRAMES, moving=True), frame_kernels)
+        if cuda:
+            check("moving_profiled", probe.window(clients, frames=SERVE_FRAMES // 2,
+                                                  moving=True, profile=True), frame_kernels)
+        cam0 = http(s, "GET", "/stats")["camera"]
+        if not (http(s, "POST", "/key?k=w")["ok"] and http(s, "POST", "/drag?dx=12&dy=-4")["ok"]):
+            raise AssertionError("/key or /drag refused")
+        stats = http(s, "GET", "/stats")
+        if stats["camera"] == cam0 or not stats["fps"] > 0:
+            raise AssertionError(f"/stats did not move after /key: {cam0} -> {stats}")
+        got = decode_png(settled_png(s))[..., :3]
+        with s._lock:
+            want = v.framebuffer_u8
+        if not np.array_equal(got, want):
+            raise AssertionError(f"a served part differs from framebuffer_u8 in "
+                                 f"{int((got != want).any(axis=-1).sum())} pixels")
+        out["png_equals_framebuffer_u8"] = True
+        out["stats_after_key"] = stats
+        with s._lock:       # the served frame's kernels against the plain path
+            out["frame_vs_plain"] = refit_frame_compare(
+                v.renderer, f"served {'K3 + K4' if textured else 'K2'} {width}x{height}",
+                v._fb_dev)
+        check("still", probe.window(clients, seconds=SERVE_STILL_S), {})
+        if pathtrace:
+            http(s, "POST", "/key?k=p")
+            w = probe.window(clients, frames=SERVE_PT_FRAMES)
+            # the denoised preview traces its camera's G-buffer once (K1 alone)
+            check("pathtrace", w, dict(k6=5), free=("k1_standalone",))
+            yuv = f"{'HostFrame' if cuda else 'Tensor'}({height * 3 // 2}, {width})"
+            if w["handles"] != [yuv]:
+                raise AssertionError(f"path-traced presents {w['handles']}, want {yuv}")
+            with s._lock:
+                out["k6_vs_plain"] = served_bounces_compare(v)
+            http(s, "POST", "/key?k=p")
+        http(s, "POST", f"/resize?w={width // 2}&h={height // 2}")
+        shape = decode_png(settled_png(s)).shape[:2]
+        if shape != (height // 2, width // 2):
+            raise AssertionError(f"after /resize a part of {shape}")
+    finally:
+        for c in clients:
+            c.close()
+        t0 = time.perf_counter()
+        s.stop()
+        out["stop_s"] = time.perf_counter() - t0
+        probe.restore()
+    t0 = time.perf_counter()
+    while [t for t in threading.enumerate() if t not in before and t.is_alive()]:
+        if time.perf_counter() - t0 > THREAD_EXIT_S:
+            left = [t.name for t in threading.enumerate() if t not in before]
+            raise AssertionError(f"threads left after stop(): {left}")
+        time.sleep(0.01)
+    out["threads_gone_s"] = time.perf_counter() - t0
+    out["launches_total"] = launches
+    return out
+
+
+def phase_server(scene, tscene, device, card):
+    """Phase 23: the HTTP server (engine/server.py) on the card."""
+    out = dict(card=card)
+    for w, h in SERVE_SIZES:
+        out[f"courtyard_{w}x{h}"] = serve_reading(scene, w, h, device, pathtrace=True)
+    w, h = SERVE_SIZES[0]
+    out[f"textured_courtyard_{w}x{h}"] = serve_reading(tscene, w, h, device, pathtrace=False)
+    log(f"phase 23 server: {json.dumps(out)}")
+    total = dict(ZERO_LAUNCHES)
+    for r in out.values():
+        if isinstance(r, dict):
+            for k, c in r["launches_total"].items():
+                total[k] += c
+    return total
+
+
+def phase_window(scene, device, card):
+    """Phase 23b: NativeWindow (engine/window.py) on a CUDA Viewer through the
+    tests' stand-in Tk (no display exists): camera-moving ticks (K2 once a
+    tick), the settled PPM against framebuffer_u8 and K2's frame against
+    the plain path, a drag, a resize, 'p'
+    (K6 five times a tick), Escape."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from gpu_raytracer_tpu_torch.engine.viewer import Viewer
+    from gpu_raytracer_tpu_torch.engine.window import NativeWindow, window_available
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from fake_tk import FakePhoto, FakeTk
+
+    def ppm_pixels():
+        header, pix = FakePhoto.last_data.split(b"\n", 1)
+        _, w, h, _ = header.split()
+        return np.frombuffer(pix, np.uint8).reshape(int(h), int(w), 3)
+
+    cuda = device.type == "cuda"
+    width, height = WINDOW_SIZE
+    v = Viewer(scene, width, height, shadows=True, verbose=False, device=device)
+    win = NativeWindow(v, tk=FakeTk, max_fps=0.0)
+    win.tick()
+    key = lambda k: win.root.bindings["<KeyPress>"](SimpleNamespace(keysym=k))
+    out = dict(card=card, window_available=window_available())
+    reset_launches()
+    for i in range(WINDOW_TICKS):
+        key("ws"[i % 2])
+        win.tick()
+    out["moving_launches"] = read_launches()
+    if cuda and out["moving_launches"] != dict(ZERO_LAUNCHES, k2=WINDOW_TICKS):
+        raise AssertionError(f"window ticks launched {out['moving_launches']}")
+    win.tick()
+    win.tick()
+    if not np.array_equal(ppm_pixels(), v.framebuffer_u8):
+        raise AssertionError("the window's settled PPM differs from framebuffer_u8")
+    out["frame_vs_plain"] = refit_frame_compare(v.renderer, f"window K2 {width}x{height}",
+                                                v._fb_dev)
+    win.root.bindings["<ButtonPress-1>"](SimpleNamespace(x=10, y=10))
+    win.root.bindings["<B1-Motion>"](SimpleNamespace(x=40, y=14))
+    win.root.bindings["<Configure>"](SimpleNamespace(widget=win.root, width=width // 2,
+                                                     height=height // 2))
+    win.tick()
+    win.tick()
+    if ppm_pixels().shape != (height // 2, width // 2, 3):
+        raise AssertionError(f"after a resize the window shows {ppm_pixels().shape}")
+    key("p")
+    reset_launches()
+    for _ in range(WINDOW_TICKS):
+        win.tick()
+    out["pathtrace_launches"] = read_launches()
+    k6 = out["pathtrace_launches"]["k6"]
+    if cuda and k6 != 5 * WINDOW_TICKS:
+        raise AssertionError(f"path-traced window ticks launched {out['pathtrace_launches']}")
+    key("Escape")
+    if not (win.closed and win.root.destroyed):
+        raise AssertionError("Escape did not close the window")
+    out["frames"] = v.perf.frame_count
+    log(f"phase 23b window: {json.dumps(out)}")
+    return dict(k2=out["moving_launches"]["k2"], k6=k6,
+                k5=out["pathtrace_launches"]["k5"])
+
+
+def oracle_rows(args):
+    """A band of the NumPy oracle's rows (run in a spawned process)."""
+    from gpu_raytracer_tpu_torch.reference import cpu_tracer
+
+    scene_dict, width, height, rows = args
+    return cpu_tracer.render(scene_dict, width, height, rows=rows)
+
+
+def oracle_frame(scene_dict, width, height):
+    """The port's NumPy oracle frame, its rows interleaved over
+    ORACLE_WORKERS spawned processes (each band's other rows are 0)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    n = max(1, min(ORACLE_WORKERS, os.cpu_count() or 1))
+    bands = [(scene_dict, width, height, range(i, height, n)) for i in range(n)]
+    with ProcessPoolExecutor(n, mp_context=multiprocessing.get_context("spawn")) as ex:
+        parts = list(ex.map(oracle_rows, bands))
+    return np.sum(parts, axis=0, dtype=np.float32)
+
+
+def phase_oracle(device, card):
+    """Phase 23c: K2's frame on the card (Renderer at ORACLE_SIZE^2, the
+    default scene and the 2,000-triangle courtyard) against the port's NumPy
+    oracle (reference/cpu_tracer.py), which shares no code with the
+    renderer. The oracle casts no shadow rays: the frame without shadows is
+    held to it at ORACLE_RMSE; with shadows, the pixels no shadow ray darkens
+    are, and the others may only be darker."""
+    import numpy as np
+
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.models.scene import build_default_scene
+    from gpu_raytracer_tpu_torch.reference import cpu_tracer
+    from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
+
+    size = ORACLE_SIZE
+    out = dict(card=card, size=size, bound=ORACLE_RMSE)
+    k2 = 0
+    rmse = lambda a, b: float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2)))
+    for label, scene in (("default", build_default_scene(device=device)),
+                         (f"courtyard_{ORACLE_TRIANGLES}",
+                          make_courtyard_scene(ORACLE_TRIANGLES, seed=0, device=device))):
+        t0 = time.perf_counter()
+        want = oracle_frame(cpu_tracer.scene_dict_from(scene), size, size)
+        oracle_s = time.perf_counter() - t0
+        reset_launches()
+        plain, shadowed = (Renderer(scene, size, size, shadows=s, device=device).render()
+                           for s in (False, True))
+        launches = read_launches()
+        k2 += launches["k2"]
+        if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, k2=2):
+            raise AssertionError(f"oracle frames launched {launches}")
+        lit = (shadowed == plain).all(axis=-1)
+        r = dict(rmse_no_shadows=rmse(plain, want),
+                 rmse_shadows_unshadowed_pixels=rmse(shadowed[lit], want[lit]),
+                 rmse_shadows=rmse(shadowed, want), shadowed_pixels=int((~lit).sum()),
+                 shadows_over_oracle=float((shadowed - want).max()),
+                 max_abs_no_shadows=float(np.abs(plain - want).max()),
+                 oracle_s=oracle_s, mean=float(plain.mean()))
+        if not (np.isfinite(plain).all() and plain.max() > 0.05):
+            raise AssertionError(f"{label}: an empty or non-finite frame")
+        if (r["rmse_no_shadows"] > ORACLE_RMSE or r["rmse_shadows_unshadowed_pixels"] > ORACLE_RMSE
+                or r["shadows_over_oracle"] > RGB_TOL):
+            raise AssertionError(f"{label} against the NumPy oracle: {r}")
+        out[label] = r
+    log(f"phase 23c oracle: {json.dumps(out)}")
+    return k2
+
+
+def phase_texture_cache(texture_size, device, card):
+    """Phase 23d: the courtyard atlas's disk cache (utils/procgen.py::
+    courtyard_textures) in a temporary directory: a cold build that writes
+    the file, then a load from it, bit-equal, on the card."""
+    import dataclasses
+
+    import torch
+
+    from gpu_raytracer_tpu_torch.config import DEFAULT_CONFIG
+    from gpu_raytracer_tpu_torch.models.geometry import JAX_ATLAS_BUDGET_ROWS
+    from gpu_raytracer_tpu_torch.models.scene import to_device
+    from gpu_raytracer_tpu_torch.utils.procgen import CACHE_ENV, CACHE_MIN_TEXELS
+    from gpu_raytracer_tpu_torch.utils.procgen import courtyard_textures as host_textures
+
+    texture_size = max(texture_size, CACHE_MIN_TEXELS)   # smaller sizes are not cached
+    mips = DEFAULT_CONFIG.texture_mips
+    args = dict(mips=mips, budget_rows=JAX_ATLAS_BUDGET_ROWS if mips > 1 else None)
+    courtyard_textures = lambda *a, **kw: to_device(host_textures(*a, **kw), device)
+    old = os.environ.get(CACHE_ENV)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ[CACHE_ENV] = tmp
+            t0 = time.perf_counter()
+            cold = courtyard_textures(0, texture_size, **args)
+            cold_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            warm = courtyard_textures(0, texture_size, **args)
+            warm_s = time.perf_counter() - t0
+            files = {f: os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp)}
+    finally:
+        if old is None:
+            os.environ.pop(CACHE_ENV, None)
+        else:
+            os.environ[CACHE_ENV] = old
+    bad = [f.name for f in dataclasses.fields(cold) if f.name != "n_levels"
+           and not torch.equal(getattr(cold, f.name), getattr(warm, f.name))]
+    if bad or cold.n_levels != warm.n_levels or len(files) != 1:
+        raise AssertionError(f"cached atlas differs in {bad}, files {files}")
+    out = dict(card=card, texture_size=texture_size, cold_build_s=cold_s, warm_load_s=warm_s,
+               files=files, device=str(warm.data_u32.device), bit_equal=True)
+    log(f"phase 23d texture cache: {json.dumps(out)}")
+
+
+SINGLE_LEAF_SIZE = 256     # phase 4's default-scene frame
+
+
+def phase_single_leaf(device, card):
+    """Phase 23e: the walk a single-leaf tree takes (the default scene: two
+    triangles, one BVH node). The JAX package walks it with the binary
+    near-first walk (`_ordered_traverse`); the port gives it one synthesised
+    width-4 root in K1's tables (ops/cuda/traverse.py::wide_arrays). K1 on
+    the 256x256 camera rays against the plain walk: its ms, the plain ms and
+    the bound (frame_bounds on these tables)."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.models.scene import build_default_scene
+    from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
+    from gpu_raytracer_tpu_torch.ops.trace import traverse_triangles
+
+    size = SINGLE_LEAF_SIZE
+    demo = build_default_scene(device=device)
+    tables = pack_render_tables(demo)
+    if demo.bvh.has_wide or tables.trace.nodes.shape[0] != 1:
+        raise AssertionError("the default scene is no longer a single-leaf tree")
+    px, py = frame_pixels(size, size, device)
+    o, d = primary_rays(demo, size, size, px, py)
+    far = torch.full((o.shape[0],), F32_MAX, device=device)
+    stats, _ = k1_compare(tables.trace, o, d, far)
+    stats.update(ms=timed(lambda: traverse(tables.trace, o, d, far), FRAMES, device),
+                 plain_ms=timed(lambda: traverse_triangles(demo, o, d, far), PLAIN_FRAMES,
+                                device),
+                 card=card)
+    if device.type == "cuda":
+        b = frame_bounds(tables, size, size)
+        stats.update(bound_ms=b["K1"][0], bound_by=b["K1"][1], k2_bound_ms=b["K2"][0],
+                     nodes_per_ray=b["nodes"] / b["rays"], tris_per_ray=b["tris"] / b["rays"])
+    log(f"phase 23e single-leaf walk {size}x{size}: {json.dumps(stats)}")
+    return stats
+
+
 def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTURE_SIZE,
         pt_size=PT_SIZE, synth_size=SYNTH_SIZE, zoo_triangles=ZOO_TRIANGLES, crop=CROP):
     import tempfile
@@ -2972,6 +3563,20 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     k2_launches += sbvh["launches"]["k2"]
     k6_launches += sbvh["launches"]["k6"]
     k2_err = max(k2_err, sbvh["k2_err"])
+    served = phase_server(scene, tscene, device, card)
+    k2_launches += served["k2"]
+    k3_launches += served["k3"]
+    k4_launches += served["k4"]
+    k6_launches += served["k6"]
+    k5_launches += served["k5"]
+    k1_standalone += served["k1_standalone"]
+    windowed = phase_window(scene, device, card)
+    k2_launches += windowed["k2"]
+    k6_launches += windowed["k6"]
+    k5_launches += windowed["k5"]
+    k2_launches += phase_oracle(device, card)
+    phase_texture_cache(texture_size, device, card)
+    phase_single_leaf(device, card)
 
     fb = frame_bounds(tables, width, height) if cuda else {}
     tfb = frame_bounds(ttables, width, height, shade=tshade) if cuda else {}
@@ -2990,7 +3595,8 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
                              k1["shadow"]["t_abs"], k1["shadow"]["normal_abs"]),
              ms=k1["ms"], plain_ms=k1["plain_ms"], **bound(fb.get("K1")), library_ms=None),
         dict(name="K2 render_primary (also one launch per Viewer frame, on refit and rebuilt "
-                  "trees, phase 21)", route="cuda",
+                  "trees, phase 21, per camera-moving frame served over HTTP and window tick, "
+                  "phase 23, and on the NumPy oracle's frames, phase 23c)", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/render_primary.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:701",
              launches=k2_launches, max_abs_err=k2_err,
@@ -3118,7 +3724,12 @@ def main() -> int:
                 ptxas=ptxas_summary(k.log))
     log(f"phase 1 build: {json.dumps(info)}")
     device = torch.device("cuda", 0)
-    run(device, WIDTH, HEIGHT, TRIANGLES, SHADOW_RAYS, card)
+    from gpu_raytracer_tpu_torch.utils.procgen import CACHE_ENV
+
+    # the run's texture cache lives and dies with it (phase 23d times its own)
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ[CACHE_ENV] = cache
+        run(device, WIDTH, HEIGHT, TRIANGLES, SHADOW_RAYS, card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Command-line application: the `render`, `pathtrace`, `fly`, `export` and
-`info` subcommands.
+"""Command-line application: the `render`, `pathtrace`, `fly`, `serve`,
+`window`, `export` and `info` subcommands.
 
     python -m gpu_raytracer_tpu_torch render \
         [--demo | --courtyard N [--textured] | --gltf FILE] \
@@ -10,13 +10,21 @@
         [--linear] [--device cuda|cpu] -o out.png
     python -m gpu_raytracer_tpu_torch fly [scene flags] [--script "w w d mouse:40,0 w"] \
         [--frames-per-step N] [--shadows] [--pathtrace] [--device cuda|cpu] -o frames_dir
+    python -m gpu_raytracer_tpu_torch serve [--demo | --courtyard N [--textured] | --gltf FILE] \
+        [--width W --height H] [--shadows] [--host H --port P] [--max-fps F] [--device cuda|cpu]
+    python -m gpu_raytracer_tpu_torch window [scene flags] [--width W --height H] [--shadows] \
+        [--max-fps F] [--device cuda|cpu]
     python -m gpu_raytracer_tpu_torch export [scene flags] -o out.glb
     python -m gpu_raytracer_tpu_torch info --gltf FILE [--scene-index I]
 
 `fly` drives the Viewer through a script of keys (w/a/s/d/space/l/p/n/t/i)
 and mouse drags (mouse:dx,dy) and writes the frame after each step as
 frame_0000.png, ... in the output directory; `--pathtrace` path-traces the
-flight with temporal reprojection and the denoised preview.
+flight with temporal reprojection and the denoised preview. `serve` is the
+interactive Viewer over HTTP (engine/server.py: open http://HOST:PORT/),
+`window` the same in a Tk window (engine/window.py; it exits with 1 where no
+display server can be reached). Both render their first frame, which builds
+the CUDA kernels, before they take input.
 
 `--gltf` loads a .gltf or .glb file; a file that does not load gives the
 default scene and a message saying why. `export` writes the chosen scene as
@@ -137,6 +145,38 @@ def cmd_fly(args, config):
     print(f"wrote {len(frames)} frames to {args.output}/")
 
 
+def _interactive_viewer(args, config):
+    """The Viewer of `serve` and `window`, its first frame rendered (and on
+    CUDA finished), so the kernels are built before any input arrives."""
+    from .engine.viewer import Viewer
+
+    device = torch.device(args.device)
+    scene = _load_scene(args, config, "cpu")
+    v = Viewer(scene, args.width, args.height, config=config, shadows=args.shadows,
+               device=device)
+    v.run_compute()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return v
+
+
+def cmd_serve(args, config):
+    from .engine.server import ViewerServer
+
+    v = _interactive_viewer(args, config)
+    ViewerServer(v, host=args.host, port=args.port, max_fps=args.max_fps).serve_forever()
+
+
+def cmd_window(args, config):
+    from .engine.window import NativeWindow, window_available
+
+    if not window_available():
+        print("error: no display server reachable (Tk root failed); "
+              "use `serve` for the HTTP live viewer on headless hosts", file=sys.stderr)
+        raise SystemExit(1)
+    NativeWindow(_interactive_viewer(args, config), max_fps=args.max_fps).run()
+
+
 def cmd_info(args, config):
     from .models.gltf import GltfError, GltfLoader
 
@@ -240,6 +280,26 @@ def main(argv=None):
                         "stop, young frames present denoised")
     add_config_args(p)
     p.set_defaults(fn=cmd_fly, output="frames")
+
+    for name, help_, max_fps in (("serve", "live viewer over HTTP (browser WASD)", 30.0),
+                                 ("window", "native OS-window viewer (Tk present)", 120.0)):
+        p = sub.add_parser(name, help=help_)
+        p.add_argument("--gltf", type=str, default=None, help="glTF/GLB scene file")
+        p.add_argument("--demo", action="store_true", help="built-in demo scene (default)")
+        p.add_argument("--courtyard", type=int, default=0, metavar="TRIS",
+                       help="procedural courtyard with ~TRIS triangles")
+        p.add_argument("--textured", action="store_true",
+                       help="with --courtyard: procedural texture atlases")
+        p.add_argument("--width", type=int, default=640)
+        p.add_argument("--height", type=int, default=360)
+        p.add_argument("--shadows", action="store_true")
+        if name == "serve":
+            p.add_argument("--host", type=str, default="127.0.0.1")
+            p.add_argument("--port", type=int, default=8642)
+        p.add_argument("--max-fps", type=float, default=max_fps)
+        p.add_argument("--device", type=str, default="cuda",
+                       help="cuda (the CUDA kernels) or cpu (the plain PyTorch path)")
+        p.set_defaults(fn=cmd_serve if name == "serve" else cmd_window)
 
     p = sub.add_parser("export", help="write a scene as a binary glTF (.glb)")
     _add_scene_args(p, device=False)

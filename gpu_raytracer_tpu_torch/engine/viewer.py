@@ -14,7 +14,11 @@ then a present (`framebuffer`, `framebuffer_u8`, `present_frame`,
 `present_frame_packed`). On a CUDA device a frame is one whole-frame render
 (`Renderer.render_device`: K2, or K3 + K4 on a textured scene) left on the
 device; on the CPU the frame goes through the plain path in
-`config.tile_size` tiles, as the JAX package's CPU run does. Above
+`config.tile_size` tiles, as the JAX package's CPU run does. A present of a
+frame that stays on a CUDA device starts its read-back at once
+(`HostFrame`): a non-blocking copy into pinned host memory and an event, so
+a presenter that materialises frame N-1 while frame N computes
+(engine/server.py, engine/window.py) waits for nothing else. Above
 MAX_LIGHTS lights the kernels sample one light per pixel, so idle frames
 draw fresh choices and fold them into a running mean.
 """
@@ -32,6 +36,36 @@ from ..utils.image import to_u8
 from .perf import PerformanceState, ProgressiveTiming, Timer, block_on
 from .progressive import ProgressiveState
 from .renderer import Renderer, resolve_device, tiled_pixel_order
+
+
+class HostFrame:
+    """The present handle of a frame on a CUDA device: its u8 bytes on their
+    way into pinned host memory (a non-blocking copy) and the event recorded
+    after the copy. `Viewer.materialize_frame` takes it. The pinned block
+    comes from PyTorch's caching host allocator, which does not hand it out
+    again before the copy has passed it and the handle is gone, so every
+    handle keeps its own frame, however many presents follow it."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, frame: torch.Tensor):
+        self.host = torch.empty(frame.shape, dtype=frame.dtype, pin_memory=frame.is_cuda)
+        self.host.copy_(frame, non_blocking=True)
+        self.event = None
+        if frame.is_cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    @property
+    def shape(self) -> tuple:
+        """[H,W,3] for RGB, [H*3/2, W] for packed YUV 4:2:0."""
+        return tuple(self.host.shape)
+
+    def wait(self) -> np.ndarray:
+        """Wait for the copy's event (nothing else) -> the bytes."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
 
 
 class Viewer:
@@ -335,34 +369,41 @@ class Viewer:
 
     def present_frame(self):
         """The display frame, [H,W,3] u8, without waiting for the device: a
-        path-traced frame as a device tensor (quantise enqueued, nothing read
-        back), any other as a host array. A presenter holds the handle and
-        materialises it a frame later, so the read-back of frame N-1
-        overlaps frame N's work; the tensor is never written again."""
+        path-traced frame is quantised on its device, and on a CUDA device
+        comes back as a `HostFrame` (its read-back already enqueued; on the
+        CPU as the tensor); any other frame as a host array. A presenter
+        holds the handle and materialises it a frame later, so the read-back
+        of frame N-1 overlaps frame N's work."""
         if self._fb_dev is not None and self._fb_host_dirty and self._fb_rowmajor:
             from .pathtracer import to_u8 as device_u8
 
-            return device_u8(self._fb_dev)
+            return self._enqueue_read(device_u8(self._fb_dev))
         return to_u8(self.framebuffer)
 
     def present_frame_packed(self):
         """present_frame at half the bytes: a path-traced frame of even size
-        comes back as a device YUV 4:2:0 u8 tensor [H*3/2, W]
-        (utils/yuv.py; `materialize_frame` unpacks it); anything else as
-        present_frame."""
+        comes back as YUV 4:2:0 u8 [H*3/2, W] (utils/yuv.py; a HostFrame on
+        a CUDA device, the tensor on the CPU; `materialize_frame` unpacks
+        it); anything else as present_frame."""
         if (self._fb_dev is not None and self._fb_host_dirty and self._fb_rowmajor
                 and self._fb_dev.dim() == 3 and self._fb_dev.dtype != torch.uint8
                 and self.height % 2 == 0 and self.width % 2 == 0):
             from ..utils.yuv import encode_yuv420
 
-            return encode_yuv420(self._fb_dev)
+            return self._enqueue_read(encode_yuv420(self._fb_dev))
         return self.present_frame()
+
+    def _enqueue_read(self, frame: torch.Tensor):
+        return HostFrame(frame) if frame.is_cuda else frame
 
     @staticmethod
     def materialize_frame(handle) -> np.ndarray:
         """A present_frame / present_frame_packed handle -> display RGB u8
         [H,W,3] on the host."""
-        arr = handle.cpu().numpy() if isinstance(handle, torch.Tensor) else np.asarray(handle)
+        if isinstance(handle, HostFrame):
+            arr = handle.wait()
+        else:
+            arr = handle.cpu().numpy() if isinstance(handle, torch.Tensor) else np.asarray(handle)
         if arr.ndim == 2:    # packed YUV 4:2:0
             from ..utils.yuv import decode_yuv420
 

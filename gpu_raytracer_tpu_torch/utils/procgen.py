@@ -12,7 +12,14 @@ seed and identical to the JAX package's `make_courtyard_scene` and
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import hashlib
+import os
+import zipfile
+
 import numpy as np
+import torch
 
 from ..config import DEFAULT_CONFIG, RaytracerConfig
 from ..models.camera import Camera
@@ -117,13 +124,65 @@ def courtyard_source_images(seed: int = 0, texture_size: int = 128) -> list[np.n
             make_noise_texture(half, seed=seed)]    # 2: plaster boxes
 
 
+CACHE_ENV = "GPU_RAYTRACER_TPU_TORCH_CACHE"
+CACHE_MIN_TEXELS = 1024    # below this edge a build is quicker than the file's read
+
+
+def cache_dir() -> str:
+    """The texture cache's directory: $GPU_RAYTRACER_TPU_TORCH_CACHE, else
+    ~/.cache/gpu_raytracer_tpu_torch. An empty value turns the cache off ("")."""
+    return os.environ.get(CACHE_ENV, os.path.expanduser("~/.cache/gpu_raytracer_tpu_torch"))
+
+
+@functools.lru_cache(maxsize=1)
+def build_digest() -> str:
+    """A digest of the source of the atlas build (this module's images and
+    models/geometry.py's Textures.from_images), part of every cache key:
+    a file written by another build of the code is never loaded."""
+    from ..models import geometry
+
+    h = hashlib.sha256()
+    for path in (__file__, geometry.__file__):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def courtyard_textures(seed: int, texture_size: int, mips: int = 1,
                        budget_rows: int | None = None) -> Textures:
-    """The courtyard's atlas: `Textures.from_images` over
-    `courtyard_source_images`. Built on every call (about 2.5 s at
-    texture_size 4096 on one CPU core); nothing is cached on disk."""
-    return Textures.from_images(courtyard_source_images(seed, texture_size),
-                                mips=mips, budget_rows=budget_rows)
+    """The courtyard's atlas on the CPU: `Textures.from_images` over
+    `courtyard_source_images`. The build is deterministic in (seed, size,
+    mips, budget) and the code (`build_digest`), so from CACHE_MIN_TEXELS
+    texels up its tensors are kept in one .npz file per key in `cache_dir()`
+    and loaded from there (bit-equal to a build). The cache is best-effort:
+    a file that does not load is rebuilt and written again, through a
+    temporary file and an atomic rename; a directory that cannot be written
+    leaves it off."""
+    build = lambda: Textures.from_images(courtyard_source_images(seed, texture_size),
+                                         mips=mips, budget_rows=budget_rows)
+    cdir = cache_dir()
+    if not cdir or texture_size < CACHE_MIN_TEXELS:
+        return build()
+    key = f"ctex_{build_digest()}_s{seed}_t{texture_size}_m{mips}_b{budget_rows}"
+    path = os.path.join(cdir, key + ".npz")
+    fields = [f.name for f in dataclasses.fields(Textures) if f.name != "n_levels"]
+    try:
+        with np.load(path) as z:
+            arrays = {k: torch.from_numpy(z[k]) for k in fields}
+            n_levels = int(z["n_levels"])
+        return Textures(**arrays, n_levels=n_levels)
+    except (OSError, KeyError, ValueError, EOFError, zipfile.BadZipFile):
+        pass    # absent, unreadable or corrupt: build it and write it again
+    tex = build()
+    try:
+        os.makedirs(cdir, exist_ok=True)
+        tmp = f"{path}.tmp{os.getpid()}.npz"
+        np.savez(tmp, n_levels=np.int64(tex.n_levels),
+                 **{k: getattr(tex, k).numpy() for k in fields})
+        os.replace(tmp, path)
+    except OSError:
+        pass    # a read-only directory: the cache stays off
+    return tex
 
 
 def make_courtyard_scene(target_triangles: int = 100_000, seed: int = 0,

@@ -159,3 +159,103 @@ def test_pathtrace_refuses_unported_options(tmp_path, flags):
     else:
         assert proc.returncode == 0, proc.stdout + proc.stderr
         assert _png_size(tmp_path / "x.png") == (8, 8)
+
+
+def test_serve_runs_the_http_viewer(monkeypatch, capsys):
+    """`serve` builds the Viewer, renders its first frame and serves it: the
+    page, /stats and a key answer over HTTP (serve_forever stands in for a
+    browser's visit here)."""
+    import json
+    import urllib.request
+
+    from gpu_raytracer_tpu_torch.__main__ import main
+    from gpu_raytracer_tpu_torch.engine.server import ViewerServer
+
+    seen = {}
+
+    def visit(self):
+        self.start()
+        try:
+            seen["frames"] = self.viewer.perf.frame_count, self.viewer.progressive.complete
+            base = f"http://{self.host}:{self.port}"
+            seen["page"] = urllib.request.urlopen(base + "/", timeout=30).read()
+            req = urllib.request.Request(base + "/key?k=w", method="POST")
+            seen["key"] = json.loads(urllib.request.urlopen(req, timeout=30).read())
+            seen["stats"] = json.loads(urllib.request.urlopen(base + "/stats", timeout=30).read())
+        finally:
+            self.stop()
+        seen["size"] = (self.viewer.width, self.viewer.height, self.viewer.shadows,
+                        self.max_fps, self.host, self.viewer.device.type)
+
+    monkeypatch.setattr(ViewerServer, "serve_forever", visit)
+    main(["serve", "--demo", "--width", "32", "--height", "16", "--shadows", "--port", "0",
+          "--max-fps", "12", "--device", "cpu"])
+    assert seen["size"] == (32, 16, True, 12.0, "127.0.0.1", "cpu")
+    assert seen["frames"][1]                        # the first frame came before serving
+    assert b"/stream" in seen["page"] and seen["key"] == {"ok": True}
+    assert seen["stats"]["camera"][2] < 5.0         # 'w' moved the camera forward
+
+
+def test_window_runs_and_exits_without_a_display(monkeypatch, capsys):
+    """`window` exits 1 with the JAX package's message where no Tk root can
+    be made, and runs the Tk loop where one can (a stand-in module)."""
+    import sys
+    import types
+
+    from gpu_raytracer_tpu_torch.__main__ import main
+
+    class Dead:
+        @staticmethod
+        def Tk():
+            raise RuntimeError("no display")
+
+    monkeypatch.setitem(sys.modules, "tkinter", Dead)
+    with pytest.raises(SystemExit) as e:
+        main(["window", "--demo", "--width", "16", "--height", "16", "--device", "cpu"])
+    assert e.value.code == 1
+    assert "no display server reachable" in capsys.readouterr().err
+
+    ticks = []
+
+    class Root:
+        def __init__(self):
+            self.queue = []
+
+        def __getattr__(self, name):       # title, geometry, bind, protocol, pack, configure
+            return lambda *a, **kw: None
+
+        def after(self, ms, fn):
+            self.queue.append(fn)
+
+        def mainloop(self):
+            while self.queue and len(ticks) < 3:
+                ticks.append(1)
+                self.queue.pop(0)()
+
+    photos = []
+    fake = types.SimpleNamespace(Tk=Root, Label=lambda root: Root(),
+                                 PhotoImage=lambda data: photos.append(data) or data)
+    monkeypatch.setitem(sys.modules, "tkinter", fake)
+    main(["window", "--demo", "--width", "16", "--height", "8", "--max-fps", "0",
+          "--device", "cpu"])
+    assert len(ticks) == 3 and len(photos) == 3
+    assert all(p.startswith(b"P6 16 8 255\n") for p in photos)
+
+
+@pytest.mark.parametrize("command", ["serve", "window"])
+def test_serve_and_window_need_a_card_by_default(command, monkeypatch):
+    """--device cuda is the default: without a CUDA device the command
+    raises instead of serving from the CPU."""
+    import sys
+    import types
+
+    import torch
+
+    from gpu_raytracer_tpu_torch.__main__ import main
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the command would serve")
+    monkeypatch.setitem(sys.modules, "tkinter", types.SimpleNamespace(
+        Tk=lambda: types.SimpleNamespace(destroy=lambda: None)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([command, "--demo", "--width", "16", "--height", "16"])

@@ -628,6 +628,47 @@ def test_viewer_frames_and_refit_never_wait(cuda, textured):
     assert torch.isfinite(v._fb_dev).all()
 
 
+@pytest.mark.cuda
+def test_viewer_present_reads_back_through_pinned_memory(cuda):
+    """A path-traced present on the card enqueues its read-back (a
+    non-blocking copy into pinned memory, then an event) without a host
+    sync; the handle materialises to the bytes of a blocking read, one frame
+    later as the server and the window do, and keeps its own frame after
+    more presents of its shape."""
+    from gpu_raytracer_tpu_torch.engine.pathtracer import to_u8 as device_u8
+    from gpu_raytracer_tpu_torch.engine.viewer import HostFrame, Viewer
+    from gpu_raytracer_tpu_torch.utils.yuv import decode_yuv420, encode_yuv420
+
+    v = Viewer(build_default_scene(device=cuda), 64, 48, verbose=False, device=cuda)
+    v.handle_key("p")
+    v.run_compute()
+    Viewer.materialize_frame(v.present_frame_packed())    # warm the host allocator
+    Viewer.materialize_frame(v.present_frame())
+    v.run_compute()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = v.present_frame_packed()
+        rgb = v.present_frame()
+        v.run_compute()                                    # the next frame, enqueued
+        nxt = v.present_frame_packed()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert isinstance(packed, HostFrame) and isinstance(rgb, HostFrame)
+    assert packed.host.is_pinned() and rgb.host.is_pinned()
+    got = Viewer.materialize_frame(packed)
+    fb = v._fb_dev
+    assert np.array_equal(Viewer.materialize_frame(nxt), decode_yuv420(encode_yuv420(fb).cpu()))
+    assert not np.array_equal(got, Viewer.materialize_frame(nxt))   # a sample later
+    assert Viewer.materialize_frame(rgb).shape == (48, 64, 3)
+    later = [v.present_frame_packed() for _ in range(3)]   # more presents of its shape
+    assert np.array_equal(Viewer.materialize_frame(packed), got)
+    for h in later:
+        assert np.array_equal(Viewer.materialize_frame(h), Viewer.materialize_frame(nxt))
+    assert np.array_equal(Viewer.materialize_frame(v.present_frame()),
+                          device_u8(fb).cpu().numpy())
+
+
 WIDE = {"w8": dict(bvh_width=8), "sbvh": dict(bvh_spatial_splits=True),
         "sbvh_w8": dict(bvh_width=8, bvh_spatial_splits=True)}
 

@@ -74,6 +74,11 @@ def test_port_never_imports_jax():
         "                         device='cpu')\n"
         "ada.step()\n"
         "assert ada.denoised_image(iterations=1).shape == (64, 64, 3)\n"
+        "from gpu_raytracer_tpu_torch.engine import server, window\n"
+        "from gpu_raytracer_tpu_torch.reference import cpu_tracer\n"
+        "server.ViewerServer(v, port=0).stop()\n"
+        "assert window._ppm_bytes(v.framebuffer).startswith(b'P6 16 12 255')\n"
+        "assert cpu_tracer.render(cpu_tracer.scene_dict_from(v.scene), 4, 3).shape == (3, 4, 3)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib',"
         " 'gpu_raytracer_tpu.')) or m == 'gpu_raytracer_tpu')\n"
         "print('LOADED', bad)\n"

@@ -28,7 +28,6 @@ from gpu_raytracer_tpu.engine.renderer import Renderer as JaxRenderer
 from gpu_raytracer_tpu.engine.renderer import render_chunk as jax_render_chunk
 from gpu_raytracer_tpu.models.scene import build_default_scene as jax_default
 from gpu_raytracer_tpu.ops.pallas.render import pallas_render_primary
-from gpu_raytracer_tpu.reference import cpu_tracer as oracle
 from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
 from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, light_seed, light_uniforms,
                                                      render_chunk, tiled_pixel_order)
@@ -38,6 +37,7 @@ from gpu_raytracer_tpu_torch.ops.cuda.render import MAX_LIGHTS, pack_render_tabl
 from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
 from gpu_raytracer_tpu_torch.ops.shading import sample_light_index
 from gpu_raytracer_tpu_torch.ops.trace import trace
+from gpu_raytracer_tpu_torch.reference import cpu_tracer as oracle
 
 TOL = 1e-5
 MAX_COUNTED_SHARE = 0.01   # counted rounding-sensitive pixels, share of a frame
@@ -105,9 +105,9 @@ def test_frame_matches_the_interpreted_tpu_kernel(scene_pairs):
 
 
 def test_frame_matches_the_numpy_oracle(scene_pairs):
-    js, ps = scene_pairs["default"]
+    _, ps = scene_pairs["default"]
     W = H = 24
-    want = oracle.render(oracle.scene_dict_from(js), W, H)
+    want = oracle.render(oracle.scene_dict_from(ps), W, H)
     got = Renderer(ps, W, H, device="cpu").render()
     rmse = float(np.sqrt(np.mean((got.astype(np.float64) - want) ** 2)))
     assert rmse <= 1e-5, rmse

@@ -391,6 +391,33 @@ def test_packed_present_matches_u8_present():
     assert np.median(err) <= 1 and err.mean() < 3.0
 
 
+def test_host_frame_bytes_and_lifetime():
+    """The read-back handle behind a CUDA present (engine/viewer.py::
+    HostFrame; on the CPU its copy is plain): a handle materialises to the
+    bytes a blocking read gives, RGB or decoded YUV, and keeps its own frame
+    however many later handles of its shape follow, the frame it was made
+    from written over or not."""
+    from gpu_raytracer_tpu_torch.engine.viewer import HostFrame
+    from gpu_raytracer_tpu_torch.utils.yuv import decode_yuv420
+
+    gen = torch.Generator().manual_seed(5)
+    frames = [torch.randint(0, 256, (4, 6, 3), dtype=torch.uint8, generator=gen)
+              for _ in range(4)]
+    want = [f.clone() for f in frames]
+    h0 = HostFrame(frames[0])
+    assert h0.shape == (4, 6, 3) and h0.event is None
+    frames[0].zero_()                                     # the source written over
+    later = [HostFrame(f) for f in frames[1:]]
+    assert np.array_equal(Viewer.materialize_frame(h0), want[0].numpy())
+    for h, w in zip(later, want[1:]):
+        assert np.array_equal(Viewer.materialize_frame(h), w.numpy())
+    yuv = torch.randint(0, 256, (6, 6), dtype=torch.uint8, generator=gen)
+    hy = HostFrame(yuv)
+    assert hy.shape == (6, 6)
+    assert np.array_equal(Viewer.materialize_frame(hy), decode_yuv420(yuv))
+    assert np.array_equal(Viewer.materialize_frame(h0), want[0].numpy())
+
+
 @pytest.mark.parametrize("pathtrace", [False, True])
 def test_cli_fly(tmp_path, pathtrace):
     from gpu_raytracer_tpu_torch.__main__ import main

@@ -2,12 +2,17 @@
 
 Importing this module caps PyTorch's intra-op threads: the suite runs under
 pytest-xdist with several workers, and the JAX package's tests share the
-cores. Only tests import both packages; the port itself never imports JAX.
+cores. It also turns the port's texture disk cache off (an empty
+GPU_RAYTRACER_TPU_TORCH_CACHE, unless one is set), so every atlas a test
+compares is built; tests/test_torch_procgen_cache.py points it at a
+temporary directory. Only tests import both packages; the port itself never
+imports JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -15,6 +20,7 @@ import torch
 from gpu_raytracer_tpu_torch.bridge import GROUPS, TOP_LEVEL, scene_from_arrays, scene_to_arrays
 
 torch.set_num_threads(2)
+os.environ.setdefault("GPU_RAYTRACER_TPU_TORCH_CACHE", "")
 
 __all__ = ["jax_scene_arrays", "port_scene_from_jax", "scene_to_arrays",
            "assert_arrays_equal", "canonical_binary_tree", "f16_attenuation_flips",
