@@ -149,7 +149,26 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      from the file in a temporary directory, bit-equal;
  23e. the single-leaf tree's walk (the default scene; the JAX package's
      binary `_ordered_traverse`): K1 over its synthesised width-4 root on
-     the 256x256 camera rays against the plain walk, timed, with its bound.
+     the 256x256 camera rays against the plain walk, timed, with its bound;
+ 24. K1's unordered walk (csrc/traverse_threaded.cu, the JAX package's
+     `pallas_packet_traverse(ordered=False)`) on the 1920x1080 camera rays
+     of the 100k courtyard (closest hit) and on shadow rays from their hits
+     toward the point light (any hit): t, slot, hit, normal and material
+     equal to the plain threaded walk on every lane; its closest t equal to
+     K1's outside counted exact-t ties; its ms (CUDA events), registers
+     (ptxas), bound (the plain walk's node visits and triangle tests at 25
+     and 54 operations) and launches on the main path (none);
+ 25. the multi-device layer (parallel/) on virtual meshes of 1, 2, 4 and 8
+     shards of the one card: render_frame_fused_multichip at 1920x1080
+     (untextured, shadows off and on; the textured courtyard) 0.0 from the
+     single-device Renderer frame; trace_geometry_sharded and
+     trace_geometry_sharded_ring on the camera rays (and the ring on 1,003
+     rays) against the single-device trace through K1: hit, t, material and
+     the winner's original id equal outside counted exact-t ties;
+     pathtrace_step_sharded at 1024x1024 within 1e-5 of PathTracer.step(),
+     counts equal; per mesh size the ms per call, launches per call by
+     kernel and the collectives' share (one card's numbers: no multi-card
+     speed-up is measured).
 K4, K5 (alone and inside textured K6) and K2t are held to 0.0 from their
 plain versions (SAMPLER_TOL), nearest and trilinear, all three wraps.
 Then the frame kernels' roofline bounds with the SIMT efficiency of the
@@ -235,6 +254,7 @@ def ptxas_summary(nvcc_log: str) -> dict:
     out, name = {}, None
     for line in nvcc_log.splitlines():
         m = re.search(r"Compiling entry function '\S*?\d(traverse_kernel|traverse_work_kernel|"
+                      r"traverse_threaded_kernel|"
                       r"render_primary_kernel|render_deferred_kernel|texshade_kernel|"
                       r"bounce_kernel|sample_materials_kernel)(?:I((?:L[bi]\d+E)+)E)?", line)
         if m:
@@ -1362,7 +1382,7 @@ def _launch_counters():
     from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce_, sample_materials
     from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred, render_primary
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import texture_shade
-    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse, traverse_threaded
 
     return dict(k6=(fused_bounce_, "launches"), k5=(fused_bounce_, "material_launches"),
                 k5_standalone=(sample_materials, "launches"),
@@ -1374,7 +1394,9 @@ def _launch_counters():
                 k5_w8=(fused_bounce_, "w8_material_launches"),
                 k2_w8=(render_primary, "w8_launches"),
                 k2t_w8=(render_primary, "w8_textured_launches"),
-                k3_w8=(render_deferred, "w8_launches"), k1_standalone_w8=(traverse, "w8_launches"))
+                k3_w8=(render_deferred, "w8_launches"), k1_standalone_w8=(traverse, "w8_launches"),
+                # K1's unordered walk (phase 24)
+                k1_threaded=(traverse_threaded, "launches"))
 
 
 def reset_launches():
@@ -1387,7 +1409,8 @@ def read_launches() -> dict:
 
 
 ZERO_LAUNCHES = dict(k6=0, k5=0, k5_standalone=0, k2=0, k2t=0, k3=0, k4=0, k1_standalone=0,
-                     k6_w8=0, k5_w8=0, k2_w8=0, k2t_w8=0, k3_w8=0, k1_standalone_w8=0)
+                     k6_w8=0, k5_w8=0, k2_w8=0, k2t_w8=0, k3_w8=0, k1_standalone_w8=0,
+                     k1_threaded=0)
 
 
 def phase_pathtracer(scene, label, device, card, size, keep=None):
@@ -3321,12 +3344,12 @@ def phase_oracle(device, card):
     from gpu_raytracer_tpu_torch.engine.renderer import Renderer
     from gpu_raytracer_tpu_torch.models.scene import build_default_scene
     from gpu_raytracer_tpu_torch.reference import cpu_tracer
+    from gpu_raytracer_tpu_torch.utils.image import rmse
     from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
 
     size = ORACLE_SIZE
     out = dict(card=card, size=size, bound=ORACLE_RMSE)
     k2 = 0
-    rmse = lambda a, b: float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2)))
     for label, scene in (("default", build_default_scene(device=device)),
                          (f"courtyard_{ORACLE_TRIANGLES}",
                           make_courtyard_scene(ORACLE_TRIANGLES, seed=0, device=device))):
@@ -3436,6 +3459,319 @@ def phase_single_leaf(device, card):
                      nodes_per_ray=b["nodes"] / b["rays"], tris_per_ray=b["tris"] / b["rays"])
     log(f"phase 23e single-leaf walk {size}x{size}: {json.dumps(stats)}")
     return stats
+
+
+# ---- phase 24: K1's unordered walk ----
+
+def threaded_compare(tt, o, d, max_t, any_hit=False):
+    """K1 unordered against its plain version (the threaded walk with its
+    work counted) -> (stats, the plain walk's [N,2] visits and triangle
+    tests, the kernel's (t, slot)). Every output equal, bit for bit, on
+    every lane."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.bvh_traverse import bvh_traverse_threaded
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse_threaded
+    from gpu_raytracer_tpu_torch.ops.trace import slot_attributes
+
+    scene = tt.scene
+    work = torch.zeros((o.shape[0], 2), dtype=torch.int64, device=o.device)
+    pt, ps, ph = bvh_traverse_threaded(scene.bvh, scene.tri_v0, scene.tri_e1, scene.tri_e2, o,
+                                       d, max_t, leaf_size=scene.bvh.max_leaf, any_hit=any_hit,
+                                       work=work)
+    pn, pm = slot_attributes(scene, ps, ph)
+    kt, ks, kh, kn, km = traverse_threaded(tt, o, d, max_t, any_hit=any_hit)
+    same = dict(t=torch.equal(kt, pt), slot=torch.equal(ks.long(), ps), hit=torch.equal(kh, ph),
+                normal=torch.equal(kn, pn), material=torch.equal(km.long(), pm))
+    if not all(same.values()):
+        raise AssertionError(f"K1 unordered differs from the plain threaded walk: {same}")
+    return dict(rays=o.shape[0], hits=int(kh.sum()), max_abs_err=0.0,
+                nodes_per_ray=work[:, 0].float().mean().item(),
+                tris_per_ray=work[:, 1].float().mean().item()), work, (kt, ks)
+
+
+def phase_threaded(scene, tables, width, height, device, card):
+    """Phase 24: K1's unordered walk (csrc/traverse_threaded.cu, the JAX
+    package's `pallas_packet_traverse(ordered=False)`) on the frame's camera
+    rays, closest hit, and on shadow rays from their hits toward the point
+    light, any hit: t, slot, hit, normal and material equal to the plain
+    threaded walk on every lane; the closest t equal to K1's (near-first)
+    outside counted exact-t ties (another slot at the same t); its time, its
+    registers, its bound from the plain walk's visits and triangle tests, and
+    its launches on the main path: none (no entry point calls it)."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.bvh_traverse import bvh_traverse_threaded
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import (pack_threaded_tables, traverse,
+                                                           traverse_threaded)
+    from gpu_raytracer_tpu_torch.ops.linalg import dot
+
+    tt = pack_threaded_tables(scene)
+    px, py = frame_pixels(width, height, device)
+    o, d = primary_rays(scene, width, height, px, py)
+    far = torch.full((o.shape[0],), F32_MAX, device=device)
+    camera, work, (tt_t, tt_s) = threaded_compare(tt, o, d, far)
+    kt, ks, kh, kn = traverse(tables.trace, o, d, far)[:4]
+    if not torch.equal(kh, tt_s >= 0):
+        raise AssertionError("K1 unordered and K1 disagree on which rays hit")
+    t_off = int((kt != tt_t).sum())
+    ties = int(((ks != tt_s) & (kt == tt_t)).sum())
+    if t_off:
+        raise AssertionError(f"K1 unordered's closest t differs from K1's on {t_off} rays")
+    # shadow rays from every hit toward the point light, any hit
+    hit = torch.nonzero(kh).squeeze(1)
+    L = scene.lights
+    li = int(torch.nonzero(L.light_type == 1)[0])
+    p = o[hit] + d[hit] * kt[hit, None]
+    so = (p + kn[hit] * 1e-3).contiguous()
+    to_light = L.position[li][None, :] - p
+    dist = torch.sqrt(dot(to_light, to_light))
+    sd = (to_light / dist[:, None]).contiguous()
+    smax = (dist - 1e-3).contiguous()
+    shadow, swork, _ = threaded_compare(tt, so, sd, smax, any_hit=True)
+    ms = timed(lambda: traverse_threaded(tt, o, d, far), FRAMES, device)
+    shadow_ms = timed(lambda: traverse_threaded(tt, so, sd, smax, any_hit=True), FRAMES, device)
+    scene_ = tt.scene
+    plain_ms = timed(lambda: bvh_traverse_threaded(
+        scene_.bvh, scene_.tri_v0, scene_.tri_e1, scene_.tri_e2, o, d, far,
+        leaf_size=scene_.bvh.max_leaf), PLAIN_FRAMES, device)
+    w = work.sum(dim=0).tolist()
+    flops = float(w[0] * SLAB_FLOPS + w[1] * TRI_FLOPS)
+    # rays in (origin, direction, max_t), both tables once, results out (t, slot, normal, material)
+    nbytes = o.shape[0] * (28 + 24) + table_bytes(tt.nodes, tt.tris)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    ws = swork.sum(dim=0).tolist()
+    s_ms, s_by = bound_ms(so.shape[0] * 52 + table_bytes(tt.nodes, tt.tris),
+                          float(ws[0] * SLAB_FLOPS + ws[1] * TRI_FLOPS))
+    regs = {}
+    if device.type == "cuda":
+        from gpu_raytracer_tpu_torch.ops.cuda.build import load_kernels
+
+        regs = {k: v for k, v in ptxas_summary(load_kernels().log).items()
+                if k.startswith("traverse_threaded_kernel")}
+    stats = dict(camera=camera, shadow=shadow, k1_ties=ties, k1_t_off=t_off, ms=ms,
+                 shadow_ms=shadow_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 shadow_bound_ms=s_ms, shadow_bound_by=s_by, k1_ms=timed(
+                     lambda: traverse(tables.trace, o, d, far), FRAMES, device),
+                 ptxas=regs, main_path_launches=0, card=card)
+    log(f"phase 24 K1 unordered {width}x{height}: {json.dumps(stats)}")
+    return stats
+
+
+# ---- phase 25: the multi-device layer on virtual meshes of one card ----
+
+MESH_SIZES = (1, 2, 4, 8)
+MESH_CALLS = 3           # timed calls of each sharded path, per mesh size
+ODD_RAYS = 1003          # the ring's odd batch (block padding), spread over the frame
+
+
+class CollectiveTimer:
+    """CUDA events around every collective (pmin, psum, ppermute_next,
+    gather) that parallel/shard.py calls inside a `with` block: their summed
+    time is the combine's share of a call (off the card: nothing)."""
+
+    NAMES = ("pmin", "psum", "ppermute_next", "gather")
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.pairs = []
+
+    def _wrap(self, fn):
+        import torch
+
+        def timed_fn(*args, **kw):
+            if not self.cuda:
+                return fn(*args, **kw)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            self.pairs.append((a, b))
+            return out
+
+        return timed_fn
+
+    def __enter__(self):
+        import contextlib
+
+        from gpu_raytracer_tpu_torch.parallel import shard
+
+        self.stack = contextlib.ExitStack()
+        for name in self.NAMES:
+            self.stack.enter_context(_swap(shard, name, self._wrap(getattr(shard, name))))
+        return self
+
+    def __exit__(self, *exc):
+        return self.stack.__exit__(*exc)
+
+    def ms(self) -> float:
+        import torch
+
+        if not self.cuda:
+            return 0.0
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def sharded_reading(fn, device, want: dict) -> dict:
+    """One call of fn with its launches counted (on the card exactly `want`,
+    by kernel), then MESH_CALLS timed calls (median ms between events) and
+    the collectives' share of one more."""
+    reset_launches()
+    out = fn()
+    launches = {k: v for k, v in read_launches().items() if v}
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"a sharded call launched {launches}, want {want}")
+    ms = timed(fn, MESH_CALLS, device)
+    total = CollectiveTimer(device)
+    with total:
+        call_ms = timed(fn, 1, device)
+    combine = total.ms()
+    prof = {}
+    if device.type == "cuda":
+        # the profiler has been seen to drop some or all of a short call's
+        # kernels, never to add any: keep the session that recorded the most
+        p = max((device_profile(fn, MESH_CALLS, device) for _ in range(PROFILE_SESSIONS)),
+                key=lambda q: (q["kernels_per_call"], q["device_ms"]))
+        empty = p["device_ms"] == 0.0
+        prof = dict(device_ms=None if empty else p["device_ms"],
+                    host_enqueue_ms=p["host_enqueue_ms"],
+                    kernels_per_call=None if empty else p["kernels_per_call"])
+    return out, dict(ms=ms, launches=launches, combine_ms=combine,
+                     combine_share=combine / call_ms if call_ms else None, **prof)
+
+
+def hold_sharded_hit(got, single, scene, rows=slice(None)) -> dict:
+    """A sharded trace against the single-device trace (K1): hit equal; t
+    bit-equal and material and prim_id (the single winner's original id)
+    equal outside counted exact-t ties (the same t, another triangle)."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.trace import TRIANGLE
+
+    h = single.hit[rows]
+    if not torch.equal(got.hit, h):
+        raise AssertionError(f"sharded hit mask differs on {(got.hit != h).sum().item()} rays")
+    t_off = int((got.t != single.t[rows]).sum())
+    if t_off:
+        raise AssertionError(f"sharded t differs on {t_off} rays")
+    tri = single.prim_kind[rows] == TRIANGLE
+    want_id = torch.where(tri, scene.tri_src[single.prim_id[rows].clamp(min=0)].long(),
+                          single.prim_id[rows])
+    ties = got.prim_id != want_id
+    mat_off = int(((got.material_id != single.material_id[rows]) & ~ties).sum())
+    if mat_off:
+        raise AssertionError(f"sharded material differs on {mat_off} rays off ties")
+    if int(ties.sum()) > TIE_BUDGET * h.shape[0]:
+        raise AssertionError(f"{int(ties.sum())} tie rays > {TIE_BUDGET:.2%}")
+    nrm = (got.normal - single.normal[rows]).abs().amax(dim=1)[~ties]
+    return dict(rays=int(h.shape[0]), hits=int(h.sum()), ties=int(ties.sum()),
+                tie_material_off=int(((got.material_id != single.material_id[rows])
+                                      & ties).sum()),
+                normal_abs=nrm.max().item() if nrm.numel() else 0.0)
+
+
+def phase_multidevice(scene, tables, tscene, width, height, pt_size, device, card):
+    """Phase 25: parallel/ on virtual meshes of 1, 2, 4 and 8 shards of one
+    card (make_mesh(D, device=...)), full width on the 100k courtyards:
+    render_frame_fused_multichip at width x height (untextured, shadows off
+    and on, and the textured courtyard: K2, or K3 + K4, a launch per shard)
+    0.0 from the single-device Renderer frame; trace_geometry_sharded and
+    trace_geometry_sharded_ring on the frame's camera rays (and the ring on
+    an odd batch of ODD_RAYS) against the single-device trace through K1;
+    pathtrace_step_sharded at pt_size^2, one step, within 1e-5 of
+    PathTracer.step(), counts equal. Per mesh size: ms per call, launches
+    per call by kernel and the collectives' share. One card's numbers: the
+    speed-up on several cards is not measured."""
+    import numpy as np
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import pack_bounce_tables
+    from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred
+    from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import trace
+    from gpu_raytracer_tpu_torch.parallel.mesh import make_mesh
+    from gpu_raytracer_tpu_torch.parallel.shard import (
+        GeometryShards, pathtrace_step_sharded, render_frame_fused_multichip,
+        replicate_tables, trace_geometry_sharded, trace_geometry_sharded_ring)
+
+    cases = {("courtyard", False): scene, ("courtyard", True): scene,
+             ("textured_courtyard", False): tscene}
+    frames = {}
+    for (label, shadows), sc in cases.items():
+        r = Renderer(sc, width, height, shadows=shadows, device=device)
+        if label == "textured_courtyard":   # the two phases, as Renderer takes them on the card
+            gbuf = render_deferred(r.tables, r.px, r.py, width, height, shadows=shadows)
+            frames[(label, shadows)] = r.to_image(texture_shade(
+                pack_shade_tables(r.scene), gbuf).cpu().numpy())
+        else:
+            frames[(label, shadows)] = r.render()
+    px, py = frame_pixels(width, height, device)
+    o, d = primary_rays(scene, width, height, px, py)
+    single = trace(tables.trace, o, d)
+    # the odd batch: ODD_RAYS rays spread over the frame
+    odd_rows = torch.arange(ODD_RAYS, device=device) * (o.shape[0] // ODD_RAYS)
+    pt = PathTracer(scene, pt_size, pt_size, device=device)
+    pt.step()
+    step_ref, counts_ref = pt.accum.clone(), pt._last_counts.clone()
+    totals = dict(ZERO_LAUNCHES)
+    out = {}
+    for D in MESH_SIZES:
+        mesh = make_mesh(D, device=device)
+        t0 = time.perf_counter()
+        shards = GeometryShards(scene, mesh)
+        shards_s = time.perf_counter() - t0
+        rt = {"courtyard": replicate_tables(mesh, scene),
+              "textured_courtyard": replicate_tables(mesh, tscene)}
+        st = replicate_tables(mesh, tscene, pack_shade_tables)
+        r = dict(geometry_shards_s=shards_s,
+                 shard_bvh_nodes=[s.scene.bvh.num_nodes for s in shards.shards])
+        for (label, shadows), sc in cases.items():
+            fb, reading = sharded_reading(lambda: render_frame_fused_multichip(
+                rt[label], width, height, mesh, shadows=shadows,
+                shade_tables=st if label == "textured_courtyard" else None, host=False),
+                device, dict(k3=D, k4=D) if label == "textured_courtyard" else dict(k2=D))
+            err = float(np.abs(fb.cpu().numpy() - frames[(label, shadows)]).max())
+            if err != 0.0:
+                raise AssertionError(f"D={D} fused frame {label} shadows={shadows}: "
+                                     f"max |diff| {err} from the single device")
+            r[f"fused_{label}_{'shadows' if shadows else 'no_shadows'}"] = dict(
+                max_abs_err=err, **reading)
+        hit, reading = sharded_reading(
+            lambda: trace_geometry_sharded(scene, o, d, mesh, shards), device,
+            dict(k1_standalone=D))
+        r["geometry"] = dict(**hold_sharded_hit(hit, single, scene), **reading)
+        hit, reading = sharded_reading(
+            lambda: trace_geometry_sharded_ring(scene, o, d, mesh, shards), device,
+            dict(k1_standalone=D * D))
+        r["ring"] = dict(**hold_sharded_hit(hit, single, scene), **reading)
+        odd = trace_geometry_sharded_ring(scene, o[odd_rows], d[odd_rows], mesh, shards)
+        r["ring_odd"] = hold_sharded_hit(odd, single, scene, odd_rows)
+        bt = replicate_tables(mesh, scene, pack_bounce_tables)
+        zero = torch.zeros_like(step_ref)
+        (acc, counts), reading = sharded_reading(lambda: pathtrace_step_sharded(
+            bt, zero, 0, pt._px, pt._py, mesh, width=pt_size, height=pt_size,
+            max_depth=MAX_DEPTH, rr_start=RR_START, qmc_seed=pt._qmc_seed,
+            tex_lod_bias=pt.config.bounce_lod_bias), device, dict(k6=D * (MAX_DEPTH + 1)))
+        step_err = (acc - step_ref).abs().max().item()
+        if step_err > 1e-5 or not torch.equal(counts, counts_ref):
+            raise AssertionError(f"D={D} sharded step: max |diff| {step_err}, counts "
+                                 f"{counts.tolist()} against {counts_ref.tolist()}")
+        r["step"] = dict(max_abs_err=step_err, counts=counts.tolist(), **reading)
+        for v in r.values():
+            if isinstance(v, dict):
+                for k, n in v.get("launches", {}).items():
+                    totals[k] = totals.get(k, 0) + n
+        out[f"D={D}"] = r
+        del shards, rt, st, bt
+    out["note"] = ("virtual shards on one card: one card's numbers; the speed-up on several "
+                   "cards is not measured and not claimed")
+    out["card"] = card
+    log(f"phase 25 multi-device (virtual meshes on one card): {json.dumps(out)}")
+    out["launch_totals"] = totals
+    return out
 
 
 def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTURE_SIZE,
@@ -3577,6 +3913,14 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     k2_launches += phase_oracle(device, card)
     phase_texture_cache(texture_size, device, card)
     phase_single_leaf(device, card)
+    thr = phase_threaded(scene, tables, width, height, device, card)
+    md = phase_multidevice(scene, tables, tscene, width, height, pt_size, device, card)
+    mt = md["launch_totals"]   # the shards' launches in phase 25's main-path calls
+    k2_launches += mt["k2"]
+    k3_launches += mt["k3"]
+    k4_launches += mt["k4"]
+    k6_launches += mt["k6"]
+    k1_standalone += mt["k1_standalone"]
 
     fb = frame_bounds(tables, width, height) if cuda else {}
     tfb = frame_bounds(ttables, width, height, shade=tshade) if cuda else {}
@@ -3587,7 +3931,8 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     kernels = [
         dict(name="K1 bvh4_traverse (device function run by every K2, K2t, K3 and K6 launch; "
                   "standalone kernel checked in phase 3 and launched by the G-buffer and the "
-                  "fly-through's warp, phases 18-19)",
+                  "fly-through's warp, phases 18-19, and once per shard by the sharded traces "
+                  "of phase 25)",
              route="cuda", source="gpu_raytracer_tpu_torch/csrc/traverse.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/traverse.py:851",
              launches=k2_launches + k2t_launches + k3_launches + k6_launches + k1_standalone,
@@ -3596,7 +3941,8 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              ms=k1["ms"], plain_ms=k1["plain_ms"], **bound(fb.get("K1")), library_ms=None),
         dict(name="K2 render_primary (also one launch per Viewer frame, on refit and rebuilt "
                   "trees, phase 21, per camera-moving frame served over HTTP and window tick, "
-                  "phase 23, and on the NumPy oracle's frames, phase 23c)", route="cuda",
+                  "phase 23, on the NumPy oracle's frames, phase 23c, and once per shard of a "
+                  "sharded frame, phase 25)", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/render_primary.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:701",
              launches=k2_launches, max_abs_err=k2_err,
@@ -3612,14 +3958,16 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              plain_ms=k2t["textured_courtyard_no_shadows"]["plain_ms"],
              **bound(tfb.get("K2t")), library_ms=None),
         dict(name="K3 render_deferred (G-buffer; max_abs_err is the largest of "
-                  "S, uv and the footprint's relative error)", route="cuda",
+                  "S, uv and the footprint's relative error; once per shard of a sharded "
+                  "textured frame, phase 25)", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/render_deferred.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:787",
              launches=k3_launches, max_abs_err=k3_err, ms=k3["ms"], plain_ms=k3["plain_ms"],
              **bound(tfb.get("K3")), library_ms=None),
         dict(name="K4 texture_shade (ms: the kernel's device time, torch.profiler, the L2 "
                   "flushed before each call; between CUDA events around one call it reads "
-                  "the wrapper's host time)", route="cuda",
+                  "the wrapper's host time; once per shard of a sharded textured frame, "
+                  "phase 25)", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/texshade.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/texshade.py:463",
              launches=k4_launches,
@@ -3641,7 +3989,7 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              bound_by=k5.get("bound_by"), library_ms=None),
         dict(name=f"K6 bounce ({MAX_DEPTH + 1} launches per sample; ms (kernel device time, "
                   f"torch.profiler), plain_ms and the bound are per sample of the untextured "
-                  f"courtyard at {pt_size}^2)",
+                  f"courtyard at {pt_size}^2; five per shard of a sharded step, phase 25)",
              route="cuda", source="gpu_raytracer_tpu_torch/csrc/bounce.cuh",
              replaces="gpu_raytracer_tpu/ops/pallas/bounce.py:505",
              launches=k6_launches,
@@ -3649,6 +3997,17 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              ms=ptc["profile"].get("k6_device_ms"), plain_ms=ptc["k6_plain_ms_per_spp"],
              bound_ms=kb.get("bound_ms"), bound_by=kb.get("bound_by"), library_ms=None),
     ]
+    kernels.append(dict(
+        name="K1 unordered traverse_threaded (the stackless walk over the binary tree's "
+             "threaded hit / miss links, one ray per thread; no entry point calls it, as in "
+             "the JAX package: launches 0 on the main path; held to the plain threaded walk "
+             "bit for bit, phase 24; ms, plain_ms and the bound on the 1080p camera rays, "
+             "closest hit; the bound from the plain walk's node visits and triangle tests)",
+        route="cuda", source="gpu_raytracer_tpu_torch/csrc/traverse_threaded.cu",
+        replaces="gpu_raytracer_tpu/ops/pallas/traverse.py:690", launches=0,
+        max_abs_err=max(thr["camera"]["max_abs_err"], thr["shadow"]["max_abs_err"]),
+        ms=thr["ms"], plain_ms=thr["plain_ms"], bound_ms=thr["bound_ms"],
+        bound_by=thr["bound_by"], library_ms=None))
     w8l, w8e, w8b = w8["launches"], w8["max_abs_err"], w8.get("bounds", {})
     w8pt = w8["pathtracer"]["courtyard"]
     bound8 = lambda key, kernel: bound(w8b.get(key, {}).get(kernel))

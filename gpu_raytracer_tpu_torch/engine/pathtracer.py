@@ -47,7 +47,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, RaytracerConfig
 from ..models.scene import Scene, upload
-from ..ops.camera_rays import generate_rays
+from ..ops.camera_rays import generate_rays, pixel_grid
 from ..ops.cuda.bounce import pack_bounce_tables, sample_materials
 from ..ops.cuda.render import set_camera
 from ..ops.cuda.traverse import refit_trace_tables, trace
@@ -399,8 +399,8 @@ class PathTracer:
         if self._gbuf is None:
             if self._gbuf_tile is None:
                 W, H = self.width, self.height
-                grid = torch.arange(W * H, device=self.device)
-                planes = primary_gbuffer(self.tables, grid % W, grid // W, W, H)[3]
+                px, py = pixel_grid(W, H, self.device)
+                planes = primary_gbuffer(self.tables, px, py, W, H)[3]
             else:
                 normal, depth, albedo = self._gbuf_tile
                 pack = torch.cat([normal, depth[:, None], albedo], dim=1)[self._inv_perm]

@@ -38,10 +38,13 @@ def leaf_closest(orig, dirn, best_t, first, count, leaf_size, tri_v0, tri_e1, tr
 
 
 def bvh_traverse_threaded(bvh: Bvh, tri_v0, tri_e1, tri_e2, orig, dirn, max_t,
-                          leaf_size: int = 8, any_hit: bool = False):
+                          leaf_size: int = 8, any_hit: bool = False,
+                          work: torch.Tensor | None = None):
     """Closest-hit (or any-hit) for a ray batch orig/dirn [N,3], max_t [N]
     -> (best_t [N] with MISS_T on a miss, best_tri [N] leaf-order slot or
-    -1, hit [N]). any_hit stops each ray at its first accepted leaf."""
+    -1, hit [N]). any_hit stops each ray at its first accepted leaf (the
+    closest slot of that leaf). `work` [N,2] int64, if given, gets each
+    ray's node visits (box tests) and triangle tests added."""
     N = orig.shape[0]
     dev = orig.device
     best_t = max_t.clone()
@@ -66,9 +69,13 @@ def bvh_traverse_threaded(bvh: Bvh, tri_v0, tri_e1, tri_e2, orig, dirn, max_t,
         tmax = torch.maximum(t1, t2).amin(dim=1)
         box = (tmax >= 0.0) & (tmin <= tmax) & (tmin <= best_t[ray])
         leaf = torch.nonzero(box & is_leaf[node]).squeeze(1)
+        if work is not None:
+            work[:, 0].index_add_(0, ray, torch.ones_like(ray))
         if leaf.numel():
             r = ray[leaf]
             n = node[leaf]
+            if work is not None:
+                work[:, 1].index_add_(0, r, tri_count[n])
             t, slot, hit = leaf_closest(orig[r], dirn[r], best_t[r], tri_start[n],
                                         tri_count[n], leaf_size, tri_v0, tri_e1, tri_e2)
             best_t[r] = torch.where(hit, t, best_t[r])

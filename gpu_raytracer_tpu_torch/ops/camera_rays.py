@@ -42,3 +42,10 @@ def generate_rays(camera: Camera, width: int, height: int,
     d = normalize(forward + right * cx[:, None] + true_up * cy[:, None])
     o = camera.position.to(px.device).expand_as(d)
     return o, d
+
+
+def pixel_grid(width: int, height: int, device="cpu"):
+    """The full frame's pixel coordinates, row-major -> (px [H*W] i32,
+    py [H*W] i32) on `device`."""
+    grid = torch.arange(width * height, dtype=torch.int32, device=device)
+    return grid % width, grid // width

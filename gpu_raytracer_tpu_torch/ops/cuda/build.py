@@ -33,7 +33,7 @@ SOURCES = ("traverse.cu", "render_primary.cu", "render_primary_textured.cu",
            "render_deferred.cu", "texshade.cu", "bounce.cu", "bounce_textured.cu",
            "materials.cu", "qmc.cu", "traverse_w8.cu", "render_primary_w8.cu",
            "render_primary_textured_w8.cu", "render_deferred_w8.cu", "bounce_w8.cu",
-           "bounce_textured_w8.cu")
+           "bounce_textured_w8.cu", "traverse_threaded.cu")
 HEADERS = ("traverse.cuh", "traverse_kernels.cuh", "render_common.cuh", "render_primary.cuh",
            "render_deferred.cuh", "texsample.cuh", "bounce.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -52,6 +52,9 @@ ARGTYPES = {
     "rt_traverse": [_p, _p, _i, _i, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p],
     # nodes, tris, node width, stack, orig, dirn, max_t, n, any_hit, work_out, stream
     "rt_traverse_work": [_p, _p, _i, _i, _p, _p, _p, _i, _i, _p, _p],
+    # binary nodes, n_nodes, tris, orig, dirn, max_t, n, any_hit, t_out,
+    # slot_out, normal_out, mat_out, stream
+    "rt_traverse_threaded": [_p, _i, _p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p],
     # nodes, tris, node width, stack, camera, materials, n_mats, lights,
     # n_lights, spheres, n_spheres, px, py, n, width, height, shadows,
     # sky_r, sky_g, sky_b, light_u (null: every light), rgb_out, stream

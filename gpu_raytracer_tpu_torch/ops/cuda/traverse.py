@@ -8,6 +8,9 @@ fused render kernel calls too) and csrc/traverse.cu (the standalone
 launch). Its plain version is `ops/trace.py::traverse_triangles`.
 `trace` is the closest hit of a ray batch (ops/trace.py::Hit) with the
 triangles through K1: the path tracer's G-buffer and temporal warp.
+`traverse_threaded` is K1's unordered walk (csrc/traverse_threaded.cu), the
+counterpart of `pallas_packet_traverse(..., ordered=False)`, over its own
+binary node table (`pack_threaded_tables`); no main path calls it.
 
 The scene tables are laid out for the GPU here, once per scene:
 
@@ -53,7 +56,8 @@ import torch
 
 from ...models.scene import LBVH_DEPTH, Scene
 from ..texture import den_decode
-from ..trace import Hit, traverse_triangles
+from ..bvh_traverse import bvh_traverse_threaded
+from ..trace import Hit, slot_attributes, traverse_triangles
 from ..trace import trace as plain_trace
 from .build import check, load_kernels
 
@@ -175,11 +179,18 @@ def pack_trace_tables(scene: Scene) -> TraceTables:
     nodes = pack_nodes(q_min, q_max, child, count, axis)
     width = child.shape[1]
     zero = torch.zeros((scene.tri_v0.shape[0], 1), dtype=torch.float32, device=dev)
-    tris = torch.cat([scene.tri_v0, _bits(scene.tri_mat[:, None]),
-                      scene.tri_e1, zero, scene.tri_e2, zero], dim=1).contiguous()
     attrs = torch.cat([scene.tri_uv.reshape(-1, 6), den_decode(scene.tri_den)[:, None],
                        zero], dim=1).contiguous()
-    return TraceTables(scene, nodes, tris, attrs, depth, stack_capacity(depth, width), width)
+    return TraceTables(scene, nodes, triangle_rows(scene), attrs, depth,
+                       stack_capacity(depth, width), width)
+
+
+def triangle_rows(scene: Scene) -> torch.Tensor:
+    """[Tp,12] f32, three float4 per leaf-ordered slot: (v0, material as
+    int32 bits), (e1, 0), (e2, 0): the triangle table of every walk."""
+    zero = torch.zeros((scene.tri_v0.shape[0], 1), dtype=torch.float32, device=scene.device)
+    return torch.cat([scene.tri_v0, _bits(scene.tri_mat[:, None]),
+                      scene.tri_e1, zero, scene.tri_e2, zero], dim=1).contiguous()
 
 
 def refit_trace_tables(tables: TraceTables, scene: Scene) -> None:
@@ -285,6 +296,77 @@ def traverse(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
 
 traverse.launches = 0      # width 4
 traverse.w8_launches = 0   # width 8
+
+
+@dataclass
+class ThreadedTables:
+    """The tables of K1's unordered walk (csrc/traverse_threaded.cu)."""
+    scene: Scene            # the scene the tables were packed from (plain path)
+    nodes: torch.Tensor     # [Nn,12] f32 binary nodes, 16-byte aligned on the card
+    tris: torch.Tensor      # [Tp,12] f32, `triangle_rows`
+
+    @property
+    def device(self) -> torch.device:
+        return self.nodes.device
+
+
+THREADED_WORDS = 12   # f32 words of a binary node record: three float4
+
+
+def pack_threaded_tables(scene: Scene) -> ThreadedTables:
+    """The binary BVH as [Nn,12] f32 records: min.xyz, max.xyz, then as
+    int32 bits hit_link, miss_link, the first slot and the leaf's triangle
+    count (0 for an internal node), 0, 0; with K1's triangle rows."""
+    bvh = scene.bvh
+    leaf_count = torch.where(bvh.left < 0, bvh.tri_count, torch.zeros_like(bvh.tri_count))
+    zero = torch.zeros_like(leaf_count)
+    ints = torch.stack([bvh.hit_link, bvh.miss_link, bvh.tri_start, leaf_count, zero, zero],
+                       dim=1)
+    nodes = torch.cat([bvh.node_min.float(), bvh.node_max.float(), _bits(ints)],
+                      dim=1).contiguous()
+    return ThreadedTables(scene, nodes, triangle_rows(scene))
+
+
+def traverse_threaded(tables: ThreadedTables, orig: torch.Tensor, dirn: torch.Tensor,
+                      max_t: torch.Tensor, any_hit: bool = False):
+    """K1's unordered walk: triangle closest hit (or, with any_hit, the
+    closest slot of the first leaf that blocks) below max_t in the binary
+    tree's left-first order over its threaded hit / miss links -> what
+    `traverse` returns: (t [N] f32, MISS_T on a miss; slot [N] or -1; hit
+    [N] bool; unit normal [N,3] f32, 0 on a miss; material [N] or -1). CUDA
+    tensors launch csrc/traverse_threaded.cu (counted in `launches`), CPU
+    tensors take its plain version, ops/bvh_traverse.py::bvh_traverse_threaded.
+    No main path calls it."""
+    N = _check_rays(tables, orig, dirn, max_t)
+    scene = tables.scene
+    if orig.device.type == "cpu":
+        t, slot, hit = bvh_traverse_threaded(scene.bvh, scene.tri_v0, scene.tri_e1,
+                                             scene.tri_e2, orig, dirn, max_t,
+                                             leaf_size=scene.bvh.max_leaf, any_hit=any_hit)
+        return (t, slot, hit) + slot_attributes(scene, slot, hit)
+    if orig.device.type != "cuda":
+        raise ValueError(f"traverse_threaded: unsupported device {orig.device}")
+    nodes = tables.nodes
+    if (nodes.dtype != torch.float32 or nodes.dim() != 2 or nodes.shape[1] != THREADED_WORDS
+            or not nodes.is_contiguous() or nodes.data_ptr() % 16):
+        raise ValueError(f"nodes: want contiguous float32 [Nn,{THREADED_WORDS}] on a 16-byte "
+                         f"boundary, got {nodes.dtype} {tuple(nodes.shape)}")
+    k = load_kernels()
+    t = torch.empty((N,), dtype=torch.float32, device=orig.device)
+    slot = torch.empty((N,), dtype=torch.int32, device=orig.device)
+    normal = torch.empty((N, 3), dtype=torch.float32, device=orig.device)
+    mat = torch.empty((N,), dtype=torch.int32, device=orig.device)
+    stream = torch.cuda.current_stream(orig.device).cuda_stream
+    traverse_threaded.launches += 1
+    check(k.lib.rt_traverse_threaded(nodes.data_ptr(), nodes.shape[0], tables.tris.data_ptr(),
+                                     orig.data_ptr(), dirn.data_ptr(), max_t.data_ptr(), N,
+                                     int(any_hit), t.data_ptr(), slot.data_ptr(),
+                                     normal.data_ptr(), mat.data_ptr(), stream),
+          "rt_traverse_threaded")
+    return t, slot, slot >= 0, normal, mat
+
+
+traverse_threaded.launches = 0
 
 
 def count_launch(wrapper, tables: TraceTables, kind: str = "launches") -> None:

@@ -89,11 +89,17 @@ def traverse_triangles(scene: Scene, orig, dirn, max_t, any_hit: bool = False):
             max_t, leaf_size=scene.bvh.max_leaf, any_hit=any_hit)
     else:
         t, slot, hit = _triangles_brute(scene, orig, dirn, max_t, any_hit)
+    return (t, slot, hit) + slot_attributes(scene, slot, hit)
+
+
+def slot_attributes(scene: Scene, slot, hit):
+    """The winning slots' unit geometric normal [N,3] (0 on a miss) and
+    material [N] i64 (-1 on a miss)."""
     ti = torch.clamp(slot, min=0)
     normal = normalize(cross(scene.tri_e1[ti], scene.tri_e2[ti]))
     normal = torch.where(hit[:, None], normal, torch.zeros_like(normal))
     mat = torch.where(hit, scene.tri_mat[ti].long(), torch.full_like(slot, -1))
-    return t, slot, hit, normal, mat
+    return normal, mat
 
 
 def _max_t(max_t, orig: torch.Tensor) -> torch.Tensor:

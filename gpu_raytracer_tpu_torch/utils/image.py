@@ -1,4 +1,5 @@
-"""Image output: the sRGB display encode and a pure-Python PNG writer.
+"""Image output: the sRGB display encode, a pure-Python PNG writer, PPM and
+the RMSE fidelity metric.
 
 Frames are linear; every u8 quantise on the way to a file applies the exact
 piecewise IEC 61966-2-1 encode by default (srgb=False keeps raw linear).
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 _SRGB_CUT = 0.0031308  # linear-domain breakpoint
+_SRGB_CUT_ENC = 0.04045  # encoded-domain breakpoint (12.92 * _SRGB_CUT)
 
 
 def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:
@@ -21,6 +23,15 @@ def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:
     lo = x * 12.92
     hi = 1.055 * torch.pow(torch.clamp(x, min=_SRGB_CUT), 1.0 / 2.4) - 0.055
     return torch.where(x <= _SRGB_CUT, lo, hi)
+
+
+def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of `linear_to_srgb` (the electro-optical transfer) of a
+    tensor clipped to [0, 1]."""
+    x = torch.clamp(x, 0.0, 1.0)
+    lo = x * (1.0 / 12.92)
+    hi = torch.pow((torch.clamp(x, min=_SRGB_CUT_ENC) + 0.055) * (1.0 / 1.055), 2.4)
+    return torch.where(x <= _SRGB_CUT_ENC, lo, hi)
 
 
 def to_u8(img: np.ndarray, srgb: bool = True) -> np.ndarray:
@@ -53,3 +64,21 @@ def encode_png(img: np.ndarray, level: int = 6, srgb: bool = True) -> bytes:
 def write_png(path: str, img: np.ndarray, srgb: bool = True) -> None:
     with open(path, "wb") as f:
         f.write(encode_png(img, srgb=srgb))
+
+
+def write_ppm(path: str, img: np.ndarray, srgb: bool = True) -> None:
+    """[H,W,3] float (linear, sRGB-encoded by default) or uint8 (as it is)
+    -> a binary PPM (P6)."""
+    img = to_u8(img, srgb=srgb)
+    h, w = img.shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode())
+        f.write(img.tobytes())
+
+
+def rmse(a, b) -> float:
+    """Root mean square of a - b over every element, in float64: the
+    fidelity metric of the frames against the oracle."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.sqrt(np.mean((a - b) ** 2)))

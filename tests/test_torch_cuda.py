@@ -799,3 +799,116 @@ def test_traversal_work_counts_the_live_child_slots_of_each_visit(cuda):
         assert int(none.sum()) == 0
         work[width] = w
     assert int(work[8][:, 0].sum()) < int(work[4][:, 0].sum())
+
+
+# ---- K1's unordered walk and the multi-device layer ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_traverse_threaded_kernel_matches_plain(cuda, name, any_hit, monkeypatch):
+    """K1 unordered against the plain threaded walk on the card: every
+    output equal, bit for bit; the wrapper launches the kernel, once, and
+    never the plain walk."""
+    from gpu_raytracer_tpu_torch.ops.bvh_traverse import bvh_traverse_threaded
+    from gpu_raytracer_tpu_torch.ops.cuda import traverse as k1
+    from gpu_raytracer_tpu_torch.ops.trace import slot_attributes
+
+    scene = SCENES[name](device=cuda)
+    tt = k1.pack_threaded_tables(scene)
+    rng = np.random.default_rng(7)
+    n = 8192
+    # from random points toward jittered triangle centroids of the scene
+    v0, e1, e2 = (x.cpu().numpy() for x in (scene.tri_v0, scene.tri_e1, scene.tri_e2))
+    real = np.nonzero(np.abs(e1).sum(1) > 0)[0]
+    pick = real[rng.integers(0, real.shape[0], n)]
+    target = v0[pick] + (e1[pick] + e2[pick]) / 3.0 + rng.uniform(-0.2, 0.2, (n, 3))
+    src = rng.uniform(-20, 20, (n, 3))
+    d = (target - src) / np.linalg.norm(target - src, axis=1, keepdims=True)
+    o = torch.from_numpy(src.astype(np.float32)).to(cuda)
+    d = torch.from_numpy(d.astype(np.float32)).to(cuda)
+    mt = torch.full((n,), 30.0 if any_hit else 3.4028234663852886e38, device=cuda)
+    t, slot, hit = bvh_traverse_threaded(scene.bvh, scene.tri_v0, scene.tri_e1, scene.tri_e2,
+                                         o, d, mt, leaf_size=scene.bvh.max_leaf,
+                                         any_hit=any_hit)
+    want = (t, slot, hit) + slot_attributes(scene, slot, hit)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain threaded walk ran for a CUDA tensor")
+
+    monkeypatch.setattr(k1, "bvh_traverse_threaded", refuse)
+    before = k1.traverse_threaded.launches
+    got = k1.traverse_threaded(tt, o, d, mt, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert k1.traverse_threaded.launches == before + 1
+    assert int(hit.sum()) > 100
+    for g, w in zip(got, want):
+        assert torch.equal(g if g.dtype != torch.int32 else g.long(), w)
+
+
+@pytest.mark.cuda
+def test_sharded_paths_launch_their_kernels_never_the_plain_versions(cuda, monkeypatch):
+    """Every parallel/shard.py path on a virtual mesh of 4 shards of the
+    card: one launch of its kernel per shard (K2; K3 + K4; K1; K1 per shard
+    and hop in the ring; K6 five times per shard), no plain version, and
+    the single-device result: frames and the step's counts equal, the step
+    within 1e-5, the traces as chip_smoke.py phase 25 holds them."""
+    from chip_smoke import hold_sharded_hit
+
+    from gpu_raytracer_tpu_torch.engine import renderer as renderer_mod
+    from gpu_raytracer_tpu_torch.ops import shading, wavefront
+    from gpu_raytracer_tpu_torch.ops import trace as plain
+    from gpu_raytracer_tpu_torch.parallel import shard
+    from gpu_raytracer_tpu_torch.parallel.mesh import make_mesh
+
+    D, W, H = 4, 128, 96
+    scene = make_courtyard_scene(2000, seed=1, device=cuda)
+    tscene = make_courtyard_scene(2000, seed=1, textured=True, device=cuda)
+    mesh = make_mesh(D, device=cuda)
+    frames = {s: Renderer(scene, W, H, shadows=s, device=cuda).render() for s in (False, True)}
+    tframe = Renderer(tscene, W, H, device=cuda).render()
+    tables = pack_render_tables(scene)
+    r = Renderer(scene, W, H, device=cuda)
+    o, d = generate_rays(scene.camera, W, H, r.px, r.py)
+    single = trace(tables.trace, o.contiguous(), d.contiguous())
+    flat = shading.shade(scene, single)
+    pt = PathTracer(scene, 64, 64, device=cuda)
+    pt.step()
+    rt, trt = shard.replicate_tables(mesh, scene), shard.replicate_tables(mesh, tscene)
+    st = shard.replicate_tables(mesh, tscene, pack_shade_tables)
+    bt = shard.replicate_tables(mesh, scene, pack_bounce_tables)
+    shards = shard.GeometryShards(scene, mesh)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((plain, "bvh_traverse_threaded"), (plain, "_triangles_brute"),
+                      (renderer_mod, "render_chunk"), (renderer_mod, "render_gbuffer"),
+                      (shading, "shade_deferred"), (wavefront, "bounce_")):
+        monkeypatch.setattr(mod, name, refuse)
+
+    def launched(want, fn):
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        assert read_launches() == dict(ZERO_LAUNCHES, **want)
+        return out
+
+    for s in (False, True):
+        fb = launched(dict(k2=D), lambda: shard.render_frame_fused_multichip(rt, W, H, mesh,
+                                                                             shadows=s))
+        assert np.array_equal(fb, frames[s])
+    fb = launched(dict(k3=D, k4=D), lambda: shard.render_frame_fused_multichip(
+        trt, W, H, mesh, shade_tables=st))
+    assert np.array_equal(fb, tframe)
+    rgb = launched(dict(k1_standalone=D), lambda: shard.render_rays_sharded(
+        rt, r.px, r.py, W, H, mesh))
+    assert torch.equal(rgb, flat)
+    for fn, k in ((shard.trace_geometry_sharded, D), (shard.trace_geometry_sharded_ring, D * D)):
+        hit = launched(dict(k1_standalone=k), lambda: fn(scene, o, d, mesh, shards))
+        hold_sharded_hit(hit, single, scene)
+    acc, counts = launched(dict(k6=5 * D), lambda: shard.pathtrace_step_sharded(
+        bt, torch.zeros_like(pt.accum), 0, pt._px, pt._py, mesh, width=64, height=64,
+        qmc_seed=pt._qmc_seed))
+    assert (acc - pt.accum).abs().max().item() <= 1e-5
+    assert torch.equal(counts, pt._last_counts)

@@ -4,7 +4,19 @@ encode) on the default scene at 64x64, the first without history.
 
 The warps' history jitter is JAX's array, injected (tests/test_torch_temporal.py).
 Tolerance: the f32 frames within 1e-5 on at least 99% of the pixels, the
-path tracer tests' bar; the u8 frames equal on at least 99%."""
+path tracer tests' bar; the u8 frames equal on at least 99%.
+
+After ONE full step of history (the Viewer's first moving path-traced
+frame) the f32 frames meet 1e-5 on 98.5-98.9% of the pixels only, and the
+pieces are held instead: the image before the filter within 1e-5 except at
+lanes whose path flips under a 4-ulp nudge of the camera rays (the path
+tracer tests' rounding-sensitive lanes); the port's filter, given JAX's
+image and JAX's G-buffer, JAX's frame within 1e-5 on every pixel; and the
+port's G-buffer within 1e-5 of JAX's trace of the same camera. The rest is
+JAX's own: its jit-compiled warp traces a G-buffer whose sphere normals
+differ from its eager trace by up to 2.4e-4 on ~3% of the pixels (XLA fuses
+and contracts the silhouettes' quadratic), and the filter's normal weight
+(cos^64) carries that into a frame of few samples."""
 
 import numpy as np
 import pytest
@@ -83,3 +95,97 @@ def test_fly_state_matches_jax(flown):
     assert pp.samples == jp.samples == 0
     assert (pp._count_base.numpy() == np.asarray(jp._count_base)).mean() >= 0.999
     assert pp._gbuf_tile is not None
+
+
+NUDGE_ULPS = 4
+
+
+def _fly(js, cameras, steps, jitters, nudge=None):
+    """The port's fly-through (frame 0, `steps` full steps, the other
+    frames) with JAX's history jitter -> per frame (frame, image before the
+    filter, G-buffer planes). `nudge` = (pool field, factor) scales the
+    camera rays' origins or directions in every sample the tracer takes."""
+    from gpu_raytracer_tpu_torch.engine import pathtracer as ptmod
+
+    pp = PathTracer(port_scene_from_jax(js), W, H, device="cpu")
+    pp._warp_jitter = lambda: jitters[pp._warp_no]
+    make = ptmod.camera_wavefront_rays
+    if nudge is not None:
+        field, k = nudge
+        ptmod.camera_wavefront_rays = lambda *a, **kw: (
+            lambda r: r.replace(**{field: getattr(r, field) * k}))(make(*a, **kw))
+    out = []
+    try:
+        for i, jc in enumerate(cameras):
+            frame = pp.fly_frame(_port_camera(jc), m=4, iterations=4).numpy()
+            out.append((frame, pp.image(), [x.numpy() for x in pp.gbuffer()]))
+            if i == 0:
+                for _ in range(steps):
+                    pp.step()
+    finally:
+        ptmod.camera_wavefront_rays = make
+    return out
+
+
+@pytest.fixture(scope="module")
+def flown_one_step():
+    """Both packages' fly-through with one full step of history, the port's
+    again with its camera rays nudged by +-4 ulp (origins, directions)."""
+    js = jax_default_scene()
+    jp = JaxPathTracer(js, W, H)
+    ctrl = JaxController(js.camera)
+    cameras, jitters, want = [], {}, []
+    for i, k in enumerate(KEYS):
+        if k == "d":
+            ctrl.move(strafe=1.0)
+        elif k == "w":
+            ctrl.move(forward=1.0)
+        else:
+            ctrl.rotate(8.0, 0.0)
+        jc = ctrl.camera()
+        cameras.append(jc)
+        key = jax.random.fold_in(jax.random.fold_in(jp.key, 0x3A97), i + 1)
+        jitters[i + 1] = torch.from_numpy(np.array(jax.random.uniform(key, (W * H, 2))))
+        frame = np.asarray(jp.fly_frame(jc, m=4, iterations=4))
+        want.append((frame, jp.image(), [np.asarray(x) for x in jp.gbuffer()]))
+        if i == 0:
+            jp.step()
+    got = _fly(js, cameras, 1, jitters)
+    eps = NUDGE_ULPS * float(np.finfo(np.float32).eps)
+    nudged = [_fly(js, cameras, 1, jitters, (f, 1.0 + s * eps))
+              for f in ("origin", "direction") for s in (1.0, -1.0)]
+    return js, cameras, got, want, nudged
+
+
+@pytest.mark.parametrize("frame", [1, 2])
+def test_fly_frame_after_one_history_step(flown_one_step, frame):
+    from gpu_raytracer_tpu.ops.camera_rays import generate_rays as jax_generate_rays
+    from gpu_raytracer_tpu.ops.camera_rays import pixel_grid as jax_pixel_grid
+    from gpu_raytracer_tpu.ops.trace import trace as jax_trace
+    from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise
+
+    js, cameras, got, want, nudged = flown_one_step
+    (g_frame, g_image, g_gbuf), (w_frame, w_image, w_gbuf) = got[frame], want[frame]
+    off = lambda a, b: np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max(-1) > TOL
+    # the image before the filter: off only at flip lanes, at most 1%
+    flips = np.zeros((H, W), bool)
+    for run in nudged:
+        flips |= off(run[frame][1], g_image)
+    image_off = off(g_image, w_image)
+    assert image_off.mean() <= 1.0 - MIN_SHARE
+    assert not (image_off & ~flips).any(), np.argwhere(image_off & ~flips).tolist()
+    # the filter: JAX's image and G-buffer through the port's filter give JAX's frame
+    t = lambda a: torch.from_numpy(np.array(a))
+    cross = atrous_denoise(t(w_image), *(t(x) for x in w_gbuf), iterations=4).numpy()
+    assert not off(cross, w_frame).any()
+    # the port's G-buffer against JAX's trace of the same camera
+    px, py = jax_pixel_grid(W, H)
+    jh = jax_trace(js, *jax_generate_rays(cameras[frame], W, H, px, py))
+    hit = np.asarray(jh.hit).reshape(H, W)
+    normal_off = off(g_gbuf[0], np.asarray(jh.normal).reshape(H, W, 3))
+    jt = np.asarray(jh.t).reshape(H, W)
+    depth_off = hit & (np.abs(g_gbuf[1] - jt) > TOL * np.maximum(np.abs(jt), 1.0))
+    assert (normal_off | depth_off).mean() <= 1.0 - MIN_SHARE
+    # and the frame itself, for the record: the share the 3-step case holds at 99%
+    share = 1.0 - off(g_frame, w_frame).mean()
+    assert share >= 0.98, f"{share:.4f} of the pixels within {TOL}"

@@ -18,7 +18,8 @@ from gpu_raytracer_tpu_torch.models.light import LightBuilder
 from gpu_raytracer_tpu_torch.models.scene import build_default_scene
 from gpu_raytracer_tpu_torch.ops.cuda import build
 from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables, render_primary
-from gpu_raytracer_tpu_torch.ops.cuda.traverse import TraceTables, traverse
+from gpu_raytracer_tpu_torch.ops.cuda.traverse import (ThreadedTables, TraceTables, traverse,
+                                                      traverse_threaded)
 from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -79,6 +80,18 @@ def test_port_never_imports_jax():
         "server.ViewerServer(v, port=0).stop()\n"
         "assert window._ppm_bytes(v.framebuffer).startswith(b'P6 16 12 255')\n"
         "assert cpu_tracer.render(cpu_tracer.scene_dict_from(v.scene), 4, 3).shape == (3, 4, 3)\n"
+        "from gpu_raytracer_tpu_torch.parallel import mesh as pmesh, shard\n"
+        "from gpu_raytracer_tpu_torch.ops.cuda.traverse import pack_threaded_tables\n"
+        "from gpu_raytracer_tpu_torch.utils.image import rmse, srgb_to_linear, write_ppm\n"
+        "m2 = pmesh.make_mesh(2, device='cpu')\n"
+        "c = make_courtyard_scene(500)\n"
+        "fb = shard.render_frame_fused_multichip(shard.replicate_tables(m2, c), 16, 12, m2)\n"
+        "assert rmse(fb, Renderer(c, 16, 12, device='cpu').render()) == 0.0\n"
+        "gs = shard.GeometryShards(c, m2)\n"
+        "o = c.camera.position.expand(8, 3).contiguous()\n"
+        "d = c.camera.direction.expand(8, 3).contiguous()\n"
+        "assert shard.trace_geometry_sharded_ring(c, o, d, m2, gs).t.shape == (8,)\n"
+        "assert pack_threaded_tables(c).nodes.shape == (c.bvh.num_nodes, 12)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib',"
         " 'gpu_raytracer_tpu.')) or m == 'gpu_raytracer_tpu')\n"
         "print('LOADED', bad)\n"
@@ -88,6 +101,25 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_make_mesh_never_falls_back_to_the_cpu(monkeypatch):
+    """make_mesh() takes CUDA devices only: with none, or fewer than asked
+    for, it raises; virtual shards on one device are asked for by name."""
+    from gpu_raytracer_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    for args, kw in (((), {}), ((2,), {}), ((2,), dict(device="cuda:0"))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_mesh(*args, **kw)
+    assert make_mesh(2, device="cpu").devices == (torch.device("cpu"),) * 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="1 CUDA device"):
+        make_mesh(2)
+    assert make_mesh().devices == (torch.device("cuda", 0),)
+    assert make_mesh(4, device="cuda:0").devices == (torch.device("cuda", 0),) * 4
 
 
 def test_cuda_renderer_raises_without_a_device():
@@ -107,6 +139,10 @@ def test_wrappers_refuse_other_devices():
     o = torch.empty((4, 3), device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
         traverse(tables, o, o, torch.empty(4, device=meta))
+    threaded = ThreadedTables(scene=None, nodes=torch.empty((1, 12), device=meta),
+                              tris=torch.empty((8, 12), device=meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        traverse_threaded(threaded, o, o, torch.empty(4, device=meta))
     rt = pack_render_tables(build_default_scene())
     px = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError):

@@ -14,6 +14,7 @@ from gpu_raytracer_tpu.reference import cpu_tracer as jax_oracle
 from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
 from gpu_raytracer_tpu_torch.engine.renderer import Renderer
 from gpu_raytracer_tpu_torch.reference import cpu_tracer as oracle
+from gpu_raytracer_tpu_torch.utils.image import rmse
 
 # (scene, frame size): the courtyard's oracle frame costs ~25 ms a pixel
 SCENES = {"default": (jax_default, 16), "courtyard300": (lambda: jax_courtyard(300, seed=2), 8)}
@@ -70,5 +71,5 @@ def test_plain_frame_matches_the_port_oracle(pairs, name):
     _, ps, size = pairs[name]
     want = oracle.render(oracle.scene_dict_from(ps), size, size)
     got = Renderer(ps, size, size, device="cpu").render()
-    rmse = float(np.sqrt(np.mean((got.astype(np.float64) - want) ** 2)))
-    assert rmse <= 1e-5, rmse
+    err = rmse(got, want)
+    assert err <= 1e-5, err
