@@ -7,7 +7,8 @@ in turn inside one run so that they share a card.
     python3 chip_ab.py --variants "RT_SHARED_STACK=0" "RT_RENDER_MIN_BLOCKS=8 RT_RENDER_BLOCK=64"
     python3 chip_ab.py --variants "kShadeMinBlocks=12"      # a csrc constant rewritten
     python3 chip_ab.py --one [--root DIR] [--defines "A=1 B=2"]   # one measurement, one JSON line
-    python3 chip_ab.py --sass                               # static SASS size of K1's loops (widths 4, 8)
+    python3 chip_ab.py --sass                               # SASS size of K1's, K3's loops (widths 4, 8)
+    python3 chip_ab.py --parent build/parent --k3           # K3's readings alone (below)
 
 Unpack the other tree first (`git archive <commit> | tar -x -C build/parent`;
 build/ is git-ignored). Every measurement is its own process, run from this
@@ -41,6 +42,16 @@ kinds), 1920x1080 in the warp order:
   and K5 run for less than their wrappers' host time.
 `RT_SAMPLER_OFF=1` (csrc/texsample.cuh) builds every kernel with its map
 slots read as absent: the same launches without the sampler.
+K3 (render_deferred) at node widths 4 and 8 on the textured courtyard, 1920x1080
+in the warp order, by device time (torch.profiler, the L2 flushed before each
+call), shadows off and on: K3 alone, K3 with its pre-pass (camera_relative,
+where the tree has one), the pre-pass alone, the textured frame (pre-pass, K3,
+K4); and the textured Viewer's camera-moving frame with shadows (phase 21's
+reading): ms pipelined, device time and host enqueue. `--k3` measures only
+these (and the SASS digest and registers), for a quicker A/B of K3.
+Every line also holds a digest of the SASS of each width-4 K1, K2, K2t and K6
+instance (`sass_digest`); the summary says whether they are identical in
+every build.
 With `--out FILE` every line is also appended to FILE.
 """
 
@@ -78,7 +89,66 @@ PT_STEPS = 8
 K6_LAUNCHES = 24               # single K6 launches on fresh pool copies, 3 medians of 8
 
 
-def measure(root: str, defines: list[str], label: str) -> dict:
+def measure_k3(out: dict, device, width: int = WIDTH, height: int = HEIGHT) -> None:
+    """K3's readings (the module docstring) into `out`, for the tree on
+    sys.path: its render module may have no pre-pass (a tree before it)."""
+    import itertools
+
+    import torch
+
+    from gpu_raytracer_tpu_torch.config import RaytracerConfig
+    from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
+    from gpu_raytracer_tpu_torch.engine.viewer import Viewer
+    from gpu_raytracer_tpu_torch.ops.cuda import render as render_mod
+    from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
+    from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
+
+    pre = hasattr(render_mod, "camera_relative")
+    k3_words = ("render_deferred_kernel",) + (("camera_relative_kernel",) if pre else ())
+    px, py = (torch.from_numpy(a).to(device)
+              for a in tiled_pixel_order(width, height, warp=(8, 4)))
+
+    def device_reading(fn, words):
+        return [HERE_SMOKE.kernel_device_ms(fn, words, LAUNCHES, device) for _ in range(REPEATS)]
+
+    for w in (4, 8):
+        scene = make_courtyard_scene(100_000, seed=0, textured=True, texture_size=TEXTURE_SIZE,
+                                     config=RaytracerConfig(bvh_width=w), device=device)
+        tables, shade = render_mod.pack_render_tables(scene), pack_shade_tables(scene)
+        for shadows in (False, True):
+            key = f"k3w{w}_{'shadows' if shadows else 'no_shadows'}"
+            k3 = lambda: render_mod.render_deferred(tables, px, py, width, height,
+                                                    shadows=shadows)
+            out[f"{key}_device"] = device_reading(k3, "render_deferred_kernel")
+            out[f"{key}_and_pre_pass_device"] = device_reading(k3, k3_words)
+            frame = lambda: texture_shade(shade, k3())
+            out[f"{key}_frame_device"] = device_reading(frame, k3_words + ("texshade_kernel",))
+        if pre:
+            out[f"k3w{w}_pre_pass_device"] = device_reading(
+                lambda: render_mod.camera_relative(tables), "camera_relative_kernel")
+        del tables, shade
+        if w == 4:   # the textured Viewer, camera moving, with shadows (phase 21)
+            v = Viewer(scene, width, height, shadows=True, verbose=False, device=device)
+            v.run_compute()
+            keys = itertools.cycle("ws")
+
+            def move_frame():
+                v.handle_key(next(keys))
+                v.run_compute()
+
+            move_frame()
+            out["viewer_textured_ms_per_frame"] = [
+                HERE_SMOKE.pipelined_ms(move_frame, HERE_SMOKE.VIEWER_FRAMES, device)
+                for _ in range(REPEATS)]
+            prof = [HERE_SMOKE.device_profile(move_frame, HERE_SMOKE.VIEWER_FRAMES, device)
+                    for _ in range(REPEATS)]
+            out["viewer_textured_device_ms"] = [p["device_ms"] for p in prof]
+            out["viewer_textured_host_enqueue_ms"] = [p["host_enqueue_ms"] for p in prof]
+            del v
+        del scene
+
+
+def measure(root: str, defines: list[str], label: str, k3_only: bool = False) -> dict:
     sys.path.insert(0, root)
     import dataclasses
 
@@ -103,11 +173,15 @@ def measure(root: str, defines: list[str], label: str) -> dict:
     device = torch.device("cuda", 0)
     out = dict(label=label, root=os.path.relpath(root, HERE), defines=defines,
                card=cs.card_line(), nvcc_s=k.seconds)
-    ptxas = cs.ptxas_summary(k.log)
-    out["sass_untextured"] = sass_digest(k.path)
+    ptxas = HERE_SMOKE.ptxas_summary(k.log)
+    out["sass_width4"] = sass_digest(k.path)
     out["ptxas"] = {name: v for name, v in ptxas.items()   # the 32-entry stack instances
                     if re.search(r"<(?:[48], )?32[,>]", name)
-                    or name.startswith(("texshade_kernel", "sample_materials_kernel"))}
+                    or name.startswith(("texshade_kernel", "sample_materials_kernel",
+                                        "camera_relative_kernel"))}
+    measure_k3(out, device)
+    if k3_only:
+        return out
 
     def reading(fn):
         return [cs.timed(fn, LAUNCHES, device) for _ in range(REPEATS)]
@@ -220,14 +294,17 @@ def measure(root: str, defines: list[str], label: str) -> dict:
 # template arguments of the K2 and K6 kernels in a tree without a node-width
 # argument: such a tree's instances are the width-4 ones
 ARGS_WITHOUT_WIDTH = {"render_primary_kernel": 2, "bounce_kernel": 4, "traverse_kernel": 2}
+# the objects of the width-4 K1, K2, K2t and K6 instances (build.py SOURCES)
+WIDTH4_OBJECTS = ("render_primary", "render_primary_textured", "bounce", "bounce_textured",
+                  "traverse")
 
 
 def instance_key(mangled: str) -> str | None:
-    """`kernel<width, stack, flags...>` of an untextured K2 or K6 instance
-    or a K1 closest-hit / any-hit instance from its mangled name (in
-    namespace rt, or in an anonymous one as K1 was before it took the width),
-    the width 4 filled in for a tree whose kernels do not take it; None for
-    any other function."""
+    """`kernel<width, stack, flags...>` of a K2 or K2t instance (the last
+    flag: textured), a K6 instance (the third: textured) or a K1 closest-hit /
+    any-hit instance from its mangled name (in namespace rt, or in an
+    anonymous one as K1 was before it took the width), the width 4 filled in
+    for a tree whose kernels do not take it; None for any other function."""
     m = re.match(r"_ZN.*?\d+(render_primary_kernel|bounce_kernel|traverse_kernel)"
                  r"I((?:L[bi]\d+E)+)E", mangled)
     if m is None:
@@ -239,12 +316,11 @@ def instance_key(mangled: str) -> str | None:
 
 
 def sass_digest(lib_path: str) -> dict:
-    """A digest of each untextured width-4 K2 and K6 instance's SASS and of
-    each width-4 K1 instance's (cuobjdump of the built objects), keyed by
-    `instance_key`: equal digests
-    in two builds mean the same machine code, which changes elsewhere (the
-    texture sampler, the width-8 instances, compiled in other objects) must
-    leave alone."""
+    """A digest of the SASS of each width-4 K1, K2, K2t and K6 instance
+    (untextured and textured; cuobjdump of the built objects), keyed by
+    `instance_key`: equal digests in two builds mean the same machine code,
+    which changes elsewhere (K3, the width-8 instances, compiled in other
+    objects) must leave alone."""
     import glob
     import hashlib
 
@@ -252,7 +328,7 @@ def sass_digest(lib_path: str) -> dict:
 
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     out = {}
-    for obj in ("render_primary", "bounce", "traverse"):
+    for obj in WIDTH4_OBJECTS:
         path = glob.glob(os.path.join(os.path.dirname(lib_path), f"*.{obj}.o"))[0]
         text = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
                               check=True).stdout
@@ -265,22 +341,34 @@ def sass_digest(lib_path: str) -> dict:
 
 
 def sass_loops(root: str) -> dict:
-    """Static SASS size of K1's closest-hit instances for a 32-entry stack,
-    at width 4 (the traverse object) and, where the tree has them, width 8
-    (traverse_w8), from `cuobjdump -sass`: each one's instruction count,
-    opcode histogram and loops (every backward branch: first and last
-    address and the instructions between), a yardstick for how many
-    instruction slots a node visit and a triangle test take."""
+    """Static SASS size of K1's closest-hit instances and of K3's for a
+    32-entry stack, at width 4 (the traverse and render_deferred objects)
+    and, where the tree has them, width 8 (traverse_w8, render_deferred_w8),
+    from `cuobjdump -sass`: each one's instruction count, opcode histogram,
+    loops (every backward branch: first and last address and the
+    instructions between) and registers (ptxas), a yardstick for how many
+    instruction slots a node visit and a triangle test take. K3 holds three
+    walks (the camera ray's closest hit, and the shadow rays' any hit, the
+    light loop's and the sampled light's); the loops whose sizes differ
+    from another tree's are the camera walk's."""
     import glob
 
     sys.path.insert(0, root)
     from gpu_raytracer_tpu_torch.ops.cuda import build
 
     k = build.load_kernels()
+    ptxas = HERE_SMOKE.ptxas_summary(k.log)
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     out = {}
-    for width, obj, pattern in ((4, "traverse", r"traverse_kernelI(?:Li4E)?Li32ELb0"),
-                                (8, "traverse_w8", r"traverse_kernelILi8ELi32ELb0")):
+    for label, width, obj, pattern, ptxas_key in (
+            ("k1_width4", 4, "traverse", r"traverse_kernelI(?:Li4E)?Li32ELb0",
+             "traverse_kernel<4, 32, 0>"),
+            ("k1_width8", 8, "traverse_w8", r"traverse_kernelILi8ELi32ELb0",
+             "traverse_kernel<8, 32, 0>"),
+            ("k3_width4", 4, "render_deferred", r"render_deferred_kernelI(?:Li4E)?Li32EE",
+             "render_deferred_kernel<4, 32>"),
+            ("k3_width8", 8, "render_deferred_w8", r"render_deferred_kernelILi8ELi32EE",
+             "render_deferred_kernel<8, 32>")):
         objs = glob.glob(os.path.join(os.path.dirname(k.path), f"*.{obj}.o"))
         if not objs:
             continue
@@ -303,17 +391,17 @@ def sass_loops(root: str) -> dict:
                     lo, hi = int(m.group(1), 16), int(a, 16)
                     loops.append(dict(first=lo, last=hi,
                                       instructions=sum(1 for x in addr if lo <= x <= hi)))
-            out[f"width{width}"] = dict(function=name, instructions=len(ins), loops=loops,
-                                        opcodes=dict(sorted(hist.items(),
-                                                            key=lambda kv: -kv[1])[:16]))
+            out[label] = dict(function=name, instructions=len(ins), loops=loops,
+                              ptxas=ptxas.get(ptxas_key),
+                              opcodes=dict(sorted(hist.items(), key=lambda kv: -kv[1])[:16]))
     return out
 
 
-def run_one(root: str, defines: str, label: str, out: str | None) -> dict:
+def run_one(root: str, defines: str, label: str, out: str | None, k3_only: bool = False) -> dict:
     """One measurement in its own process -> its JSON line, also printed
     (and appended to `out`)."""
     cmd = [sys.executable, os.path.abspath(__file__), "--one", "--root", root,
-           "--defines", defines, "--label", label]
+           "--defines", defines, "--label", label] + (["--k3"] if k3_only else [])
     proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
     if proc.returncode != 0 or not lines:
@@ -386,37 +474,39 @@ def main() -> int:
                          "two measurements of the tree as it is")
     ap.add_argument("--out", help="a file to append every measurement's JSON line to")
     ap.add_argument("--sass", action="store_true",
-                    help="print the static SASS size of K1's closest-hit instances")
+                    help="print the static SASS size of K1's closest-hit instances and K3's")
+    ap.add_argument("--k3", action="store_true",
+                    help="measure K3's readings only (and the SASS digest, registers)")
     args = ap.parse_args()
     if args.sass:
         print(json.dumps(dict(sass=sass_loops(os.path.abspath(args.root)))), flush=True)
         return 0
     if args.one:
-        print(json.dumps(measure(os.path.abspath(args.root), args.defines.split(), args.label)),
-              flush=True)
+        print(json.dumps(measure(os.path.abspath(args.root), args.defines.split(), args.label,
+                                 args.k3)), flush=True)
         return 0
     rows = []
     if args.parent:
         parent = os.path.abspath(args.parent)
         for label, root in (("parent_a", parent), ("change_a", HERE), ("change_b", HERE),
                             ("parent_b", parent)):
-            rows.append(run_one(root, "", label, args.out))
+            rows.append(run_one(root, "", label, args.out, args.k3))
     if args.variants:
-        rows.append(run_one(HERE, "", "default_a", args.out))
+        rows.append(run_one(HERE, "", "default_a", args.out, args.k3))
         for v in args.variants:
             label = v.replace("RT_", "").replace(" ", ",")
             root, defines = variant_tree(v.split(), label)
-            rows.append(run_one(root, " ".join(defines), label, args.out))
-        rows.append(run_one(HERE, "", "default_b", args.out))
+            rows.append(run_one(root, " ".join(defines), label, args.out, args.k3))
+        rows.append(run_one(HERE, "", "default_b", args.out, args.k3))
     good = [r for r in rows if not r.get("failed")]
     if good:
         summary(good)
-        digests = {r["label"]: r.get("sass_untextured") for r in good}
+        digests = {r["label"]: r.get("sass_width4") for r in good}
         for kernel in ("render_primary_kernel", "bounce_kernel", "traverse_kernel"):
             kept = [{k: v for k, v in (d or {}).items() if k.startswith(kernel + "<")}
                     for d in digests.values()]
             same = len({json.dumps(d, sort_keys=True) for d in kept}) == 1
-            print(f"{kernel} (width 4, untextured) SASS identical in every build: {same} "
+            print(f"{kernel} (width 4, every instance) SASS identical in every build: {same} "
                   f"({len(kept[0])} instances)", flush=True)
     return 0 if len(good) == len(rows) and rows else 1
 

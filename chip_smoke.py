@@ -21,12 +21,18 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
   6. build the textured 100k courtyard (4096-texel floor map, mips) and
      pack its tables to the card;
   7. K3 (deferred trace) against the plain G-buffer on the full frame,
-     shadows off and on, and on a textured scene with spheres;
+     shadows off and on, and on a textured scene with spheres, bit for bit;
+     its ms (the wrapper: the pre-pass, then K3) and the device time of K3
+     alone and with its pre-pass (L2 flushed);
+ 7b. K3's pre-pass (csrc/camera_relative.cu, the camera-relative node and
+     triangle tables its camera walk reads) against its plain version, bit
+     for bit, on both courtyards' width-4 tables at their camera and at a
+     moved one; its device time, plain time and bound;
   8. K4 (texture shade) against the plain deferred shade on the phase-7
      G-buffer and on random G-buffers over a synthetic scene with every wrap
      mode, map slot and mip chains, nearest and trilinear;
-  9. the textured main path, Renderer.render_device() at 1920x1080 (K3 then
-     K4), timed, with the launch counts of that run;
+  9. the textured main path, Renderer.render_device() at 1920x1080 (K3's
+     pre-pass, K3, then K4), timed, with the launch counts of that run;
  10. K6 (the path tracer's bounce, in place on the live lanes of a coherence
      order, QMC uniforms made in the kernel) against its plain version on
      the 1024x1024 camera pool (depth 0) and on the depth-2 pool of the main
@@ -101,14 +107,20 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      refit, the rebuild (grouped LBVH + BVH4 collapse) and refit + table
      refresh alone (device ms, host enqueue, launches); the refreshed tables
      bit-equal to a fresh pack; the refit and the LBVH arrays on the card
-     equal to the CPU's; K2 on the refit and on a rebuilt scene and a
-     textured Viewer's K3 + K4 after a scaling refit against the plain path;
+     equal to the CPU's; K2 on the refit and on a rebuilt scene against the
+     plain path; a textured Viewer's K3 + K4 after a scaling refit,
+     another's after a camera move, and a textured Renderer's after an LBVH
+     rebuild, against the plain path, each with K3's G-buffer bit for bit
+     the plain one outside exact-t ties (after the move and the rebuild
+     also outside the counted order ties of K1 and the plain walk,
+     order_ties); the
+     pre-pass's tables follow the refit, the camera and the rebuild;
      memory_stats of both scenes;
  22. BVH width 8 (config.bvh_width = 8) on both 100k courtyards: the scenes
      built through make_courtyard_scene, sharing width 4's binary tree and
      slots (asserted), the depth against the stack; K1 on the camera and
-     shadow rays, K2 (shadows off and on), K3 + K4, K2t and K6 (the main
-     path's pools) against their plain versions (phases 3-11's plain
+     shadow rays, K3's pre-pass, K2 (shadows off and on), K3 + K4, K2t and
+     K6 (the main path's pools) against their plain versions (phases 3-11's plain
      outputs, kept in PLAIN_REFS: the same tree and slots give the same
      plain path; K2t's and the refit frame's rendered here); the main paths (Renderer
      frames, the fused textured render, PathTracer.step()) with the launch
@@ -199,7 +211,8 @@ TIE_BUDGET = 1e-4      # tie pixels allowed, as a share of the frame
 RGB_TOL = 1e-5         # max |diff| against the plain version outside ties
 SAMPLER_TOL = 0.0      # K4, K5 (alone and inside K6) and K2t: the same bits as the plain sampler
 T_REL_TOL = 1e-6       # K1 hit distance, relative
-GBUF_TOL = 1e-5        # K3 light sum and uv, absolute; mip footprint, relative
+GBUF_TOL = 0.0         # K3 light sum and uv, absolute; mip footprint, relative: K3 and
+                       # its plain G-buffer round alike (0.0 in every run), so the same bits
 FRAMES = 8             # timed frames of the kernel path
 PLAIN_FRAMES = 3       # timed frames of the plain path (seconds each)
 ZOO_TRIANGLES = 60_000     # bench.py section 4d
@@ -256,7 +269,8 @@ def ptxas_summary(nvcc_log: str) -> dict:
         m = re.search(r"Compiling entry function '\S*?\d(traverse_kernel|traverse_work_kernel|"
                       r"traverse_threaded_kernel|"
                       r"render_primary_kernel|render_deferred_kernel|texshade_kernel|"
-                      r"bounce_kernel|sample_materials_kernel)(?:I((?:L[bi]\d+E)+)E)?", line)
+                      r"bounce_kernel|sample_materials_kernel|camera_relative_kernel)"
+                      r"(?:I((?:L[bi]\d+E)+)E)?", line)
         if m:
             name = m.group(1)
             if m.group(2):   # template arguments: stack, then the flags
@@ -707,6 +721,38 @@ def primary_ties(tables, width, height, px, py, ref=None):
                       ref=None if ref is None else (ref, "k1_camera"))[1]
 
 
+def order_ties(tables, width, height, px, py):
+    """Camera rays whose closest triangle K1 and the plain walk pick
+    differently -> (mask, counts): exact-t ties, and order ties, where two
+    triangles meet at an edge and their computed t differ by a few ulps:
+    K1's near-first walk reaches one first and culls the other's leaf by
+    its slab entry, which rounds to no less than the first's t, while the
+    plain left-first walk keeps the smaller t (PERF.md §2; the JAX
+    package's walks keep K1's winner on the one such ray found,
+    tests/test_torch_walk_host.py). Hit masks must be equal, t within
+    T_REL_TOL relative; both kinds are counted and bounded by TIE_BUDGET."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
+    from gpu_raytracer_tpu_torch.ops.trace import traverse_triangles
+
+    o, d = primary_rays(tables.scene, width, height, px, py)
+    far = torch.full((px.shape[0],), F32_MAX, device=px.device)
+    kt, ks, kh, _, _ = traverse(tables.trace, o, d, far)
+    pt, ps, ph, _, _ = traverse_triangles(tables.scene, o, d, far)
+    if not torch.equal(kh, ph):
+        raise AssertionError(f"K1 hit mask differs on {(kh != ph).sum().item()} rays")
+    rel = ((kt - pt).abs() / pt.abs().clamp(min=1e-30))[kh]
+    if kh.any() and rel.max().item() > T_REL_TOL:
+        raise AssertionError(f"K1 t off by {rel.max().item():.3g} relative")
+    other = kh & (ks.long() != ps)
+    counts = dict(exact_t_ties=int((other & (kt == pt)).sum()),
+                  order_ties=int((other & (kt != pt)).sum()))
+    if int(other.sum()) > TIE_BUDGET * px.shape[0]:
+        raise AssertionError(f"{counts} tie rays > {TIE_BUDGET:.2%} of the frame")
+    return other, counts
+
+
 def phase_k3(scene, tables, width, height, device, card, ref=None):
     """Phase 7: K3 against the plain G-buffer on the full frame, shadows off
     and on, and on the synthetic scene (live spheres, so sphere uvs)."""
@@ -729,12 +775,87 @@ def phase_k3(scene, tables, width, height, device, card, ref=None):
     for shadows in (False, True):
         key = f"synthetic_256_{'shadows' if shadows else 'no_shadows'}"
         out[key] = gbuffer_compare(st, spx, spy, 256, 256, shadows, sties)[0]
-    out["ms"] = timed(lambda: render_deferred(tables, px, py, width, height), FRAMES, device)
+    k3 = lambda: render_deferred(tables, px, py, width, height)
+    out["ms"] = timed(k3, FRAMES, device)   # the wrapper: the pre-pass, then K3
+    if device.type == "cuda":   # device time, the L2 flushed before each call
+        out["k3_device_ms"] = kernel_device_ms(k3, "render_deferred_kernel", FRAMES, device)
+        out["k3_and_pre_pass_device_ms"] = kernel_device_ms(
+            k3, ("render_deferred_kernel", "camera_relative_kernel"), FRAMES, device)
     out["plain_ms"] = plain_ref(None if ref is None else (ref, "gbuffer_plain_ms"), lambda: timed(
         lambda: render_gbuffer(scene, px, py, width, height), PLAIN_FRAMES, device))
     out["card"] = card
     log(f"phase 7 K3 {width}x{height}: {json.dumps(out)}")
     return out, gbufs[False], ties
+
+
+def camera_relative_compare(tables) -> dict:
+    """K3's pre-pass (`camera_relative`, csrc/camera_relative.cu) against its
+    plain version `camera_relative_tables` on the tables' current camera:
+    every word of both tables the same bits, or this raises -> stats."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.cuda.render import camera_relative, camera_relative_tables
+
+    got = [x.clone() for x in camera_relative(tables)]
+    ref = camera_relative_tables(tables)
+    for name, g, r in zip(("rel_nodes", "rel_tris"), got, ref):
+        if g.shape != r.shape or not torch.equal(g.view(torch.int32), r.view(torch.int32)):
+            raise AssertionError(f"K3 pre-pass {name}: "
+                                 f"{int((g.view(torch.int32) != r.view(torch.int32)).sum())} "
+                                 f"words differ from the plain version")
+    return dict(max_abs_err=0.0, node_records=int(got[0].shape[0]),
+                triangle_rows=int(got[1].shape[0]), width=tables.trace.width,
+                camera=tables.camera[:3].tolist())
+
+
+def camera_relative_work(tables) -> tuple[int, int]:
+    """The pre-pass's bytes and operations: the node records and the
+    triangle rows (48 bytes a slot) and the camera's position read once, the
+    node records and 64 bytes a slot written once; one subtraction a box word
+    and TRI_FLOPS - TRI_REL_FLOPS (s, q, e2 . q) a slot."""
+    tr = tables.trace
+    q, tp, w = tr.nodes.shape[0], tr.tris.shape[0], tr.width
+    node_bytes = tr.nodes.numel() * 4
+    return (2 * node_bytes + tp * (48 + REL_TRI_BYTES) + 12,
+            6 * w * q + (TRI_FLOPS - TRI_REL_FLOPS) * tp)
+
+
+def camera_relative_bound(tables) -> tuple[float, str]:
+    """The pre-pass's roofline bound (camera_relative_work)."""
+    return bound_ms(*camera_relative_work(tables))
+
+
+def phase_camera_relative(tscene, ttables, tables, device, card):
+    """Phase 7b: K3's pre-pass against its plain version, bit for bit, on the
+    node and triangle tables of both 100k courtyards (width 4; width 8 in
+    phase 22) at their camera and at a moved one (the camera row rewritten
+    in place by set_camera: the kernel reads the new position on the
+    device); its device time (L2 flushed), plain time and bound."""
+    from gpu_raytracer_tpu_torch.models.camera import CameraController
+    from gpu_raytracer_tpu_torch.ops.cuda.render import (camera_relative,
+                                                         camera_relative_tables,
+                                                         pack_render_tables, set_camera)
+
+    out = dict(textured_courtyard=camera_relative_compare(ttables),
+               courtyard=camera_relative_compare(tables))
+    moved = pack_render_tables(tscene)
+    ctl = CameraController(tscene.camera)
+    ctl.move(forward=3.0, strafe=-1.5)
+    ctl.rotate(40.0, 12.0)
+    set_camera(moved, ctl.camera())
+    out["textured_courtyard_moved_camera"] = camera_relative_compare(moved)
+    if out["textured_courtyard_moved_camera"]["camera"] == out["textured_courtyard"]["camera"]:
+        raise AssertionError("the moved camera did not move")
+    del moved
+    out["max_abs_err"] = 0.0
+    if device.type == "cuda":
+        out["device_ms"] = kernel_device_ms(lambda: camera_relative(ttables),
+                                            "camera_relative_kernel", FRAMES, device)
+    out["plain_ms"] = timed(lambda: camera_relative_tables(ttables), PLAIN_FRAMES, device)
+    out["bound_ms"], out["bound_by"] = camera_relative_bound(ttables)
+    out["card"] = card
+    log(f"phase 7b K3 pre-pass: {json.dumps(out)}")
+    return out
 
 
 def phase_k4(shade, gbuf, ties, device, card):
@@ -782,7 +903,8 @@ def phase_textured_main(scene, width, height, device, card, ties, ref=None):
     import torch
 
     from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_deferred_chunk
-    from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred, render_primary
+    from gpu_raytracer_tpu_torch.ops.cuda.render import (camera_relative, render_deferred,
+                                                         render_primary)
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import texture_shade
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
 
@@ -790,19 +912,20 @@ def phase_textured_main(scene, width, height, device, card, ties, ref=None):
     for shadows in (False, True):
         r = Renderer(scene, width, height, shadows=shadows, device=device)
         first = r.render_device()
-        for fn in (render_deferred, texture_shade, render_primary, traverse):
+        for fn in (render_deferred, camera_relative, texture_shade, render_primary, traverse):
             fn.launches = 0
         ms = timed(r.render_device, FRAMES, device)
         k3, k4 = render_deferred.launches, texture_shade.launches
+        k3_pre = camera_relative.launches
         k2, k1 = render_primary.launches, traverse.launches
         frame = r.render_device()
         if not torch.equal(frame, first) or not torch.isfinite(frame).all():
             raise AssertionError("textured frames differ between runs or are not finite")
         if frame.shape != (width * height, 3):
             raise AssertionError(f"textured frame shape {tuple(frame.shape)}")
-        if device.type == "cuda" and (k3 < FRAMES or k4 < FRAMES or k2 or k1):
-            raise AssertionError(f"textured path launched K3 {k3}, K4 {k4}, K2 {k2}, "
-                                 f"K1 {k1} times in {FRAMES} frames")
+        if device.type == "cuda" and (k3 < FRAMES or k4 < FRAMES or k3_pre != k3 or k2 or k1):
+            raise AssertionError(f"textured path launched K3 {k3}, its pre-pass {k3_pre}, "
+                                 f"K4 {k4}, K2 {k2}, K1 {k1} times in {FRAMES} frames")
         plain = lambda: render_deferred_chunk(r.scene, r.px, r.py, width, height,
                                               shadows=shadows, sky=r.sky)
         want = plain_ref(None if ref is None else (ref, "frame", width, height, shadows), plain)
@@ -815,7 +938,8 @@ def phase_textured_main(scene, width, height, device, card, ties, ref=None):
         out["shadows" if shadows else "no_shadows"] = dict(
             ms=ms, mrays_per_s=rays / (ms * 1e-3) / 1e6, plain_ms=plain_ms,
             plain_mrays_per_s=rays / (plain_ms * 1e-3) / 1e6, k3_launches=k3,
-            k4_launches=k4, k2_launches=k2, k1_standalone_launches=k1, max_abs_err=err,
+            k3_pre_launches=k3_pre, k4_launches=k4, k2_launches=k2, k1_standalone_launches=k1,
+            max_abs_err=err,
             err_with_ties=diff.max().item(), tie_pixels=int(ties.sum()),
             mean=frame.mean().item())
     out["card"] = card
@@ -834,6 +958,12 @@ SLAB_FLOPS = 25      # one child's slab test: 6 sub, 6 mul, 10 min/max, 1 max, 2
                      # (traversal_work's slots), at either width: the walk also tests a
                      # record's empty slots, work that the closest hit does not need
 TRI_FLOPS = 54       # one Moller-Trumbore test (traverse.cuh leaf_test)
+# K3's camera walk over its pre-pass's tables (traverse.cuh REL): the box
+# planes come as plane - o, so a slab test has no subtraction, and s = o - v0,
+# q = s x e1 and e2 . q (3 + 9 + 5 operations) are read from the triangle rows
+SLAB_REL_FLOPS = SLAB_FLOPS - 6
+TRI_REL_FLOPS = TRI_FLOPS - 17
+REL_TRI_BYTES = 64   # a camera-relative triangle row: four float4
 SPHERE_FLOPS = 25    # one sphere test (render_common.cuh sphere_hit)
 SHADE_FLOPS = 120    # per hit: normal, one light's intensity, ambient, blend (K2, K3, K6)
 SAMPLE_FLOPS = 150   # per K6 continuation: ONB, cosine lobe, mirror, Fresnel, roulette
@@ -1380,7 +1510,8 @@ def bounce_bound(tables, record):
 
 def _launch_counters():
     from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce_, sample_materials
-    from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred, render_primary
+    from gpu_raytracer_tpu_torch.ops.cuda.render import (camera_relative, render_deferred,
+                                                         render_primary)
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import texture_shade
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse, traverse_threaded
 
@@ -1388,6 +1519,8 @@ def _launch_counters():
                 k5_standalone=(sample_materials, "launches"),
                 k2=(render_primary, "launches"), k2t=(render_primary, "textured_launches"),
                 k3=(render_deferred, "launches"),
+                # K3's pre-pass, one launch before each K3 launch of either width
+                k3_pre=(camera_relative, "launches"),
                 k4=(texture_shade, "launches"), k1_standalone=(traverse, "launches"),
                 # the width-8 instances (phase 22)
                 k6_w8=(fused_bounce_, "w8_launches"),
@@ -1408,7 +1541,8 @@ def read_launches() -> dict:
     return {k: getattr(fn, attr) for k, (fn, attr) in _launch_counters().items()}
 
 
-ZERO_LAUNCHES = dict(k6=0, k5=0, k5_standalone=0, k2=0, k2t=0, k3=0, k4=0, k1_standalone=0,
+ZERO_LAUNCHES = dict(k6=0, k5=0, k5_standalone=0, k2=0, k2t=0, k3=0, k3_pre=0, k4=0,
+                     k1_standalone=0,
                      k6_w8=0, k5_w8=0, k2_w8=0, k2t_w8=0, k3_w8=0, k1_standalone_w8=0,
                      k1_threaded=0)
 
@@ -1653,6 +1787,7 @@ def phase_zoo(multi_slot, triangles, tmp, width, height, crop, device, card):
             if first.shape != (width * height, 3) or not torch.isfinite(first).all():
                 raise AssertionError("zoo frame not finite or misshapen")
             if device.type == "cuda" and (launches["k3"] != FRAMES or launches["k4"] != FRAMES
+                                          or launches["k3_pre"] != FRAMES
                                           or launches["k2"] or launches["k2t"]):
                 raise AssertionError(f"zoo frames launched {launches} in {FRAMES} frames")
             ties = primary_ties(r.tables, width, height, cpx, cpy)
@@ -1804,7 +1939,8 @@ def phase_many_lights(triangles, texture_size, width, height, crop, device, card
         r.light_frame = 1
         f1 = r.render_device()
         launches = read_launches()
-        want = dict(ZERO_LAUNCHES, k3=2, k4=2) if textured else dict(ZERO_LAUNCHES, k2=2)
+        want = (dict(ZERO_LAUNCHES, k3=2, k3_pre=2, k4=2) if textured
+                else dict(ZERO_LAUNCHES, k2=2))
         if device.type == "cuda" and (launches != want or torch.equal(f0, f1)):
             raise AssertionError(f"Renderer under {MANY_LIGHTS} lights: launches {launches}, "
                                  f"frames equal {torch.equal(f0, f1)}")
@@ -2288,12 +2424,13 @@ def lbvh_cpu_compare(scene) -> dict:
     return dict(arrays=len(dev), nodes=int(dev[2].shape[0]), quads=int(dev[9].shape[0]))
 
 
-def refit_frame_compare(r, label, frame=None, ref=None):
+def refit_frame_compare(r, label, frame=None, ref=None, ties=None):
     """A frame of renderer `r` (K2, or K3 + K4 textured; `frame`, or a new
     one) on its current scene against the plain path on the same pixels,
     outside the camera rays whose closest triangle K1 and the plain walk
-    pick differently at the same t. `ref` (a scene's name) reads the plain
-    frame and hits that phases 3-9 kept for the scene's frame pixels."""
+    pick differently at the same t (or outside `ties`, a mask the caller
+    made). `ref` (a scene's name) reads the plain frame and hits that phases
+    3-9 kept for the scene's frame pixels."""
     from gpu_raytracer_tpu_torch.engine.renderer import render_chunk, render_deferred_chunk
 
     if frame is None:
@@ -2302,7 +2439,8 @@ def refit_frame_compare(r, label, frame=None, ref=None):
     ref_ = plain_ref(None if ref is None else (ref, "frame", r.width, r.height, r.shadows),
                      lambda: plain(r.scene, r.px, r.py, r.width, r.height, shadows=r.shadows,
                                    sky=r.sky))
-    ties = primary_ties(r.tables, r.width, r.height, r.px, r.py, ref=ref)
+    if ties is None:
+        ties = primary_ties(r.tables, r.width, r.height, r.px, r.py, ref=ref)
     diff = (frame - ref_).abs().amax(dim=1)
     err = diff[~ties].max().item()
     n_ties = int(ties.sum())
@@ -2320,9 +2458,13 @@ def phase_viewer_refit(scene, tscene, width, height, device, card):
     topology refit). ms per frame pipelined, device and host time, launches;
     the refit and the rebuild alone; a frame and a refit under sync debug
     "error"; the refreshed tables against a fresh pack; the LBVH on the card
-    against the CPU's; K2 on a refit and a rebuilt scene and a textured
-    Viewer's K3 + K4 after a scaling refit against the plain path; the
-    scene's resident bytes."""
+    against the CPU's; K2 on a refit and a rebuilt scene against the plain
+    path; a textured Viewer's K3 + K4 after a scaling refit, another's after
+    a camera move, and a textured Renderer's after a rebuild, against the
+    plain path, each with K3's G-buffer against the plain G-buffer (its
+    pre-pass then reads the refit, the moved camera and the rebuilt tables;
+    after the move and the rebuild outside order ties too, order_ties);
+    the scene's resident bytes."""
     import numpy as np
     import torch
 
@@ -2441,20 +2583,57 @@ def phase_viewer_refit(scene, tscene, width, height, device, card):
         raise AssertionError("path tracer on the rebuilt scene: image not finite")
     del r, pt
 
-    # a textured Viewer after a scaling refit: K3 + K4 read the refreshed
-    # triangle rows and uv densities
+    # a textured Viewer after a scaling refit (K3 + K4 read the refreshed
+    # triangle rows and uv densities), another after a camera move (the
+    # Viewer's "w", "d": one order tie at 1080p) and a textured Renderer
+    # after an LBVH rebuild (tables of other shapes), these two outside the
+    # counted order ties of order_ties: the frame's K3 pre-pass remakes the
+    # camera-relative tables each time, so neither a stale camera nor stale
+    # geometry shows
+    def textured_frame(r, label, frame=None, order=False):
+        """The textured frame just rendered (or one rendered here) with its
+        launches, against the plain path; K3's G-buffer on the same tables
+        against the plain G-buffer, bit for bit, outside the exact-t ties
+        (and, with `order`, the order ties: order_ties) of K1 and the plain
+        walk."""
+        reset_launches()
+        frame = r.render_device() if frame is None else frame()
+        tl = read_launches()
+        if cuda and tl != dict(ZERO_LAUNCHES, k3=1, k3_pre=1, k4=1):
+            raise AssertionError(f"textured frame {label} launched {tl}")
+        ties, counts = (order_ties(r.tables, width, height, r.px, r.py) if order else
+                        (primary_ties(r.tables, width, height, r.px, r.py), None))
+        stats = refit_frame_compare(r, f"K3 + K4 {label}", frame, ties=ties)
+        stats["gbuffer"] = gbuffer_compare(r.tables, r.px, r.py, width, height, r.shadows,
+                                           ties)[0]
+        if counts is not None:
+            stats["ties"] = counts
+        stats["launches"] = tl
+        return stats
+
+    def viewer_frame():
+        tv.run_compute()
+        return tv._fb_dev
+
     tv = Viewer(tscene, width, height, shadows=True, verbose=False, device=device)
     tv.run_compute()
     tbase = tscene.mesh.vertices.cpu().numpy()
-    tv.update_geometry((tbase * np.float32(1.25)).astype(np.float32))
-    reset_launches()
+    scaled = (tbase * np.float32(1.25)).astype(np.float32)
+    tv.update_geometry(scaled)
+    out["textured_scaled_refit"] = textured_frame(tv.renderer, "on a scaled refit", viewer_frame)
+    tv = Viewer(tscene, width, height, shadows=True, verbose=False, device=device)
     tv.run_compute()
-    tl = read_launches()
-    if cuda and tl != dict(ZERO_LAUNCHES, k3=1, k4=1):
-        raise AssertionError(f"textured Viewer frame launched {tl}")
-    out["textured_scaled_refit"] = refit_frame_compare(tv.renderer, "K3 + K4 on a scaled refit",
-                                                       tv._fb_dev)
-    out["textured_scaled_refit"]["launches"] = tl
+    tv.handle_key("w")
+    tv.handle_key("d")
+    out["textured_camera_move"] = textured_frame(tv.renderer, "after a camera move",
+                                                 viewer_frame, order=True)
+    tr = Renderer(tscene, width, height, shadows=True, device=device)
+    tr.render_device()
+    tr.set_geometry(refit_scene(tr.scene, scaled, rebuild=True))
+    out["textured_rebuilt"] = textured_frame(tr, "on a rebuilt scene", order=True)
+    if tr.tables.rel_nodes.shape != tr.tables.trace.nodes.shape:
+        raise AssertionError("a rebuild left camera-relative buffers of the old shape")
+    del tr
     out["memory_stats"] = memory_stats(v.scene)
     out["memory_stats_textured"] = memory_stats(tv.scene)
     log(f"phase 21 viewer and refit {width}x{height}: {json.dumps(out)}")
@@ -2515,8 +2694,18 @@ def frame_bounds(tables, width, height, shade=None):
     out["live_slots_per_visit"] = out["live_slots"] / max(out["nodes"], 1)
     out["K1"] = bound_ms(N * (28 + 24) + table_bytes(tr.nodes, tr.tris), walk)
     out["K2"] = bound_ms(N * (8 + 12) + tb, walk + sph + n_hit * SHADE_FLOPS)
-    out["K3"] = bound_ms(N * (8 + 32) + tb + table_bytes(tr.attrs),
-                         walk + sph + n_hit * (SHADE_FLOPS + 30))
+    # K3: its camera walk at the relative costs; the row times the wrapper,
+    # the pre-pass then K3, so "K3" bounds the two kernels' work on the
+    # function's inputs and outputs, "K3_alone" K3's own over the pre-pass's
+    # tables (the winner's rows of `tris` read once)
+    ws = work.sum(dim=0).tolist()
+    k3_ops = (float(ws[4] * SLAB_REL_FLOPS + ws[1] * TRI_REL_FLOPS) + sph
+              + n_hit * (SHADE_FLOPS + 30))
+    pre_bytes, pre_ops = camera_relative_work(tables)
+    out["K3"] = bound_ms(N * (8 + 32) + tb + table_bytes(tr.attrs), k3_ops + pre_ops)
+    out["K3_alone"] = bound_ms(
+        N * (8 + 32) + table_bytes(tr.nodes, tr.tris, tr.attrs, tables.materials, tables.lights,
+                                   tables.spheres) + tr.tris.shape[0] * REL_TRI_BYTES, k3_ops)
     if shade is not None:
         mat = split_gbuffer(render_deferred(tables, px, py, width, height))[1]
         held = shade.maps[torch.clamp(mat, 0, shade.maps.shape[0] - 1), :, 0] > 0     # [N,4]
@@ -2658,7 +2847,7 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
     out["k1"]["w4_w8_ms"] = alternating_ms(lambda: traverse(tr4, o, d, far),
                                            lambda: traverse(tr8, o, d, far), FRAMES, device)
     log(f"phase 22 K1 in turns with width 4: {json.dumps(out['k1']['w4_w8_ms'])}")
-    launches = dict(k2_w8=0, k2t_w8=0, k3_w8=0, k6_w8=0, k5_w8=0)   # the main paths
+    launches = dict(k2_w8=0, k2t_w8=0, k3_w8=0, k3_pre=0, k6_w8=0, k5_w8=0)   # the main paths
 
     # K2: Renderer.render_device(), the main path, shadows off and on
     out["k2"] = {}
@@ -2677,7 +2866,9 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
         del r4, r8
     log(f"phase 22 K2 width 8: {json.dumps(out['k2'])}")
 
-    # K3 (+ K4) and K2t on the textured courtyard
+    # K3's pre-pass at width 8, then K3 (+ K4) and K2t on the textured courtyard
+    out["k3_pre"] = dict(textured_courtyard=camera_relative_compare(ttab8),
+                         courtyard=camera_relative_compare(tab8))
     tties = primary_ties(ttab8, width, height, px, py, ref="textured_courtyard")
     out["k3"] = {}
     for shadows in (False, True):
@@ -2686,14 +2877,21 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
                                          ref="textured_courtyard")[0]
     rt8 = Renderer(t8, width, height, shadows=False, device=device)
     rt8.render_device()
-    ms, got = main_path_launches(rt8.render_device, FRAMES, device, dict(k3_w8=FRAMES, k4=FRAMES),
+    ms, got = main_path_launches(rt8.render_device, FRAMES, device,
+                                 dict(k3_w8=FRAMES, k3_pre=FRAMES, k4=FRAMES),
                                  "width-8 textured frames")
     launches["k3_w8"] += got["k3_w8"]
+    launches["k3_pre"] += got["k3_pre"]
     out["k3"]["frame_ms"] = ms
     out["k3"]["frame"] = refit_frame_compare(rt8, "K3 + K4 at width 8", ref="textured_courtyard")
     out["k3"]["w4_w8_ms"] = alternating_ms(
         lambda: render_deferred(ttables, px, py, width, height),
         lambda: render_deferred(ttab8, px, py, width, height), FRAMES, device)
+    if cuda:   # device times, the L2 flushed before each call
+        k3_8 = lambda: render_deferred(ttab8, px, py, width, height)
+        out["k3"]["device_ms"] = kernel_device_ms(k3_8, "render_deferred_kernel", FRAMES, device)
+        out["k3"]["and_pre_pass_device_ms"] = kernel_device_ms(
+            k3_8, ("render_deferred_kernel", "camera_relative_kernel"), FRAMES, device)
     del rt8
     near = mip_boundary_mask(shade8, render_deferred(ttab8, px, py, width, height))
     out["k2t"] = {}
@@ -2709,7 +2907,8 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
             lambda: render_primary(ttables, px, py, width, height, shadows=shadows,
                                    sky=(0.1, 0.2, 0.3), shade=tshade), fused, FRAMES, device)
         out["k2t"][key] = stats
-    log(f"phase 22 K3, K2t width 8: {json.dumps(dict(k3=out['k3'], k2t=out['k2t']))}")
+    log(f"phase 22 K3, K2t width 8: "
+        f"{json.dumps(dict(k3_pre=out['k3_pre'], k3=out['k3'], k2t=out['k2t']))}")
 
     # K6: the main path's pools, then PathTracer.step() on both courtyards
     k6 = phase_k6(pack_bounce_tables(s8), pt_size, pt_size, "courtyard_w8", ref="courtyard")
@@ -2817,6 +3016,7 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
         k2=max([v["err"] for v in out["k2"].values()] + [out["viewer_refit"]["max_abs_err"]]),
         k3=max([e for v in out["k3"].values() if isinstance(v, dict) and "S" in v
                 for e in (v["S"], v["uv"], v["lam_rel"])] + [out["k3"]["frame"]["max_abs_err"]]),
+        k3_pre=max(v["max_abs_err"] for v in out["k3_pre"].values()),
         k2t=max(v["err"] for v in out["k2t"].values()),
         k6=max(v["max_abs_err"] for v in k6.values()))
     log(f"phase 22 width 8 summary: {json.dumps(dict(launches=launches, bounds=out.get('bounds'), max_abs_err=out['max_abs_err'], viewer_refit=out['viewer_refit'], rebuilt_frame=out['rebuilt_frame']))}")
@@ -3141,7 +3341,7 @@ def serve_reading(scene, width, height, device, pathtrace: bool) -> dict:
 
     cuda = device.type == "cuda"
     textured = scene.textures.textured
-    frame_kernels = dict(k3=1, k4=1) if textured else dict(k2=1)
+    frame_kernels = dict(k3=1, k3_pre=1, k4=1) if textured else dict(k2=1)
     v = Viewer(scene, width, height, shadows=True, verbose=False, device=device)
     v.run_compute()            # the first frame before any request
     if cuda:
@@ -3732,7 +3932,8 @@ def phase_multidevice(scene, tables, tscene, width, height, pt_size, device, car
             fb, reading = sharded_reading(lambda: render_frame_fused_multichip(
                 rt[label], width, height, mesh, shadows=shadows,
                 shade_tables=st if label == "textured_courtyard" else None, host=False),
-                device, dict(k3=D, k4=D) if label == "textured_courtyard" else dict(k2=D))
+                device,
+                dict(k3=D, k3_pre=D, k4=D) if label == "textured_courtyard" else dict(k2=D))
             err = float(np.abs(fb.cpu().numpy() - frames[(label, shadows)]).max())
             if err != 0.0:
                 raise AssertionError(f"D={D} fused frame {label} shadows={shadows}: "
@@ -3816,10 +4017,13 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     tscene, ttables, tshade = phase_textured_scene(device, triangles, texture_size)
     k3, gbuf, ties = phase_k3(tscene, ttables, width, height, device, card,
                               ref="textured_courtyard")
+    k3_pre = phase_camera_relative(tscene, ttables, tables, device, card)
     k4 = phase_k4(tshade, gbuf, ties, device, card)
     tmain = phase_textured_main(tscene, width, height, device, card, ties,
                                 ref="textured_courtyard")
     k3_launches = tmain["no_shadows"]["k3_launches"] + tmain["shadows"]["k3_launches"]
+    k3_pre_launches = (tmain["no_shadows"]["k3_pre_launches"]
+                       + tmain["shadows"]["k3_pre_launches"])
     k4_launches = tmain["no_shadows"]["k4_launches"] + tmain["shadows"]["k4_launches"]
     k3_err = max(v[e] for v in k3.values() if isinstance(v, dict)
                  for e in ("S", "uv", "lam_rel"))
@@ -3878,12 +4082,19 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     vr = phase_viewer_refit(scene, tscene, width, height, device, card)
     viewer_k2 = (vr["camera_moving"]["launches"]["k2"] + vr["refit_and_frame"]["launches"]["k2"]
                  + vr["rebuilt_frame"].get("k2_launches", 0))
-    viewer_k3 = vr["textured_scaled_refit"]["launches"]["k3"]
-    viewer_k4 = vr["textured_scaled_refit"]["launches"]["k4"]
+    textured_viewer = [vr[k]["launches"] for k in ("textured_camera_move",
+                                                   "textured_scaled_refit", "textured_rebuilt")]
+    viewer_k3 = sum(t["k3"] for t in textured_viewer)
+    viewer_k4 = sum(t["k4"] for t in textured_viewer)
+    k3_pre_launches += sum(t["k3_pre"] for t in textured_viewer)
     k2_launches += viewer_k2
     k2_err = max(k2_err, vr["refit_and_frame"]["max_abs_err"], vr["rebuilt_frame"]["max_abs_err"])
     k3_launches += viewer_k3
     k4_launches += viewer_k4
+    k3_err = max([k3_err] + [vr[k]["gbuffer"][e] for k in ("textured_camera_move",
+                                                          "textured_scaled_refit",
+                                                          "textured_rebuilt")
+                             for e in ("S", "uv", "lam_rel")])
     interactive = [gd["gbuffer"]["launches"], ada["launches"]] + [v["launches"]
                                                                   for v in fly.values()]
     k1_standalone = sum(v["k1_standalone"] for v in interactive)
@@ -3902,6 +4113,7 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     served = phase_server(scene, tscene, device, card)
     k2_launches += served["k2"]
     k3_launches += served["k3"]
+    k3_pre_launches += served["k3_pre"]
     k4_launches += served["k4"]
     k6_launches += served["k6"]
     k5_launches += served["k5"]
@@ -3918,10 +4130,16 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     mt = md["launch_totals"]   # the shards' launches in phase 25's main-path calls
     k2_launches += mt["k2"]
     k3_launches += mt["k3"]
+    k3_pre_launches += mt["k3_pre"]
     k4_launches += mt["k4"]
     k6_launches += mt["k6"]
     k1_standalone += mt["k1_standalone"]
 
+    w8l, w8e, w8b = w8["launches"], w8["max_abs_err"], w8.get("bounds", {})
+    k3_pre_launches += w8l["k3_pre"]
+    if cuda and k3_pre_launches != k3_launches + w8l["k3_w8"]:
+        raise AssertionError(f"{k3_pre_launches} launches of K3's pre-pass for "
+                             f"{k3_launches + w8l['k3_w8']} of K3 on the main paths")
     fb = frame_bounds(tables, width, height) if cuda else {}
     tfb = frame_bounds(ttables, width, height, shade=tshade) if cuda else {}
     bound = lambda b: dict(bound_ms=b[0], bound_by=b[1]) if b else dict(bound_ms=None,
@@ -3958,12 +4176,28 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              plain_ms=k2t["textured_courtyard_no_shadows"]["plain_ms"],
              **bound(tfb.get("K2t")), library_ms=None),
         dict(name="K3 render_deferred (G-buffer; max_abs_err is the largest of "
-                  "S, uv and the footprint's relative error; once per shard of a sharded "
-                  "textured frame, phase 25)", route="cuda",
-             source="gpu_raytracer_tpu_torch/csrc/render_deferred.cu",
+                  "S, uv and the footprint's relative error, phases 7 and 21; ms: the "
+                  "wrapper between CUDA events, its pre-pass then K3, whose camera walk "
+                  "reads the pre-pass's tables; bound_ms: the two kernels' work, the camera "
+                  "walk at its relative costs; k3_device_ms, k3_and_pre_pass_device_ms: "
+                  "torch.profiler, the L2 flushed before each call; k3_alone_bound_ms: K3's "
+                  "own work; once per shard of a sharded textured frame, phase 25)",
+             route="cuda", source="gpu_raytracer_tpu_torch/csrc/render_deferred.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:787",
              launches=k3_launches, max_abs_err=k3_err, ms=k3["ms"], plain_ms=k3["plain_ms"],
-             **bound(tfb.get("K3")), library_ms=None),
+             **bound(tfb.get("K3")), library_ms=None, k3_device_ms=k3.get("k3_device_ms"),
+             k3_and_pre_pass_device_ms=k3.get("k3_and_pre_pass_device_ms"),
+             k3_alone_bound_ms=tfb["K3_alone"][0] if tfb else None),
+        dict(name="K3 pre-pass camera_relative (the camera-relative node and triangle tables "
+                  "K3's camera walk reads, one launch before each K3 launch of either width; "
+                  "held to its plain version bit for bit at widths 4 and 8, phases 7b and "
+                  "22; ms: device time, the L2 flushed, plain_ms and the bound on the "
+                  "textured 100k courtyard)", route="cuda",
+             source="gpu_raytracer_tpu_torch/csrc/camera_relative.cu",
+             replaces="gpu_raytracer_tpu/ops/pallas/render.py:787",
+             launches=k3_pre_launches, max_abs_err=max(k3_pre["max_abs_err"], w8e["k3_pre"]),
+             ms=k3_pre.get("device_ms"), plain_ms=k3_pre["plain_ms"],
+             bound_ms=k3_pre["bound_ms"], bound_by=k3_pre["bound_by"], library_ms=None),
         dict(name="K4 texture_shade (ms: the kernel's device time, torch.profiler, the L2 "
                   "flushed before each call; between CUDA events around one call it reads "
                   "the wrapper's host time; once per shard of a sharded textured frame, "
@@ -4008,7 +4242,6 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
         max_abs_err=max(thr["camera"]["max_abs_err"], thr["shadow"]["max_abs_err"]),
         ms=thr["ms"], plain_ms=thr["plain_ms"], bound_ms=thr["bound_ms"],
         bound_by=thr["bound_by"], library_ms=None))
-    w8l, w8e, w8b = w8["launches"], w8["max_abs_err"], w8.get("bounds", {})
     w8pt = w8["pathtracer"]["courtyard"]
     bound8 = lambda key, kernel: bound(w8b.get(key, {}).get(kernel))
     mean = lambda xs: sum(xs) / len(xs)
@@ -4037,11 +4270,16 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              plain_ms=k2t["textured_courtyard_no_shadows"]["plain_ms"],
              **bound8("w8_textured", "K2t"), library_ms=None),
         dict(name="K3 render_deferred, " + w8_note + "phase 7's, the same binary tree and "
-                  "slots; ms: render_deferred at 1080p, shadows off", route="cuda",
+                  "slots; ms: render_deferred at 1080p, shadows off (its pre-pass then K3); "
+                  "bound_ms, k3_device_ms, k3_and_pre_pass_device_ms and k3_alone_bound_ms "
+                  "as K3's", route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/render_deferred_w8.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:787", launches=w8l["k3_w8"],
              max_abs_err=w8e["k3"], ms=mean(w8["k3"]["w4_w8_ms"]["w8"]), plain_ms=k3["plain_ms"],
-             **bound8("w8_textured", "K3"), library_ms=None),
+             **bound8("w8_textured", "K3"), library_ms=None,
+             k3_device_ms=w8["k3"].get("device_ms"),
+             k3_and_pre_pass_device_ms=w8["k3"].get("and_pre_pass_device_ms"),
+             k3_alone_bound_ms=w8b.get("w8_textured", {}).get("K3_alone", (None,))[0]),
         dict(name="K6 bounce, " + w8_note + "phase 12's per sample on the same tree and slots; "
                   f"ms: kernel device time per sample at {pt_size}^2 (torch.profiler)",
              route="cuda", source="gpu_raytracer_tpu_torch/csrc/bounce_w8.cu",

@@ -84,12 +84,17 @@ struct Surface {
 };
 
 // Spheres exhaustively (first closest wins), then the triangles pruned at the
-// sphere t. Returns false on a miss.
-template <int W, int STACK>
+// sphere t. Returns false on a miss. REL (K3's camera ray): the walk reads
+// the camera-relative node records `rel_nodes` and triangle rows `rel_tris`
+// of the ray's origin (camera_relative.cu); the winner's attributes come
+// from `tris`.
+template <int W, int STACK, bool REL = false>
 __device__ __forceinline__ bool closest_surface(const Node<W>* __restrict__ nodes,
                                                 const float4* __restrict__ tris,
                                                 const float* __restrict__ spheres,
-                                                int n_spheres, const Ray& ray, Surface& s) {
+                                                int n_spheres, const Ray& ray, Surface& s,
+                                                const Node<W>* __restrict__ rel_nodes = nullptr,
+                                                const float4* __restrict__ rel_tris = nullptr) {
   float sph_t = kMissT;
   int sph_i = -1;
   for (int k = 0; k < n_spheres; ++k) {
@@ -99,7 +104,8 @@ __device__ __forceinline__ bool closest_surface(const Node<W>* __restrict__ node
       sph_i = k;
     }
   }
-  const TriHit tri = traverse_bvh<W, STACK, false>(nodes, tris, ray, sph_t);
+  const TriHit tri = traverse_bvh<W, STACK, false, false, REL>(
+      REL ? rel_nodes : nodes, REL ? rel_tris : tris, ray, sph_t);
   const bool use_tri = tri.slot >= 0;
   if (!use_tri && sph_i < 0) return false;
   s.t = use_tri ? tri.t : sph_t;

@@ -26,10 +26,23 @@
 // footprint is t * (2 tan(fov/2) / H) * density, the density decoded on the
 // host from the scene's 14-bit code; 0 for a sphere.
 //
-// What bounds it on an H100: as K2, the traversals (latency- and
-// divergence-bound, traverse.cuh); the winner's attribute record is one more
-// 32-byte read, 32 bytes out per ray. Splitting shading off lets
-// the texture reads run in K4 on rays already sorted out from the sky.
+// What bounds it on an H100: as K2, the traversals (issue-bound,
+// traverse.cuh); the winner's attribute record is one more 32-byte read, 32
+// bytes out per ray. Splitting shading off lets the texture reads run in K4
+// on rays already sorted out from the sky.
+//
+// Every camera ray of a frame starts at the camera, so the camera walk takes
+// the walk's camera-relative form (traverse.cuh, REL): it reads the node
+// records with the camera's position taken off every box plane and the
+// triangle rows with s = o - v0, q = s x e1 and e2 . q made once per frame
+// by K3's pre-pass (camera_relative.cu, launched before every K3 launch by
+// ops/cuda/render.py::render_deferred), the same bits as the per-ray values,
+// so the same visits, tests and winners for fewer instructions a visit and
+// a test. The shadow walks (their own origins), the hit point, the winner's
+// attributes and uv read the ordinary tables. kCameraRel 1: the camera walk
+// reads both relative tables (on an NVIDIA H100 each half shortened K3 at
+// both widths, and both together the most, PERF.md); 0: the ordinary walk,
+// for an A/B (chip_ab.py --variants kCameraRel=0 rewrites it).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,10 +51,13 @@
 
 namespace rt {
 
+constexpr int kCameraRel = 1;
+
 template <int W, int STACK>
 __global__ void __launch_bounds__(kRenderBlock, kRenderMinBlocks)
 render_deferred_kernel(const Node<W>* __restrict__ nodes, const float4* __restrict__ tris,
-                       const float4* __restrict__ attrs, const float* __restrict__ cam,
+                       const float4* __restrict__ attrs, const Node<W>* __restrict__ rel_nodes,
+                       const float4* __restrict__ rel_tris, const float* __restrict__ cam,
                        const float* __restrict__ lights, int n_lights,
                        const float* __restrict__ spheres, int n_spheres,
                        const int* __restrict__ px, const int* __restrict__ py, int n, int width,
@@ -52,7 +68,8 @@ render_deferred_kernel(const Node<W>* __restrict__ nodes, const float4* __restri
 
   const Ray ray = camera_ray(cam, px[i], py[i], width, height);
   Surface s;
-  if (!closest_surface<W, STACK>(nodes, tris, spheres, n_spheres, ray, s)) {
+  if (!closest_surface<W, STACK, kCameraRel != 0>(nodes, tris, spheres, n_spheres, ray, s,
+                                                  rel_nodes, rel_tris)) {
     gbuf[i] = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(-1));
     gbuf[n + i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     return;
@@ -88,6 +105,8 @@ struct DeferredLaunch {
   const void* nodes;
   const float4* tris;
   const float4* attrs;
+  const void* rel_nodes;    // the camera-relative tables (camera_relative.cu)
+  const float4* rel_tris;
   const float* cam;
   const float* lights;
   int n_lights;
@@ -109,7 +128,8 @@ int launch_render_deferred(const DeferredLaunch& a, int stack, cudaStream_t s) {
   const dim3 grid((a.n + kRenderBlock - 1) / kRenderBlock);
 #define RT_LAUNCH(S)                                                                          \
   render_deferred_kernel<W, S><<<grid, block, 0, s>>>(                                        \
-      static_cast<const Node<W>*>(a.nodes), a.tris, a.attrs, a.cam, a.lights, a.n_lights,     \
+      static_cast<const Node<W>*>(a.nodes), a.tris, a.attrs,                                  \
+      static_cast<const Node<W>*>(a.rel_nodes), a.rel_tris, a.cam, a.lights, a.n_lights,     \
       a.spheres, a.n_spheres, a.px, a.py, a.n, a.width, a.height, a.shadows, a.pix_scale,     \
       a.light_u, a.gbuf)
   RT_SWITCH_STACK(W, stack, RT_LAUNCH)

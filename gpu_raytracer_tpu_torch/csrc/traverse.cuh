@@ -80,6 +80,17 @@
 // against 217 (chip_ab.py --sass; the frame kernels also spill at their
 // register cap).
 //
+// The camera-relative walk (REL; only K3's camera ray takes it,
+// render_deferred.cuh): every ray of a batch that starts at one origin o
+// computes the same plane - o for every child box and the same s = o - v0,
+// q = s x e1 and e2 . q for every triangle. camera_relative.cu computes them
+// once per frame into tables of their own, with the same operations in the
+// same order, and the REL walk reads them in place of `nodes` (the box words
+// plane - o) and `tris` (four float4 a slot: (e1, e2 . q), (e2, 0), (s, 0),
+// (q, 0)): each value is the per-ray one bit for bit, so the visits, the tests and the winners are the
+// same, for 6 subtractions fewer per child slab test and 17 operations fewer
+// per triangle test.
+//
 // Semantics kept from the reference traversal (ops/pallas/traverse.py:537-538
 // and :242-245): slab entry clamped at 0, accept ce <= tmax && ce < best_t
 // (a NaN slab, from a zero direction component on a box plane, rejects);
@@ -191,16 +202,28 @@ constexpr float kInf = __builtin_huge_valf();
 
 // Clamped slab entry distance of one child box, or +inf where the ray misses
 // it, the slot is empty, or the box cannot hold anything closer than best_t.
-// The general form: any ray, NaN slabs rejected.
+// The general form: any ray, NaN slabs rejected. REL: the planes are given
+// relative to the ray's origin already (plane - o).
+template <bool REL = false>
 __device__ __forceinline__ float child_entry(float lo_x, float lo_y, float lo_z, float hi_x,
                                              float hi_y, float hi_z, int code, const Ray& r,
                                              float best_t) {
-  const float t1x = (lo_x - r.ox) * r.ix;
-  const float t2x = (hi_x - r.ox) * r.ix;
-  const float t1y = (lo_y - r.oy) * r.iy;
-  const float t2y = (hi_y - r.oy) * r.iy;
-  const float t1z = (lo_z - r.oz) * r.iz;
-  const float t2z = (hi_z - r.oz) * r.iz;
+  float t1x, t2x, t1y, t2y, t1z, t2z;
+  if constexpr (REL) {
+    t1x = lo_x * r.ix;
+    t2x = hi_x * r.ix;
+    t1y = lo_y * r.iy;
+    t2y = hi_y * r.iy;
+    t1z = lo_z * r.iz;
+    t2z = hi_z * r.iz;
+  } else {
+    t1x = (lo_x - r.ox) * r.ix;
+    t2x = (hi_x - r.ox) * r.ix;
+    t1y = (lo_y - r.oy) * r.iy;
+    t2y = (hi_y - r.oy) * r.iy;
+    t1z = (lo_z - r.oz) * r.iz;
+    t2z = (hi_z - r.oz) * r.iz;
+  }
   const bool nan = is_nan(t1x) || is_nan(t2x) || is_nan(t1y) || is_nan(t2y) ||
                    is_nan(t1z) || is_nan(t2z);
   const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
@@ -215,13 +238,21 @@ __device__ __forceinline__ float child_entry(float lo_x, float lo_y, float lo_z,
 // distance IS min(t1, t2) and the farther one's max(t1, t2) (rounding is
 // monotone and every box has lo <= hi), and no product is NaN, so the six
 // min/max and the six NaN tests per child fall away with the same result.
+// REL as in child_entry.
+template <bool REL = false>
 __device__ __forceinline__ float child_entry_tame(float near_x, float near_y, float near_z,
                                                   float far_x, float far_y, float far_z,
                                                   int code, const Ray& r, float best_t) {
-  const float tmin = fmaxf(fmaxf((near_x - r.ox) * r.ix, (near_y - r.oy) * r.iy),
-                           (near_z - r.oz) * r.iz);
-  const float tmax = fminf(fminf((far_x - r.ox) * r.ix, (far_y - r.oy) * r.iy),
-                           (far_z - r.oz) * r.iz);
+  float tmin, tmax;
+  if constexpr (REL) {
+    tmin = fmaxf(fmaxf(near_x * r.ix, near_y * r.iy), near_z * r.iz);
+    tmax = fminf(fminf(far_x * r.ix, far_y * r.iy), far_z * r.iz);
+  } else {
+    tmin = fmaxf(fmaxf((near_x - r.ox) * r.ix, (near_y - r.oy) * r.iy),
+                 (near_z - r.oz) * r.iz);
+    tmax = fminf(fminf((far_x - r.ox) * r.ix, (far_y - r.oy) * r.iy),
+                 (far_z - r.oz) * r.iz);
+  }
   const float ce = fmaxf(tmin, 0.0f);
   const bool ok = code != -1 && ce <= tmax && ce < best_t;
   return ok ? ce : kInf;
@@ -278,14 +309,51 @@ __device__ __forceinline__ bool leaf_test(const float4* __restrict__ tris, int f
   return false;
 }
 
+// leaf_test over the camera-relative triangle rows `rel` (four float4 a
+// slot: (e1, e2 . q), (e2, 0), (s, 0), (q, 0), camera_relative.cu) of a ray
+// from the origin they were made for: s, q and e2 . q are read, not computed,
+// and the rest is leaf_test's arithmetic in its order, so the same bits.
+template <bool ANY_HIT, bool COUNT = false>
+__device__ __forceinline__ bool leaf_test_rel(const float4* __restrict__ rel, int first,
+                                              int count, const Ray& r, TriHit& best,
+                                              Work* work = nullptr) {
+  for (int j = 0; j < count; ++j) {
+    if (COUNT) count_iteration(work->tris, work->warp_tris);
+    const int slot = first + j;
+    const float4 e1 = __ldg(rel + 4 * slot + 0);   // e1, e2 . q
+    const float4 e2 = __ldg(rel + 4 * slot + 1);
+    const float4 s = __ldg(rel + 4 * slot + 2);    // o - v0
+    const float4 q = __ldg(rel + 4 * slot + 3);    // s x e1
+    // h = d x e2, a = e1 . h
+    const float hx = r.dy * e2.z - r.dz * e2.y;
+    const float hy = r.dz * e2.x - r.dx * e2.z;
+    const float hz = r.dx * e2.y - r.dy * e2.x;
+    const float a = e1.x * hx + e1.y * hy + e1.z * hz;
+    const float f = 1.0f / a;
+    const float u = f * (s.x * hx + s.y * hy + s.z * hz);
+    const float v = f * (r.dx * q.x + r.dy * q.y + r.dz * q.z);
+    const float t = f * e1.w;
+    const bool ok = fabsf(a) >= kMinT && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+                    u + v <= 1.0f && t > kMinT && t < best.t;
+    if (ok) {
+      best.t = t;
+      best.slot = slot;
+      if (ANY_HIT) return true;
+    }
+  }
+  return false;
+}
+
 // The walk of one ray over Node<W> records, TAME for a ray that is_tame (the
 // lean slab test): one while-while loop, leaf step and culling pop for both
 // widths. The child loads, the one-child shortcut and the ordering of two or
 // more children ahead are written per width, in `if constexpr` blocks of
 // this one function: moving them (or the pop) into inlined helpers changed
 // the width-4 kernels' machine code (PERF.md), which must stay as it
-// was measured.
-template <int W, int STACK, bool ANY_HIT, bool TAME, bool COUNT>
+// was measured. REL: `nodes` are the camera-relative node records and
+// `tris` the camera-relative triangle rows of the ray's origin
+// (camera_relative.cu); everything else is the same walk.
+template <int W, int STACK, bool ANY_HIT, bool TAME, bool COUNT, bool REL = false>
 __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
                                            const float4* __restrict__ tris, const Ray& r,
                                            float max_t, Work* work) {
@@ -313,17 +381,21 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
           const float4 nx = __ldg(rec + near_x), ny = __ldg(rec + near_y);
           const float4 nz = __ldg(rec + near_z), fx = __ldg(rec + (3 - near_x));
           const float4 fy = __ldg(rec + (5 - near_y)), fz = __ldg(rec + (7 - near_z));
-          e0 = child_entry_tame(nx.x, ny.x, nz.x, fx.x, fy.x, fz.x, code.x, r, best.t);
-          e1 = child_entry_tame(nx.y, ny.y, nz.y, fx.y, fy.y, fz.y, code.y, r, best.t);
-          e2 = child_entry_tame(nx.z, ny.z, nz.z, fx.z, fy.z, fz.z, code.z, r, best.t);
-          e3 = child_entry_tame(nx.w, ny.w, nz.w, fx.w, fy.w, fz.w, code.w, r, best.t);
+          e0 = child_entry_tame<REL>(nx.x, ny.x, nz.x, fx.x, fy.x, fz.x, code.x, r, best.t);
+          e1 = child_entry_tame<REL>(nx.y, ny.y, nz.y, fx.y, fy.y, fz.y, code.y, r, best.t);
+          e2 = child_entry_tame<REL>(nx.z, ny.z, nz.z, fx.z, fy.z, fz.z, code.z, r, best.t);
+          e3 = child_entry_tame<REL>(nx.w, ny.w, nz.w, fx.w, fy.w, fz.w, code.w, r, best.t);
         } else {
           const float4 lo_x = __ldg(rec + 0), lo_y = __ldg(rec + 1), lo_z = __ldg(rec + 2);
           const float4 hi_x = __ldg(rec + 3), hi_y = __ldg(rec + 4), hi_z = __ldg(rec + 5);
-          e0 = child_entry(lo_x.x, lo_y.x, lo_z.x, hi_x.x, hi_y.x, hi_z.x, code.x, r, best.t);
-          e1 = child_entry(lo_x.y, lo_y.y, lo_z.y, hi_x.y, hi_y.y, hi_z.y, code.y, r, best.t);
-          e2 = child_entry(lo_x.z, lo_y.z, lo_z.z, hi_x.z, hi_y.z, hi_z.z, code.z, r, best.t);
-          e3 = child_entry(lo_x.w, lo_y.w, lo_z.w, hi_x.w, hi_y.w, hi_z.w, code.w, r, best.t);
+          e0 = child_entry<REL>(lo_x.x, lo_y.x, lo_z.x, hi_x.x, hi_y.x, hi_z.x, code.x, r,
+                                  best.t);
+          e1 = child_entry<REL>(lo_x.y, lo_y.y, lo_z.y, hi_x.y, hi_y.y, hi_z.y, code.y, r,
+                                  best.t);
+          e2 = child_entry<REL>(lo_x.z, lo_y.z, lo_z.z, hi_x.z, hi_y.z, hi_z.z, code.z, r,
+                                  best.t);
+          e3 = child_entry<REL>(lo_x.w, lo_y.w, lo_z.w, hi_x.w, hi_y.w, hi_z.w, code.w, r,
+                                  best.t);
         }
         // one child ahead (most visits): nothing to order, nothing to push
         if ((e0 < kInf) + (e1 < kInf) + (e2 < kInf) + (e3 < kInf) == 1) {
@@ -388,10 +460,11 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
           const float by_[4] = {by.x, by.y, by.z, by.w}, bz_[4] = {bz.x, bz.y, bz.z, bz.w};
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            e[4 * h + c] = TAME ? child_entry_tame(ax_[c], ay_[c], az_[c], bx_[c], by_[c],
-                                                   bz_[c], code[4 * h + c], r, best.t)
-                                : child_entry(ax_[c], ay_[c], az_[c], bx_[c], by_[c], bz_[c],
-                                              code[4 * h + c], r, best.t);
+            e[4 * h + c] = TAME ? child_entry_tame<REL>(ax_[c], ay_[c], az_[c], bx_[c],
+                                                          by_[c], bz_[c], code[4 * h + c], r,
+                                                          best.t)
+                                : child_entry<REL>(ax_[c], ay_[c], az_[c], bx_[c], by_[c],
+                                                     bz_[c], code[4 * h + c], r, best.t);
         }
         int live = 0;
 #pragma unroll
@@ -457,7 +530,12 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
 
     // ---- the leaf this lane holds ----
     const int packed = -1 - cur;
-    if (leaf_test<ANY_HIT, COUNT>(tris, packed >> 4, packed & 15, r, best, work)) return best;
+    if constexpr (REL) {
+      if (leaf_test_rel<ANY_HIT, COUNT>(tris, packed >> 4, packed & 15, r, best, work))
+        return best;
+    } else {
+      if (leaf_test<ANY_HIT, COUNT>(tris, packed >> 4, packed & 15, r, best, work)) return best;
+    }
     cur = -1;
     while (sp > 0) {
       const Entry e = stack[--sp];
@@ -471,14 +549,16 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
 }
 
 // Closest hit (or any hit) of triangles strictly below max_t, through the
-// walk of the node records' width W.
-template <int W, int STACK, bool ANY_HIT, bool COUNT = false>
+// walk of the node records' width W; REL as in walk_bvh (`nodes` and `tris`
+// then the camera-relative tables of the ray's origin).
+template <int W, int STACK, bool ANY_HIT, bool COUNT = false, bool REL = false>
 __device__ TriHit traverse_bvh(const Node<W>* __restrict__ nodes,
                                const float4* __restrict__ tris, const Ray& r,
                                float max_t, Work* work = nullptr) {
   if (0.0f >= max_t) return TriHit{max_t, -1};   // no ray: the root is culled unread
-  return is_tame(r) ? walk_bvh<W, STACK, ANY_HIT, true, COUNT>(nodes, tris, r, max_t, work)
-                    : walk_bvh<W, STACK, ANY_HIT, false, COUNT>(nodes, tris, r, max_t, work);
+  return is_tame(r)
+             ? walk_bvh<W, STACK, ANY_HIT, true, COUNT, REL>(nodes, tris, r, max_t, work)
+             : walk_bvh<W, STACK, ANY_HIT, false, COUNT, REL>(nodes, tris, r, max_t, work);
 }
 
 // Stack capacities compiled for every traversing kernel at width W

@@ -33,7 +33,7 @@ SOURCES = ("traverse.cu", "render_primary.cu", "render_primary_textured.cu",
            "render_deferred.cu", "texshade.cu", "bounce.cu", "bounce_textured.cu",
            "materials.cu", "qmc.cu", "traverse_w8.cu", "render_primary_w8.cu",
            "render_primary_textured_w8.cu", "render_deferred_w8.cu", "bounce_w8.cu",
-           "bounce_textured_w8.cu", "traverse_threaded.cu")
+           "bounce_textured_w8.cu", "traverse_threaded.cu", "camera_relative.cu")
 HEADERS = ("traverse.cuh", "traverse_kernels.cuh", "render_common.cuh", "render_primary.cuh",
            "render_deferred.cuh", "texsample.cuh", "bounce.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -67,11 +67,14 @@ ARGTYPES = {
     "rt_render_primary_textured": [_p, _p, _p, _i, _i, _p, _p, _i, _p, _i, _p, _i, _p, _p,
                                    _i, _i, _f, _p, _p, _i, _i, _i, _i, _f, _f, _f, _p, _p,
                                    _p],
-    # nodes, tris, attrs, node width, stack, camera, lights, n_lights,
-    # spheres, n_spheres, px, py, n, width, height, shadows, pix_scale,
-    # light_u, gbuf_out, stream
-    "rt_render_deferred": [_p, _p, _p, _i, _i, _p, _p, _i, _p, _i, _p, _p, _i, _i, _i, _i,
-                           _f, _p, _p, _p],
+    # nodes, tris, attrs, rel_nodes, rel_tris (the camera-relative tables),
+    # node width, stack, camera, lights, n_lights, spheres, n_spheres, px,
+    # py, n, width, height, shadows, pix_scale, light_u, gbuf_out, stream
+    "rt_render_deferred": [_p, _p, _p, _p, _p, _i, _i, _p, _p, _i, _p, _i, _p, _p, _i, _i, _i,
+                           _i, _f, _p, _p, _p],
+    # camera, nodes, node width, n_nodes, tris, n_slots, rel_nodes_out,
+    # rel_tris_out, stream
+    "rt_camera_relative": [_p, _p, _i, _i, _p, _i, _p, _p, _p],
     # gbuf, n, materials, n_mats, maps, atlas, present, n_levels, trilinear,
     # sky_r, sky_g, sky_b, rgb_out, stream
     "rt_texture_shade": [_p, _i, _p, _i, _p, _p, _i, _i, _i, _f, _f, _f, _p, _p],

@@ -26,6 +26,15 @@ G-buffer as two planes [2,N,4]: (S rgb, material id) for every ray, then
 (uv, mip footprint, 0). Its plain version is
 `engine/renderer.py::render_gbuffer`, whose rows [N,8] hold the same words;
 `render_deferred` returns planes on either device (`gbuffer_planes`).
+On the card every K3 launch comes after one launch of its pre-pass,
+`camera_relative` (csrc/camera_relative.cu): the camera-relative node and
+triangle tables that K3's camera walk reads (the camera's position taken off
+every box plane; s = o - v0, q = s x e1 and e2 . q per triangle), made from
+the device camera row into two buffers of `RenderTables`, which it allocates
+at its first launch and again when a rebuild changes the trace tables'
+shapes (tables that never run K3 hold none). Its plain version
+is `camera_relative_tables`, the same operations in the same order; K3's
+plain version stays `render_gbuffer`.
 
 All three loop over every light in light order, or, given `light_u` (one
 uniform per ray), evaluate the one light min(floor(u * L), L - 1) with one
@@ -61,6 +70,7 @@ from .build import check, load_kernels
 from .traverse import TraceTables, count_launch, nodes_ptr, pack_trace_tables
 
 MAX_LIGHTS = 16   # above this `Renderer` hands the kernels a `light_u`, as the JAX package
+REL_TRI_WORDS = 16   # f32 words of a camera-relative triangle row: (e1, e2.q), (e2, 0), (s, 0), (q, 0)
 
 
 @dataclass
@@ -71,6 +81,10 @@ class RenderTables:
     lights: torch.Tensor      # [L,16] f32
     spheres: torch.Tensor     # [S,8] f32
     fov_scale: float          # the camera's tan(fov/2), evaluated on the host once
+    # the camera-relative tables K3's pre-pass writes before every K3 launch
+    # (`camera_relative`, which allocates them)
+    rel_nodes: torch.Tensor | None = None   # [Q,8w] f32, the node records' layout
+    rel_tris: torch.Tensor | None = None    # [Tp,16] f32
 
     @property
     def scene(self) -> Scene:
@@ -130,6 +144,77 @@ def pack_render_tables(scene: Scene) -> RenderTables:
     mat_bits = S.material_id.to(torch.int32).view(torch.float32)[:, None]
     spheres = _pad(torch.cat([S.center, S.radius[:, None], mat_bits], dim=1), 8)
     return RenderTables(pack_trace_tables(scene), camera, materials, lights, spheres, fov_scale)
+
+
+def camera_relative_tables(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K3's pre-pass (csrc/camera_relative.cu) ->
+    (rel_nodes [Q,8w] f32, rel_tris [Tp,16] f32), new tensors on the
+    tables' device. With o the camera row's position: the node records with
+    o's coordinate taken off each box word (plane - o of the plane's axis;
+    codes, axis and pad as they are), and per triangle slot (e1, e2 . q),
+    (e2, 0), (s, 0), (q, 0) for s = o - v0 and q = s x e1, each product and
+    sum in the order of the walk's triangle test (traverse.cuh leaf_test)."""
+    tr = tables.trace
+    w = tr.width
+    o = tables.camera[:3]
+    rel_nodes = tr.nodes.clone()
+    planes = tr.nodes[:, :6 * w].reshape(-1, 6, w)   # lo_x, lo_y, lo_z, hi_x, hi_y, hi_z
+    rel_nodes[:, :6 * w] = (planes - torch.cat([o, o])[None, :, None]).reshape(-1, 6 * w)
+    rows = tr.tris.reshape(-1, 3, 4)
+    v0, e1, e2 = rows[:, 0, :3], rows[:, 1, :3], rows[:, 2, :3]
+    s = o[None, :] - v0
+    q = cross(s, e1)
+    e2q = e2[:, 0] * q[:, 0] + e2[:, 1] * q[:, 1] + e2[:, 2] * q[:, 2]
+    zero = torch.zeros_like(e2q)[:, None]
+    rel_tris = torch.cat([e1, e2q[:, None], e2, zero, s, zero, q, zero], dim=1).contiguous()
+    return rel_nodes, rel_tris
+
+
+def relative_buffers(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
+    """The buffers of the camera-relative tables, (rel_nodes [Q,8w] f32,
+    rel_tris [Tp,16] f32) on the tables' device: the tables' own, allocated
+    here when there are none yet or when a rebuild changed the trace tables'
+    shapes. A fresh CUDA block starts on a 512-byte boundary, so the node
+    records lie in whole aligned 128-byte lines, as `nodes_ptr` requires of
+    `nodes`."""
+    tr = tables.trace
+    bufs = []
+    for x, shape in ((tables.rel_nodes, tuple(tr.nodes.shape)),
+                     (tables.rel_tris, (tr.tris.shape[0], REL_TRI_WORDS))):
+        if x is None or tuple(x.shape) != shape:
+            x = torch.empty(shape, dtype=torch.float32, device=tr.device)
+        bufs.append(x)
+    tables.rel_nodes, tables.rel_tris = bufs
+    return tables.rel_nodes, tables.rel_tris
+
+
+def camera_relative(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's pre-pass: the camera-relative tables of the tables' current
+    camera written into `relative_buffers(tables)`, which it returns. CUDA
+    tensors launch csrc/camera_relative.cu on the current stream (counted in
+    `launches`; the camera's position is read on the device), CPU tensors
+    take the plain `camera_relative_tables`."""
+    tr = tables.trace
+    dev = tr.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"camera_relative: unsupported device {dev}")
+    rel_nodes, rel_tris = relative_buffers(tables)
+    if dev.type == "cpu":
+        nodes, tris = camera_relative_tables(tables)
+        rel_nodes.copy_(nodes)
+        rel_tris.copy_(tris)
+        return rel_nodes, rel_tris
+    nodes = nodes_ptr(tr)
+    k = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    camera_relative.launches += 1
+    check(k.lib.rt_camera_relative(tables.camera.data_ptr(), nodes, tr.width, tr.nodes.shape[0],
+                                   tr.tris.data_ptr(), tr.tris.shape[0], rel_nodes.data_ptr(),
+                                   rel_tris.data_ptr(), stream), "rt_camera_relative")
+    return rel_nodes, rel_tris
+
+
+camera_relative.launches = 0
 
 
 def _check_pixels(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
@@ -214,7 +299,8 @@ def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     """Deferred trace of pixels (px, py) [N] int32 -> G-buffer planes
     [2,N,4] f32 in the given order: (S rgb, material id), then (u, v,
     footprint, 0). `light_u` [N] f32 selects single-sample light selection.
-    CUDA tensors launch the kernel, CPU tensors take the plain version
+    CUDA tensors launch K3's pre-pass (`camera_relative`) and then K3,
+    whose camera walk reads its tables; CPU tensors take the plain version
     (engine/renderer.py::render_gbuffer, whose rows [N,8] hold the same
     words, laid out as planes)."""
     from ...engine.renderer import gbuffer_planes, render_gbuffer
@@ -229,9 +315,10 @@ def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     pix = pixel_footprint_scale(tables.fov_scale, height)
     stream = torch.cuda.current_stream(px.device).cuda_stream
     nodes = nodes_ptr(tr)
+    rel_nodes, rel_tris = (x.data_ptr() for x in camera_relative(tables))
     count_launch(render_deferred, tr)
     check(k.lib.rt_render_deferred(
-        nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.width, tr.stack,
+        nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), rel_nodes, rel_tris, tr.width, tr.stack,
         tables.camera.data_ptr(), tables.lights.data_ptr(), tables.lights.shape[0],
         tables.spheres.data_ptr(), tables.spheres.shape[0], px.data_ptr(), py.data_ptr(),
         N, width, height, int(shadows), pix, _light_u_ptr(tables, light_u), gbuf.data_ptr(),

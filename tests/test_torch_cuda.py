@@ -3,11 +3,11 @@
 Marked `cuda`; they skip on machines without a CUDA device. Run them on a
 GPU machine with `python -m pytest -m cuda tests/test_torch_cuda.py`.
 Tolerance: bit equality of hit masks and materials, t within 1e-6
-relative, RGB within 1e-5, the deferred G-buffer's light sum and uv within
-1e-5 and its mip footprint within 1e-5 relative, the bounce's integer
-fields equal and its float fields within 1e-5, except where two triangles
-share the exact same t and the two traversal orders keep different ones
-(counted, and bounded)."""
+relative, RGB within 1e-5, the deferred G-buffer's light sum, uv and mip
+footprint equal (chip_smoke.GBUF_TOL), K3's pre-pass bit for bit, the
+bounce's integer fields equal and its float fields within 1e-5, except
+where two triangles share the exact same t and the two traversal orders
+keep different ones (counted, and bounded)."""
 
 import dataclasses
 
@@ -30,8 +30,8 @@ from gpu_raytracer_tpu_torch.models.scene import build_default_scene
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
 from gpu_raytracer_tpu_torch.ops.cuda.bounce import (fused_bounce, fused_bounce_,
                                                      pack_bounce_tables, qmc_uniforms_kernel)
-from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
-                                                     render_primary)
+from gpu_raytracer_tpu_torch.ops.cuda.render import (camera_relative, pack_render_tables,
+                                                     render_deferred, render_primary)
 from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
 from gpu_raytracer_tpu_torch.ops.cuda.traverse import pack_trace_tables, trace, traverse
 from gpu_raytracer_tpu_torch.ops.sampler import QmcStream
@@ -116,22 +116,52 @@ SKY = (0.1, 0.2, 0.3)
 @pytest.mark.parametrize("shadows", [False, True])
 @pytest.mark.parametrize("name", sorted(TEXTURED))
 def test_deferred_kernels_match_plain(cuda, name, shadows):
-    """A textured frame is one K3 and one K4 launch; K3's G-buffer matches
-    the plain one, K4 the plain deferred shade (nearest and trilinear), and
-    the frame the plain two-phase render."""
+    """A textured frame is one launch of K3's pre-pass, one of K3 and one of
+    K4; K3's G-buffer matches the plain one, K4 the plain deferred shade
+    (nearest and trilinear), and the frame the plain two-phase render."""
     scene = TEXTURED[name](device=cuda)
     W, H = 160, 120
     r = Renderer(scene, W, H, shadows=shadows, sky=SKY, device=cuda)
-    before = (render_deferred.launches, texture_shade.launches, render_primary.launches)
+    counts = lambda: (camera_relative.launches, render_deferred.launches,
+                      texture_shade.launches, render_primary.launches)
+    before = counts()
     got = r.render_device()
-    after = (render_deferred.launches, texture_shade.launches, render_primary.launches)
-    assert after == (before[0] + 1, before[1] + 1, before[2])
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
     ties = primary_ties(r.tables, W, H, r.px, r.py)
     _, gbuf = gbuffer_compare(r.tables, r.px, r.py, W, H, shadows, ties)
     for trilinear in (False, True):
         shade_compare(r.shade_tables, gbuf, SKY, trilinear, keep=~ties)
     want = render_deferred_chunk(r.scene, r.px, r.py, W, H, shadows=shadows, sky=SKY)
     assert (got - want).abs().amax(dim=1)[~ties].max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moved", [False, True], ids=["camera", "moved_camera"])
+@pytest.mark.parametrize("width", [4, 8])
+def test_camera_relative_kernel_matches_plain_and_k3_follows_the_camera(cuda, width, moved):
+    """K3's pre-pass on the card equals its plain version bit for bit, for
+    the scene's camera and after set_camera (read on the device); K3 then
+    matches the plain G-buffer at the moved camera."""
+    from chip_smoke import camera_relative_compare
+    from gpu_raytracer_tpu_torch.config import RaytracerConfig
+    from gpu_raytracer_tpu_torch.ops.cuda.render import set_camera
+
+    scene = make_courtyard_scene(2000, seed=1, textured=True,
+                                 config=RaytracerConfig(bvh_width=width), device=cuda)
+    tables = pack_render_tables(scene)
+    if moved:
+        set_camera(tables, moved_camera(scene.camera))
+    launches = camera_relative.launches
+    assert camera_relative_compare(tables)["max_abs_err"] == 0.0
+    assert camera_relative.launches == launches + 1
+    W, H = 96, 64
+    py, px = (a.reshape(-1).to(torch.int32).contiguous()
+              for a in torch.meshgrid(torch.arange(H, device=cuda), torch.arange(W, device=cuda),
+                                      indexing="ij"))
+    ties = primary_ties(tables, W, H, px, py)
+    for shadows in (False, True):
+        stats, _ = gbuffer_compare(tables, px, py, W, H, shadows, ties)
+        assert stats["hits"] > 0
 
 
 SAMPLER_SCENES = {
@@ -898,7 +928,7 @@ def test_sharded_paths_launch_their_kernels_never_the_plain_versions(cuda, monke
         fb = launched(dict(k2=D), lambda: shard.render_frame_fused_multichip(rt, W, H, mesh,
                                                                              shadows=s))
         assert np.array_equal(fb, frames[s])
-    fb = launched(dict(k3=D, k4=D), lambda: shard.render_frame_fused_multichip(
+    fb = launched(dict(k3=D, k3_pre=D, k4=D), lambda: shard.render_frame_fused_multichip(
         trt, W, H, mesh, shade_tables=st))
     assert np.array_equal(fb, tframe)
     rgb = launched(dict(k1_standalone=D), lambda: shard.render_rays_sharded(

@@ -11,8 +11,18 @@ exact-t ties here), the counting instances (COUNT) must return the same
 hits, and their counts must be consistent: a visited node has 2 .. W
 non-empty child slots, and a width-8 walk visits fewer nodes than a
 width-4 walk of the same binary tree. Built with -ffp-contract=off, as
-the kernels are with -fmad=false. Run with -s to print the counts."""
+the kernels are with -fmad=false. Run with -s to print the counts.
 
+The camera-relative walk (REL: K3's camera walk over the tables of its
+pre-pass, csrc/camera_relative.cu) runs the frame's camera rays over the
+tables the plain `camera_relative_tables` makes, from the scene's camera and
+from two moved ones: its hits must equal the plain traversal's and the
+ordinary walk's bit for bit, and its node visits, triangle tests and live
+child slots the ordinary walk's (the same walk). One ray pins down where
+the walk and the plain traversal part: an order tie at a shared edge, on
+which the walk keeps the JAX package's winner."""
+
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -22,7 +32,10 @@ import pytest
 import torch
 
 from gpu_raytracer_tpu_torch.config import RaytracerConfig
+from gpu_raytracer_tpu_torch.models.camera import Camera, CameraController
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
+from gpu_raytracer_tpu_torch.ops.cuda.render import (camera_relative_tables, pack_render_tables,
+                                                     set_camera)
 from gpu_raytracer_tpu_torch.ops.cuda.traverse import pack_trace_tables
 from gpu_raytracer_tpu_torch.ops.trace import traverse_triangles
 from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
@@ -102,11 +115,61 @@ static int run(const std::vector<float>& raw, const std::vector<float>& tris,
   return 0;
 }
 
+static const void* aligned_copy(const std::vector<float>& raw) {
+  void* mem = std::aligned_alloc(256, (raw.size() * 4 + 255) / 256 * 256);
+  std::memcpy(mem, raw.data(), raw.size() * 4);
+  return mem;
+}
+
+// The closest-hit walk of each ray over the camera-relative tables (REL)
+// and over the ordinary ones, both counted; writes t, slot, nodes,
+// triangles, live slots of the REL walk, then of the ordinary one.
+template <int W, int S>
+static int run_rel(const std::vector<float>& raw, const std::vector<float>& tris,
+                   const std::vector<float>& rel_raw, const std::vector<float>& rel_tris,
+                   const std::vector<float>& rays) {
+  const void* mem = aligned_copy(raw);
+  const void* rel_mem = aligned_copy(rel_raw);
+  const Node<W>* nodes = static_cast<const Node<W>*>(mem);
+  const Node<W>* walk_nodes = static_cast<const Node<W>*>(rel_mem);
+  const float4* tr = reinterpret_cast<const float4*>(tris.data());
+  const float4* walk_tris = reinterpret_cast<const float4*>(rel_tris.data());
+  FILE* out = std::fopen("out.bin", "wb");
+  for (size_t i = 0; i < rays.size() / 7; ++i) {
+    const float* q = &rays[7 * i];
+    const Ray r = make_ray(q[0], q[1], q[2], q[3], q[4], q[5]);
+    Work wr{0, 0, 0, 0, 0}, wo{0, 0, 0, 0, 0};
+    const TriHit a = traverse_bvh<W, S, false, true, true>(walk_nodes, walk_tris, r, q[6], &wr);
+    const TriHit b = traverse_bvh<W, S, false, false, true>(walk_nodes, walk_tris, r, q[6]);
+    const TriHit c = traverse_bvh<W, S, false, true>(nodes, tr, r, q[6], &wo);
+    if (a.slot != b.slot || a.t != b.t) return 3;
+    const TriHit* hits[2] = {&a, &c};
+    const Work* works[2] = {&wr, &wo};
+    for (int k = 0; k < 2; ++k) {
+      const float t = hits[k]->slot >= 0 ? hits[k]->t : kMissT;
+      const int row[4] = {hits[k]->slot, works[k]->nodes, works[k]->tris, works[k]->slots};
+      std::fwrite(&t, 4, 1, out);
+      std::fwrite(row, 4, 4, out);
+    }
+  }
+  std::fclose(out);
+  return 0;
+}
+
 int main(int argc, char** argv) {
   const int width = std::atoi(argv[1]), stack = std::atoi(argv[2]), any = std::atoi(argv[3]);
+  const int rel = argc > 4 ? std::atoi(argv[4]) : 0;
   const auto raw = slurp<float>("nodes.bin");
   const auto tris = slurp<float>("tris.bin");
   const auto rays = slurp<float>("rays.bin");
+  if (rel != 0) {
+    const auto rel_raw = slurp<float>("rel_nodes.bin");
+    const auto rel_tris = slurp<float>("rel_tris.bin");
+#define RT_REL(WD, S) \
+  if (width == WD && stack == S) return run_rel<WD, S>(raw, tris, rel_raw, rel_tris, rays);
+    RT_REL(4, 16) RT_REL(4, 32) RT_REL(4, 64) RT_REL(8, 32) RT_REL(8, 64)
+    return 2;
+  }
 #define RT_RUN(WD, S)                                                          \
   if (width == WD && stack == S)                                               \
     return any ? run<WD, S, true>(raw, tris, rays) : run<WD, S, false>(raw, tris, rays);
@@ -184,3 +247,126 @@ def test_host_walk_matches_the_plain_traversal_at_both_widths(walk_host, spatial
               f"{tris.mean():.2f} triangles a ray, {live.sum() / nodes.sum():.2f} live child "
               f"slots a visit")
     assert visits[8] < visits[4]
+
+
+@pytest.fixture(scope="module")
+def courtyards():
+    """The courtyard at each width, SAH or SBVH, packed once for the module."""
+    cache = {}
+
+    def get(width, spatial):
+        if (width, spatial) not in cache:
+            cfg = RaytracerConfig(bvh_width=width, bvh_spatial_splits=spatial)
+            scene = make_courtyard_scene(TRIANGLES, seed=0, config=cfg, device="cpu")
+            cache[width, spatial] = pack_render_tables(scene)
+        return cache[width, spatial]
+
+    return get
+
+
+def walk_rel(build, rt, o, d, max_t):
+    """The closest-hit walk of camera rays over the camera-relative tables
+    of `rt` and over the ordinary ones -> two [N,5] int32 arrays of (t bits,
+    slot, nodes, triangles, live slots)."""
+    directory, exe = build
+    tables = rt.trace
+    rel_nodes, rel_tris = camera_relative_tables(rt)
+    tables.nodes.numpy().tofile(directory / "nodes.bin")
+    tables.tris.numpy().tofile(directory / "tris.bin")
+    rel_nodes.numpy().tofile(directory / "rel_nodes.bin")
+    rel_tris.numpy().tofile(directory / "rel_tris.bin")
+    torch.cat([o, d, max_t[:, None]], dim=1).numpy().tofile(directory / "rays.bin")
+    subprocess.run([str(exe), str(tables.width), str(tables.stack), "0", "1"],
+                   check=True, cwd=directory)
+    out = np.fromfile(directory / "out.bin", dtype=np.int32).reshape(-1, 2, 5)
+    return out[:, 0], out[:, 1]
+
+
+# The cameras the relative walk starts from: the scene's, one across the
+# courtyard looking down, one low and off every axis looking up.
+CAMERAS = {"scene": None,
+           "across": ((7.25, 3.5, -11.0), (-0.4, -0.3, 0.85)),
+           "low": ((-3.125, 0.375, 2.2), (0.55, 0.2, -0.8))}
+
+
+@pytest.mark.parametrize("camera", sorted(CAMERAS))
+@pytest.mark.parametrize("spatial", [False, True], ids=["sah", "sbvh"])
+@pytest.mark.parametrize("width", [4, 8])
+def test_host_camera_relative_walk_matches_the_ordinary_walk(walk_host, courtyards, width,
+                                                             spatial, camera):
+    rt = courtyards(width, spatial)
+    if CAMERAS[camera] is not None:   # a copy: the module's tables keep their camera
+        rt = dataclasses.replace(rt, camera=rt.camera.clone(),
+                                 trace=dataclasses.replace(rt.trace))
+        set_camera(rt, Camera.create(*CAMERAS[camera]))
+    tables = rt.trace
+    assert tables.width == width
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.int32),
+                            torch.arange(W, dtype=torch.int32), indexing="ij")
+    o, d = generate_rays(tables.scene.camera, W, H, xs.reshape(-1), ys.reshape(-1))
+    o, d = o.contiguous(), d.contiguous()
+    assert torch.equal(o, rt.camera[:3].expand_as(o))   # one origin: the camera row's
+    max_t = torch.full((o.shape[0],), F32_MAX)
+    got, ordinary = walk_rel(walk_host, rt, o, d, max_t)
+    assert np.array_equal(got, ordinary)   # t bits, slot, nodes, triangles, live slots
+    pt, ps, ph, _, _ = traverse_triangles(tables.scene, o, d, max_t)
+    hit = got[:, 1] >= 0
+    assert hit.any() and np.array_equal(hit, ph.numpy())
+    assert np.array_equal(got[hit, 0].view(np.float32), pt.numpy()[hit])
+    assert np.array_equal(got[hit, 1], ps.numpy()[hit])
+    print(f"width {width} spatial={spatial} camera={camera}: {got[:, 2].mean():.2f} nodes, "
+          f"{got[:, 3].mean():.2f} triangles a camera ray, all equal to the ordinary walk")
+
+
+# The 1920x1080 frame's pixel (264, 981) on the 100k courtyard after the
+# Viewer's keys "w" then "d": two triangles meet at an edge there, and their
+# computed t differ by ~5 ulps.
+ORDER_TIE = dict(width=1920, height=1080, px=264, py=981, triangles=100_000)
+
+
+def test_order_tie_at_a_shared_edge_keeps_the_jax_walks_winner(walk_host):
+    """The walk (ordinary and camera-relative, at width 4) reaches slot
+    50319 first and culls the leaf of slot 35181, whose slab entry rounds to
+    no less than 50319's t while 35181's own t is ~5 ulps smaller (without
+    50319 the walk returns 35181); the plain left-first
+    traversal keeps 35181. The JAX package's threaded walk keeps 50319 at
+    the walk's t, bit for bit. So K1 and its plain version may part on such
+    order ties (counted in chip_smoke.py::order_ties), and K3's relative
+    walk parts exactly where the ordinary walk does."""
+    import jax.numpy as jnp
+
+    from gpu_raytracer_tpu.models.camera import CameraController as JaxCameraController
+    from gpu_raytracer_tpu.ops.bvh_traverse import bvh_traverse_threaded as jax_threaded
+    from gpu_raytracer_tpu.ops.camera_rays import generate_rays as jax_generate_rays
+    from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
+
+    c = ORDER_TIE
+    scene = make_courtyard_scene(c["triangles"], seed=0, device="cpu")
+    rt = pack_render_tables(scene)
+    ctl = CameraController(scene.camera)
+    ctl.move(forward=1.0)
+    ctl.move(strafe=1.0)
+    set_camera(rt, ctl.camera())
+    px, py = torch.tensor([c["px"]], dtype=torch.int32), torch.tensor([c["py"]], dtype=torch.int32)
+    o, d = generate_rays(rt.scene.camera, c["width"], c["height"], px, py)
+    o, d = o.contiguous(), d.contiguous()
+    max_t = torch.full((1,), F32_MAX)
+    got, ordinary = walk_rel(walk_host, rt, o, d, max_t)
+    assert np.array_equal(got, ordinary)
+    walk_t, walk_slot = got[0, 0:1].view(np.float32)[0], int(got[0, 1])
+    pt, ps, _, _, _ = traverse_triangles(rt.scene, o, d, max_t)
+    assert (walk_slot, int(ps[0])) == (50319, 35181)
+    assert float(pt[0]) < walk_t and (walk_t - float(pt[0])) / walk_t < 1e-6
+    # the JAX package, on the same ray bit for bit
+    js = jax_courtyard(c["triangles"], seed=0)
+    jctl = JaxCameraController(js.camera)
+    jctl.move(forward=1.0)
+    jctl.move(strafe=1.0)
+    jo, jd = jax_generate_rays(jctl.camera(), c["width"], c["height"],
+                               jnp.asarray(px.numpy()), jnp.asarray(py.numpy()))
+    assert np.array_equal(np.asarray(jo).view(np.int32), o.numpy().view(np.int32))
+    assert np.array_equal(np.asarray(jd).view(np.int32), d.numpy().view(np.int32))
+    jt, jslot, _ = jax_threaded(js.bvh, js.tri_v0, js.tri_e1, js.tri_e2, jo, jd,
+                                jnp.asarray(max_t.numpy()), leaf_size=js.bvh.max_leaf)
+    assert int(jslot[0]) == walk_slot
+    assert np.asarray(jt)[0].view(np.int32) == np.float32(walk_t).view(np.int32)
