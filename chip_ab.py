@@ -9,6 +9,8 @@ in turn inside one run so that they share a card.
     python3 chip_ab.py --one [--root DIR] [--defines "A=1 B=2"]   # one measurement, one JSON line
     python3 chip_ab.py --sass                               # SASS size of K1's, K3's loops (widths 4, 8)
     python3 chip_ab.py --parent build/parent --k3           # K3's readings alone (below)
+    python3 chip_ab.py --parent build/parent --w8           # the width-8 readings alone (below)
+    python3 chip_ab.py --w8 --variants "kRenderMinBlocksW8=5"   # width 8's caps, orders
 
 Unpack the other tree first (`git archive <commit> | tar -x -C build/parent`;
 build/ is git-ignored). Every measurement is its own process, run from this
@@ -49,6 +51,20 @@ where the tree has one), the pre-pass alone, the textured frame (pre-pass, K3,
 K4); and the textured Viewer's camera-moving frame with shadows (phase 21's
 reading): ms pipelined, device time and host enqueue. `--k3` measures only
 these (and the SASS digest and registers), for a quicker A/B of K3.
+`--w8` measures only the width-8 readings on the 100k courtyard (and the
+SASS digest, registers), by device time (torch.profiler, the L2 flushed
+before each call): K1 w8 on the 1920x1080 camera rays (closest hit) and on
+phase 3's 262,144 shadow rays toward the point light and as many toward the
+directional light (any hit), with node visits and triangle tests a ray
+(`traversal_work`) and the rays blocked; K2 w8 and K2t w8 shadows off and
+on; K3 w8 with its pre-pass, shadows off and on; K6 w8 per sample of
+PathTracer.step() at 1024x1024, untextured and textured, and one K6 w8
+launch on the main path's depth-0 and depth-1 pools; width 4's K1, K2 and
+K6 per sample as the control; ptxas's registers and spills of every
+width-8 instance; the SASS size of K1's closest-hit and any-hit loops at
+both widths (`sass_loops`); and, where the tree counts them
+(`children_ahead`), the width-8 visits by children ahead on the camera rays,
+both lights' shadow rays and the depth-0 and depth-1 pools.
 Every line also holds a digest of the SASS of each width-4 K1, K2, K2t and K6
 instance (`sass_digest`); the summary says whether they are identical in
 every build.
@@ -148,7 +164,126 @@ def measure_k3(out: dict, device, width: int = WIDTH, height: int = HEIGHT) -> N
         del scene
 
 
-def measure(root: str, defines: list[str], label: str, k3_only: bool = False) -> dict:
+SHADOW_RAYS = 262_144          # phase 3's shadow rays, per light
+
+
+def measure_w8(out: dict, device, ptxas: dict, width: int = WIDTH, height: int = HEIGHT) -> None:
+    """The width-8 readings (the module docstring) into `out`, for the tree
+    on sys.path, by device time (torch.profiler, the L2 flushed before each
+    call); width 4's K1, K2 and K6 beside them as the control. The visits
+    by children ahead where the tree counts them (children_ahead)."""
+    import hashlib
+
+    import torch
+
+    from gpu_raytracer_tpu_torch.config import RaytracerConfig
+    from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
+    from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
+    from gpu_raytracer_tpu_torch.ops.cuda import traverse as traverse_mod
+    from gpu_raytracer_tpu_torch.ops.cuda import render as render_mod
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce_, pack_bounce_tables
+    from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
+                                                         render_primary)
+    from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables
+    from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
+
+    traverse = traverse_mod.traverse
+    ahead = getattr(traverse_mod, "children_ahead", None)
+    px, py = (torch.from_numpy(a).to(device)
+              for a in tiled_pixel_order(width, height, warp=(8, 4)))
+
+    def device_reading(fn, words):
+        return [HERE_SMOKE.kernel_device_ms(fn, words, LAUNCHES, device) for _ in range(REPEATS)]
+
+    def per_ray(work):
+        w = work.double().mean(dim=0).tolist()
+        return dict(nodes=w[0], tris=w[1])
+
+    for w in (8, 4):
+        cfg = RaytracerConfig(bvh_width=w)
+        scene = make_courtyard_scene(100_000, seed=0, config=cfg, device=device)
+        tables = pack_render_tables(scene)
+        tr = tables.trace
+        if w == 8:
+            out["ptxas_w8"] = {k: v for k, v in ptxas.items()
+                               if re.search(rf"<8, {tr.stack}[,>]", k)}
+            out["w8_registers"] = HERE_SMOKE.w8_registers(ptxas)
+        o, d = HERE_SMOKE.primary_rays(scene, width, height, px, py)
+        far = torch.full((o.shape[0],), HERE_SMOKE.F32_MAX, device=device)
+        key = f"k1w{w}"
+        out[f"{key}_camera_device"] = device_reading(lambda: traverse(tr, o, d, far),
+                                                     "traverse_kernel")
+        work = {"camera": traverse_mod.traversal_work(tr, o, d, far)}
+        t, _, h, n, _ = traverse(tr, o, d, far)
+        rays = {"camera": (o, d, far, False)}
+        for light in ("point", "directional"):
+            so, sd, smax = HERE_SMOKE.light_shadow_rays(scene, o, d, t, h, n, SHADOW_RAYS,
+                                                        directional=light == "directional")
+            rays[f"shadow_{light}"] = (so, sd, smax, True)
+            out[f"{key}_shadow_{light}_device"] = device_reading(
+                lambda: traverse(tr, so, sd, smax, any_hit=True), "traverse_kernel")
+            work[f"shadow_{light}"] = traverse_mod.traversal_work(tr, so, sd, smax, any_hit=True)
+            out[f"{key}_shadow_{light}_blocked"] = int(traverse(tr, so, sd, smax,
+                                                                any_hit=True)[2].sum())
+        out[f"{key}_per_ray"] = {k: per_ray(v) for k, v in work.items()}
+        # every camera ray's visits, tests and live slots (not the warp-led
+        # counts, which depend on timing): equal digests, the same walk
+        out[f"{key}_camera_work_digest"] = hashlib.sha256(
+            work["camera"][:, [0, 1, 4]].cpu().numpy().tobytes()).hexdigest()[:16]
+        if w == 8 and ahead is not None:
+            out["children_ahead_w8"] = {k: ahead(tr, ro, rd, rm, any_hit=a).tolist()
+                                        for k, (ro, rd, rm, a) in rays.items()}
+        for shadows in (False, True):
+            s = "shadows" if shadows else "no_shadows"
+            out[f"k2w{w}_{s}_device"] = device_reading(
+                lambda: render_primary(tables, px, py, width, height, shadows=shadows),
+                "render_primary_kernel")
+        pt = PathTracer(scene, PT_SIZE, PT_SIZE, device=device)
+        for _ in range(3):
+            pt.step()
+        prof = [HERE_SMOKE.device_profile(pt.step, PT_STEPS, device) for _ in range(REPEATS)]
+        out[f"k6w{w}_device_ms_per_spp"] = [p["k6_device_ms"] for p in prof]
+        del pt
+        if w == 4:
+            continue
+        btab = pack_bounce_tables(scene)
+        for depth, pool, order, n_live, qmc, flags in HERE_SMOKE.pools(btab, PT_SIZE, PT_SIZE,
+                                                                      (0, 1)):
+            rad = torch.zeros((pool.count, 3), dtype=torch.float32, device=device)
+            out[f"k6w8_depth{depth}_device"] = device_reading(
+                lambda: fused_bounce_(btab, pool.clone(), rad, depth=depth, order=order,
+                                      n_live=n_live, qmc=qmc, **flags), "bounce_kernel")
+            if ahead is not None:
+                live = pool.active
+                out["children_ahead_w8"][f"k6_depth{depth}"] = ahead(
+                    tr, pool.origin[live].contiguous(), pool.direction[live].contiguous(),
+                    torch.full((int(live.sum()),), HERE_SMOKE.F32_MAX, device=device)).tolist()
+            del pool, rad
+        del btab, tables, scene
+        # the textured courtyard: K2t, K3 with its pre-pass, textured K6
+        tscene = make_courtyard_scene(100_000, seed=0, textured=True, texture_size=TEXTURE_SIZE,
+                                      config=cfg, device=device)
+        ttables, shade = pack_render_tables(tscene), pack_shade_tables(tscene)
+        k3_words = ("render_deferred_kernel",) + (
+            ("camera_relative_kernel",) if hasattr(render_mod, "camera_relative") else ())
+        for shadows in (False, True):
+            s = "shadows" if shadows else "no_shadows"
+            out[f"k2tw8_{s}_device"] = device_reading(
+                lambda: render_primary(ttables, px, py, width, height, shadows=shadows,
+                                       shade=shade), "render_primary_kernel")
+            out[f"k3w8_{s}_and_pre_pass_device"] = device_reading(
+                lambda: render_deferred(ttables, px, py, width, height, shadows=shadows),
+                k3_words)
+        pt = PathTracer(tscene, PT_SIZE, PT_SIZE, device=device)
+        for _ in range(3):
+            pt.step()
+        prof = [HERE_SMOKE.device_profile(pt.step, PT_STEPS, device) for _ in range(REPEATS)]
+        out["k6w8_textured_device_ms_per_spp"] = [p["k6_device_ms"] for p in prof]
+        del pt, ttables, shade, tscene
+
+
+def measure(root: str, defines: list[str], label: str, k3_only: bool = False,
+            w8_only: bool = False) -> dict:
     sys.path.insert(0, root)
     import dataclasses
 
@@ -179,6 +314,14 @@ def measure(root: str, defines: list[str], label: str, k3_only: bool = False) ->
                     if re.search(r"<(?:[48], )?32[,>]", name)
                     or name.startswith(("texshade_kernel", "sample_materials_kernel",
                                         "camera_relative_kernel"))}
+    if w8_only:
+        out["sass_w8_primary"] = sass_digest(k.path, ("render_primary_w8",
+                                                      "render_primary_textured_w8"))
+        out["sass_loops"] = {k: dict(instructions=v["instructions"],
+                                     loops=[lp["instructions"] for lp in v["loops"]])
+                             for k, v in sass_loops(root).items()}
+        measure_w8(out, device, ptxas)
+        return out
     measure_k3(out, device)
     if k3_only:
         return out
@@ -315,12 +458,12 @@ def instance_key(mangled: str) -> str | None:
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def sass_digest(lib_path: str) -> dict:
+def sass_digest(lib_path: str, objects=WIDTH4_OBJECTS) -> dict:
     """A digest of the SASS of each width-4 K1, K2, K2t and K6 instance
     (untextured and textured; cuobjdump of the built objects), keyed by
     `instance_key`: equal digests in two builds mean the same machine code,
     which changes elsewhere (K3, the width-8 instances, compiled in other
-    objects) must leave alone."""
+    objects) must leave alone. `objects`: other built objects instead."""
     import glob
     import hashlib
 
@@ -328,7 +471,7 @@ def sass_digest(lib_path: str) -> dict:
 
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     out = {}
-    for obj in WIDTH4_OBJECTS:
+    for obj in objects:
         path = glob.glob(os.path.join(os.path.dirname(lib_path), f"*.{obj}.o"))[0]
         text = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
                               check=True).stdout
@@ -341,8 +484,8 @@ def sass_digest(lib_path: str) -> dict:
 
 
 def sass_loops(root: str) -> dict:
-    """Static SASS size of K1's closest-hit instances and of K3's for a
-    32-entry stack, at width 4 (the traverse and render_deferred objects)
+    """Static SASS size of K1's closest-hit and any-hit instances and of
+    K3's for a 32-entry stack, at width 4 (the traverse and render_deferred objects)
     and, where the tree has them, width 8 (traverse_w8, render_deferred_w8),
     from `cuobjdump -sass`: each one's instruction count, opcode histogram,
     loops (every backward branch: first and last address and the
@@ -365,6 +508,10 @@ def sass_loops(root: str) -> dict:
              "traverse_kernel<4, 32, 0>"),
             ("k1_width8", 8, "traverse_w8", r"traverse_kernelILi8ELi32ELb0",
              "traverse_kernel<8, 32, 0>"),
+            ("k1_width4_any_hit", 4, "traverse", r"traverse_kernelI(?:Li4E)?Li32ELb1",
+             "traverse_kernel<4, 32, 1>"),
+            ("k1_width8_any_hit", 8, "traverse_w8", r"traverse_kernelILi8ELi32ELb1",
+             "traverse_kernel<8, 32, 1>"),
             ("k3_width4", 4, "render_deferred", r"render_deferred_kernelI(?:Li4E)?Li32EE",
              "render_deferred_kernel<4, 32>"),
             ("k3_width8", 8, "render_deferred_w8", r"render_deferred_kernelILi8ELi32EE",
@@ -397,11 +544,11 @@ def sass_loops(root: str) -> dict:
     return out
 
 
-def run_one(root: str, defines: str, label: str, out: str | None, k3_only: bool = False) -> dict:
-    """One measurement in its own process -> its JSON line, also printed
-    (and appended to `out`)."""
+def run_one(root: str, defines: str, label: str, out: str | None, mode: str = "") -> dict:
+    """One measurement in its own process (`mode`: "", "--k3" or "--w8")
+    -> its JSON line, also printed (and appended to `out`)."""
     cmd = [sys.executable, os.path.abspath(__file__), "--one", "--root", root,
-           "--defines", defines, "--label", label] + (["--k3"] if k3_only else [])
+           "--defines", defines, "--label", label] + ([mode] if mode else [])
     proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
     if proc.returncode != 0 or not lines:
@@ -477,27 +624,30 @@ def main() -> int:
                     help="print the static SASS size of K1's closest-hit instances and K3's")
     ap.add_argument("--k3", action="store_true",
                     help="measure K3's readings only (and the SASS digest, registers)")
+    ap.add_argument("--w8", action="store_true",
+                    help="measure the width-8 readings only (and the SASS digest, registers)")
     args = ap.parse_args()
+    mode = "--w8" if args.w8 else "--k3" if args.k3 else ""
     if args.sass:
         print(json.dumps(dict(sass=sass_loops(os.path.abspath(args.root)))), flush=True)
         return 0
     if args.one:
         print(json.dumps(measure(os.path.abspath(args.root), args.defines.split(), args.label,
-                                 args.k3)), flush=True)
+                                 args.k3, args.w8)), flush=True)
         return 0
     rows = []
     if args.parent:
         parent = os.path.abspath(args.parent)
         for label, root in (("parent_a", parent), ("change_a", HERE), ("change_b", HERE),
                             ("parent_b", parent)):
-            rows.append(run_one(root, "", label, args.out, args.k3))
+            rows.append(run_one(root, "", label, args.out, mode))
     if args.variants:
-        rows.append(run_one(HERE, "", "default_a", args.out, args.k3))
+        rows.append(run_one(HERE, "", "default_a", args.out, mode))
         for v in args.variants:
             label = v.replace("RT_", "").replace(" ", ",")
             root, defines = variant_tree(v.split(), label)
-            rows.append(run_one(root, " ".join(defines), label, args.out, args.k3))
-        rows.append(run_one(HERE, "", "default_b", args.out, args.k3))
+            rows.append(run_one(root, " ".join(defines), label, args.out, mode))
+        rows.append(run_one(HERE, "", "default_b", args.out, mode))
     good = [r for r in rows if not r.get("failed")]
     if good:
         summary(good)
@@ -508,6 +658,11 @@ def main() -> int:
             same = len({json.dumps(d, sort_keys=True) for d in kept}) == 1
             print(f"{kernel} (width 4, every instance) SASS identical in every build: {same} "
                   f"({len(kept[0])} instances)", flush=True)
+        w8 = [r["sass_w8_primary"] for r in good if "sass_w8_primary" in r]
+        if w8:
+            same = len({json.dumps(d, sort_keys=True) for d in w8}) == 1
+            print(f"render_primary_kernel (width 8, every instance) SASS identical in every "
+                  f"build: {same} ({len(w8[0])} instances)", flush=True)
     return 0 if len(good) == len(rows) and rows else 1
 
 

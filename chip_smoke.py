@@ -9,6 +9,8 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
   2. build the 100k-triangle courtyard (host BVH build, tables to the card);
   3. K1 (wide-BVH traversal, width 4) against the plain traversal on every camera ray of
      the 1920x1080 frame and on 262,144 shadow rays toward the point light;
+     its any-hit masks there and on as many toward the directional light
+     against the plain any hit and closest hit below max_t, timed;
   4. K2 (fused render) against the plain render_chunk on the full frame,
      shadows off and on, and on the default scene at 256x256;
   5. the main path, Renderer.render_device() at 1920x1080 (on the card in
@@ -119,7 +121,10 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
  22. BVH width 8 (config.bvh_width = 8) on both 100k courtyards: the scenes
      built through make_courtyard_scene, sharing width 4's binary tree and
      slots (asserted), the depth against the stack; K1 on the camera and
-     shadow rays, K3's pre-pass, K2 (shadows off and on), K3 + K4, K2t and
+     shadow rays (any hit toward both lights, timed in turns with width 4;
+     the visits by children ahead, children_ahead, on the camera rays, the
+     shadow rays and K6's depth-0 and depth-1 pools), K3's pre-pass, K2
+     (shadows off and on), K3 + K4, K2t and
      K6 (the main path's pools) against their plain versions (phases 3-11's plain
      outputs, kept in PLAIN_REFS: the same tree and slots give the same
      plain path; K2t's and the refit frame's rendered here); the main paths (Renderer
@@ -366,16 +371,45 @@ def k1_compare(tables, o, d, max_t, ref=None):
                 t_rel=t_rel, t_abs=t_abs, normal_abs=n_err), ties
 
 
-def phase_k1(scene, tables, width, height, n_shadow, device, card, phase="3", ref=None):
-    """K1 against the plain traversal on every camera ray of the frame (in
-    the main path's order) and on n_shadow shadow rays from
-    those hits toward the point light -> (stats, per-pixel tie mask). The
-    plain outputs and time are kept under `ref` (a scene's name, plain_ref)."""
+def light_shadow_rays(scene, o, d, t, h, n, n_shadow, directional=False):
+    """Shadow rays from n_shadow of the camera rays' hits (a seeded choice,
+    in the frame's order): from p + n * 1e-3 toward the first point light,
+    max_t its distance - 1e-3, or with `directional` against the first
+    directional light's direction, max_t 3e38, as the frame kernels cast
+    them (render_common.cuh::light_intensity) -> (origin, direction, max_t)."""
     import numpy as np
     import torch
 
-    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
     from gpu_raytracer_tpu_torch.ops.linalg import dot
+
+    hits = torch.nonzero(h).squeeze(1).cpu().numpy()
+    pick = np.sort(np.random.default_rng(0).choice(hits, min(n_shadow, hits.shape[0]),
+                                                   replace=False))
+    pick = torch.from_numpy(pick).to(o.device)
+    L = scene.lights
+    p = o[pick] + d[pick] * t[pick, None]
+    so = (p + n[pick] * 1e-3).contiguous()
+    if directional:
+        li = int(torch.nonzero(L.light_type == 0)[0])
+        sd = (-L.direction[li]).expand_as(so).contiguous()
+        return so, sd, torch.full((so.shape[0],), 3.0e38, device=o.device)
+    li = int(torch.nonzero(L.light_type == 1)[0])
+    to_light = L.position[li][None, :] - p
+    dist = torch.sqrt(dot(to_light, to_light))
+    sd = (to_light / dist[:, None]).contiguous()
+    return so, sd, (dist - 1e-3).contiguous()
+
+
+def phase_k1(scene, tables, width, height, n_shadow, device, card, phase="3", ref=None):
+    """K1 against the plain traversal on every camera ray of the frame (in
+    the main path's order) and on n_shadow shadow rays from
+    those hits toward the point light; its any-hit masks on those rays and on
+    as many toward the directional light against the plain any-hit and the
+    plain closest hit below max_t, timed -> (stats, per-pixel tie mask). The
+    plain outputs and time are kept under `ref` (a scene's name, plain_ref)."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
     from gpu_raytracer_tpu_torch.ops.trace import traverse_triangles
 
     px, py = frame_pixels(width, height, device)
@@ -385,34 +419,30 @@ def phase_k1(scene, tables, width, height, n_shadow, device, card, phase="3", re
     prim, ties = k1_compare(tables, o, d, far, ref=key("k1_camera"))
 
     t, _, h, n, _ = plain_ref(key("k1_camera"), lambda: traverse_triangles(scene, o, d, far))
-    hits = torch.nonzero(h).squeeze(1).cpu().numpy()
-    pick = np.sort(np.random.default_rng(0).choice(hits, min(n_shadow, hits.shape[0]),
-                                                   replace=False))
-    pick = torch.from_numpy(pick).to(device)
-    L = scene.lights
-    li = int(torch.nonzero(L.light_type == 1)[0])
-    p = o[pick] + d[pick] * t[pick, None]
-    so = (p + n[pick] * 1e-3).contiguous()
-    to_light = L.position[li][None, :] - p
-    dist = torch.sqrt(dot(to_light, to_light))
-    sd = (to_light / dist[:, None]).contiguous()
-    smax = (dist - 1e-3).contiguous()
+    so, sd, smax = light_shadow_rays(scene, o, d, t, h, n, n_shadow)
     shadow, _ = k1_compare(tables, so, sd, torch.full_like(smax, 3.4028234663852886e38),
                            ref=key("k1_shadow"))
-    blocked = traverse(tables, so, sd, smax, any_hit=True)[2]
-    closest = plain_ref(key("k1_shadow_below"), lambda: traverse_triangles(scene, so, sd, smax))[2]
-    if not torch.equal(blocked, closest):
-        raise AssertionError(f"K1 any-hit differs from closest t < max_t on "
-                             f"{(blocked != closest).sum().item()} shadow rays")
-    plain_anyhit = plain_ref(key("k1_shadow_any"),
-                             lambda: traverse_triangles(scene, so, sd, smax, any_hit=True))[2]
-    if not torch.equal(blocked, plain_anyhit):
-        raise AssertionError("K1 any-hit differs from the plain any-hit")
+    any_hit = {}
+    for light, (lo, ld, lmax) in (("point", (so, sd, smax)), ("directional", light_shadow_rays(
+            scene, o, d, t, h, n, n_shadow, directional=True))):
+        suffix = "" if light == "point" else "_directional"
+        blocked = traverse(tables, lo, ld, lmax, any_hit=True)[2]
+        closest = plain_ref(key("k1_shadow_below" + suffix),
+                            lambda: traverse_triangles(scene, lo, ld, lmax))[2]
+        if not torch.equal(blocked, closest):
+            raise AssertionError(f"K1 any-hit differs from closest t < max_t on "
+                                 f"{(blocked != closest).sum().item()} {light} shadow rays")
+        plain_anyhit = plain_ref(key("k1_shadow_any" + suffix), lambda: traverse_triangles(
+            scene, lo, ld, lmax, any_hit=True))[2]
+        if not torch.equal(blocked, plain_anyhit):
+            raise AssertionError(f"K1 any-hit differs from the plain any-hit ({light} light)")
+        any_hit[light] = dict(rays=int(lo.shape[0]), blocked=int(blocked.sum()), ms=timed(
+            lambda: traverse(tables, lo, ld, lmax, any_hit=True), FRAMES, device))
     ms = timed(lambda: traverse(tables, o, d, far), FRAMES, device)
     plain_ms = plain_ref(key("k1_plain_ms"), lambda: timed(
         lambda: traverse_triangles(scene, o, d, far), PLAIN_FRAMES, device))
-    stats = dict(primary=prim, shadow=shadow, shadow_blocked=int(blocked.sum()),
-                 ms=ms, plain_ms=plain_ms, card=card)
+    stats = dict(primary=prim, shadow=shadow, shadow_blocked=any_hit["point"]["blocked"],
+                 any_hit=any_hit, ms=ms, plain_ms=plain_ms, card=card)
     log(f"phase {phase} K1 (width {tables.width}): {json.dumps(stats)}")
     return stats, ties
 
@@ -2762,6 +2792,23 @@ def alternating_ms(fn4, fn8, n: int, device) -> dict:
     return out
 
 
+def w8_registers(ptxas: dict) -> dict:
+    """The width-8 instances of each traversing kernel (ptxas_summary's
+    names, the width first) -> registers (least, most) and the most spill
+    stores of any instance."""
+    out = {}
+    for name, v in ptxas.items():
+        kernel, _, args = name.partition("<")
+        if args.startswith("8,") and "registers" in v:
+            o = out.setdefault(kernel, dict(instances=0, registers=[v["registers"]] * 2,
+                                            spill_stores=0))
+            o["instances"] += 1
+            o["registers"] = [min(o["registers"][0], v["registers"]),
+                              max(o["registers"][1], v["registers"])]
+            o["spill_stores"] = max(o["spill_stores"], v.get("spill_stores", 0))
+    return out
+
+
 def main_path_launches(fn, n: int, device, want: dict, label: str) -> tuple[float, dict]:
     """Median ms of n calls of fn with every launch count set to 0 before
     and read after; on the card the counts must be `want` (ZERO_LAUNCHES
@@ -2779,7 +2826,10 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
     """Phase 22: BVH width 8 (config.bvh_width = 8) on both 100k courtyards.
     The width-8 scenes built through the user's path, asserted to share
     width 4's binary tree and slots, their stack asserted against their
-    depth; K1 on the camera and shadow rays, K2 (shadows off, on), K3 + K4,
+    depth; K1 on the camera and shadow rays (any hit toward both lights in
+    turns with width 4, and on the card the visits by children ahead of the
+    camera rays, the shadow rays and K6's depth-0 and depth-1 pools), K2
+    (shadows off, on), K3 + K4,
     K2t and K6 (the main path's pools, both courtyards) against their plain
     versions; the main paths (Renderer frames, render_primary with the
     shade tables, PathTracer.step()) with their launch counts, each timed in
@@ -2804,7 +2854,8 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
     from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
                                                          render_primary)
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables
-    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import children_ahead, traverse
+    from gpu_raytracer_tpu_torch.ops.trace import traverse_triangles
     from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
 
     cuda = device.type == "cuda"
@@ -2836,6 +2887,7 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
         shares_binary_tree_and_slots=True,
         ptxas={k: v for k, v in ptxas.items()
                if re.search(rf"<(8, {tr8.stack}|4, {tr4.stack})[,>]", k)})
+    out["scene"]["w8_registers_and_spills"] = w8_registers(ptxas)
     log(f"phase 22 width-8 scenes: {json.dumps(out['scene'])}")
 
     # K1: the camera and shadow rays against the plain walk, then in turns with width 4
@@ -2846,7 +2898,32 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
     far = torch.full((px.shape[0],), F32_MAX, device=device)
     out["k1"]["w4_w8_ms"] = alternating_ms(lambda: traverse(tr4, o, d, far),
                                            lambda: traverse(tr8, o, d, far), FRAMES, device)
-    log(f"phase 22 K1 in turns with width 4: {json.dumps(out['k1']['w4_w8_ms'])}")
+    # the any-hit walk on phase 3's shadow rays of both lights, in turns
+    # with width 4, and the width-8 visits by children ahead (0 .. 8)
+    t, _, h, n, _ = plain_ref(("courtyard", "k1_camera"),
+                              lambda: traverse_triangles(scene, o, d, far))
+    shadow = {light: light_shadow_rays(scene, o, d, t, h, n, shadow_rays,
+                                       directional=light == "directional")
+              for light in ("point", "directional")}
+    out["k1"]["any_hit_w4_w8_ms"] = {
+        light: alternating_ms(lambda: traverse(tr4, *r, any_hit=True),
+                              lambda: traverse(tr8, *r, any_hit=True), FRAMES, device)
+        for light, r in shadow.items()}
+    if cuda:
+        ahead = dict(camera=children_ahead(tr8, o, d, far))
+        ahead.update({f"shadow_{light}": children_ahead(tr8, *r, any_hit=True)
+                      for light, r in shadow.items()})
+        for depth, pool, _, _, _, _ in pools(pack_bounce_tables(s8), pt_size, pt_size, (0, 1)):
+            live = pool.active
+            ahead[f"k6_depth{depth}"] = children_ahead(
+                tr8, pool.origin[live].contiguous(), pool.direction[live].contiguous(),
+                torch.full((int(live.sum()),), F32_MAX, device=device))
+        out["k1"]["children_ahead"] = {
+            k: dict(visits=v.tolist(), share_two_or_more=float(v[2:].sum()) / float(v.sum()))
+            for k, v in ahead.items()}
+    log(f"phase 22 K1 in turns with width 4: "
+        f"{json.dumps(dict(closest=out['k1']['w4_w8_ms'], any_hit=out['k1']['any_hit_w4_w8_ms']))}"
+        f"; width-8 visits by children ahead: {json.dumps(out['k1'].get('children_ahead'))}")
     launches = dict(k2_w8=0, k2t_w8=0, k3_w8=0, k3_pre=0, k6_w8=0, k5_w8=0)   # the main paths
 
     # K2: Renderer.render_device(), the main path, shadows off and on
@@ -4249,12 +4326,14 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     kernels += [
         dict(name="K1 bvh8_traverse (the width-8 walk, a device function in every width-8 K2, "
                   "K2t, K3 and K6 launch, whose launches it counts; " + w8_note + "phase 3's "
-                  "plain walk, the same binary tree and slots; ms on the 1080p camera rays)",
+                  "plain walk, the same binary tree and slots; ms on the 1080p camera rays; "
+                  "any_hit_ms: the any-hit walk on phase 3's shadow rays of each light)",
              route="cuda", source="gpu_raytracer_tpu_torch/csrc/traverse_w8.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/traverse.py:476",
              launches=w8l["k2_w8"] + w8l["k2t_w8"] + w8l["k3_w8"] + w8l["k6_w8"],
              max_abs_err=w8e["k1"], ms=w8["k1"]["ms"], plain_ms=w8["k1"]["plain_ms"],
-             **bound8("w8", "K1"), library_ms=None),
+             **bound8("w8", "K1"), library_ms=None,
+             any_hit_ms={k: v["ms"] for k, v in w8["k1"]["any_hit"].items()}),
         dict(name="K2 render_primary, " + w8_note + "phase 5's, the same binary tree and "
                   "slots; ms: Renderer.render_device() at 1080p, shadows off",
              route="cuda", source="gpu_raytracer_tpu_torch/csrc/render_primary_w8.cu",

@@ -66,7 +66,9 @@
 // (0.08 ms at 3.35 TB/s) against 700 MB when every lane was copied; a warp's
 // lanes are scattered in the pool from depth 1 on (32-byte sectors, not
 // 128-byte lines). The launch is 128 threads a block with the registers
-// capped for 4 blocks an SM (a measured sweep, PERF.md).
+// capped for 4 blocks an SM (a measured sweep, PERF.md); the width-8
+// instances take their own cap, kBounceMinBlocksW8 (traverse.cuh), also 4:
+// at 5 (96 registers) they spill 4-80 bytes.
 // The scene tables (~5 MB for the 100k courtyard, the 3.5 MB pair atlas) stay in L2.
 #pragma once
 
@@ -174,7 +176,7 @@ __device__ __forceinline__ void qmc_uniforms(const QmcStream& q, int lane, float
 }
 
 template <int W, int STACK, bool TEXTURED, int NEE, int CONT>
-__global__ void __launch_bounds__(kBounceBlock, kBounceMinBlocks)
+__global__ void __launch_bounds__(kBounceBlock, W == 8 ? kBounceMinBlocksW8 : kBounceMinBlocks)
 bounce_kernel(const BounceArgs a) {
   const Node<W>* nodes = static_cast<const Node<W>*>(a.nodes);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;

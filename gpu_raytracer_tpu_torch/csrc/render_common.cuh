@@ -129,7 +129,8 @@ __device__ __forceinline__ bool closest_surface(const Node<W>* __restrict__ node
 
 // Intensity of light row L at the surface, times 0 when a shadow ray finds a
 // blocker (only traced where the light contributes), before the > 0 gate.
-template <int W, int STACK>
+// NEAR_ANY: the width-8 shadow walk in the closest hit's order (walk_bvh).
+template <int W, int STACK, bool NEAR_ANY = false>
 __device__ __forceinline__ float light_intensity(const float* __restrict__ L, const Surface& s,
                                                  bool shadows, const Node<W>* __restrict__ nodes,
                                                  const float4* __restrict__ tris,
@@ -160,7 +161,9 @@ __device__ __forceinline__ float light_intensity(const float* __restrict__ L, co
       float st;
       blocked = sphere_hit(spheres + k * kSphereWords, sray, smax, st);
     }
-    if (!blocked) blocked = traverse_bvh<W, STACK, true>(nodes, tris, sray, smax).slot >= 0;
+    if (!blocked)
+      blocked = traverse_bvh<W, STACK, true, false, false, NEAR_ANY>(nodes, tris, sray, smax)
+                    .slot >= 0;
     I = I * (blocked ? 0.0f : 1.0f);
   }
   return I;
@@ -169,14 +172,15 @@ __device__ __forceinline__ float light_intensity(const float* __restrict__ L, co
 // Single-sample light selection (ops/shading.py with `light_index`): the one
 // light min(int(u * n_lights), n_lights - 1), its shadowed intensity behind
 // the > 0 gate and weighted by the light count in `Ig`; returns its row.
-template <int W, int STACK>
+template <int W, int STACK, bool NEAR_ANY = false>
 __device__ __forceinline__ const float* sampled_light(
     const float* __restrict__ lights, int n_lights, float u, const Surface& s, bool shadows,
     const Node<W>* __restrict__ nodes, const float4* __restrict__ tris,
     const float* __restrict__ spheres, int n_spheres, float& Ig) {
   const int li = min(static_cast<int>(u * static_cast<float>(n_lights)), n_lights - 1);
   const float* L = lights + li * kLightWords;
-  const float I = light_intensity<W, STACK>(L, s, shadows, nodes, tris, spheres, n_spheres);
+  const float I =
+      light_intensity<W, STACK, NEAR_ANY>(L, s, shadows, nodes, tris, spheres, n_spheres);
   const float gate = I > 0.0f ? 1.0f : 0.0f;
   Ig = (I * gate) * static_cast<float>(n_lights);
   return L;

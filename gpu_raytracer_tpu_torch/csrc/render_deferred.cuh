@@ -54,7 +54,7 @@ namespace rt {
 constexpr int kCameraRel = 1;
 
 template <int W, int STACK>
-__global__ void __launch_bounds__(kRenderBlock, kRenderMinBlocks)
+__global__ void __launch_bounds__(kRenderBlock, W == 8 ? kRenderMinBlocksW8 : kRenderMinBlocks)
 render_deferred_kernel(const Node<W>* __restrict__ nodes, const float4* __restrict__ tris,
                        const float4* __restrict__ attrs, const Node<W>* __restrict__ rel_nodes,
                        const float4* __restrict__ rel_tris, const float* __restrict__ cam,

@@ -48,8 +48,10 @@
 // instead of the ~15 per-ray arrays the plain pipeline writes to device
 // memory between stages. The launch is 128
 // threads a block with the registers capped for 6 blocks an SM (77-80
-// registers, no spills; a measured sweep, PERF.md), and callers order the
-// pixels so that a warp is an 8 x 4 block (engine/renderer.py).
+// registers, no spills at width 4; a measured sweep, PERF.md); the width-8
+// instances take their own cap, kRenderMinBlocksW8 (traverse.cuh), also 6,
+// at which they spill 24-92 bytes: 5 or 4 blocks measured slower. Callers
+// order the pixels so that a warp is an 8 x 4 block (engine/renderer.py).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,6 +60,13 @@
 #include "texsample.cuh"
 
 namespace rt {
+
+// The width-8 shadow walks of K2 and K2t keep the closest hit's near-first
+// order (render_common.cuh NEAR_ANY): with the other kernels' any-hit walk
+// K2 w8 and K2t w8 read 4-6% slower without shadows (the same camera walk:
+// the fused kernel's code and spills move) and up to 3% slower with them
+// (PERF.md). `chip_ab.py --w8 --variants kPrimaryNearAnyW8=0` reads it again.
+constexpr int kPrimaryNearAnyW8 = 1;
 
 // What the textured instance reads beside the untextured one's arguments.
 struct PrimaryTextures {
@@ -70,7 +79,7 @@ struct PrimaryTextures {
 };
 
 template <int W, int STACK, bool TEXTURED>
-__global__ void __launch_bounds__(kRenderBlock, kRenderMinBlocks)
+__global__ void __launch_bounds__(kRenderBlock, W == 8 ? kRenderMinBlocksW8 : kRenderMinBlocks)
 render_primary_kernel(const Node<W>* __restrict__ nodes, const float4* __restrict__ tris,
                       const float* __restrict__ cam, const float* __restrict__ mats,
                       int n_mats, const float* __restrict__ lights, int n_lights,
@@ -110,15 +119,15 @@ render_primary_kernel(const Node<W>* __restrict__ nodes, const float4* __restric
   float sum[3] = {0.0f, 0.0f, 0.0f};
   if (light_u != nullptr) {
     float Ig;
-    const float* L = sampled_light<W, STACK>(lights, n_lights, light_u[i], s, shadows != 0, nodes,
-                                          tris, spheres, n_spheres, Ig);
+    const float* L = sampled_light<W, STACK, kPrimaryNearAnyW8 == 1>(
+        lights, n_lights, light_u[i], s, shadows != 0, nodes, tris, spheres, n_spheres, Ig);
 #pragma unroll
     for (int c = 0; c < 3; ++c) sum[c] = m.albedo[c] * brdf * Ig * L[4 + c];
   } else {
     for (int li = 0; li < n_lights; ++li) {
       const float* L = lights + li * kLightWords;
-      const float I = light_intensity<W, STACK>(L, s, shadows != 0, nodes, tris, spheres,
-                                                n_spheres);
+      const float I = light_intensity<W, STACK, kPrimaryNearAnyW8 == 1>(
+          L, s, shadows != 0, nodes, tris, spheres, n_spheres);
       const float gate = I > 0.0f ? 1.0f : 0.0f;
 #pragma unroll
       for (int c = 0; c < 3; ++c) sum[c] = sum[c] + m.albedo[c] * brdf * (I * gate) * L[4 + c];

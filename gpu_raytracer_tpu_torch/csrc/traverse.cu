@@ -35,15 +35,17 @@ extern "C" int rt_traverse(const void* nodes, const void* tris, int width, int s
                              static_cast<int*>(slot_out),
                              static_cast<float*>(normal_out),
                              static_cast<int*>(mat_out),
+                             nullptr,
                              nullptr};
   return launch_width(a, width, stack, false, static_cast<cudaStream_t>(stream));
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a width or stack capacity that was not compiled.
+// ahead_out: null, or at width 8 [9] counts that the visits are added to.
 extern "C" int rt_traverse_work(const void* nodes, const void* tris, int width, int stack,
                                 const void* orig, const void* dirn, const void* max_t, int n,
-                                int any_hit, void* work_out, void* stream) {
+                                int any_hit, void* work_out, void* ahead_out, void* stream) {
   if (n <= 0) return 0;
   const rt::TraverseLaunch a{nodes,
                              static_cast<const float4*>(tris),
@@ -56,6 +58,7 @@ extern "C" int rt_traverse_work(const void* nodes, const void* tris, int width, 
                              nullptr,
                              nullptr,
                              nullptr,
-                             static_cast<int*>(work_out)};
+                             static_cast<int*>(work_out),
+                             static_cast<unsigned*>(ahead_out)};
   return launch_width(a, width, stack, true, static_cast<cudaStream_t>(stream));
 }

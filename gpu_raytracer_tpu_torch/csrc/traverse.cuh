@@ -66,19 +66,32 @@
 // ordering written per width inside it. A width-8 visit loads two
 // lines (twelve float4 of boxes, two int4 of codes, the axis) and tests eight
 // boxes; the tame test's near and far plane of an axis are each two float4,
-// picked by the direction's sign as at width 4. Its children are ordered by
-// insertion: each live child's place in the visit order is the number of
-// children before it, by entry distance and, on equal distances, by the
-// stored order (forward or backward along the axis, as register swaps), 28
-// compares whose results add into a 4-bit rank per child in one register;
-// the nearest is entered, the others are stored straight into their stack
-// slots, far first. That is the order the width-4 network gives (stable), and
-// nothing but the stack is indexed dynamically. Measured on an NVIDIA H100
-// 80GB HBM3 at 700 W (PERF.md): a 1080p camera ray visits 8.0 width-8 nodes
-// against 12.2 width-4 ones, and the width-8 kernels take 5-29% longer: the
-// walk is issue-bound, and the width-8 node loop is 480 SASS instructions
-// against 217 (chip_ab.py --sass; the frame kernels also spill at their
-// register cap).
+// picked by the direction's sign as at width 4. Its closest hit orders the
+// children by insertion: each live child's place in the visit order is the
+// number of children before it, by entry distance and, on equal distances,
+// by the stored order (forward or backward along the axis, as register
+// swaps), 28 compares whose results add into a 4-bit rank per child in one
+// register; the nearest is entered, the others are stored straight into
+// their stack slots, far first. That is the order the width-4 network gives
+// (stable), and nothing but the stack is indexed dynamically. Its any hit
+// (NEAR_ANY false) ranks nothing: best.t stays max_t until the walk
+// returns, so no visit order culls what another visits, and the mask is the
+// same in any order; the nearest child is entered (one argmin), the others
+// pushed to pop in the stored order, on a stack of child codes without the
+// pop-time cull (an entry's distance is below max_t, so none culls). Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+// chip_ab.py --w8): a 1080p camera ray visits 8.0 width-8 nodes against
+// 12.2 width-4 ones, 36% of them with two or more children ahead, and the
+// walk is issue-bound: the closest node loop is 480 SASS instructions
+// against 217, the any-hit one 318 against the ranked walk's 481 (K1 w8 on
+// shadow rays 8-10% faster, K3 w8 with shadows 6%, K6 w8 2-3% a sample).
+// Measured and not kept: entering the children far first along the axis or
+// in the stored order (50-72% more visits toward a point light: slower), a
+// 19-exchange sorting network on (distance, position) for the closest hit
+// (its loop 490, 7.5% slower), other width-8 register caps
+// (kRenderMinBlocksW8, kBounceMinBlocksW8 below). The fused frame kernels
+// K2 and K2t keep the near-first shadow walk (NEAR_ANY): with the other one
+// their frames read 4-6% slower without shadows, the same camera walk in
+// code that the compiler laid out and spilled differently.
 //
 // The camera-relative walk (REL; only K3's camera ray takes it,
 // render_deferred.cuh): every ray of a batch that starts at one origin o
@@ -103,6 +116,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 // Launch shape of the traversing kernels, from a measured sweep on an H100
 // (PERF.md): threads per block and the minimum resident blocks per SM that
@@ -129,6 +144,12 @@ constexpr int kRenderBlock = RT_RENDER_BLOCK;
 constexpr int kRenderMinBlocks = RT_RENDER_MIN_BLOCKS;
 constexpr int kBounceBlock = RT_BOUNCE_BLOCK;
 constexpr int kBounceMinBlocks = RT_BOUNCE_MIN_BLOCKS;
+// The width-8 instances' own minimum resident blocks per SM (their register
+// caps; width 4 keeps the two above): the frame kernels' (K1, K2, K2t, K3)
+// and the bounce's (K6); `chip_ab.py --w8 --variants kName=VALUE` sweeps
+// them (PERF.md).
+constexpr int kRenderMinBlocksW8 = 6;
+constexpr int kBounceMinBlocksW8 = 4;
 
 // One wide node of W = 4 or 8 children: the child boxes as six planes of W
 // floats, lo_x[W], lo_y[W], lo_z[W], hi_x[W], hi_y[W], hi_z[W] (W / 4 float4
@@ -182,6 +203,9 @@ __device__ __forceinline__ bool is_nan(float x) { return x != x; }
 // tris.
 struct Work {
   int nodes, tris, warp_nodes, warp_tris, slots;
+  // width 8, where not null: ahead[k] += 1 for each visit with k children
+  // ahead (0 .. 8), summed over every ray of the launch
+  unsigned* ahead = nullptr;
 };
 
 // One more iteration of a body: `mine` counts the lane, `led` the warp.
@@ -352,14 +376,19 @@ __device__ __forceinline__ bool leaf_test_rel(const float4* __restrict__ rel, in
 // the width-4 kernels' machine code (PERF.md), which must stay as it
 // was measured. REL: `nodes` are the camera-relative node records and
 // `tris` the camera-relative triangle rows of the ray's origin
-// (camera_relative.cu); everything else is the same walk.
-template <int W, int STACK, bool ANY_HIT, bool TAME, bool COUNT, bool REL = false>
+// (camera_relative.cu); everything else is the same walk. NEAR_ANY: a
+// width-8 any-hit walk in the closest hit's order (else unranked, above).
+template <int W, int STACK, bool ANY_HIT, bool TAME, bool COUNT, bool REL = false,
+          bool NEAR_ANY = false>
 __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
                                            const float4* __restrict__ tris, const Ray& r,
                                            float max_t, Work* work) {
   constexpr int P = W / 4;   // float4 per plane of a record
+  // the width-8 any-hit walk without the distance order: its stack holds
+  // child codes alone (no pop-time cull: nothing culls below max_t)
+  constexpr bool CODES = W == 8 && ANY_HIT && !NEAR_ANY;
   TriHit best{max_t, -1};
-  Entry stack[STACK];
+  std::conditional_t<CODES, int, Entry> stack[STACK];
   int sp = 0;
   int cur = 0;   // the root node
   // float4 index of each axis' near plane in a record (lo planes at 0, P,
@@ -472,6 +501,9 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
           live += e[c] < kInf;
           if constexpr (COUNT) work->slots += code[c] != -1;
         }
+        if constexpr (COUNT) {
+          if (work->ahead != nullptr) atomicAdd(work->ahead + live, 1u);
+        }
         // one child ahead (most visits): nothing to order, nothing to push
         if (live == 1) {
           int only = code[7];
@@ -480,7 +512,30 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
           cur = only;
           continue;
         }
-        if (live > 1) {
+        if constexpr (CODES) {
+          if (live > 1) {
+            // any hit: best.t stays max_t until the walk returns, so no
+            // visit order culls what another visits, and the mask is the
+            // same in any order; the nearest is entered now (the first of
+            // equal distances), the others pushed to pop in the stored
+            // order, without ranking them
+            float near_ce = e[0];
+            int near_c = 0;
+#pragma unroll
+            for (int c = 1; c < 8; ++c) {
+              if (e[c] < near_ce) {
+                near_ce = e[c];
+                near_c = c;
+              }
+            }
+#pragma unroll
+            for (int c = 7; c >= 0; --c) {
+              if (e[c] < kInf && c != near_c) stack[sp++] = code[c];
+              if (c == near_c) cur = code[c];
+            }
+            continue;
+          }
+        } else if (live > 1) {
           const int axis = __ldg(reinterpret_cast<const int*>(rec + 7 * P));
           const float d_axis = axis == 0 ? r.dx : axis == 1 ? r.dy : r.dz;
           const bool forward = d_axis >= 0.0f;
@@ -517,12 +572,16 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
       }
       // nothing ahead in this node: the topmost entry that a hit found since
       // its push does not cull
-      cur = -1;
-      while (sp > 0) {
-        const Entry e = stack[--sp];
-        if (!(e.ce >= best.t)) {
-          cur = e.code;
-          break;
+      if constexpr (CODES) {
+        cur = sp > 0 ? stack[--sp] : -1;
+      } else {
+        cur = -1;
+        while (sp > 0) {
+          const Entry e = stack[--sp];
+          if (!(e.ce >= best.t)) {
+            cur = e.code;
+            break;
+          }
         }
       }
       if (cur == -1) return best;
@@ -536,12 +595,16 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
     } else {
       if (leaf_test<ANY_HIT, COUNT>(tris, packed >> 4, packed & 15, r, best, work)) return best;
     }
-    cur = -1;
-    while (sp > 0) {
-      const Entry e = stack[--sp];
-      if (!(e.ce >= best.t)) {
-        cur = e.code;
-        break;
+    if constexpr (CODES) {
+      cur = sp > 0 ? stack[--sp] : -1;
+    } else {
+      cur = -1;
+      while (sp > 0) {
+        const Entry e = stack[--sp];
+        if (!(e.ce >= best.t)) {
+          cur = e.code;
+          break;
+        }
       }
     }
     if (cur == -1) return best;
@@ -549,16 +612,18 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
 }
 
 // Closest hit (or any hit) of triangles strictly below max_t, through the
-// walk of the node records' width W; REL as in walk_bvh (`nodes` and `tris`
-// then the camera-relative tables of the ray's origin).
-template <int W, int STACK, bool ANY_HIT, bool COUNT = false, bool REL = false>
+// walk of the node records' width W; REL and NEAR_ANY as in walk_bvh (REL:
+// `nodes` and `tris` are the camera-relative tables of the ray's origin).
+template <int W, int STACK, bool ANY_HIT, bool COUNT = false, bool REL = false,
+          bool NEAR_ANY = false>
 __device__ TriHit traverse_bvh(const Node<W>* __restrict__ nodes,
                                const float4* __restrict__ tris, const Ray& r,
                                float max_t, Work* work = nullptr) {
   if (0.0f >= max_t) return TriHit{max_t, -1};   // no ray: the root is culled unread
-  return is_tame(r)
-             ? walk_bvh<W, STACK, ANY_HIT, true, COUNT, REL>(nodes, tris, r, max_t, work)
-             : walk_bvh<W, STACK, ANY_HIT, false, COUNT, REL>(nodes, tris, r, max_t, work);
+  return is_tame(r) ? walk_bvh<W, STACK, ANY_HIT, true, COUNT, REL, NEAR_ANY>(nodes, tris, r,
+                                                                              max_t, work)
+                    : walk_bvh<W, STACK, ANY_HIT, false, COUNT, REL, NEAR_ANY>(nodes, tris, r,
+                                                                               max_t, work);
 }
 
 // Stack capacities compiled for every traversing kernel at width W

@@ -8,6 +8,8 @@
 // card and what its design does about that are in traverse.cuh. This launch
 // adds only the ray loads ([N,3] origins and directions, [N] max_t) and the
 // result stores (t, slot, unit normal, material), 44 bytes per ray in and out.
+// The registers are capped for kRenderMinBlocks blocks an SM, and for the
+// width-8 instances kRenderMinBlocksW8 (traverse.cuh; 6 each, 80 registers).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,7 +19,7 @@
 namespace rt {
 
 template <int W, int STACK, bool ANY_HIT>
-__global__ void __launch_bounds__(kRenderBlock, kRenderMinBlocks)
+__global__ void __launch_bounds__(kRenderBlock, W == 8 ? kRenderMinBlocksW8 : kRenderMinBlocks)
 traverse_kernel(const Node<W>* __restrict__ nodes, const float4* __restrict__ tris,
                 const float* __restrict__ orig, const float* __restrict__ dirn,
                 const float* __restrict__ max_t, int n, float* __restrict__ t_out,
@@ -42,17 +44,20 @@ traverse_kernel(const Node<W>* __restrict__ nodes, const float4* __restrict__ tr
 // The same walk with its work counted: (nodes, triangles, node-body and
 // triangle-body iterations led for the warp, non-empty child slots of the
 // visited nodes) per ray, rt::Work; a node is one record of width W. Used to compute the roofline bound of the traversing
-// kernels and the SIMT efficiency of the walk, never by the renderer.
+// kernels and the SIMT efficiency of the walk, never by the renderer. At
+// width 8, where `ahead_out` is not null, it also adds up the visits by the
+// number of children ahead ([9] counts, Work::ahead).
 template <int W, int STACK, bool ANY_HIT>
-__global__ void __launch_bounds__(kRenderBlock, kRenderMinBlocks)
+__global__ void __launch_bounds__(kRenderBlock, W == 8 ? kRenderMinBlocksW8 : kRenderMinBlocks)
 traverse_work_kernel(const Node<W>* __restrict__ nodes, const float4* __restrict__ tris,
                      const float* __restrict__ orig, const float* __restrict__ dirn,
-                     const float* __restrict__ max_t, int n, int* __restrict__ work_out) {
+                     const float* __restrict__ max_t, int n, int* __restrict__ work_out,
+                     unsigned* __restrict__ ahead_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Ray r = make_ray(orig[3 * i], orig[3 * i + 1], orig[3 * i + 2],
                          dirn[3 * i], dirn[3 * i + 1], dirn[3 * i + 2]);
-  Work w{0, 0, 0, 0, 0};
+  Work w{0, 0, 0, 0, 0, ahead_out};
   traverse_bvh<W, STACK, ANY_HIT, true>(nodes, tris, r, max_t[i], &w);
   int* out = work_out + 5 * i;
   out[0] = w.nodes;
@@ -76,6 +81,7 @@ struct TraverseLaunch {
   float* normal;
   int* mat;
   int* work;      // work launch: the counts out, 5 per ray
+  unsigned* ahead;   // work launch at width 8: visits by children ahead, or null
 };
 
 // Launch the width-W instance for `stack` (work: the counting kernel);
@@ -89,7 +95,7 @@ int launch_traverse(const TraverseLaunch& a, int stack, bool work, cudaStream_t 
 #define RT_LAUNCH_K(S, ANY)                                                                 \
   if (work)                                                                                 \
     traverse_work_kernel<W, S, ANY>                                                         \
-        <<<grid, block, 0, s>>>(nd, a.tris, a.orig, a.dirn, a.max_t, a.n, a.work);          \
+        <<<grid, block, 0, s>>>(nd, a.tris, a.orig, a.dirn, a.max_t, a.n, a.work, a.ahead); \
   else                                                                                      \
     traverse_kernel<W, S, ANY><<<grid, block, 0, s>>>(nd, a.tris, a.orig, a.dirn, a.max_t,  \
                                                       a.n, a.t, a.slot, a.normal, a.mat)

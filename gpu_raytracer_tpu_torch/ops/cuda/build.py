@@ -50,8 +50,9 @@ ARGTYPES = {
     # nodes, tris, node width, stack, orig, dirn, max_t, n, any_hit,
     # t_out, slot_out, normal_out, mat_out, stream
     "rt_traverse": [_p, _p, _i, _i, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p],
-    # nodes, tris, node width, stack, orig, dirn, max_t, n, any_hit, work_out, stream
-    "rt_traverse_work": [_p, _p, _i, _i, _p, _p, _p, _i, _i, _p, _p],
+    # nodes, tris, node width, stack, orig, dirn, max_t, n, any_hit, work_out,
+    # ahead_out (null, or [9] visits by children ahead at width 8), stream
+    "rt_traverse_work": [_p, _p, _i, _i, _p, _p, _p, _i, _i, _p, _p, _p],
     # binary nodes, n_nodes, tris, orig, dirn, max_t, n, any_hit, t_out,
     # slot_out, normal_out, mat_out, stream
     "rt_traverse_threaded": [_p, _i, _p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p],

@@ -415,5 +415,28 @@ def traversal_work(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
     check(k.lib.rt_traverse_work(nodes_ptr(tables), tables.tris.data_ptr(), tables.width,
                                  tables.stack,
                                  orig.data_ptr(), dirn.data_ptr(), max_t.data_ptr(), N,
-                                 int(any_hit), work.data_ptr(), stream), "rt_traverse_work")
+                                 int(any_hit), work.data_ptr(), None, stream), "rt_traverse_work")
     return work
+
+
+def children_ahead(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
+                   max_t: torch.Tensor, any_hit: bool = False) -> torch.Tensor:
+    """How many children of each visited width-8 record lie ahead of the
+    ray in K1's own walk -> [9] int64: entry k counts the visits of the
+    batch with k children ahead (their box entered below the ray's best t).
+    k = 0 and 1 need no ordering, k >= 2 pay for it. A measurement on the
+    card (the counting walk, as traversal_work), of width-8 tables only."""
+    N = _check_rays(tables, orig, dirn, max_t)
+    if orig.device.type != "cuda":
+        raise ValueError(f"children_ahead: counts the CUDA walk, got {orig.device}")
+    if tables.width != 8:
+        raise ValueError(f"children_ahead: counts width-8 visits, got width {tables.width}")
+    k = load_kernels()
+    work = torch.empty((N, 5), dtype=torch.int32, device=orig.device)
+    ahead = torch.zeros((9,), dtype=torch.int32, device=orig.device)
+    stream = torch.cuda.current_stream(orig.device).cuda_stream
+    check(k.lib.rt_traverse_work(nodes_ptr(tables), tables.tris.data_ptr(), tables.width,
+                                 tables.stack, orig.data_ptr(), dirn.data_ptr(),
+                                 max_t.data_ptr(), N, int(any_hit), work.data_ptr(),
+                                 ahead.data_ptr(), stream), "rt_traverse_work")
+    return ahead.long()

@@ -831,6 +831,40 @@ def test_traversal_work_counts_the_live_child_slots_of_each_visit(cuda):
     assert int(work[8][:, 0].sum()) < int(work[4][:, 0].sum())
 
 
+@pytest.mark.cuda
+def test_children_ahead_adds_up_to_the_width8_visits(cuda):
+    """children_ahead's visits by children ahead add up to traversal_work's
+    node visits at width 8, closest and any hit (the any-hit walk on shadow
+    rays from the camera hits, its mask the plain any-hit's); width-4 tables
+    are refused."""
+    from chip_smoke import light_shadow_rays
+    from gpu_raytracer_tpu_torch.config import RaytracerConfig
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import children_ahead, traversal_work
+
+    W, H = 96, 64
+    scene = make_courtyard_scene(2000, seed=1, config=RaytracerConfig(bvh_width=8), device=cuda)
+    tables = pack_trace_tables(scene)
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.int32, device=cuda),
+                            torch.arange(W, dtype=torch.int32, device=cuda), indexing="ij")
+    o, d = generate_rays(scene.camera, W, H, xs.reshape(-1), ys.reshape(-1))
+    o, d = o.contiguous(), d.contiguous()
+    far = torch.full((W * H,), 3.4028234663852886e38, device=cuda)
+    t, _, h, n, _ = traverse(tables, o, d, far)
+    cases = [(o, d, far, False)] + [
+        (*light_shadow_rays(scene, o, d, t, h, n, W * H, directional=k == 1), True)
+        for k in range(2)]
+    for ro, rd, rm, any_hit in cases:
+        ahead = children_ahead(tables, ro, rd, rm, any_hit=any_hit)
+        work = traversal_work(tables, ro, rd, rm, any_hit=any_hit)
+        assert ahead.shape == (9,) and int(ahead.sum()) == int(work[:, 0].long().sum()) > 0
+        if any_hit:
+            blocked = traverse(tables, ro, rd, rm, any_hit=True)[2]
+            assert torch.equal(blocked, traverse_triangles(scene, ro, rd, rm, any_hit=True)[2])
+    with pytest.raises(ValueError):
+        narrow = pack_trace_tables(make_courtyard_scene(2000, seed=1, device=cuda))
+        children_ahead(narrow, o, d, far)
+
+
 # ---- K1's unordered walk and the multi-device layer ----
 
 @pytest.mark.cuda

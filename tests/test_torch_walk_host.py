@@ -68,13 +68,16 @@ inline float fmaxf(float a, float b) { return std::fmax(a, b); }
 inline float fabsf(float a) { return std::fabs(a); }
 inline float sqrtf(float a) { return std::sqrt(a); }
 inline int __float_as_int(float x) { int i; std::memcpy(&i, &x, 4); return i; }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { const unsigned o = *p; *p += v; return o; }
 """
 
 # Reads nodes.bin, tris.bin and rays.bin (o, d, max_t per ray), walks every
 # ray with and without COUNT, writes t, slot, nodes, triangles, live slots.
 HARNESS = r"""
+#include <algorithm>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <vector>
 #include "traverse.cuh"
 using namespace rt;
@@ -90,6 +93,15 @@ template <class T> static std::vector<T> slurp(const char* path) {
   return v;
 }
 
+static void write_row(FILE* out, const TriHit& h, const Work& w) {
+  const float t = h.slot >= 0 ? h.t : kMissT;
+  const int row[4] = {h.slot, w.nodes, w.tris, w.slots};
+  std::fwrite(&t, 4, 1, out);
+  std::fwrite(row, 4, 4, out);
+}
+
+// Writes t, slot, nodes, triangles, live slots per ray to out.bin, and the
+// visits by children ahead (Work::ahead, width 8) to ahead.bin.
 template <int W, int S, bool ANY>
 static int run(const std::vector<float>& raw, const std::vector<float>& tris,
                const std::vector<float>& rays) {
@@ -98,17 +110,111 @@ static int run(const std::vector<float>& raw, const std::vector<float>& tris,
   const Node<W>* nodes = static_cast<const Node<W>*>(mem);
   const float4* tr = reinterpret_cast<const float4*>(tris.data());
   FILE* out = std::fopen("out.bin", "wb");
+  unsigned ahead[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
   for (size_t i = 0; i < rays.size() / 7; ++i) {
     const float* q = &rays[7 * i];
     const Ray r = make_ray(q[0], q[1], q[2], q[3], q[4], q[5]);
-    Work w{0, 0, 0, 0, 0};
+    Work w{0, 0, 0, 0, 0, ahead};
     const TriHit a = traverse_bvh<W, S, ANY, true>(nodes, tr, r, q[6], &w);
     const TriHit b = traverse_bvh<W, S, ANY, false>(nodes, tr, r, q[6]);
     if (a.slot != b.slot || a.t != b.t) return 3;
-    const float t = a.slot >= 0 ? a.t : kMissT;
-    const int row[4] = {a.slot, w.nodes, w.tris, w.slots};
-    std::fwrite(&t, 4, 1, out);
-    std::fwrite(row, 4, 4, out);
+    if constexpr (ANY) {   // the frame kernels' near-first any hit: the same mask
+      const TriHit c = traverse_bvh<W, S, true, false, false, true>(nodes, tr, r, q[6]);
+      if ((c.slot >= 0) != (a.slot >= 0)) return 5;
+    }
+    write_row(out, a, w);
+  }
+  std::fclose(out);
+  out = std::fopen("ahead.bin", "wb");
+  std::fwrite(ahead, 4, 9, out);
+  std::fclose(out);
+  std::free(mem);
+  return 0;
+}
+
+// The closest-hit walk written plainly: each visit's children ahead in a
+// vector, in the stored order or backward (the ray's direction along the
+// sort axis), std::stable_sort on the entry distance, the nearest entered
+// and the others pushed far first; the slab and triangle tests are the
+// walk's own (child_entry / child_entry_tame, leaf_test), so the entry
+// distances and hits are the same bits.
+template <int W>
+static TriHit reference_walk(const Node<W>* nodes, const float4* tris, const Ray& r,
+                             float max_t, Work& w) {
+  TriHit best{max_t, -1};
+  if (0.0f >= max_t) return best;
+  const bool tame = is_tame(r);
+  std::vector<Entry> stack;
+  int cur = 0;
+  while (true) {
+    while (cur >= 0) {
+      ++w.nodes;
+      const float* plane = reinterpret_cast<const float*>(nodes[cur].box);
+      const int* code = reinterpret_cast<const int*>(nodes[cur].code);
+      std::vector<Entry> ahead;
+      const float d_axis = nodes[cur].axis == 0 ? r.dx : nodes[cur].axis == 1 ? r.dy : r.dz;
+      for (int i = 0; i < W; ++i) {
+        const int c = d_axis >= 0.0f ? i : W - 1 - i;
+        const float lx = plane[c], ly = plane[W + c], lz = plane[2 * W + c];
+        const float hx = plane[3 * W + c], hy = plane[4 * W + c], hz = plane[5 * W + c];
+        const float ce =
+            tame ? child_entry_tame(r.dx > 0.0f ? lx : hx, r.dy > 0.0f ? ly : hy,
+                                    r.dz > 0.0f ? lz : hz, r.dx > 0.0f ? hx : lx,
+                                    r.dy > 0.0f ? hy : ly, r.dz > 0.0f ? hz : lz, code[c], r,
+                                    best.t)
+                 : child_entry(lx, ly, lz, hx, hy, hz, code[c], r, best.t);
+        w.slots += code[c] != -1;
+        if (ce < kInf) ahead.push_back(Entry{code[c], ce});
+      }
+      std::stable_sort(ahead.begin(), ahead.end(),
+                       [](const Entry& a, const Entry& b) { return a.ce < b.ce; });
+      if (!ahead.empty()) {
+        cur = ahead[0].code;
+        for (size_t k = ahead.size() - 1; k >= 1; --k) stack.push_back(ahead[k]);
+        continue;
+      }
+      cur = -1;
+      while (!stack.empty()) {
+        const Entry e = stack.back();
+        stack.pop_back();
+        if (!(e.ce >= best.t)) {
+          cur = e.code;
+          break;
+        }
+      }
+      if (cur == -1) return best;
+    }
+    const int packed = -1 - cur;
+    leaf_test<false, true>(tris, packed >> 4, packed & 15, r, best, &w);
+    cur = -1;
+    while (!stack.empty()) {
+      const Entry e = stack.back();
+      stack.pop_back();
+      if (!(e.ce >= best.t)) {
+        cur = e.code;
+        break;
+      }
+    }
+    if (cur == -1) return best;
+  }
+}
+
+// Writes, per ray, t, slot, nodes, triangles, live slots of the closest-hit
+// walk, then of reference_walk.
+template <int W, int S>
+static int run_ref(const std::vector<float>& raw, const std::vector<float>& tris,
+                   const std::vector<float>& rays) {
+  void* mem = std::aligned_alloc(256, (raw.size() * 4 + 255) / 256 * 256);
+  std::memcpy(mem, raw.data(), raw.size() * 4);
+  const Node<W>* nodes = static_cast<const Node<W>*>(mem);
+  const float4* tr = reinterpret_cast<const float4*>(tris.data());
+  FILE* out = std::fopen("out.bin", "wb");
+  for (size_t i = 0; i < rays.size() / 7; ++i) {
+    const float* q = &rays[7 * i];
+    const Ray r = make_ray(q[0], q[1], q[2], q[3], q[4], q[5]);
+    Work w{0, 0, 0, 0, 0}, wr{0, 0, 0, 0, 0};
+    write_row(out, traverse_bvh<W, S, false, true>(nodes, tr, r, q[6], &w), w);
+    write_row(out, reference_walk<W>(nodes, tr, r, q[6], wr), wr);
   }
   std::fclose(out);
   std::free(mem);
@@ -156,13 +262,20 @@ static int run_rel(const std::vector<float>& raw, const std::vector<float>& tris
   return 0;
 }
 
+// walk <width> <stack> <any hit 0|1> [walk|rel|ref]
 int main(int argc, char** argv) {
   const int width = std::atoi(argv[1]), stack = std::atoi(argv[2]), any = std::atoi(argv[3]);
-  const int rel = argc > 4 ? std::atoi(argv[4]) : 0;
+  const char* mode = argc > 4 ? argv[4] : "walk";
   const auto raw = slurp<float>("nodes.bin");
   const auto tris = slurp<float>("tris.bin");
   const auto rays = slurp<float>("rays.bin");
-  if (rel != 0) {
+  if (std::strcmp(mode, "ref") == 0) {
+#define RT_REF(WD, S) \
+  if (width == WD && stack == S) return run_ref<WD, S>(raw, tris, rays);
+    RT_REF(4, 16) RT_REF(4, 32) RT_REF(4, 64) RT_REF(8, 32) RT_REF(8, 64)
+    return 2;
+  }
+  if (std::strcmp(mode, "rel") == 0) {
     const auto rel_raw = slurp<float>("rel_nodes.bin");
     const auto rel_tris = slurp<float>("rel_tris.bin");
 #define RT_REL(WD, S) \
@@ -211,16 +324,25 @@ def rays(scene):
     return torch.cat([o, ro]).contiguous(), torch.cat([d, rd]).contiguous()
 
 
-def walk(build, tables, o, d, max_t, any_hit):
-    """The host walk over `tables` -> (t, slot, nodes, triangles, live slots)."""
+def walk(build, tables, o, d, max_t, any_hit, mode="walk"):
+    """The host walk over `tables` -> (t, slot, nodes, triangles, live slots)
+    ("ref": [N,2,5] int32 rows of the walk and of the reference walk)."""
     directory, exe = build
     tables.nodes.numpy().tofile(directory / "nodes.bin")
     tables.tris.numpy().tofile(directory / "tris.bin")
     torch.cat([o, d, max_t[:, None]], dim=1).numpy().tofile(directory / "rays.bin")
-    subprocess.run([str(exe), str(tables.width), str(tables.stack), str(int(any_hit))],
+    subprocess.run([str(exe), str(tables.width), str(tables.stack), str(int(any_hit)), mode],
                    check=True, cwd=directory)
-    out = np.fromfile(directory / "out.bin", dtype=np.int32).reshape(-1, 5)
+    out = np.fromfile(directory / "out.bin", dtype=np.int32)
+    if mode == "ref":
+        return out.reshape(-1, 2, 5)
+    out = out.reshape(-1, 5)
     return out[:, 0].view(np.float32), out[:, 1], out[:, 2], out[:, 3], out[:, 4]
+
+
+def walk_ahead(build) -> np.ndarray:
+    """The last walk's visits by children ahead, [9] (width 8; zeros at 4)."""
+    return np.fromfile(build[0] / "ahead.bin", dtype=np.uint32).astype(np.int64)
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
@@ -276,7 +398,7 @@ def walk_rel(build, rt, o, d, max_t):
     rel_nodes.numpy().tofile(directory / "rel_nodes.bin")
     rel_tris.numpy().tofile(directory / "rel_tris.bin")
     torch.cat([o, d, max_t[:, None]], dim=1).numpy().tofile(directory / "rays.bin")
-    subprocess.run([str(exe), str(tables.width), str(tables.stack), "0", "1"],
+    subprocess.run([str(exe), str(tables.width), str(tables.stack), "0", "rel"],
                    check=True, cwd=directory)
     out = np.fromfile(directory / "out.bin", dtype=np.int32).reshape(-1, 2, 5)
     return out[:, 0], out[:, 1]
@@ -370,3 +492,85 @@ def test_order_tie_at_a_shared_edge_keeps_the_jax_walks_winner(walk_host):
                                 jnp.asarray(max_t.numpy()), leaf_size=js.bvh.max_leaf)
     assert int(jslot[0]) == walk_slot
     assert np.asarray(jt)[0].view(np.int32) == np.float32(walk_t).view(np.int32)
+
+
+def test_host_closest_walk_visits_children_in_stable_sorted_order(walk_host, courtyards):
+    """The closest-hit walk's order, against a reference walk written in the
+    harness: each visit's children ahead by std::stable_sort on entry
+    distance over the stored order, forward or backward along the ray. The
+    t, slot, node visits, triangle tests and live slots of every ray equal,
+    at both widths and on both trees: the width-8 ordering keeps the order
+    of the stable insertion it replaced."""
+    for width in (4, 8):
+        for spatial in (False, True):
+            tables = courtyards(width, spatial).trace
+            o, d = rays(tables.scene)
+            got = walk(walk_host, tables, o, d, torch.full((o.shape[0],), F32_MAX), False,
+                       mode="ref")
+            assert (got[:, 0, 1] >= 0).any()
+            assert np.array_equal(got[:, 0], got[:, 1])
+            print(f"width {width} spatial={spatial}: {got[:, 0, 2].mean():.2f} nodes, "
+                  f"{got[:, 0, 3].mean():.2f} triangles a ray, the reference's")
+
+
+def camera_shadow_rays(scene, light):
+    """The W x H camera rays' hits (plain closest hit) -> shadow rays of every
+    hit toward the light, as chip_smoke.py casts them."""
+    from chip_smoke import light_shadow_rays
+
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.int32),
+                            torch.arange(W, dtype=torch.int32), indexing="ij")
+    o, d = generate_rays(scene.camera, W, H, xs.reshape(-1), ys.reshape(-1))
+    t, _, h, n, _ = traverse_triangles(scene, o, d, torch.full((o.shape[0],), F32_MAX))
+    return light_shadow_rays(scene, o, d, t, h, n, W * H, directional=light == "directional")
+
+
+@pytest.mark.parametrize("light", ["point", "directional"])
+@pytest.mark.parametrize("spatial", [False, True], ids=["sah", "sbvh"])
+def test_host_any_hit_walk_blocks_as_the_plain_traversal(walk_host, courtyards, spatial, light):
+    """The any-hit walk at both widths on the shadow rays of every camera
+    hit: its mask equals the plain any-hit and the plain closest hit below
+    max_t, whatever order it enters the children ahead in. Run with -s for
+    the visits and tests a ray."""
+    scene = courtyards(4, spatial).trace.scene
+    so, sd, smax = camera_shadow_rays(scene, light)
+    plain_any = traverse_triangles(scene, so, sd, smax, any_hit=True)[2].numpy()
+    closest = traverse_triangles(scene, so, sd, smax)[2].numpy()
+    assert np.array_equal(plain_any, closest) and 0 < closest.sum() < closest.shape[0]
+    for width in (4, 8):
+        tables = courtyards(width, spatial).trace
+        assert same_tree(tables.scene, scene)
+        _, slot, nodes, tris, _ = walk(walk_host, tables, so, sd, smax, True)
+        assert np.array_equal(slot >= 0, plain_any)
+        print(f"{light} light, width {width} spatial={spatial}: {nodes.mean():.2f} nodes, "
+              f"{tris.mean():.2f} triangles a shadow ray, {int(plain_any.sum())} of "
+              f"{plain_any.shape[0]} blocked")
+
+
+def same_tree(a, b) -> bool:
+    """Whether two scenes hold the same leaf-ordered triangle slots."""
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in ("tri_v0", "tri_e1", "tri_e2"))
+
+
+@pytest.mark.parametrize("spatial", [False, True], ids=["sah", "sbvh"])
+def test_host_walk_counts_width8_visits_by_children_ahead(walk_host, courtyards, spatial):
+    """The counting walk's visits by children ahead (Work::ahead): at width 8
+    they add up to the node visits, for the closest hit of the camera rays
+    and the any hit of both lights' shadow rays; at width 4 nothing is
+    counted. Run with -s for the histograms: visits with 2+ children ahead
+    are the ones that pay for the ordering."""
+    o, d = rays(courtyards(4, spatial).trace.scene)
+    far = torch.full((o.shape[0],), F32_MAX)
+    walk(walk_host, courtyards(4, spatial).trace, o, d, far, False)
+    assert not walk_ahead(walk_host).any()
+    tables = courtyards(8, spatial).trace
+    cases = {"camera": (o, d, far, False)}
+    for light in ("point", "directional"):
+        cases[f"shadow {light}"] = (*camera_shadow_rays(tables.scene, light), True)
+    for name, (ro, rd, rm, any_hit) in cases.items():
+        nodes = walk(walk_host, tables, ro, rd, rm, any_hit)[2]
+        ahead = walk_ahead(walk_host)
+        assert ahead.sum() == nodes.sum()
+        share = ahead / ahead.sum()
+        print(f"width 8 spatial={spatial} {name}: visits by children ahead 0..8 "
+              f"{np.round(share, 3).tolist()}, 2+ {share[2:].sum():.3f}")
