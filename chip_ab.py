@@ -11,6 +11,7 @@ in turn inside one run so that they share a card.
     python3 chip_ab.py --parent build/parent --k3           # K3's readings alone (below)
     python3 chip_ab.py --parent build/parent --w8           # the width-8 readings alone (below)
     python3 chip_ab.py --w8 --variants "kRenderMinBlocksW8=5"   # width 8's caps, orders
+    python3 chip_ab.py --w8-frames --variants "kPrimaryNearAnyW8=0"   # K2 w8, K2t w8 alone
 
 Unpack the other tree first (`git archive <commit> | tar -x -C build/parent`;
 build/ is git-ignored). Every measurement is its own process, run from this
@@ -57,14 +58,19 @@ before each call): K1 w8 on the 1920x1080 camera rays (closest hit) and on
 phase 3's 262,144 shadow rays toward the point light and as many toward the
 directional light (any hit), with node visits and triangle tests a ray
 (`traversal_work`) and the rays blocked; K2 w8 and K2t w8 shadows off and
-on; K3 w8 with its pre-pass, shadows off and on; K6 w8 per sample of
+on, alone and, where the tree launches it before them, with K3's pre-pass;
+K3 w8 with its pre-pass, shadows off and on; K6 w8 per sample of
 PathTracer.step() at 1024x1024, untextured and textured, and one K6 w8
 launch on the main path's depth-0 and depth-1 pools; width 4's K1, K2 and
 K6 per sample as the control; ptxas's registers and spills of every
 width-8 instance; the SASS size of K1's closest-hit and any-hit loops at
-both widths (`sass_loops`); and, where the tree counts them
+both widths, and of K3 w8's, K2 w8's and K2t w8's loops (`sass_loops`); and,
+where the tree counts them
 (`children_ahead`), the width-8 visits by children ahead on the camera rays,
-both lights' shadow rays and the depth-0 and depth-1 pools.
+both lights' shadow rays and the depth-0 and depth-1 pools. `--w8-frames`
+measures only the frame kernels' part of it (K2 w8, K2t w8, K3 w8 with its
+pre-pass, width 4's K2; registers, SASS loops, digests), for a quicker
+sweep of K2 w8's and K2t w8's settings.
 Every line also holds a digest of the SASS of each width-4 K1, K2, K2t and K6
 instance (`sass_digest`); the summary says whether they are identical in
 every build.
@@ -167,37 +173,43 @@ def measure_k3(out: dict, device, width: int = WIDTH, height: int = HEIGHT) -> N
 SHADOW_RAYS = 262_144          # phase 3's shadow rays, per light
 
 
-def measure_w8(out: dict, device, ptxas: dict, width: int = WIDTH, height: int = HEIGHT) -> None:
+def pre_pass_before_k2(tables, px, py, shade=None) -> bool:
+    """Whether the tree on sys.path launches K3's pre-pass (camera_relative)
+    before the fused render of these tables (one call, counted)."""
+    from gpu_raytracer_tpu_torch.ops.cuda import render as render_mod
+
+    pre = getattr(render_mod, "camera_relative", None)
+    if pre is None:
+        return False
+    before = pre.launches
+    render_mod.render_primary(tables, px, py, 64, 64, shade=shade)
+    return pre.launches > before
+
+
+def measure_w8(out: dict, device, ptxas: dict, width: int = WIDTH, height: int = HEIGHT,
+               frames_only: bool = False) -> None:
     """The width-8 readings (the module docstring) into `out`, for the tree
     on sys.path, by device time (torch.profiler, the L2 flushed before each
     call); width 4's K1, K2 and K6 beside them as the control. The visits
-    by children ahead where the tree counts them (children_ahead)."""
-    import hashlib
-
+    by children ahead where the tree counts them (children_ahead).
+    `frames_only`: the frame kernels' readings alone (K2 w8, K2t w8, K3 w8
+    with its pre-pass, width 4's K2), without K1's and K6's."""
     import torch
 
     from gpu_raytracer_tpu_torch.config import RaytracerConfig
     from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
     from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
-    from gpu_raytracer_tpu_torch.ops.cuda import traverse as traverse_mod
     from gpu_raytracer_tpu_torch.ops.cuda import render as render_mod
-    from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce_, pack_bounce_tables
     from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
                                                          render_primary)
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables
     from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
 
-    traverse = traverse_mod.traverse
-    ahead = getattr(traverse_mod, "children_ahead", None)
     px, py = (torch.from_numpy(a).to(device)
               for a in tiled_pixel_order(width, height, warp=(8, 4)))
 
     def device_reading(fn, words):
         return [HERE_SMOKE.kernel_device_ms(fn, words, LAUNCHES, device) for _ in range(REPEATS)]
-
-    def per_ray(work):
-        w = work.double().mean(dim=0).tolist()
-        return dict(nodes=w[0], tris=w[1])
 
     for w in (8, 4):
         cfg = RaytracerConfig(bvh_width=w)
@@ -208,82 +220,125 @@ def measure_w8(out: dict, device, ptxas: dict, width: int = WIDTH, height: int =
             out["ptxas_w8"] = {k: v for k, v in ptxas.items()
                                if re.search(rf"<8, {tr.stack}[,>]", k)}
             out["w8_registers"] = HERE_SMOKE.w8_registers(ptxas)
-        o, d = HERE_SMOKE.primary_rays(scene, width, height, px, py)
-        far = torch.full((o.shape[0],), HERE_SMOKE.F32_MAX, device=device)
-        key = f"k1w{w}"
-        out[f"{key}_camera_device"] = device_reading(lambda: traverse(tr, o, d, far),
-                                                     "traverse_kernel")
-        work = {"camera": traverse_mod.traversal_work(tr, o, d, far)}
-        t, _, h, n, _ = traverse(tr, o, d, far)
-        rays = {"camera": (o, d, far, False)}
-        for light in ("point", "directional"):
-            so, sd, smax = HERE_SMOKE.light_shadow_rays(scene, o, d, t, h, n, SHADOW_RAYS,
-                                                        directional=light == "directional")
-            rays[f"shadow_{light}"] = (so, sd, smax, True)
-            out[f"{key}_shadow_{light}_device"] = device_reading(
-                lambda: traverse(tr, so, sd, smax, any_hit=True), "traverse_kernel")
-            work[f"shadow_{light}"] = traverse_mod.traversal_work(tr, so, sd, smax, any_hit=True)
-            out[f"{key}_shadow_{light}_blocked"] = int(traverse(tr, so, sd, smax,
-                                                                any_hit=True)[2].sum())
-        out[f"{key}_per_ray"] = {k: per_ray(v) for k, v in work.items()}
-        # every camera ray's visits, tests and live slots (not the warp-led
-        # counts, which depend on timing): equal digests, the same walk
-        out[f"{key}_camera_work_digest"] = hashlib.sha256(
-            work["camera"][:, [0, 1, 4]].cpu().numpy().tobytes()).hexdigest()[:16]
-        if w == 8 and ahead is not None:
-            out["children_ahead_w8"] = {k: ahead(tr, ro, rd, rm, any_hit=a).tolist()
-                                        for k, (ro, rd, rm, a) in rays.items()}
+        k2_words = ("render_primary_kernel",) + (("camera_relative_kernel",)
+                                                 if pre_pass_before_k2(tables, px, py) else ())
         for shadows in (False, True):
             s = "shadows" if shadows else "no_shadows"
-            out[f"k2w{w}_{s}_device"] = device_reading(
-                lambda: render_primary(tables, px, py, width, height, shadows=shadows),
-                "render_primary_kernel")
-        pt = PathTracer(scene, PT_SIZE, PT_SIZE, device=device)
-        for _ in range(3):
-            pt.step()
-        prof = [HERE_SMOKE.device_profile(pt.step, PT_STEPS, device) for _ in range(REPEATS)]
-        out[f"k6w{w}_device_ms_per_spp"] = [p["k6_device_ms"] for p in prof]
-        del pt
+            k2 = lambda: render_primary(tables, px, py, width, height, shadows=shadows)
+            out[f"k2w{w}_{s}_device"] = device_reading(k2, "render_primary_kernel")
+            if len(k2_words) > 1:   # the tree launches K3's pre-pass before K2 w8
+                out[f"k2w{w}_{s}_and_pre_pass_device"] = device_reading(k2, k2_words)
+        if not frames_only:
+            measure_w8_walks(out, device, scene, tables, width, height, px, py)
+        del tables, scene
         if w == 4:
             continue
-        btab = pack_bounce_tables(scene)
-        for depth, pool, order, n_live, qmc, flags in HERE_SMOKE.pools(btab, PT_SIZE, PT_SIZE,
-                                                                      (0, 1)):
-            rad = torch.zeros((pool.count, 3), dtype=torch.float32, device=device)
-            out[f"k6w8_depth{depth}_device"] = device_reading(
-                lambda: fused_bounce_(btab, pool.clone(), rad, depth=depth, order=order,
-                                      n_live=n_live, qmc=qmc, **flags), "bounce_kernel")
-            if ahead is not None:
-                live = pool.active
-                out["children_ahead_w8"][f"k6_depth{depth}"] = ahead(
-                    tr, pool.origin[live].contiguous(), pool.direction[live].contiguous(),
-                    torch.full((int(live.sum()),), HERE_SMOKE.F32_MAX, device=device)).tolist()
-            del pool, rad
-        del btab, tables, scene
         # the textured courtyard: K2t, K3 with its pre-pass, textured K6
         tscene = make_courtyard_scene(100_000, seed=0, textured=True, texture_size=TEXTURE_SIZE,
                                       config=cfg, device=device)
         ttables, shade = pack_render_tables(tscene), pack_shade_tables(tscene)
         k3_words = ("render_deferred_kernel",) + (
             ("camera_relative_kernel",) if hasattr(render_mod, "camera_relative") else ())
+        k2t_pre = pre_pass_before_k2(ttables, px, py, shade)
         for shadows in (False, True):
             s = "shadows" if shadows else "no_shadows"
-            out[f"k2tw8_{s}_device"] = device_reading(
-                lambda: render_primary(ttables, px, py, width, height, shadows=shadows,
-                                       shade=shade), "render_primary_kernel")
+            k2t = lambda: render_primary(ttables, px, py, width, height, shadows=shadows,
+                                         shade=shade)
+            out[f"k2tw8_{s}_device"] = device_reading(k2t, "render_primary_kernel")
+            if k2t_pre:
+                out[f"k2tw8_{s}_and_pre_pass_device"] = device_reading(
+                    k2t, ("render_primary_kernel", "camera_relative_kernel"))
             out[f"k3w8_{s}_and_pre_pass_device"] = device_reading(
                 lambda: render_deferred(ttables, px, py, width, height, shadows=shadows),
                 k3_words)
-        pt = PathTracer(tscene, PT_SIZE, PT_SIZE, device=device)
-        for _ in range(3):
-            pt.step()
-        prof = [HERE_SMOKE.device_profile(pt.step, PT_STEPS, device) for _ in range(REPEATS)]
-        out["k6w8_textured_device_ms_per_spp"] = [p["k6_device_ms"] for p in prof]
-        del pt, ttables, shade, tscene
+        if not frames_only:
+            pt = PathTracer(tscene, PT_SIZE, PT_SIZE, device=device)
+            for _ in range(3):
+                pt.step()
+            prof = [HERE_SMOKE.device_profile(pt.step, PT_STEPS, device)
+                    for _ in range(REPEATS)]
+            out["k6w8_textured_device_ms_per_spp"] = [p["k6_device_ms"] for p in prof]
+            del pt
+        del ttables, shade, tscene
+
+
+def measure_w8_walks(out: dict, device, scene, tables, width: int, height: int, px,
+                     py) -> None:
+    """measure_w8's readings of K1 and K6 at the tables' node width on the
+    untextured courtyard: K1 on the camera rays and on both lights' shadow
+    rays with their visits and tests, the visits by children ahead (width
+    8, where the tree counts them), K6 a sample and, at width 8, one K6
+    launch on the depth-0 and depth-1 pools."""
+    import hashlib
+
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
+    from gpu_raytracer_tpu_torch.ops.cuda import traverse as traverse_mod
+    from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce_, pack_bounce_tables
+
+    traverse = traverse_mod.traverse
+    ahead = getattr(traverse_mod, "children_ahead", None)
+    tr = tables.trace
+    w = tr.width
+
+    def device_reading(fn, words):
+        return [HERE_SMOKE.kernel_device_ms(fn, words, LAUNCHES, device) for _ in range(REPEATS)]
+
+    def per_ray(work):
+        wk = work.double().mean(dim=0).tolist()
+        return dict(nodes=wk[0], tris=wk[1])
+
+    o, d = HERE_SMOKE.primary_rays(scene, width, height, px, py)
+    far = torch.full((o.shape[0],), HERE_SMOKE.F32_MAX, device=device)
+    key = f"k1w{w}"
+    out[f"{key}_camera_device"] = device_reading(lambda: traverse(tr, o, d, far),
+                                                 "traverse_kernel")
+    work = {"camera": traverse_mod.traversal_work(tr, o, d, far)}
+    t, _, h, n, _ = traverse(tr, o, d, far)
+    rays = {"camera": (o, d, far, False)}
+    for light in ("point", "directional"):
+        so, sd, smax = HERE_SMOKE.light_shadow_rays(scene, o, d, t, h, n, SHADOW_RAYS,
+                                                    directional=light == "directional")
+        rays[f"shadow_{light}"] = (so, sd, smax, True)
+        out[f"{key}_shadow_{light}_device"] = device_reading(
+            lambda: traverse(tr, so, sd, smax, any_hit=True), "traverse_kernel")
+        work[f"shadow_{light}"] = traverse_mod.traversal_work(tr, so, sd, smax, any_hit=True)
+        out[f"{key}_shadow_{light}_blocked"] = int(traverse(tr, so, sd, smax,
+                                                            any_hit=True)[2].sum())
+    out[f"{key}_per_ray"] = {k: per_ray(v) for k, v in work.items()}
+    # every camera ray's visits, tests and live slots (not the warp-led
+    # counts, which depend on timing): equal digests, the same walk
+    out[f"{key}_camera_work_digest"] = hashlib.sha256(
+        work["camera"][:, [0, 1, 4]].cpu().numpy().tobytes()).hexdigest()[:16]
+    if w == 8 and ahead is not None:
+        out["children_ahead_w8"] = {k: ahead(tr, ro, rd, rm, any_hit=a).tolist()
+                                    for k, (ro, rd, rm, a) in rays.items()}
+    pt = PathTracer(scene, PT_SIZE, PT_SIZE, device=device)
+    for _ in range(3):
+        pt.step()
+    prof = [HERE_SMOKE.device_profile(pt.step, PT_STEPS, device) for _ in range(REPEATS)]
+    out[f"k6w{w}_device_ms_per_spp"] = [p["k6_device_ms"] for p in prof]
+    del pt
+    if w == 4:
+        return
+    btab = pack_bounce_tables(scene)
+    for depth, pool, order, n_live, qmc, flags in HERE_SMOKE.pools(btab, PT_SIZE, PT_SIZE,
+                                                                  (0, 1)):
+        rad = torch.zeros((pool.count, 3), dtype=torch.float32, device=device)
+        out[f"k6w8_depth{depth}_device"] = device_reading(
+            lambda: fused_bounce_(btab, pool.clone(), rad, depth=depth, order=order,
+                                  n_live=n_live, qmc=qmc, **flags), "bounce_kernel")
+        if ahead is not None:
+            live = pool.active
+            out["children_ahead_w8"][f"k6_depth{depth}"] = ahead(
+                tr, pool.origin[live].contiguous(), pool.direction[live].contiguous(),
+                torch.full((int(live.sum()),), HERE_SMOKE.F32_MAX, device=device)).tolist()
+        del pool, rad
 
 
 def measure(root: str, defines: list[str], label: str, k3_only: bool = False,
-            w8_only: bool = False) -> dict:
+            w8_only: bool = False, frames_only: bool = False) -> dict:
     sys.path.insert(0, root)
     import dataclasses
 
@@ -317,10 +372,11 @@ def measure(root: str, defines: list[str], label: str, k3_only: bool = False,
     if w8_only:
         out["sass_w8_primary"] = sass_digest(k.path, ("render_primary_w8",
                                                       "render_primary_textured_w8"))
+        out["sass_w8_other"] = sass_digest(k.path, W8_OTHER_OBJECTS)
         out["sass_loops"] = {k: dict(instructions=v["instructions"],
                                      loops=[lp["instructions"] for lp in v["loops"]])
                              for k, v in sass_loops(root).items()}
-        measure_w8(out, device, ptxas)
+        measure_w8(out, device, ptxas, frames_only=frames_only)
         return out
     measure_k3(out, device)
     if k3_only:
@@ -436,19 +492,23 @@ def measure(root: str, defines: list[str], label: str, k3_only: bool = False,
 
 # template arguments of the K2 and K6 kernels in a tree without a node-width
 # argument: such a tree's instances are the width-4 ones
-ARGS_WITHOUT_WIDTH = {"render_primary_kernel": 2, "bounce_kernel": 4, "traverse_kernel": 2}
+ARGS_WITHOUT_WIDTH = {"render_primary_kernel": 2, "bounce_kernel": 4, "traverse_kernel": 2,
+                      "render_deferred_kernel": 1}
 # the objects of the width-4 K1, K2, K2t and K6 instances (build.py SOURCES)
 WIDTH4_OBJECTS = ("render_primary", "render_primary_textured", "bounce", "bounce_textured",
                   "traverse")
+# the width-8 K1, K3 and K6 instances
+W8_OTHER_OBJECTS = ("traverse_w8", "render_deferred_w8", "bounce_w8", "bounce_textured_w8")
 
 
 def instance_key(mangled: str) -> str | None:
     """`kernel<width, stack, flags...>` of a K2 or K2t instance (the last
-    flag: textured), a K6 instance (the third: textured) or a K1 closest-hit /
-    any-hit instance from its mangled name (in namespace rt, or in an
+    flag: textured), a K6 instance (the third: textured), a K1 closest-hit /
+    any-hit instance or a K3 instance from its mangled name (in namespace rt, or in an
     anonymous one as K1 was before it took the width), the width 4 filled in
     for a tree whose kernels do not take it; None for any other function."""
-    m = re.match(r"_ZN.*?\d+(render_primary_kernel|bounce_kernel|traverse_kernel)"
+    m = re.match(r"_ZN.*?\d+(render_primary_kernel|bounce_kernel|traverse_kernel|"
+                 r"render_deferred_kernel)"
                  r"I((?:L[bi]\d+E)+)E", mangled)
     if m is None:
         return None
@@ -487,13 +547,17 @@ def sass_loops(root: str) -> dict:
     """Static SASS size of K1's closest-hit and any-hit instances and of
     K3's for a 32-entry stack, at width 4 (the traverse and render_deferred objects)
     and, where the tree has them, width 8 (traverse_w8, render_deferred_w8),
+    and of K2 w8's and K2t w8's for the 64-entry stack that the 100k
+    courtyard's width-8 tables take (render_primary_w8,
+    render_primary_textured_w8),
     from `cuobjdump -sass`: each one's instruction count, opcode histogram,
     loops (every backward branch: first and last address and the
     instructions between) and registers (ptxas), a yardstick for how many
     instruction slots a node visit and a triangle test take. K3 holds three
     walks (the camera ray's closest hit, and the shadow rays' any hit, the
     light loop's and the sampled light's); the loops whose sizes differ
-    from another tree's are the camera walk's."""
+    from another tree's are the camera walk's. K2 w8 and K2t w8 hold the
+    same three walks (their camera walk first, then the shadow walks)."""
     import glob
 
     sys.path.insert(0, root)
@@ -515,7 +579,11 @@ def sass_loops(root: str) -> dict:
             ("k3_width4", 4, "render_deferred", r"render_deferred_kernelI(?:Li4E)?Li32EE",
              "render_deferred_kernel<4, 32>"),
             ("k3_width8", 8, "render_deferred_w8", r"render_deferred_kernelILi8ELi32EE",
-             "render_deferred_kernel<8, 32>")):
+             "render_deferred_kernel<8, 32>"),
+            ("k2_width8", 8, "render_primary_w8", r"render_primary_kernelILi8ELi64ELb0E",
+             "render_primary_kernel<8, 64, 0>"),
+            ("k2t_width8", 8, "render_primary_textured_w8",
+             r"render_primary_kernelILi8ELi64ELb1E", "render_primary_kernel<8, 64, 1>")):
         objs = glob.glob(os.path.join(os.path.dirname(k.path), f"*.{obj}.o"))
         if not objs:
             continue
@@ -545,7 +613,8 @@ def sass_loops(root: str) -> dict:
 
 
 def run_one(root: str, defines: str, label: str, out: str | None, mode: str = "") -> dict:
-    """One measurement in its own process (`mode`: "", "--k3" or "--w8")
+    """One measurement in its own process (`mode`: "", "--k3", "--w8" or
+    "--w8-frames")
     -> its JSON line, also printed (and appended to `out`)."""
     cmd = [sys.executable, os.path.abspath(__file__), "--one", "--root", root,
            "--defines", defines, "--label", label] + ([mode] if mode else [])
@@ -626,14 +695,19 @@ def main() -> int:
                     help="measure K3's readings only (and the SASS digest, registers)")
     ap.add_argument("--w8", action="store_true",
                     help="measure the width-8 readings only (and the SASS digest, registers)")
+    ap.add_argument("--w8-frames", action="store_true",
+                    help="the width-8 frame kernels' readings only (K2 w8, K2t w8, K3 w8; "
+                         "width 4's K2; the SASS digest, registers)")
     args = ap.parse_args()
-    mode = "--w8" if args.w8 else "--k3" if args.k3 else ""
+    mode = ("--w8-frames" if args.w8_frames else "--w8" if args.w8 else "--k3" if args.k3
+            else "")
     if args.sass:
         print(json.dumps(dict(sass=sass_loops(os.path.abspath(args.root)))), flush=True)
         return 0
     if args.one:
         print(json.dumps(measure(os.path.abspath(args.root), args.defines.split(), args.label,
-                                 args.k3, args.w8)), flush=True)
+                                 args.k3, args.w8 or args.w8_frames, args.w8_frames)),
+              flush=True)
         return 0
     rows = []
     if args.parent:
@@ -663,6 +737,13 @@ def main() -> int:
             same = len({json.dumps(d, sort_keys=True) for d in w8}) == 1
             print(f"render_primary_kernel (width 8, every instance) SASS identical in every "
                   f"build: {same} ({len(w8[0])} instances)", flush=True)
+        other = [r["sass_w8_other"] for r in good if "sass_w8_other" in r]
+        for kernel in ("traverse_kernel", "render_deferred_kernel", "bounce_kernel"):
+            kept = [{k: v for k, v in d.items() if k.startswith(kernel + "<8")} for d in other]
+            if kept and kept[0]:
+                same = len({json.dumps(d, sort_keys=True) for d in kept}) == 1
+                print(f"{kernel} (width 8, every instance) SASS identical in every build "
+                      f"that reads it: {same} ({len(kept[0])} instances)", flush=True)
     return 0 if len(good) == len(rows) and rows else 1
 
 

@@ -132,9 +132,12 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      counts of the width-8 instances, each timed in turns with width 4; the
      4-spp images against phase 12's plain images; node visits and triangle
      tests per ray, SIMT efficiency, registers and spills, the width-aware
-     bounds; a width-8 Viewer's topology refit (width-8 tables kept) and its
-     frame, then a rebuild (width-4 tables) and its frame (width 4's K2,
-     equal to a fresh renderer's);
+     bounds; K2 w8's and K2t w8's device time with and without the
+     pre-pass that the wrapper launches before each of them, and both held
+     to their plain frames at 0.0 after the Viewer's "w", "d" (order ties
+     counted, order_ties); a width-8 Viewer's topology refit (width-8
+     tables kept) and its frame, then a rebuild (width-4 tables) and its
+     frame (width 4's K2, equal to a fresh renderer's);
  22b. the spatial-split 100k courtyard (config.bvh_spatial_splits): its
      references and tree checked, K2 shadows off and on against
      render_chunk on its own tree and timed in turns with the SAH tree's,
@@ -2683,7 +2686,9 @@ def frame_bounds(tables, width, height, shade=None):
     1080p frame, shadows off (the times the kernels line reports): K1's
     closest hit of every camera ray, counted on the card, plus each kernel's
     own reads and writes and per-hit work; for the texture kernels the maps
-    that these hits' materials hold, and the atlas bytes once."""
+    that these hits' materials hold, and the atlas bytes once. K3's camera
+    walk, and at node width 8 K2's and K2t's, at the relative costs plus
+    the pre-pass's operations (its own bound: camera_relative_bound)."""
     import torch
 
     from gpu_raytracer_tpu_torch.engine.renderer import split_gbuffer, tiled_pixel_order
@@ -2723,19 +2728,26 @@ def frame_bounds(tables, width, height, shade=None):
                simt_efficiency=simt)
     out["live_slots_per_visit"] = out["live_slots"] / max(out["nodes"], 1)
     out["K1"] = bound_ms(N * (28 + 24) + table_bytes(tr.nodes, tr.tris), walk)
-    out["K2"] = bound_ms(N * (8 + 12) + tb, walk + sph + n_hit * SHADE_FLOPS)
-    # K3: its camera walk at the relative costs; the row times the wrapper,
-    # the pre-pass then K3, so "K3" bounds the two kernels' work on the
-    # function's inputs and outputs, "K3_alone" K3's own over the pre-pass's
+    # K3, and K2 / K2t at width 8: the camera walk at the relative costs;
+    # their rows time the wrapper, the pre-pass then the kernel, so "K3"
+    # ("K2", "K2t") bounds the two kernels' work on the function's inputs and
+    # outputs, "K3_alone" ("K2_alone") the kernel's own over the pre-pass's
     # tables (the winner's rows of `tris` read once)
     ws = work.sum(dim=0).tolist()
-    k3_ops = (float(ws[4] * SLAB_REL_FLOPS + ws[1] * TRI_REL_FLOPS) + sph
-              + n_hit * (SHADE_FLOPS + 30))
+    rel_walk = float(ws[4] * SLAB_REL_FLOPS + ws[1] * TRI_REL_FLOPS)
     pre_bytes, pre_ops = camera_relative_work(tables)
+    rel_bytes = tr.tris.shape[0] * REL_TRI_BYTES   # the pre-pass's rows, read by K3 / K2 w8
+    k2_ops = sph + n_hit * SHADE_FLOPS
+    if tr.width == 8:
+        out["K2"] = bound_ms(N * (8 + 12) + tb, rel_walk + k2_ops + pre_ops)
+        out["K2_alone"] = bound_ms(N * (8 + 12) + tb + rel_bytes, rel_walk + k2_ops)
+    else:
+        out["K2"] = bound_ms(N * (8 + 12) + tb, walk + k2_ops)
+    k3_ops = rel_walk + sph + n_hit * (SHADE_FLOPS + 30)
     out["K3"] = bound_ms(N * (8 + 32) + tb + table_bytes(tr.attrs), k3_ops + pre_ops)
     out["K3_alone"] = bound_ms(
         N * (8 + 32) + table_bytes(tr.nodes, tr.tris, tr.attrs, tables.materials, tables.lights,
-                                   tables.spheres) + tr.tris.shape[0] * REL_TRI_BYTES, k3_ops)
+                                   tables.spheres) + rel_bytes, k3_ops)
     if shade is not None:
         mat = split_gbuffer(render_deferred(tables, px, py, width, height))[1]
         held = shade.maps[torch.clamp(mat, 0, shade.maps.shape[0] - 1), :, 0] > 0     # [N,4]
@@ -2747,8 +2759,13 @@ def frame_bounds(tables, width, height, shade=None):
         # K4 reads 16 bytes of every ray, 16 more of a hit, and writes 12
         out["K4"] = bound_ms(N * (16 + 12) + n_hit * 16 + table_bytes(shade.materials) + sb,
                              n_hit * SHADE_FLOPS + n_samples * TEXEL_FLOPS)
-        out["K2t"] = bound_ms(N * (8 + 12) + tb + table_bytes(tr.attrs) + sb,
-                              walk + sph + n_hit * (SHADE_FLOPS + 30) + n_samples * TEXEL_FLOPS)
+        k2t_ops = sph + n_hit * (SHADE_FLOPS + 30) + n_samples * TEXEL_FLOPS
+        k2t_bytes = N * (8 + 12) + tb + table_bytes(tr.attrs) + sb
+        if tr.width == 8:
+            out["K2t"] = bound_ms(k2t_bytes, rel_walk + k2t_ops + pre_ops)
+            out["K2t_alone"] = bound_ms(k2t_bytes + rel_bytes, rel_walk + k2t_ops)
+        else:
+            out["K2t"] = bound_ms(k2t_bytes, walk + k2t_ops)
     return out
 
 # ---- BVH width 8 and the spatial-split tree (phase 22) ----
@@ -2821,6 +2838,66 @@ def main_path_launches(fn, n: int, device, want: dict, label: str) -> tuple[floa
     return ms, launches
 
 
+def primary_device_ms(tables, px, py, width, height, shade, device) -> dict:
+    """Device time of one fused frame (shadows off, on): the kernel alone
+    and, where the wrapper launches it first (node width 8), with K3's
+    pre-pass (torch.profiler, the L2 flushed before each call)."""
+    out = {}
+    words = ("render_primary_kernel",) + (("camera_relative_kernel",)
+                                          if tables.trace.width == 8 else ())
+    for shadows in (False, True):
+        from gpu_raytracer_tpu_torch.ops.cuda.render import render_primary
+
+        fn = lambda: render_primary(tables, px, py, width, height, shadows=shadows, shade=shade)
+        key = "shadows" if shadows else "no_shadows"
+        out[key] = kernel_device_ms(fn, "render_primary_kernel", FRAMES, device)
+        if len(words) > 1:
+            out[f"{key}_and_pre_pass"] = kernel_device_ms(fn, words, FRAMES, device)
+    return out
+
+
+def moved_camera_compare(tables, ttables, shade, width, height, device) -> dict:
+    """K2 w8 (`tables`) and K2t w8 (`ttables`, `shade`) after the Viewer's
+    keys "w", "d" (the move of PERF.md §2's order tie at 1080p), shadows
+    off and on, against render_chunk, on
+    copies of the tables whose camera row set_camera rewrites in place: on
+    the card each call must be one launch of K3's pre-pass and one of the
+    kernel, and the frame 0.0 from the plain one outside the counted
+    exact-t and order ties (order_ties) and, textured, the mip-boundary
+    lanes; the ties are bounded by TIE_BUDGET."""
+    import dataclasses
+
+    from gpu_raytracer_tpu_torch.models.camera import CameraController
+    from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred, set_camera
+
+    px, py = frame_pixels(width, height, device)
+    out = {}
+    for label, tab, sh in (("k2_w8", tables, None), ("k2t_w8", ttables, shade)):
+        tab = dataclasses.replace(tab, camera=tab.camera.clone(),
+                                  trace=dataclasses.replace(tab.trace), rel_nodes=None,
+                                  rel_tris=None)
+        ctl = CameraController(tab.scene.camera)
+        ctl.move(forward=1.0)
+        ctl.move(strafe=1.0)
+        set_camera(tab, ctl.camera())
+        exclude, ties = order_ties(tab, width, height, px, py)
+        if sh is not None:
+            exclude = exclude | mip_boundary_mask(sh, render_deferred(tab, px, py, width, height))
+        out[label] = dict(ties=ties, camera=tab.camera[:6].tolist(), frames={})
+        for shadows in (False, True):
+            reset_launches()
+            stats, _ = primary_compare(tab, sh, px, py, width, height, shadows, exclude)
+            launches = read_launches()
+            if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, **{label: 1,
+                                                                            "k3_pre": 1}):
+                raise AssertionError(f"{label} after a camera move launched {launches}")
+            if stats["err"] != 0.0:
+                raise AssertionError(f"{label} after a camera move: max |diff| {stats['err']:.3g} "
+                                     f"from the plain frame outside {stats['excluded']} lanes")
+            out[label]["frames"]["shadows" if shadows else "no_shadows"] = stats
+    return out
+
+
 def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size, triangles,
                  texture_size, shadow_rays, plain_images, device, card):
     """Phase 22: BVH width 8 (config.bvh_width = 8) on both 100k courtyards.
@@ -2835,13 +2912,14 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
     shade tables, PathTracer.step()) with their launch counts, each timed in
     turns with width 4 in this process; the 4-spp images against phase 12's
     plain images; node visits and triangle tests per ray, SIMT efficiency,
-    the width-aware bounds, registers and spills; a topology refit of a
-    width-8 Viewer (tables kept, width 8) and its frame, then a rebuild
-    (width 4) and the frame after it. The same binary tree and slots give
+    the width-aware bounds, registers and spills; K2 w8 and K2t w8 by
+    device time and after a camera move (moved_camera_compare); a topology
+    refit of a width-8 Viewer (tables kept, width 8) and its frame, then a
+    rebuild (width 4) and the frame after it. The same binary tree and slots give
     the same plain path, so the plain outputs are phases 3-12's (PLAIN_REFS)
     wherever the inputs are theirs; only K2t's frames (phase 15's are of the
-    GLB courtyard) and the refit frame (moved geometry) are rendered plain
-    here."""
+    GLB courtyard), the moved camera's and the refit frame (moved geometry)
+    are rendered plain here."""
     import torch
 
     from gpu_raytracer_tpu_torch.config import RaytracerConfig
@@ -2936,12 +3014,17 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
         r4.render_device()
         r8.render_device()
         stats["ms"], got = main_path_launches(r8.render_device, FRAMES, device,
-                                              dict(k2_w8=FRAMES), f"width-8 K2 {key}")
+                                              dict(k2_w8=FRAMES, k3_pre=FRAMES),
+                                              f"width-8 K2 {key}")
         launches["k2_w8"] += got["k2_w8"]
+        launches["k3_pre"] += got["k3_pre"]
         stats["w4_w8_ms"] = alternating_ms(r4.render_device, r8.render_device, FRAMES, device)
         out["k2"][key] = stats
         del r4, r8
-    log(f"phase 22 K2 width 8: {json.dumps(out['k2'])}")
+    if cuda:   # device times, the L2 flushed before each call: K2 w8, and with its pre-pass
+        out["k2_device_ms"] = primary_device_ms(tab8, px, py, width, height, None, device)
+    log(f"phase 22 K2 width 8: "
+        f"{json.dumps(dict(out['k2'], device_ms=out.get('k2_device_ms')))}")
 
     # K3's pre-pass at width 8, then K3 (+ K4) and K2t on the textured courtyard
     out["k3_pre"] = dict(textured_courtyard=camera_relative_compare(ttab8),
@@ -2977,15 +3060,23 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
         stats, _ = primary_compare(ttab8, shade8, px, py, width, height, shadows, tties | near)
         fused = lambda: render_primary(ttab8, px, py, width, height, shadows=shadows,
                                        sky=(0.1, 0.2, 0.3), shade=shade8)
-        stats["ms"], got = main_path_launches(fused, FRAMES, device, dict(k2t_w8=FRAMES),
+        stats["ms"], got = main_path_launches(fused, FRAMES, device,
+                                              dict(k2t_w8=FRAMES, k3_pre=FRAMES),
                                               f"width-8 K2t {key}")
         launches["k2t_w8"] += got["k2t_w8"]
+        launches["k3_pre"] += got["k3_pre"]
         stats["w4_w8_ms"] = alternating_ms(
             lambda: render_primary(ttables, px, py, width, height, shadows=shadows,
                                    sky=(0.1, 0.2, 0.3), shade=tshade), fused, FRAMES, device)
         out["k2t"][key] = stats
-    log(f"phase 22 K3, K2t width 8: "
-        f"{json.dumps(dict(k3_pre=out['k3_pre'], k3=out['k3'], k2t=out['k2t']))}")
+    if cuda:
+        out["k2t_device_ms"] = primary_device_ms(ttab8, px, py, width, height, shade8, device)
+    log(f"phase 22 K3, K2t width 8: {json.dumps(dict(k3_pre=out['k3_pre'], k3=out['k3'],
+                                                      k2t=out['k2t'],
+                                                      k2t_device_ms=out.get('k2t_device_ms')))}")
+    # K2 w8 and K2t w8 after a camera move: the pre-pass's tables made anew
+    out["moved_camera"] = moved_camera_compare(tab8, ttab8, shade8, width, height, device)
+    log(f"phase 22 K2 w8, K2t w8 after a camera move: {json.dumps(out['moved_camera'])}")
 
     # K6: the main path's pools, then PathTracer.step() on both courtyards
     k6 = phase_k6(pack_bounce_tables(s8), pt_size, pt_size, "courtyard_w8", ref="courtyard")
@@ -3053,9 +3144,10 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
     v.update_geometry(moved)
     if v.renderer.tables.trace.width != 8 or v.renderer.tables.trace.nodes is not nodes:
         raise AssertionError("a topology refit of a width-8 scene replaced its width-8 tables")
-    _, got = main_path_launches(v.run_compute, 1, device, dict(k2_w8=1),
+    _, got = main_path_launches(v.run_compute, 1, device, dict(k2_w8=1, k3_pre=1),
                                 "the width-8 Viewer's refit frame")
     launches["k2_w8"] += got["k2_w8"]
+    launches["k3_pre"] += got["k3_pre"]
     bad = tables_equal(v.renderer.tables.trace, pack_render_tables(v.scene).trace)
     if bad:
         raise AssertionError(f"width-8 refreshed tables differ from a fresh pack in {bad}")
@@ -3090,11 +3182,13 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
     out["max_abs_err"] = dict(
         k1=max(out["k1"]["primary"]["t_abs"], out["k1"]["primary"]["normal_abs"],
                out["k1"]["shadow"]["t_abs"], out["k1"]["shadow"]["normal_abs"]),
-        k2=max([v["err"] for v in out["k2"].values()] + [out["viewer_refit"]["max_abs_err"]]),
+        k2=max([v["err"] for v in out["k2"].values()] + [out["viewer_refit"]["max_abs_err"]]
+               + [v["err"] for v in out["moved_camera"]["k2_w8"]["frames"].values()]),
         k3=max([e for v in out["k3"].values() if isinstance(v, dict) and "S" in v
                 for e in (v["S"], v["uv"], v["lam_rel"])] + [out["k3"]["frame"]["max_abs_err"]]),
         k3_pre=max(v["max_abs_err"] for v in out["k3_pre"].values()),
-        k2t=max(v["err"] for v in out["k2t"].values()),
+        k2t=max([v["err"] for v in out["k2t"].values()]
+                + [v["err"] for v in out["moved_camera"]["k2t_w8"]["frames"].values()]),
         k6=max(v["max_abs_err"] for v in k6.values()))
     log(f"phase 22 width 8 summary: {json.dumps(dict(launches=launches, bounds=out.get('bounds'), max_abs_err=out['max_abs_err'], viewer_refit=out['viewer_refit'], rebuilt_frame=out['rebuilt_frame']))}")
     return out
@@ -4214,9 +4308,11 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
 
     w8l, w8e, w8b = w8["launches"], w8["max_abs_err"], w8.get("bounds", {})
     k3_pre_launches += w8l["k3_pre"]
-    if cuda and k3_pre_launches != k3_launches + w8l["k3_w8"]:
-        raise AssertionError(f"{k3_pre_launches} launches of K3's pre-pass for "
-                             f"{k3_launches + w8l['k3_w8']} of K3 on the main paths")
+    # one pre-pass before every K3 launch and every width-8 K2 / K2t launch
+    pre_for = k3_launches + w8l["k3_w8"] + w8l["k2_w8"] + w8l["k2t_w8"]
+    if cuda and k3_pre_launches != pre_for:
+        raise AssertionError(f"{k3_pre_launches} launches of K3's pre-pass for {pre_for} of K3, "
+                             f"K2 w8 and K2t w8 on the main paths")
     fb = frame_bounds(tables, width, height) if cuda else {}
     tfb = frame_bounds(ttables, width, height, shade=tshade) if cuda else {}
     bound = lambda b: dict(bound_ms=b[0], bound_by=b[1]) if b else dict(bound_ms=None,
@@ -4266,7 +4362,8 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              k3_and_pre_pass_device_ms=k3.get("k3_and_pre_pass_device_ms"),
              k3_alone_bound_ms=tfb["K3_alone"][0] if tfb else None),
         dict(name="K3 pre-pass camera_relative (the camera-relative node and triangle tables "
-                  "K3's camera walk reads, one launch before each K3 launch of either width; "
+                  "the camera walks of K3 and of K2 w8 / K2t w8 read, one launch before each "
+                  "K3 launch of either width and each width-8 K2 / K2t launch; "
                   "held to its plain version bit for bit at widths 4 and 8, phases 7b and "
                   "22; ms: device time, the L2 flushed, plain_ms and the bound on the "
                   "textured 100k courtyard)", route="cuda",
@@ -4335,19 +4432,32 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              **bound8("w8", "K1"), library_ms=None,
              any_hit_ms={k: v["ms"] for k, v in w8["k1"]["any_hit"].items()}),
         dict(name="K2 render_primary, " + w8_note + "phase 5's, the same binary tree and "
-                  "slots; ms: Renderer.render_device() at 1080p, shadows off",
+                  "slots; ms: Renderer.render_device() at 1080p, shadows off (K3's pre-pass, "
+                  "then K2 w8, whose camera walk reads its tables); bound_ms: the two "
+                  "kernels' work, the camera walk at its relative costs; k2_device_ms, "
+                  "k2_and_pre_pass_device_ms: torch.profiler, the L2 flushed before each "
+                  "call; k2_alone_bound_ms: K2 w8's own work; max_abs_err also after a camera "
+                  "move, outside counted order ties",
              route="cuda", source="gpu_raytracer_tpu_torch/csrc/render_primary_w8.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:701", launches=w8l["k2_w8"],
              max_abs_err=w8e["k2"], ms=w8["k2"]["no_shadows"]["ms"],
-             plain_ms=main["no_shadows"]["plain_ms"], **bound8("w8", "K2"), library_ms=None),
+             plain_ms=main["no_shadows"]["plain_ms"], **bound8("w8", "K2"), library_ms=None,
+             k2_device_ms=w8.get("k2_device_ms", {}).get("no_shadows"),
+             k2_and_pre_pass_device_ms=w8.get("k2_device_ms", {}).get("no_shadows_and_pre_pass"),
+             k2_alone_bound_ms=w8b.get("w8", {}).get("K2_alone", (None,))[0]),
         dict(name="K2t render_primary_textured, " + w8_note + "phase 15's on the GLB courtyard "
                   "(frame equal to the procedural one); ms on the textured courtyard, "
-                  "shadows off", route="cuda",
+                  "shadows off (K3's pre-pass, then K2t w8); bound_ms, k2_device_ms, "
+                  "k2_and_pre_pass_device_ms and k2_alone_bound_ms as K2 w8's",
+             route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/render_primary_textured_w8.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:363", launches=w8l["k2t_w8"],
              max_abs_err=w8e["k2t"], ms=w8["k2t"]["no_shadows"]["ms"],
              plain_ms=k2t["textured_courtyard_no_shadows"]["plain_ms"],
-             **bound8("w8_textured", "K2t"), library_ms=None),
+             **bound8("w8_textured", "K2t"), library_ms=None,
+             k2_device_ms=w8.get("k2t_device_ms", {}).get("no_shadows"),
+             k2_and_pre_pass_device_ms=w8.get("k2t_device_ms", {}).get("no_shadows_and_pre_pass"),
+             k2_alone_bound_ms=w8b.get("w8_textured", {}).get("K2t_alone", (None,))[0]),
         dict(name="K3 render_deferred, " + w8_note + "phase 7's, the same binary tree and "
                   "slots; ms: render_deferred at 1080p, shadows off (its pre-pass then K3); "
                   "bound_ms, k3_device_ms, k3_and_pre_pass_device_ms and k3_alone_bound_ms "

@@ -84,10 +84,10 @@ struct Surface {
 };
 
 // Spheres exhaustively (first closest wins), then the triangles pruned at the
-// sphere t. Returns false on a miss. REL (K3's camera ray): the walk reads
-// the camera-relative node records `rel_nodes` and triangle rows `rel_tris`
-// of the ray's origin (camera_relative.cu); the winner's attributes come
-// from `tris`.
+// sphere t. Returns false on a miss. REL (the camera rays of K3 and of
+// K2 / K2t at width 8): the walk reads the camera-relative node records
+// `rel_nodes` and triangle rows `rel_tris` of the ray's origin
+// (camera_relative.cu); the winner's attributes come from `tris`.
 template <int W, int STACK, bool REL = false>
 __device__ __forceinline__ bool closest_surface(const Node<W>* __restrict__ nodes,
                                                 const float4* __restrict__ tris,

@@ -4,8 +4,12 @@
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a node width or stack capacity that was not
-// compiled. `light_u` null: every light is looped over.
-extern "C" int rt_render_primary(const void* nodes, const void* tris, int node_width, int stack,
+// compiled, or width 8 without the camera-relative tables. `light_u` null:
+// every light is looped over. `rel_nodes` and `rel_tris`: the
+// camera-relative tables of `cam` (rt_camera_relative, launched before on
+// the same stream), read at node width 8 only.
+extern "C" int rt_render_primary(const void* nodes, const void* tris, const void* rel_nodes,
+                                 const void* rel_tris, int node_width, int stack,
                                  const void* cam, const void* mats, int n_mats,
                                  const void* lights, int n_lights, const void* spheres,
                                  int n_spheres, const void* px, const void* py, int n, int width,
@@ -19,8 +23,11 @@ extern "C" int rt_render_primary(const void* nodes, const void* tris, int node_w
                             rt::PrimaryTextures{nullptr, nullptr, nullptr, 0, 1, 0.0f},
                             static_cast<const int*>(px), static_cast<const int*>(py), n, width,
                             height, shadows, sky_r, sky_g, sky_b,
-                            static_cast<const float*>(light_u), static_cast<float*>(rgb)};
+                            static_cast<const float*>(light_u), static_cast<float*>(rgb),
+                            rel_nodes, static_cast<const float4*>(rel_tris)};
   auto s = static_cast<cudaStream_t>(stream);
+  if (node_width == 8 && (rel_nodes == nullptr || rel_tris == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (node_width == 4) return rt::launch_render_primary<4, false>(a, stack, s);
   if (node_width == 8) return rt::render_primary_w8(a, stack, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -11,7 +11,10 @@
 // -> per light: intensity with the f16 attenuation round trip, and with
 // shadows one any-hit shadow ray through K1 plus the sphere occluders ->
 // ambient 0.1 + brdf x light sum + emission -> per-channel dispersion blend ->
-// magenta for an invalid material, the sky colour for a miss.
+// magenta for an invalid material, the sky colour for a miss. The pixel is
+// primary_pixel.cuh (where width 8's camera walk over the camera-relative
+// tables and its material step split around the light loop are laid out);
+// this file holds the kernel and its launch.
 //
 // The material is the winner's material row (K2) or, textured (K2t, the TPU
 // kernel's branch at :363-378), that row times its maps: the hit's uv
@@ -49,35 +52,21 @@
 // memory between stages. The launch is 128
 // threads a block with the registers capped for 6 blocks an SM (77-80
 // registers, no spills at width 4; a measured sweep, PERF.md); the width-8
-// instances take their own cap, kRenderMinBlocksW8 (traverse.cuh), also 6,
-// at which they spill 24-92 bytes: 5 or 4 blocks measured slower. Callers
+// instances take the width-8 cap kRenderMinBlocksW8 (traverse.cuh), also 6,
+// at which K2 w8 spills 28 bytes and K2t w8 84 (80 registers): 5 blocks
+// (96 registers, 4 / 72 bytes) read 5% slower (PERF.md). Callers
 // order the pixels so that a warp is an 8 x 4 block (engine/renderer.py).
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include "render_common.cuh"
-#include "texsample.cuh"
+#include "primary_pixel.cuh"
 
 namespace rt {
 
-// The width-8 shadow walks of K2 and K2t keep the closest hit's near-first
-// order (render_common.cuh NEAR_ANY): with the other kernels' any-hit walk
-// K2 w8 and K2t w8 read 4-6% slower without shadows (the same camera walk:
-// the fused kernel's code and spills move) and up to 3% slower with them
-// (PERF.md). `chip_ab.py --w8 --variants kPrimaryNearAnyW8=0` reads it again.
-constexpr int kPrimaryNearAnyW8 = 1;
-
-// What the textured instance reads beside the untextured one's arguments.
-struct PrimaryTextures {
-  const float4* attrs;    // per-slot uv records (ops/cuda/traverse.py)
-  const TexMeta* maps;    // [n_mats, 4] (ops/cuda/texshade.py)
-  const int2* atlas;      // texel pairs
-  int present;            // bit k: map slot k is sampled
-  int n_levels;           // longest mip chain of the atlas
-  float pix_scale;        // 2 tan(fov/2) / height
-};
-
+// rel_nodes / rel_tris: the camera-relative tables of `cam` (K3's pre-pass,
+// launched before on the same stream), read by the width-8 camera walk;
+// width 4 never reads them.
 template <int W, int STACK, bool TEXTURED>
 __global__ void __launch_bounds__(kRenderBlock, W == 8 ? kRenderMinBlocksW8 : kRenderMinBlocks)
 render_primary_kernel(const Node<W>* __restrict__ nodes, const float4* __restrict__ tris,
@@ -87,64 +76,14 @@ render_primary_kernel(const Node<W>* __restrict__ nodes, const float4* __restric
                       const PrimaryTextures tex, const int* __restrict__ px,
                       const int* __restrict__ py, int n, int width, int height, int shadows,
                       float sky_r, float sky_g, float sky_b,
-                      const float* __restrict__ light_u, float* __restrict__ rgb) {
+                      const float* __restrict__ light_u, float* __restrict__ rgb,
+                      const Node<W>* __restrict__ rel_nodes,
+                      const float4* __restrict__ rel_tris) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-
-  const Ray ray = camera_ray(cam, px[i], py[i], width, height);
-  Surface s;
-  if (!closest_surface<W, STACK>(nodes, tris, spheres, n_spheres, ray, s)) {
-    rgb[3 * i] = sky_r;
-    rgb[3 * i + 1] = sky_g;
-    rgb[3 * i + 2] = sky_b;
-    return;
-  }
-
-  // ---- material ----
-  const int mid = min(max(s.mat, 0), n_mats - 1);
-  float u = 0.0f, v = 0.0f, lam = 0.0f;
-  if (TEXTURED) {
-    float density;
-    const float2 uv = surface_uv(tris, tex.attrs, ray, s, density);
-    u = uv.x;
-    v = uv.y;
-    lam = s.slot >= 0 ? s.t * tex.pix_scale * density : 0.0f;
-  }
-  const MaterialSample m = sample_material<true>(
-      mats, TEXTURED ? tex.maps : nullptr, tex.atlas, tex.present, tex.n_levels, mid, u, v, lam);
-  const float is_metal = m.metallic > 0.5f ? 1.0f : 0.0f;
-  const float brdf = is_metal * 0.5f + (1.0f - is_metal) / kPi;
-
-  // ---- direct lighting: every light in light order, or the one sampled ----
-  float sum[3] = {0.0f, 0.0f, 0.0f};
-  if (light_u != nullptr) {
-    float Ig;
-    const float* L = sampled_light<W, STACK, kPrimaryNearAnyW8 == 1>(
-        lights, n_lights, light_u[i], s, shadows != 0, nodes, tris, spheres, n_spheres, Ig);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) sum[c] = m.albedo[c] * brdf * Ig * L[4 + c];
-  } else {
-    for (int li = 0; li < n_lights; ++li) {
-      const float* L = lights + li * kLightWords;
-      const float I = light_intensity<W, STACK, kPrimaryNearAnyW8 == 1>(
-          L, s, shadows != 0, nodes, tris, spheres, n_spheres);
-      const float gate = I > 0.0f ? 1.0f : 0.0f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) sum[c] = sum[c] + m.albedo[c] * brdf * (I * gate) * L[4 + c];
-    }
-  }
-
-  // ---- ambient + lights + emission, transmission blend with dispersion ----
-  const bool invalid = s.mat < 0 || s.mat >= n_mats;
-  const bool with_occlusion = TEXTURED && ((tex.present >> kMapOcclusion) & 1);
-  const float magenta[3] = {1.0f, 0.0f, 1.0f};
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float ambient = m.albedo[c] * 0.1f;
-    if (with_occlusion) ambient = ambient * m.occlusion;
-    const float lit = ambient + sum[c] + m.emission[c];
-    rgb[3 * i + c] = invalid ? magenta[c] : dispersion_blend(lit, m.ior, m.transmission, c);
-  }
+  primary_pixel<W, STACK, TEXTURED>(nodes, tris, cam, mats, n_mats, lights, n_lights, spheres,
+                                    n_spheres, tex, px, py, i, width, height, shadows, sky_r,
+                                    sky_g, sky_b, light_u, rgb, rel_nodes, rel_tris);
 }
 
 // The arguments of one K2 / K2t launch (host side).
@@ -165,6 +104,8 @@ struct PrimaryLaunch {
   float sky_r, sky_g, sky_b;
   const float* light_u;
   float* rgb;
+  const void* rel_nodes;    // the camera-relative tables (width 8; null at width 4)
+  const float4* rel_tris;
 };
 
 // Launch the width-W instance for `stack`; returns cudaGetLastError(), or
@@ -177,7 +118,8 @@ int launch_render_primary(const PrimaryLaunch& a, int stack, cudaStream_t s) {
   render_primary_kernel<W, S, TEXTURED><<<grid, block, 0, s>>>(                               \
       static_cast<const Node<W>*>(a.nodes), a.tris, a.cam, a.mats, a.n_mats, a.lights,       \
       a.n_lights, a.spheres, a.n_spheres, a.tex, a.px, a.py, a.n, a.width, a.height,         \
-      a.shadows, a.sky_r, a.sky_g, a.sky_b, a.light_u, a.rgb)
+      a.shadows, a.sky_r, a.sky_g, a.sky_b, a.light_u, a.rgb,                                \
+      static_cast<const Node<W>*>(a.rel_nodes), a.rel_tris)
   RT_SWITCH_STACK(W, stack, RT_LAUNCH)
 #undef RT_LAUNCH
   return static_cast<int>(cudaGetLastError());

@@ -5,9 +5,13 @@
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a node width or stack capacity that was not
-// compiled. `light_u` null: every light is looped over.
+// compiled, or width 8 without the camera-relative tables. `light_u` null:
+// every light is looped over. `rel_nodes` and `rel_tris`: the
+// camera-relative tables of `cam` (rt_camera_relative, launched before on
+// the same stream), read at node width 8 only.
 extern "C" int rt_render_primary_textured(
-    const void* nodes, const void* tris, const void* attrs, int node_width, int stack,
+    const void* nodes, const void* tris, const void* attrs, const void* rel_nodes,
+    const void* rel_tris, int node_width, int stack,
     const void* cam, const void* mats, int n_mats, const void* lights, int n_lights,
     const void* spheres, int n_spheres, const void* maps, const void* atlas, int present,
     int n_levels, float pix_scale, const void* px, const void* py, int n, int width, int height,
@@ -23,8 +27,11 @@ extern "C" int rt_render_primary_textured(
                             static_cast<const float*>(spheres), n_spheres, tex,
                             static_cast<const int*>(px), static_cast<const int*>(py), n, width,
                             height, shadows, sky_r, sky_g, sky_b,
-                            static_cast<const float*>(light_u), static_cast<float*>(rgb)};
+                            static_cast<const float*>(light_u), static_cast<float*>(rgb),
+                            rel_nodes, static_cast<const float4*>(rel_tris)};
   auto s = static_cast<cudaStream_t>(stream);
+  if (node_width == 8 && (rel_nodes == nullptr || rel_tris == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (node_width == 4) return rt::launch_render_primary<4, true>(a, stack, s);
   if (node_width == 8) return rt::render_primary_textured_w8(a, stack, s);
   return static_cast<int>(cudaErrorInvalidValue);

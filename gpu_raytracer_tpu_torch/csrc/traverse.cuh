@@ -88,13 +88,15 @@
 // in the stored order (50-72% more visits toward a point light: slower), a
 // 19-exchange sorting network on (distance, position) for the closest hit
 // (its loop 490, 7.5% slower), other width-8 register caps
-// (kRenderMinBlocksW8, kBounceMinBlocksW8 below). The fused frame kernels
-// K2 and K2t keep the near-first shadow walk (NEAR_ANY): with the other one
-// their frames read 4-6% slower without shadows, the same camera walk in
-// code that the compiler laid out and spilled differently.
+// (kRenderMinBlocksW8, kBounceMinBlocksW8 below). The fused textured frame
+// kernel K2t keeps the near-first shadow walk (NEAR_ANY): with the other
+// one its frames read slower without shadows, the same camera walk in code
+// that the compiler laid out differently; K2 takes the unranked one
+// (primary_pixel.cuh).
 //
-// The camera-relative walk (REL; only K3's camera ray takes it,
-// render_deferred.cuh): every ray of a batch that starts at one origin o
+// The camera-relative walk (REL; the camera rays of K3, render_deferred.cuh,
+// and of K2 / K2t at width 8, primary_pixel.cuh): every ray of a batch
+// that starts at one origin o
 // computes the same plane - o for every child box and the same s = o - v0,
 // q = s x e1 and e2 . q for every triangle. camera_relative.cu computes them
 // once per frame into tables of their own, with the same operations in the

@@ -35,7 +35,7 @@ SOURCES = ("traverse.cu", "render_primary.cu", "render_primary_textured.cu",
            "render_primary_textured_w8.cu", "render_deferred_w8.cu", "bounce_w8.cu",
            "bounce_textured_w8.cu", "traverse_threaded.cu", "camera_relative.cu")
 HEADERS = ("traverse.cuh", "traverse_kernels.cuh", "render_common.cuh", "render_primary.cuh",
-           "render_deferred.cuh", "texsample.cuh", "bounce.cuh")
+           "primary_pixel.cuh", "render_deferred.cuh", "texsample.cuh", "bounce.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -56,18 +56,20 @@ ARGTYPES = {
     # binary nodes, n_nodes, tris, orig, dirn, max_t, n, any_hit, t_out,
     # slot_out, normal_out, mat_out, stream
     "rt_traverse_threaded": [_p, _i, _p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p],
-    # nodes, tris, node width, stack, camera, materials, n_mats, lights,
-    # n_lights, spheres, n_spheres, px, py, n, width, height, shadows,
-    # sky_r, sky_g, sky_b, light_u (null: every light), rgb_out, stream
-    "rt_render_primary": [_p, _p, _i, _i, _p, _p, _i, _p, _i, _p, _i, _p, _p, _i,
+    # nodes, tris, rel_nodes, rel_tris (the camera-relative tables, read at
+    # width 8; null at width 4), node width, stack, camera, materials,
+    # n_mats, lights, n_lights, spheres, n_spheres, px, py, n, width, height,
+    # shadows, sky_r, sky_g, sky_b, light_u (null: every light), rgb_out,
+    # stream
+    "rt_render_primary": [_p, _p, _p, _p, _i, _i, _p, _p, _i, _p, _i, _p, _i, _p, _p, _i,
                           _i, _i, _i, _f, _f, _f, _p, _p, _p],
-    # nodes, tris, attrs, node width, stack, camera, materials, n_mats,
-    # lights, n_lights, spheres, n_spheres, maps, atlas, present, n_levels,
-    # pix_scale, px, py, n, width, height, shadows, sky_r, sky_g, sky_b,
-    # light_u, rgb_out, stream
-    "rt_render_primary_textured": [_p, _p, _p, _i, _i, _p, _p, _i, _p, _i, _p, _i, _p, _p,
-                                   _i, _i, _f, _p, _p, _i, _i, _i, _i, _f, _f, _f, _p, _p,
-                                   _p],
+    # nodes, tris, attrs, rel_nodes, rel_tris, node width, stack, camera,
+    # materials, n_mats, lights, n_lights, spheres, n_spheres, maps, atlas,
+    # present, n_levels, pix_scale, px, py, n, width, height, shadows, sky_r,
+    # sky_g, sky_b, light_u, rgb_out, stream
+    "rt_render_primary_textured": [_p, _p, _p, _p, _p, _i, _i, _p, _p, _i, _p, _i, _p, _i,
+                                   _p, _p, _i, _i, _f, _p, _p, _i, _i, _i, _i, _f, _f, _f,
+                                   _p, _p, _p],
     # nodes, tris, attrs, rel_nodes, rel_tris (the camera-relative tables),
     # node width, stack, camera, lights, n_lights, spheres, n_spheres, px,
     # py, n, width, height, shadows, pix_scale, light_u, gbuf_out, stream

@@ -26,15 +26,17 @@ G-buffer as two planes [2,N,4]: (S rgb, material id) for every ray, then
 (uv, mip footprint, 0). Its plain version is
 `engine/renderer.py::render_gbuffer`, whose rows [N,8] hold the same words;
 `render_deferred` returns planes on either device (`gbuffer_planes`).
-On the card every K3 launch comes after one launch of its pre-pass,
-`camera_relative` (csrc/camera_relative.cu): the camera-relative node and
-triangle tables that K3's camera walk reads (the camera's position taken off
-every box plane; s = o - v0, q = s x e1 and e2 . q per triangle), made from
-the device camera row into two buffers of `RenderTables`, which it allocates
-at its first launch and again when a rebuild changes the trace tables'
-shapes (tables that never run K3 hold none). Its plain version
-is `camera_relative_tables`, the same operations in the same order; K3's
-plain version stays `render_gbuffer`.
+On the card every K3 launch, and every K2 / K2t launch at node width 8,
+comes after one launch of K3's pre-pass, `camera_relative`
+(csrc/camera_relative.cu): the camera-relative node and triangle tables that
+their camera walk reads (the camera's position taken off every box plane;
+s = o - v0, q = s x e1 and e2 . q per triangle), made from the device
+camera row into two buffers of `RenderTables`, which it allocates at its
+first launch and again when a rebuild changes the trace tables' shapes
+(tables that never run it hold none). Its plain version is
+`camera_relative_tables`, the same operations in the same order; K3's and
+K2's plain versions stay `render_gbuffer` and `render_chunk`. A width-4 K2
+or K2t launch takes no pre-pass.
 
 All three loop over every light in light order, or, given `light_u` (one
 uniform per ray), evaluate the one light min(floor(u * L), L - 1) with one
@@ -82,7 +84,7 @@ class RenderTables:
     spheres: torch.Tensor     # [S,8] f32
     fov_scale: float          # the camera's tan(fov/2), evaluated on the host once
     # the camera-relative tables K3's pre-pass writes before every K3 launch
-    # (`camera_relative`, which allocates them)
+    # and every width-8 K2 / K2t launch (`camera_relative`, which allocates them)
     rel_nodes: torch.Tensor | None = None   # [Q,8w] f32, the node records' layout
     rel_tris: torch.Tensor | None = None    # [Tp,16] f32
 
@@ -189,8 +191,9 @@ def relative_buffers(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def camera_relative(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3's pre-pass: the camera-relative tables of the tables' current
-    camera written into `relative_buffers(tables)`, which it returns. CUDA
+    """K3's pre-pass, also launched before every width-8 K2 / K2t launch:
+    the camera-relative tables of the tables' current camera written into
+    `relative_buffers(tables)`, which it returns. CUDA
     tensors launch csrc/camera_relative.cu on the current stream (counted in
     `launches`; the camera's position is read on the device), CPU tensors
     take the plain `camera_relative_tables`."""
@@ -250,8 +253,9 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     the given order, one launch: K2, or K2t for a textured scene, which needs
     `shade`, the scene's `ops/cuda/texshade.py::pack_shade_tables` (textures
     at the nearest mip of each hit's footprint). `light_u` [N] f32 selects
-    single-sample light selection. CUDA tensors launch the kernel, CPU
-    tensors take the plain version."""
+    single-sample light selection. CUDA tensors launch the kernel (at node
+    width 8 after K3's pre-pass `camera_relative`, whose tables the width-8
+    camera walk reads), CPU tensors take the plain version."""
     from ...engine.renderer import render_chunk
 
     N = _check_pixels(tables, px, py, light_u, "render_primary")
@@ -268,6 +272,10 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     sky_r, sky_g, sky_b = (float(c) for c in sky)
     stream = torch.cuda.current_stream(px.device).cuda_stream
     nodes = nodes_ptr(tr)
+    # width 8: the camera walk reads the pre-pass's tables of this camera,
+    # made anew for every launch (every camera move rewrites the camera row)
+    rel = (tuple(x.data_ptr() for x in camera_relative(tables)) if tr.width == 8
+           else (0, 0))
     scene_args = (tables.camera.data_ptr(), tables.materials.data_ptr(),
                   tables.materials.shape[0], tables.lights.data_ptr(), tables.lights.shape[0],
                   tables.spheres.data_ptr(), tables.spheres.shape[0])
@@ -276,13 +284,13 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     if textured:
         count_launch(render_primary, tr, "textured_launches")
         check(k.lib.rt_render_primary_textured(
-            nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.width, tr.stack, *scene_args,
+            nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), *rel, tr.width, tr.stack, *scene_args,
             shade.maps.data_ptr(), shade.atlas.data_ptr(), shade.present, shade.n_levels,
             pixel_footprint_scale(tables.fov_scale, height), *frame_args),
             "rt_render_primary_textured")
     else:
         count_launch(render_primary, tr)
-        check(k.lib.rt_render_primary(nodes, tr.tris.data_ptr(), tr.width, tr.stack,
+        check(k.lib.rt_render_primary(nodes, tr.tris.data_ptr(), *rel, tr.width, tr.stack,
                                       *scene_args, *frame_args), "rt_render_primary")
     return rgb
 

@@ -3,7 +3,8 @@
 The width-8 overlay (`RaytracerConfig(bvh_width=8)`) bit for bit against
 the JAX package's, through the bridge too; its 64-word node records, their
 alignment check and the stack bound; the port's plain trace on a width-8
-scene against JAX's interpreted width-8 Pallas walk (K1); the topology refit
+scene against JAX's interpreted width-8 Pallas walk (K1); the plain frame
+with shadows (K2 w8's plain version) against JAX's render; the topology refit
 and the rebuild of a width-8 scene; the native width-8 collapse of a
 NumPy-built tree against the NumPy collapse.
 
@@ -211,6 +212,37 @@ def test_width8_refit_tables_equal_a_fresh_pack(courtyards, rebuild):
         assert tables.width == 4 and tables.nodes.shape[1] == 32 and tables.stack == 128
     else:
         assert tables.width == 8 and tables.nodes is nodes
+
+
+@pytest.mark.parametrize("size", [(32, 32), (64, 48)])
+def test_width8_frame_with_shadows_matches_jax(courtyards, size):
+    """K2 w8's plain version: the port's Renderer on the CPU (`render_chunk`)
+    on the width-8 courtyard, shadows on, against the JAX package's Renderer
+    on its width-8 courtyard (its XLA path on the CPU): within 1e-5, outside
+    the counted rounding-sensitive pixels (torch_bridge: f16 attenuation
+    boundaries where XLA:CPU's fused multiply-add moves the rounding, and
+    pixels that f32 rounding alone moves by more than 1e-6), at most 1% of
+    the frame."""
+    from gpu_raytracer_tpu.engine.renderer import Renderer as JaxRenderer
+    from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
+    from gpu_raytracer_tpu_torch.ops.trace import trace
+    from torch_bridge import f16_attenuation_flips, rounding_sensitive_pixels
+
+    js, ps, _ = courtyards
+    W, H = size
+    want = np.asarray(JaxRenderer(js, W, H, shadows=True).render())
+    got = Renderer(ps, W, H, shadows=True, device="cpu").render()
+    assert got.shape == want.shape == (H, W, 3) and np.isfinite(got).all() and got.max() > 0.05
+    py, px = torch.meshgrid(torch.arange(H, dtype=torch.int32),
+                            torch.arange(W, dtype=torch.int32), indexing="ij")
+    o, d = generate_rays(ps.camera, W, H, px.reshape(-1), py.reshape(-1))
+    counted = (f16_attenuation_flips(ps, trace(ps, o, d)).reshape(H, W)
+               | rounding_sensitive_pixels(ps, W, H, shadows=True))
+    assert counted.sum() <= MAX_TIE_SHARE * counted.size
+    diff = np.abs(got - want).max(axis=-1)
+    assert diff[~counted].max() <= 1e-5
+    print(f"width 8 {W}x{H}, shadows: max |diff| {diff[~counted].max():.3g} outside "
+          f"{int(counted.sum())} counted pixels ({diff.max():.3g} on them)")
 
 
 def test_native_width8_collapse_of_a_numpy_tree_equals_the_numpy_collapse():

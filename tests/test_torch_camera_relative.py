@@ -1,7 +1,8 @@
 """K3's pre-pass (csrc/camera_relative.cu): its plain version and its buffers.
 
 `camera_relative_tables` makes the camera-relative node records and
-triangle rows that K3's camera walk reads. Held here, bit for bit, to a
+triangle rows that K3's camera walk reads, and at node width 8 the camera
+walks of K2 w8 and K2t w8. Held here, bit for bit, to a
 NumPy float32 recomputation of the same operations in the walk's order, at
 node widths 4 and 8, for the scene's camera and for a moved one (the camera
 row is rewritten in place by `set_camera`, and the tables follow it). The
@@ -34,9 +35,9 @@ def _same_bits(a, b):   # the code words are int32 bits, some of them NaN as flo
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def _tables(width, moved):
+def _tables(width, moved, textured=True):
     cfg = RaytracerConfig(bvh_width=width)
-    scene = make_courtyard_scene(TRIANGLES, seed=2, textured=True, config=cfg, device="cpu")
+    scene = make_courtyard_scene(TRIANGLES, seed=2, textured=textured, config=cfg, device="cpu")
     tables = pack_render_tables(scene)
     if moved:   # off every axis of the default camera, looking down and across
         set_camera(tables, Camera.create((7.25, 3.5, -11.0), (-0.4, -0.3, 0.85)))
@@ -62,10 +63,13 @@ def _numpy_relative(nodes, tris, o, width):
     return rel_nodes, rel_tris
 
 
+@pytest.mark.parametrize("textured", [True, False], ids=["textured", "untextured"])
 @pytest.mark.parametrize("moved", [False, True], ids=["camera", "moved_camera"])
 @pytest.mark.parametrize("width", [4, 8])
-def test_plain_pre_pass_matches_numpy_bit_for_bit(width, moved):
-    tables = _tables(width, moved)
+def test_plain_pre_pass_matches_numpy_bit_for_bit(width, moved, textured):
+    """The tables K3's camera walk reads (the textured scene) and, at width
+    8, K2 w8's (the untextured one)."""
+    tables = _tables(width, moved, textured)
     tr = tables.trace
     assert tr.width == width
     o = tables.camera[:3].numpy()

@@ -798,6 +798,59 @@ def test_width8_refit_keeps_width8_and_rebuild_drops_to_width4_on_the_card(cuda)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("textured", [False, True], ids=["k2_w8", "k2t_w8"])
+def test_width8_fused_render_matches_plain_after_a_camera_move(cuda, textured):
+    """K2 w8 and K2t w8 after a camera move (the camera row rewritten in
+    place, so the pre-pass's tables must be made anew), shadows on: one
+    launch of K3's pre-pass and one of the width-8 kernel, the frame 0.0
+    from render_chunk outside counted exact-t and order ties (and K2t's
+    mip-boundary lanes)."""
+    from chip_smoke import frame_pixels, order_ties
+    from gpu_raytracer_tpu_torch.ops.cuda.render import set_camera
+
+    scene = _wide_scene("w8", cuda, textured=textured)
+    tables = pack_render_tables(scene)
+    shade = pack_shade_tables(scene) if textured else None
+    W, H = 160, 120
+    px, py = frame_pixels(W, H, cuda)
+    render_primary(tables, px, py, W, H, shadows=True, shade=shade)   # the scene camera's tables
+    ctl = CameraController(scene.camera)
+    ctl.move(forward=1.0)
+    ctl.move(strafe=1.0)
+    set_camera(tables, ctl.camera())
+    exclude, _ = order_ties(tables, W, H, px, py)
+    if textured:
+        exclude = exclude | mip_boundary_mask(shade, render_deferred(tables, px, py, W, H))
+    reset_launches()
+    stats, got = primary_compare(tables, shade, px, py, W, H, True, exclude, sky=SKY)
+    kernel = "k2t_w8" if textured else "k2_w8"
+    assert read_launches() == dict(ZERO_LAUNCHES, **{kernel: 1, "k3_pre": 1})
+    assert stats["err"] == 0.0 and torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("textured", [False, True], ids=["k2", "k2t"])
+@pytest.mark.parametrize("width", [4, 8])
+def test_render_primary_launches_the_pre_pass_at_width8_only(cuda, width, textured):
+    """One render_primary call: at width 8 one launch of K3's pre-pass
+    beside the K2 w8 / K2t w8 launch, at width 4 the kernel alone."""
+    from chip_smoke import frame_pixels
+    from gpu_raytracer_tpu_torch.config import RaytracerConfig
+
+    scene = make_courtyard_scene(2000, seed=1, textured=textured, device=cuda,
+                                 config=RaytracerConfig(bvh_width=width))
+    tables = pack_render_tables(scene)
+    shade = pack_shade_tables(scene) if textured else None
+    px, py = frame_pixels(64, 48, cuda)
+    reset_launches()
+    render_primary(tables, px, py, 64, 48, shadows=True, shade=shade)
+    kernel = ("k2t" if textured else "k2") + ("_w8" if width == 8 else "")
+    want = {kernel: 1, "k3_pre": 1} if width == 8 else {kernel: 1}
+    assert read_launches() == dict(ZERO_LAUNCHES, **want)
+    assert (tables.rel_nodes is None) == (width == 4)
+
+
+@pytest.mark.cuda
 def test_traversal_work_counts_the_live_child_slots_of_each_visit(cuda):
     """traversal_work's counts on one tree at both widths: every visit has
     2 .. width non-empty child slots, width 8 visits fewer records than
