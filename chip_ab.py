@@ -12,6 +12,7 @@ in turn inside one run so that they share a card.
     python3 chip_ab.py --parent build/parent --w8           # the width-8 readings alone (below)
     python3 chip_ab.py --w8 --variants "kRenderMinBlocksW8=5"   # width 8's caps, orders
     python3 chip_ab.py --w8-frames --variants "kPrimaryNearAnyW8=0"   # K2 w8, K2t w8 alone
+    python3 chip_ab.py --parent build/parent --k2t --threaded   # K2t width 4, K1 unordered
 
 Unpack the other tree first (`git archive <commit> | tar -x -C build/parent`;
 build/ is git-ignored). Every measurement is its own process, run from this
@@ -71,6 +72,12 @@ both lights' shadow rays and the depth-0 and depth-1 pools. `--w8-frames`
 measures only the frame kernels' part of it (K2 w8, K2t w8, K3 w8 with its
 pre-pass, width 4's K2; registers, SASS loops, digests), for a quicker
 sweep of K2 w8's and K2t w8's settings.
+`--k2t` measures only K2t at node width 4 (`measure_k2t`: the textured and the
+GLB-loaded courtyard, alone, with K3's pre-pass, beside pre-pass + K3 + K4),
+`--threaded` only K1's unordered walk (`measure_threaded`: camera rays closest
+hit, phase 24's shadow rays any hit); either adds `sass_loops` and a digest of
+every kernel of every object (`sass_all`), and the summary names the kernels
+whose SASS differs between the builds.
 Every line also holds a digest of the SASS of each width-4 K1, K2, K2t and K6
 instance (`sass_digest`); the summary says whether they are identical in
 every build.
@@ -337,8 +344,119 @@ def measure_w8_walks(out: dict, device, scene, tables, width: int, height: int, 
         del pool, rad
 
 
+def measure_k2t(out: dict, device, ptxas: dict, width: int = WIDTH,
+                height: int = HEIGHT) -> None:
+    """`--k2t`: K2t at node width 4 on the 100k textured courtyard and on
+    the same courtyard through the GLB writer and loader, 1920x1080 in the
+    warp order, shadows off and on, by device time (torch.profiler, the L2
+    flushed before each call): K2t alone, K2t with K3's pre-pass where the
+    tree launches it first, and the pre-pass + K3 + K4 of the same frames
+    (the Renderer's textured path); ptxas of the width-4 K2t instances."""
+    import tempfile
+
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
+    from gpu_raytracer_tpu_torch.ops.cuda import render as render_mod
+    from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
+                                                         render_primary)
+    from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
+    from gpu_raytracer_tpu_torch.utils.procgen import (courtyard_source_images,
+                                                       make_courtyard_scene)
+
+    px, py = (torch.from_numpy(a).to(device)
+              for a in tiled_pixel_order(width, height, warp=(8, 4)))
+    out["ptxas_k2t_w4"] = {k: v for k, v in ptxas.items()
+                           if re.fullmatch(r"render_primary_kernel<4, \d+, 1>", k)}
+    k3_words = ("render_deferred_kernel",) + (
+        ("camera_relative_kernel",) if hasattr(render_mod, "camera_relative") else ())
+
+    def device_reading(fn, words):
+        return [HERE_SMOKE.kernel_device_ms(fn, words, LAUNCHES, device) for _ in range(REPEATS)]
+
+    scene = make_courtyard_scene(100_000, seed=0, textured=True, texture_size=TEXTURE_SIZE,
+                                 device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        glb, _ = HERE_SMOKE.glb_round_trip(scene, courtyard_source_images(0, TEXTURE_SIZE), tmp,
+                                           "courtyard", device)
+    for label, sc in (("courtyard", scene), ("glb", glb)):
+        tables, shade = pack_render_tables(sc), pack_shade_tables(sc)
+        pre = pre_pass_before_k2(tables, px, py, shade)
+        out[f"k2tw4_{label}_pre_pass"] = pre
+        for shadows in (False, True):
+            key = f"{label}_{'shadows' if shadows else 'no_shadows'}"
+            k2t = lambda: render_primary(tables, px, py, width, height, shadows=shadows,
+                                         shade=shade)
+            out[f"k2tw4_{key}_device"] = device_reading(k2t, "render_primary_kernel")
+            if pre:
+                out[f"k2tw4_{key}_and_pre_pass_device"] = device_reading(
+                    k2t, ("render_primary_kernel", "camera_relative_kernel"))
+            frame = lambda: texture_shade(shade, render_deferred(tables, px, py, width, height,
+                                                                 shadows=shadows))
+            out[f"k3k4w4_{key}_device"] = device_reading(frame, k3_words + ("texshade_kernel",))
+        del tables, shade
+
+
+def measure_threaded(out: dict, device, ptxas: dict, width: int = WIDTH,
+                     height: int = HEIGHT) -> None:
+    """`--threaded`: K1's unordered walk on the 100k courtyard by device
+    time (torch.profiler, the L2 flushed before each call): closest hit on
+    the 1920x1080 camera rays (warp order) and any hit on chip_smoke.py
+    phase 24's shadow rays, from every K1 hit toward the point light; the
+    plain walk's visits and triangle tests a ray, the rays hit or blocked,
+    ptxas of both instances, and, where the tree has the counting instance,
+    the rays that walked past a pending leaf and the visits made so
+    (`postponed_visits`)."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
+    from gpu_raytracer_tpu_torch.ops.bvh_traverse import bvh_traverse_threaded
+    from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import (pack_threaded_tables, traverse,
+                                                           traverse_threaded)
+    from gpu_raytracer_tpu_torch.ops.linalg import dot
+    from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
+
+    out["ptxas_threaded"] = {k: v for k, v in ptxas.items()
+                             if k.startswith("traverse_threaded_kernel")}
+    px, py = (torch.from_numpy(a).to(device)
+              for a in tiled_pixel_order(width, height, warp=(8, 4)))
+    scene = make_courtyard_scene(100_000, seed=0, device=device)
+    tr = pack_render_tables(scene).trace
+    tt = pack_threaded_tables(scene)
+    o, d = HERE_SMOKE.primary_rays(scene, width, height, px, py)
+    far = torch.full((o.shape[0],), HERE_SMOKE.F32_MAX, device=device)
+    # phase 24's shadow rays: from every K1 hit toward the point light
+    t, _, h, n, _ = traverse(tr, o, d, far)
+    hit = torch.nonzero(h).squeeze(1)
+    L = scene.lights
+    p = o[hit] + d[hit] * t[hit, None]
+    to_light = L.position[int(torch.nonzero(L.light_type == 1)[0])][None, :] - p
+    dist = torch.sqrt(dot(to_light, to_light))
+    rays = dict(camera=(o, d, far, False),
+                shadow=((p + n[hit] * 1e-3).contiguous(),
+                        (to_light / dist[:, None]).contiguous(), (dist - 1e-3).contiguous(),
+                        True))
+    for key, (ro, rd, rm, any_hit) in rays.items():
+        fn = lambda: traverse_threaded(tt, ro, rd, rm, any_hit=any_hit)
+        out[f"threaded_{key}_device"] = [HERE_SMOKE.kernel_device_ms(
+            fn, "traverse_threaded_kernel", LAUNCHES, device) for _ in range(REPEATS)]
+        work = torch.zeros((ro.shape[0], 2), dtype=torch.int64, device=device)
+        bvh = scene.bvh
+        bvh_traverse_threaded(bvh, scene.tri_v0, scene.tri_e1, scene.tri_e2, ro, rd, rm,
+                              leaf_size=bvh.max_leaf, any_hit=any_hit, work=work)
+        wk = work.double().mean(dim=0).tolist()
+        out[f"threaded_{key}_per_ray"] = dict(rays=int(ro.shape[0]), nodes=wk[0], tris=wk[1],
+                                              hits=int(fn()[2].sum()))
+        if "past" in inspect.signature(traverse_threaded).parameters:
+            # the counting instance: the lanes that walked past a pending leaf
+            out[f"threaded_{key}_postponed"] = HERE_SMOKE.postponed_visits(
+                tt, ro, rd, rm, any_hit, work)
+
+
 def measure(root: str, defines: list[str], label: str, k3_only: bool = False,
-            w8_only: bool = False, frames_only: bool = False) -> dict:
+            w8_only: bool = False, frames_only: bool = False, k2t: bool = False,
+            threaded: bool = False) -> dict:
     sys.path.insert(0, root)
     import dataclasses
 
@@ -377,6 +495,16 @@ def measure(root: str, defines: list[str], label: str, k3_only: bool = False,
                                      loops=[lp["instructions"] for lp in v["loops"]])
                              for k, v in sass_loops(root).items()}
         measure_w8(out, device, ptxas, frames_only=frames_only)
+        return out
+    if k2t or threaded:
+        out["sass_all"] = sass_digest(k.path, None, every_function=True)
+        out["sass_loops"] = {k: dict(instructions=v["instructions"],
+                                     loops=[lp["instructions"] for lp in v["loops"]])
+                             for k, v in sass_loops(root).items()}
+        if k2t:
+            measure_k2t(out, device, ptxas)
+        if threaded:
+            measure_threaded(out, device, ptxas)
         return out
     measure_k3(out, device)
     if k3_only:
@@ -518,18 +646,22 @@ def instance_key(mangled: str) -> str | None:
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def sass_digest(lib_path: str, objects=WIDTH4_OBJECTS) -> dict:
+def sass_digest(lib_path: str, objects=WIDTH4_OBJECTS, every_function: bool = False) -> dict:
     """A digest of the SASS of each width-4 K1, K2, K2t and K6 instance
     (untextured and textured; cuobjdump of the built objects), keyed by
     `instance_key`: equal digests in two builds mean the same machine code,
     which changes elsewhere (K3, the width-8 instances, compiled in other
-    objects) must leave alone. `objects`: other built objects instead."""
+    objects) must leave alone. `objects`: other built objects instead
+    (None: every object of the build). `every_function`: every kernel of
+    those objects, keyed by object and mangled name."""
     import glob
     import hashlib
 
     from gpu_raytracer_tpu_torch.ops.cuda import build
 
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if objects is None:
+        objects = [os.path.splitext(s)[0] for s in build.SOURCES]
     out = {}
     for obj in objects:
         path = glob.glob(os.path.join(os.path.dirname(lib_path), f"*.{obj}.o"))[0]
@@ -537,7 +669,9 @@ def sass_digest(lib_path: str, objects=WIDTH4_OBJECTS) -> dict:
                               check=True).stdout
         for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s+Function :|\Z)", text,
                                      re.S):
-            key = instance_key(name)
+            # an anonymous namespace's name holds a hash that differs per build
+            key = (f"{obj}:{re.sub(r'_GLOBAL__N__[0-9a-f]+_', '_GLOBAL__N__', name)}"
+                   if every_function else instance_key(name))
             if key is not None:
                 out[key] = hashlib.sha256(body.encode()).hexdigest()[:16]
     return out
@@ -549,8 +683,9 @@ def sass_loops(root: str) -> dict:
     and, where the tree has them, width 8 (traverse_w8, render_deferred_w8),
     and of K2 w8's and K2t w8's for the 64-entry stack that the 100k
     courtyard's width-8 tables take (render_primary_w8,
-    render_primary_textured_w8),
-    from `cuobjdump -sass`: each one's instruction count, opcode histogram,
+    render_primary_textured_w8), of width 4's K2 and K2t for the 32-entry
+    stack of the 100k courtyard, and of K1's unordered walk (closest and any
+    hit), from `cuobjdump -sass`: each one's instruction count, opcode histogram,
     loops (every backward branch: first and last address and the
     instructions between) and registers (ptxas), a yardstick for how many
     instruction slots a node visit and a triangle test take. K3 holds three
@@ -583,7 +718,17 @@ def sass_loops(root: str) -> dict:
             ("k2_width8", 8, "render_primary_w8", r"render_primary_kernelILi8ELi64ELb0E",
              "render_primary_kernel<8, 64, 0>"),
             ("k2t_width8", 8, "render_primary_textured_w8",
-             r"render_primary_kernelILi8ELi64ELb1E", "render_primary_kernel<8, 64, 1>")):
+             r"render_primary_kernelILi8ELi64ELb1E", "render_primary_kernel<8, 64, 1>"),
+            ("k2_width4", 4, "render_primary", r"render_primary_kernelI(?:Li4E)?Li32ELb0E",
+             "render_primary_kernel<4, 32, 0>"),
+            ("k2t_width4", 4, "render_primary_textured",
+             r"render_primary_kernelI(?:Li4E)?Li32ELb1E", "render_primary_kernel<4, 32, 1>"),
+            # the main instances, not the counting ones (a tree before those: <any hit>)
+            ("k1_threaded", 2, "traverse_threaded", r"traverse_threaded_kernelILb0E(?:Lb0E)?E",
+             ("traverse_threaded_kernel<0, 0>", "traverse_threaded_kernel<0>")),
+            ("k1_threaded_any_hit", 2, "traverse_threaded",
+             r"traverse_threaded_kernelILb1E(?:Lb0E)?E",
+             ("traverse_threaded_kernel<1, 0>", "traverse_threaded_kernel<1>"))):
         objs = glob.glob(os.path.join(os.path.dirname(k.path), f"*.{obj}.o"))
         if not objs:
             continue
@@ -606,18 +751,19 @@ def sass_loops(root: str) -> dict:
                     lo, hi = int(m.group(1), 16), int(a, 16)
                     loops.append(dict(first=lo, last=hi,
                                       instructions=sum(1 for x in addr if lo <= x <= hi)))
+            keys = (ptxas_key,) if isinstance(ptxas_key, str) else ptxas_key
             out[label] = dict(function=name, instructions=len(ins), loops=loops,
-                              ptxas=ptxas.get(ptxas_key),
+                              ptxas=next((ptxas[k] for k in keys if k in ptxas), None),
                               opcodes=dict(sorted(hist.items(), key=lambda kv: -kv[1])[:16]))
     return out
 
 
 def run_one(root: str, defines: str, label: str, out: str | None, mode: str = "") -> dict:
-    """One measurement in its own process (`mode`: "", "--k3", "--w8" or
-    "--w8-frames")
+    """One measurement in its own process (`mode`: "", "--k3", "--w8",
+    "--w8-frames", or "--k2t" and / or "--threaded")
     -> its JSON line, also printed (and appended to `out`)."""
     cmd = [sys.executable, os.path.abspath(__file__), "--one", "--root", root,
-           "--defines", defines, "--label", label] + ([mode] if mode else [])
+           "--defines", defines, "--label", label] + mode.split()
     proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
     if proc.returncode != 0 or not lines:
@@ -695,18 +841,25 @@ def main() -> int:
                     help="measure K3's readings only (and the SASS digest, registers)")
     ap.add_argument("--w8", action="store_true",
                     help="measure the width-8 readings only (and the SASS digest, registers)")
+    ap.add_argument("--k2t", action="store_true",
+                    help="K2t at width 4 beside pre-pass + K3 + K4 only (and the SASS of "
+                         "every kernel, registers)")
+    ap.add_argument("--threaded", action="store_true",
+                    help="K1's unordered walk only (and the SASS of every kernel, registers)")
     ap.add_argument("--w8-frames", action="store_true",
                     help="the width-8 frame kernels' readings only (K2 w8, K2t w8, K3 w8; "
                          "width 4's K2; the SASS digest, registers)")
     args = ap.parse_args()
     mode = ("--w8-frames" if args.w8_frames else "--w8" if args.w8 else "--k3" if args.k3
-            else "")
+            else " ".join(f for f, on in (("--k2t", args.k2t), ("--threaded", args.threaded))
+                          if on))
     if args.sass:
         print(json.dumps(dict(sass=sass_loops(os.path.abspath(args.root)))), flush=True)
         return 0
     if args.one:
         print(json.dumps(measure(os.path.abspath(args.root), args.defines.split(), args.label,
-                                 args.k3, args.w8 or args.w8_frames, args.w8_frames)),
+                                 args.k3, args.w8 or args.w8_frames, args.w8_frames, args.k2t,
+                                 args.threaded)),
               flush=True)
         return 0
     rows = []
@@ -737,6 +890,12 @@ def main() -> int:
             same = len({json.dumps(d, sort_keys=True) for d in w8}) == 1
             print(f"render_primary_kernel (width 8, every instance) SASS identical in every "
                   f"build: {same} ({len(w8[0])} instances)", flush=True)
+        every = [r["sass_all"] for r in good if "sass_all" in r]
+        if every:   # --k2t, --threaded: every kernel of every object
+            names = sorted(set().union(*every))
+            differ = [n for n in names if len({d.get(n) for d in every}) > 1]
+            print(f"SASS of {len(names) - len(differ)} of {len(names)} kernels identical in "
+                  f"every build; differing: {differ}", flush=True)
         other = [r["sass_w8_other"] for r in good if "sass_w8_other" in r]
         for kernel in ("traverse_kernel", "render_deferred_kernel", "bounce_kernel"):
             kept = [{k: v for k, v in d.items() if k.startswith(kernel + "<8")} for d in other]

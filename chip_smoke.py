@@ -67,8 +67,11 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
  15. K2t (the textured fused render, render_primary on a textured scene)
      on the textured courtyard and on both zoos at 1920x1080, shadows off
      and on, against the plain render_chunk; its ms beside K3 + K4's on the
-     same frames, its launches (1 per frame), its distance to K3 + K4's
-     frame, its roofline bound;
+     same frames, its launches (1 per frame, each after 1 of K3's
+     pre-pass, whose tables its camera walk reads), its distance to K3 +
+     K4's frame, its roofline bound; on the courtyard also after the
+     Viewer's "w", "d" (0.0 outside counted order ties) and its device
+     time alone and with the pre-pass;
  16. the 100k courtyard under 64 lights, untextured and textured: K2, K2t
      and K3 with a seeded light_u against the plain single-sample version,
      their ms beside the 2-light frame's, the mean of 8 draws against the
@@ -175,9 +178,11 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      of the 100k courtyard (closest hit) and on shadow rays from their hits
      toward the point light (any hit): t, slot, hit, normal and material
      equal to the plain threaded walk on every lane; its closest t equal to
-     K1's outside counted exact-t ties; its ms (CUDA events), registers
-     (ptxas), bound (the plain walk's node visits and triangle tests at 25
-     and 54 operations) and launches on the main path (none);
+     K1's outside counted exact-t ties; its ms (CUDA events) and device
+     time (torch.profiler), registers (ptxas), bound (the plain walk's
+     node visits and triangle tests at 25 and 54 operations) and launches
+     on the main path (none); its counting instance, equal bit for bit, and
+     the visits lanes made past a pending leaf;
  25. the multi-device layer (parallel/) on virtual meshes of 1, 2, 4 and 8
      shards of the one card: render_frame_fused_multichip at 1920x1080
      (untextured, shadows off and on; the textured courtyard) 0.0 from the
@@ -1845,7 +1850,13 @@ def phase_zoo(multi_slot, triangles, tmp, width, height, crop, device, card):
 
 def phase_k2t(scenes, width, height, device, card):
     """Phase 15: K2t on each textured scene at full size, shadows off and on,
-    against the plain render_chunk; K3 + K4 on the same frames beside it."""
+    against the plain render_chunk; K3 + K4 on the same frames beside it.
+    Each K2t call is one launch of K3's pre-pass and one of K2t. On the
+    textured courtyard also K2t after the Viewer's "w", "d", 0.0 from the
+    plain frame outside counted exact-t and order ties and mip-boundary
+    lanes (moved_camera_compare), and its device time alone and with the
+    pre-pass. -> (stats, K2t launches, pre-pass launches) of the timed
+    frames."""
     import torch
 
     from gpu_raytracer_tpu_torch.engine.renderer import render_chunk
@@ -1855,7 +1866,7 @@ def phase_k2t(scenes, width, height, device, card):
 
     px, py = frame_pixels(width, height, device)
     sky = (0.1, 0.2, 0.3)
-    out, launches_total = {}, 0
+    out, launches_total, pre_total = {}, 0, 0
     for label, scene in scenes.items():
         tables, shade = pack_render_tables(scene), pack_shade_tables(scene)
         ties = primary_ties(tables, width, height, px, py)
@@ -1872,17 +1883,25 @@ def phase_k2t(scenes, width, height, device, card):
             reset_launches()
             stats["ms"] = timed(fused, FRAMES, device)
             launches = read_launches()
-            if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, k2t=FRAMES):
+            if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, k2t=FRAMES,
+                                                          k3_pre=FRAMES):
                 raise AssertionError(f"K2t frames launched {launches} in {FRAMES} frames")
             launches_total += launches["k2t"]
+            pre_total += launches["k3_pre"]
             stats["k2t_launches"] = launches["k2t"]
             stats["k3_k4_ms"] = timed(two_phase, FRAMES, device)
             stats["plain_ms"] = timed(lambda: render_chunk(scene, px, py, width, height,
                                                            shadows=shadows, sky=sky), 2, device)
             out[f"{label}_{'shadows' if shadows else 'no_shadows'}"] = stats
+        if label == "textured_courtyard":
+            out["moved_camera"] = moved_camera_compare((("k2t", tables, shade),), width, height,
+                                                       device)["k2t"]
+            if device.type == "cuda":
+                out["k2t_device_ms"] = primary_device_ms(tables, px, py, width, height, shade,
+                                                         device)
     out["card"] = card
     log(f"phase 15 K2t {width}x{height}: {json.dumps(out)}")
-    return out, launches_total
+    return out, launches_total, pre_total
 
 
 def phase_many_lights(triangles, texture_size, width, height, crop, device, card, ms_2_lights):
@@ -2686,8 +2705,8 @@ def frame_bounds(tables, width, height, shade=None):
     1080p frame, shadows off (the times the kernels line reports): K1's
     closest hit of every camera ray, counted on the card, plus each kernel's
     own reads and writes and per-hit work; for the texture kernels the maps
-    that these hits' materials hold, and the atlas bytes once. K3's camera
-    walk, and at node width 8 K2's and K2t's, at the relative costs plus
+    that these hits' materials hold, and the atlas bytes once. K3's and
+    K2t's camera walk, and at node width 8 K2's, at the relative costs plus
     the pre-pass's operations (its own bound: camera_relative_bound)."""
     import torch
 
@@ -2728,7 +2747,7 @@ def frame_bounds(tables, width, height, shade=None):
                simt_efficiency=simt)
     out["live_slots_per_visit"] = out["live_slots"] / max(out["nodes"], 1)
     out["K1"] = bound_ms(N * (28 + 24) + table_bytes(tr.nodes, tr.tris), walk)
-    # K3, and K2 / K2t at width 8: the camera walk at the relative costs;
+    # K3, K2t, and K2 at width 8: the camera walk at the relative costs;
     # their rows time the wrapper, the pre-pass then the kernel, so "K3"
     # ("K2", "K2t") bounds the two kernels' work on the function's inputs and
     # outputs, "K3_alone" ("K2_alone") the kernel's own over the pre-pass's
@@ -2761,11 +2780,8 @@ def frame_bounds(tables, width, height, shade=None):
                              n_hit * SHADE_FLOPS + n_samples * TEXEL_FLOPS)
         k2t_ops = sph + n_hit * (SHADE_FLOPS + 30) + n_samples * TEXEL_FLOPS
         k2t_bytes = N * (8 + 12) + tb + table_bytes(tr.attrs) + sb
-        if tr.width == 8:
-            out["K2t"] = bound_ms(k2t_bytes, rel_walk + k2t_ops + pre_ops)
-            out["K2t_alone"] = bound_ms(k2t_bytes + rel_bytes, rel_walk + k2t_ops)
-        else:
-            out["K2t"] = bound_ms(k2t_bytes, walk + k2t_ops)
+        out["K2t"] = bound_ms(k2t_bytes, rel_walk + k2t_ops + pre_ops)
+        out["K2t_alone"] = bound_ms(k2t_bytes + rel_bytes, rel_walk + k2t_ops)
     return out
 
 # ---- BVH width 8 and the spatial-split tree (phase 22) ----
@@ -2840,11 +2856,12 @@ def main_path_launches(fn, n: int, device, want: dict, label: str) -> tuple[floa
 
 def primary_device_ms(tables, px, py, width, height, shade, device) -> dict:
     """Device time of one fused frame (shadows off, on): the kernel alone
-    and, where the wrapper launches it first (node width 8), with K3's
-    pre-pass (torch.profiler, the L2 flushed before each call)."""
+    and, where the wrapper launches it first (K2t, and K2 at node width 8),
+    with K3's pre-pass (torch.profiler, the L2 flushed before each call)."""
     out = {}
     words = ("render_primary_kernel",) + (("camera_relative_kernel",)
-                                          if tables.trace.width == 8 else ())
+                                          if tables.trace.width == 8 or shade is not None
+                                          else ())
     for shadows in (False, True):
         from gpu_raytracer_tpu_torch.ops.cuda.render import render_primary
 
@@ -2856,15 +2873,15 @@ def primary_device_ms(tables, px, py, width, height, shade, device) -> dict:
     return out
 
 
-def moved_camera_compare(tables, ttables, shade, width, height, device) -> dict:
-    """K2 w8 (`tables`) and K2t w8 (`ttables`, `shade`) after the Viewer's
-    keys "w", "d" (the move of PERF.md §2's order tie at 1080p), shadows
-    off and on, against render_chunk, on
-    copies of the tables whose camera row set_camera rewrites in place: on
-    the card each call must be one launch of K3's pre-pass and one of the
-    kernel, and the frame 0.0 from the plain one outside the counted
-    exact-t and order ties (order_ties) and, textured, the mip-boundary
-    lanes; the ties are bounded by TIE_BUDGET."""
+def moved_camera_compare(cases, width, height, device) -> dict:
+    """Each case (launch-count label, render tables, shade tables or None:
+    K2 w8, K2t w8, K2t at width 4) after the Viewer's keys "w", "d" (the
+    move of PERF.md §2's order tie at 1080p), shadows off and on, against
+    render_chunk, on copies of the tables whose camera row set_camera
+    rewrites in place: on the card each call must be one launch of K3's
+    pre-pass and one of the kernel, and the frame 0.0 from the plain one
+    outside the counted exact-t and order ties (order_ties) and, textured,
+    the mip-boundary lanes; the ties are bounded by TIE_BUDGET."""
     import dataclasses
 
     from gpu_raytracer_tpu_torch.models.camera import CameraController
@@ -2872,7 +2889,7 @@ def moved_camera_compare(tables, ttables, shade, width, height, device) -> dict:
 
     px, py = frame_pixels(width, height, device)
     out = {}
-    for label, tab, sh in (("k2_w8", tables, None), ("k2t_w8", ttables, shade)):
+    for label, tab, sh in cases:
         tab = dataclasses.replace(tab, camera=tab.camera.clone(),
                                   trace=dataclasses.replace(tab.trace), rel_nodes=None,
                                   rel_tris=None)
@@ -3075,7 +3092,9 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
                                                       k2t=out['k2t'],
                                                       k2t_device_ms=out.get('k2t_device_ms')))}")
     # K2 w8 and K2t w8 after a camera move: the pre-pass's tables made anew
-    out["moved_camera"] = moved_camera_compare(tab8, ttab8, shade8, width, height, device)
+    out["moved_camera"] = moved_camera_compare((("k2_w8", tab8, None),
+                                                ("k2t_w8", ttab8, shade8)), width, height,
+                                               device)
     log(f"phase 22 K2 w8, K2t w8 after a camera move: {json.dumps(out['moved_camera'])}")
 
     # K6: the main path's pools, then PathTracer.step() on both courtyards
@@ -3861,15 +3880,40 @@ def threaded_compare(tt, o, d, max_t, any_hit=False):
                 tris_per_ray=work[:, 1].float().mean().item()), work, (kt, ks)
 
 
+def postponed_visits(tt, o, d, max_t, any_hit, work):
+    """The counting instance of K1 unordered (`past`): its outputs equal to
+    the main instance's, bit for bit -> the rays that walked past a pending
+    leaf, and the visits made so, a ray and as a share of the plain walk's
+    visits (`work`)."""
+    import torch
+
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse_threaded
+
+    past = torch.zeros((o.shape[0],), dtype=torch.int32, device=o.device)
+    counted = traverse_threaded(tt, o, d, max_t, any_hit=any_hit, past=past)
+    for got, want in zip(counted, traverse_threaded(tt, o, d, max_t, any_hit=any_hit)):
+        if not torch.equal(got, want):
+            raise AssertionError("K1 unordered's counting instance differs from its main one")
+    total = int(past.sum())
+    return dict(rays_past=int((past > 0).sum()), rays=o.shape[0],
+                visits_past_per_ray=total / o.shape[0],
+                share_of_plain_visits=total / max(int(work[:, 0].sum()), 1))
+
+
 def phase_threaded(scene, tables, width, height, device, card):
     """Phase 24: K1's unordered walk (csrc/traverse_threaded.cu, the JAX
     package's `pallas_packet_traverse(ordered=False)`) on the frame's camera
     rays, closest hit, and on shadow rays from their hits toward the point
     light, any hit: t, slot, hit, normal and material equal to the plain
-    threaded walk on every lane; the closest t equal to K1's (near-first)
-    outside counted exact-t ties (another slot at the same t); its time, its
-    registers, its bound from the plain walk's visits and triangle tests, and
-    its launches on the main path: none (no entry point calls it)."""
+    threaded walk on every lane (the lean box test and the postponed leaf,
+    csrc/threaded_walk.cuh), its counting instance too, which reads how
+    far lanes walked past a pending leaf (`postponed`); the closest t equal
+    to K1's
+    (near-first) outside counted exact-t ties (another slot at the same t);
+    its time between events and on the device (torch.profiler, the L2
+    flushed), its registers, its bound from the plain walk's visits and
+    triangle tests, and its launches on the main path: none (no entry point
+    calls it)."""
     import torch
 
     from gpu_raytracer_tpu_torch.ops.bvh_traverse import bvh_traverse_threaded
@@ -3914,14 +3958,23 @@ def phase_threaded(scene, tables, width, height, device, card):
     ws = swork.sum(dim=0).tolist()
     s_ms, s_by = bound_ms(so.shape[0] * 52 + table_bytes(tt.nodes, tt.tris),
                           float(ws[0] * SLAB_FLOPS + ws[1] * TRI_FLOPS))
-    regs = {}
+    regs, device_ms, postponed = {}, {}, {}
     if device.type == "cuda":
         from gpu_raytracer_tpu_torch.ops.cuda.build import load_kernels
 
         regs = {k: v for k, v in ptxas_summary(load_kernels().log).items()
                 if k.startswith("traverse_threaded_kernel")}
+        postponed = dict(camera=postponed_visits(tt, o, d, far, False, work),
+                         shadow=postponed_visits(tt, so, sd, smax, True, swork))
+        device_ms = dict(
+            camera=kernel_device_ms(lambda: traverse_threaded(tt, o, d, far),
+                                    "traverse_threaded_kernel", FRAMES, device),
+            shadow=kernel_device_ms(lambda: traverse_threaded(tt, so, sd, smax, any_hit=True),
+                                    "traverse_threaded_kernel", FRAMES, device))
     stats = dict(camera=camera, shadow=shadow, k1_ties=ties, k1_t_off=t_off, ms=ms,
-                 shadow_ms=shadow_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 shadow_ms=shadow_ms, device_ms=device_ms,
+                 lean=tt.lean, postponed=postponed, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by,
                  shadow_bound_ms=s_ms, shadow_bound_by=s_by, k1_ms=timed(
                      lambda: traverse(tables.trace, o, d, far), FRAMES, device),
                  ptxas=regs, main_path_launches=0, card=card)
@@ -4237,8 +4290,9 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
             label = "zoo_multi_slot" if multi_slot else "zoo"
             zoos[label], _ = phase_zoo(multi_slot, zoo_triangles, tmp, width, height, crop,
                                        device, card)
-    k2t, k2t_launches = phase_k2t(dict(textured_courtyard=glb_scene, **zoos), width, height,
-                                  device, card)
+    k2t, k2t_launches, k2t_pre = phase_k2t(dict(textured_courtyard=glb_scene, **zoos), width,
+                                           height, device, card)
+    k3_pre_launches += k2t_pre
     ms_2_lights = {(label, s): v["shadows" if s else "no_shadows"]["ms"]
                    for label, v in (("untextured", main), ("textured", {
                        "no_shadows": k2t["textured_courtyard_no_shadows"],
@@ -4272,7 +4326,8 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     k5_standalone = sum(v["k5_standalone"] for v in interactive)
     k6_launches += sum(v["k6"] for v in interactive)
     k5_launches += sum(v["k5"] for v in interactive)
-    k2t_err = max(v["err"] for v in k2t.values() if isinstance(v, dict))
+    k2t_err = max([v["err"] for k, v in k2t.items() if k.endswith("shadows")]
+                  + [v["err"] for v in k2t["moved_camera"]["frames"].values()])
     w8 = phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size, triangles,
                       texture_size, shadow_rays, plain_images, device, card)
     del plain_images
@@ -4308,11 +4363,12 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
 
     w8l, w8e, w8b = w8["launches"], w8["max_abs_err"], w8.get("bounds", {})
     k3_pre_launches += w8l["k3_pre"]
-    # one pre-pass before every K3 launch and every width-8 K2 / K2t launch
-    pre_for = k3_launches + w8l["k3_w8"] + w8l["k2_w8"] + w8l["k2t_w8"]
+    # one pre-pass before every K3 launch, every K2t launch and every
+    # width-8 K2 launch
+    pre_for = k3_launches + k2t_launches + w8l["k3_w8"] + w8l["k2_w8"] + w8l["k2t_w8"]
     if cuda and k3_pre_launches != pre_for:
         raise AssertionError(f"{k3_pre_launches} launches of K3's pre-pass for {pre_for} of K3, "
-                             f"K2 w8 and K2t w8 on the main paths")
+                             f"K2t, K2 w8 and K2t w8 on the main paths")
     fb = frame_bounds(tables, width, height) if cuda else {}
     tfb = frame_bounds(ttables, width, height, shade=tshade) if cuda else {}
     bound = lambda b: dict(bound_ms=b[0], bound_by=b[1]) if b else dict(bound_ms=None,
@@ -4341,13 +4397,22 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              **bound(fb.get("K2")), library_ms=None),
         dict(name="K2t render_primary_textured (ms, plain_ms and the bound on the GLB-loaded "
                   "textured courtyard, shadows off; held to the plain render_chunk on that "
-                  "scene and on both zoos, phase 15)", route="cuda",
+                  "scene, after a camera move and on both zoos, phase 15; ms: the wrapper "
+                  "between CUDA events, K3's pre-pass then K2t, whose camera walk reads its "
+                  "tables; bound_ms: the two kernels' work, the camera walk at its relative "
+                  "costs; k2_device_ms, k2_and_pre_pass_device_ms: torch.profiler, the L2 "
+                  "flushed before each call; k2_alone_bound_ms: K2t's own work)",
+             route="cuda",
              source="gpu_raytracer_tpu_torch/csrc/render_primary_textured.cu",
              replaces="gpu_raytracer_tpu/ops/pallas/render.py:363",
              launches=k2t_launches, max_abs_err=k2t_err,
              ms=k2t["textured_courtyard_no_shadows"]["ms"],
              plain_ms=k2t["textured_courtyard_no_shadows"]["plain_ms"],
-             **bound(tfb.get("K2t")), library_ms=None),
+             **bound(tfb.get("K2t")), library_ms=None,
+             k2_device_ms=k2t.get("k2t_device_ms", {}).get("no_shadows"),
+             k2_and_pre_pass_device_ms=k2t.get("k2t_device_ms", {}).get(
+                 "no_shadows_and_pre_pass"),
+             k2_alone_bound_ms=tfb["K2t_alone"][0] if tfb else None),
         dict(name="K3 render_deferred (G-buffer; max_abs_err is the largest of "
                   "S, uv and the footprint's relative error, phases 7 and 21; ms: the "
                   "wrapper between CUDA events, its pre-pass then K3, whose camera walk "
@@ -4410,12 +4475,14 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              "threaded hit / miss links, one ray per thread; no entry point calls it, as in "
              "the JAX package: launches 0 on the main path; held to the plain threaded walk "
              "bit for bit, phase 24; ms, plain_ms and the bound on the 1080p camera rays, "
-             "closest hit; the bound from the plain walk's node visits and triangle tests)",
+             "closest hit; the bound from the plain walk's node visits and triangle tests; "
+             "device_ms: torch.profiler, the L2 flushed before each call, camera rays and "
+             "any-hit shadow rays)",
         route="cuda", source="gpu_raytracer_tpu_torch/csrc/traverse_threaded.cu",
         replaces="gpu_raytracer_tpu/ops/pallas/traverse.py:690", launches=0,
         max_abs_err=max(thr["camera"]["max_abs_err"], thr["shadow"]["max_abs_err"]),
         ms=thr["ms"], plain_ms=thr["plain_ms"], bound_ms=thr["bound_ms"],
-        bound_by=thr["bound_by"], library_ms=None))
+        bound_by=thr["bound_by"], library_ms=None, device_ms=thr["device_ms"]))
     w8pt = w8["pathtracer"]["courtyard"]
     bound8 = lambda key, kernel: bound(w8b.get(key, {}).get(kernel))
     mean = lambda xs: sum(xs) / len(xs)

@@ -5,15 +5,16 @@
 // (tests/test_torch_primary_host.py builds it with g++ over stand-ins for the
 // CUDA names and holds it to the plain version bit for bit).
 //
-// Width 8 (K2 w8, K2t w8) is laid out for what the H100 rewards in this
-// issue-bound walk, each choice read on an NVIDIA H100 80GB HBM3 (PERF.md,
-// chip_ab.py --w8-frames):
+// Width 8 (K2 w8, K2t w8) and the textured instance at width 4 (K2t) are
+// laid out for what the H100 rewards in this issue-bound walk, each choice
+// read on an NVIDIA H100 80GB HBM3 (PERF.md, chip_ab.py --w8-frames, --k2t):
 //   * REL: the camera walk reads the camera-relative tables of K3's pre-pass
 //     (camera_relative.cu; traverse.cuh REL), which the wrapper launches
-//     before every width-8 K2 / K2t launch: the same visits, tests and
-//     winners for fewer instructions a visit and a test (node / triangle
-//     loop 481 / 155 -> 431 / 121 SASS instructions; the kernels 8-9% faster
-//     without shadows, 13-14% with them);
+//     before every width-8 K2 / K2t launch and every width-4 K2t launch:
+//     the same visits, tests and winners for fewer instructions a visit and
+//     a test (width 8's node / triangle loop 481 / 155 -> 431 / 121 SASS
+//     instructions, the kernels 8-9% faster without shadows, 13-14% with
+//     them; width 4's 206 / 155 -> 182 / 121, K2t 8-10% faster);
 //   * SPLIT: only what the light loop reads stays live across its shadow
 //     walks: the albedo and the metallic that sets the brdf are taken before
 //     the loop (textured: the base-colour and metallic-roughness maps), the
@@ -21,9 +22,10 @@
 //     read again from L1; textured: the occlusion and emissive maps sampled
 //     then, one map at a time). Each value keeps its own operations in the
 //     same order, so the same bits as the one material step before the loop;
-//   * NEAR_ANY: the shadow walk's order, per kernel (below).
-// Width 4 takes none of them: its kernels keep the machine code measured
-// before them (PERF.md).
+//   * NEAR_ANY: the shadow walk's order, per kernel (below); width 4 keeps
+//     the near-first any hit (the unranked one is width 8's).
+// Width 4's K2 takes none of them: it keeps the machine code measured
+// before them (PERF.md), as do K1, K3, K4 and K6.
 #pragma once
 
 #include "render_common.cuh"
@@ -47,6 +49,17 @@ constexpr int kPrimaryCameraRelW8 = 1;
 // The width-8 material step split around the light loop (1), or taken
 // whole before it (0, for an A/B).
 constexpr int kPrimarySplitW8 = 1;
+// The same two choices for K2t at width 4 (the wrapper launches the
+// pre-pass before every width-4 K2t launch either way).
+constexpr int kPrimaryCameraRelTexturedW4 = 1;
+constexpr int kPrimarySplitTexturedW4 = 1;
+// Whether instance (W, TEXTURED) takes REL, SPLIT (the pixel's defaults).
+template <int W, bool TEXTURED>
+constexpr bool kPrimaryRel =
+    W == 8 ? kPrimaryCameraRelW8 != 0 : TEXTURED && kPrimaryCameraRelTexturedW4 != 0;
+template <int W, bool TEXTURED>
+constexpr bool kPrimarySplit =
+    W == 8 ? kPrimarySplitW8 != 0 : TEXTURED && kPrimarySplitTexturedW4 != 0;
 
 // What the textured instance reads beside the untextured one's arguments.
 struct PrimaryTextures {
@@ -81,8 +94,8 @@ __device__ __forceinline__ void apply_maps(MaterialSample& m, const PrimaryTextu
 // Pixel i of a launch: (px[i], py[i]) rendered into rgb[3i .. 3i + 2].
 // REL: the camera walk over `rel_nodes` / `rel_tris` (the camera-relative
 // tables of `cam`); SPLIT: the material step split around the light loop.
-template <int W, int STACK, bool TEXTURED, bool REL = W == 8 && kPrimaryCameraRelW8 != 0,
-          bool SPLIT = W == 8 && kPrimarySplitW8 != 0>
+template <int W, int STACK, bool TEXTURED, bool REL = kPrimaryRel<W, TEXTURED>,
+          bool SPLIT = kPrimarySplit<W, TEXTURED>>
 __device__ __forceinline__ void primary_pixel(
     const Node<W>* __restrict__ nodes, const float4* __restrict__ tris,
     const float* __restrict__ cam, const float* __restrict__ mats, int n_mats,

@@ -84,8 +84,8 @@ struct Surface {
 };
 
 // Spheres exhaustively (first closest wins), then the triangles pruned at the
-// sphere t. Returns false on a miss. REL (the camera rays of K3 and of
-// K2 / K2t at width 8): the walk reads the camera-relative node records
+// sphere t. Returns false on a miss. REL (the camera rays of K3, of K2t and
+// of K2 at width 8): the walk reads the camera-relative node records
 // `rel_nodes` and triangle rows `rel_tris` of the ray's origin
 // (camera_relative.cu); the winner's attributes come from `tris`.
 template <int W, int STACK, bool REL = false>

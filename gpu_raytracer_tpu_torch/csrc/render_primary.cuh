@@ -12,9 +12,9 @@
 // shadows one any-hit shadow ray through K1 plus the sphere occluders ->
 // ambient 0.1 + brdf x light sum + emission -> per-channel dispersion blend ->
 // magenta for an invalid material, the sky colour for a miss. The pixel is
-// primary_pixel.cuh (where width 8's camera walk over the camera-relative
-// tables and its material step split around the light loop are laid out);
-// this file holds the kernel and its launch.
+// primary_pixel.cuh (where the camera walk over the camera-relative tables
+// and the material step split around the light loop of width 8 and of K2t
+// at width 4 are laid out); this file holds the kernel and its launch.
 //
 // The material is the winner's material row (K2) or, textured (K2t, the TPU
 // kernel's branch at :363-378), that row times its maps: the hit's uv
@@ -65,8 +65,8 @@
 namespace rt {
 
 // rel_nodes / rel_tris: the camera-relative tables of `cam` (K3's pre-pass,
-// launched before on the same stream), read by the width-8 camera walk;
-// width 4 never reads them.
+// launched before on the same stream), read by the camera walk of width 8
+// and of K2t at width 4; K2 at width 4 never reads them.
 template <int W, int STACK, bool TEXTURED>
 __global__ void __launch_bounds__(kRenderBlock, W == 8 ? kRenderMinBlocksW8 : kRenderMinBlocks)
 render_primary_kernel(const Node<W>* __restrict__ nodes, const float4* __restrict__ tris,
@@ -104,7 +104,7 @@ struct PrimaryLaunch {
   float sky_r, sky_g, sky_b;
   const float* light_u;
   float* rgb;
-  const void* rel_nodes;    // the camera-relative tables (width 8; null at width 4)
+  const void* rel_nodes;    // the camera-relative tables (width 8, K2t; else null)
   const float4* rel_tris;
 };
 

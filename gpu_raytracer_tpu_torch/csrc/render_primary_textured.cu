@@ -5,10 +5,10 @@
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a node width or stack capacity that was not
-// compiled, or width 8 without the camera-relative tables. `light_u` null:
-// every light is looped over. `rel_nodes` and `rel_tris`: the
-// camera-relative tables of `cam` (rt_camera_relative, launched before on
-// the same stream), read at node width 8 only.
+// compiled, or without the camera-relative tables. `light_u` null: every
+// light is looped over. `rel_nodes` and `rel_tris`: the camera-relative
+// tables of `cam` (rt_camera_relative, launched before on the same stream),
+// which the camera walk reads at both node widths.
 extern "C" int rt_render_primary_textured(
     const void* nodes, const void* tris, const void* attrs, const void* rel_nodes,
     const void* rel_tris, int node_width, int stack,
@@ -30,7 +30,7 @@ extern "C" int rt_render_primary_textured(
                             static_cast<const float*>(light_u), static_cast<float*>(rgb),
                             rel_nodes, static_cast<const float4*>(rel_tris)};
   auto s = static_cast<cudaStream_t>(stream);
-  if (node_width == 8 && (rel_nodes == nullptr || rel_tris == nullptr))
+  if (rel_nodes == nullptr || rel_tris == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (node_width == 4) return rt::launch_render_primary<4, true>(a, stack, s);
   if (node_width == 8) return rt::render_primary_textured_w8(a, stack, s);

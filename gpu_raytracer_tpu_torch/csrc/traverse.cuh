@@ -95,7 +95,7 @@
 // (primary_pixel.cuh).
 //
 // The camera-relative walk (REL; the camera rays of K3, render_deferred.cuh,
-// and of K2 / K2t at width 8, primary_pixel.cuh): every ray of a batch
+// of K2t and of K2 at width 8, primary_pixel.cuh): every ray of a batch
 // that starts at one origin o
 // computes the same plane - o for every child box and the same s = o - v0,
 // q = s x e1 and e2 . q for every triangle. camera_relative.cu computes them

@@ -35,7 +35,8 @@ SOURCES = ("traverse.cu", "render_primary.cu", "render_primary_textured.cu",
            "render_primary_textured_w8.cu", "render_deferred_w8.cu", "bounce_w8.cu",
            "bounce_textured_w8.cu", "traverse_threaded.cu", "camera_relative.cu")
 HEADERS = ("traverse.cuh", "traverse_kernels.cuh", "render_common.cuh", "render_primary.cuh",
-           "primary_pixel.cuh", "render_deferred.cuh", "texsample.cuh", "bounce.cuh")
+           "primary_pixel.cuh", "render_deferred.cuh", "texsample.cuh", "bounce.cuh",
+           "threaded_walk.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -53,9 +54,9 @@ ARGTYPES = {
     # nodes, tris, node width, stack, orig, dirn, max_t, n, any_hit, work_out,
     # ahead_out (null, or [9] visits by children ahead at width 8), stream
     "rt_traverse_work": [_p, _p, _i, _i, _p, _p, _p, _i, _i, _p, _p, _p],
-    # binary nodes, n_nodes, tris, orig, dirn, max_t, n, any_hit, t_out,
-    # slot_out, normal_out, mat_out, stream
-    "rt_traverse_threaded": [_p, _i, _p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p],
+    # binary nodes, n_nodes, the tables' flags, tris, orig, dirn, max_t, n,
+    # any_hit, t_out, slot_out, normal_out, mat_out, stream
+    "rt_traverse_threaded": [_p, _i, _i, _p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p],
     # nodes, tris, rel_nodes, rel_tris (the camera-relative tables, read at
     # width 8; null at width 4), node width, stack, camera, materials,
     # n_mats, lights, n_lights, spheres, n_spheres, px, py, n, width, height,

@@ -26,8 +26,8 @@ G-buffer as two planes [2,N,4]: (S rgb, material id) for every ray, then
 (uv, mip footprint, 0). Its plain version is
 `engine/renderer.py::render_gbuffer`, whose rows [N,8] hold the same words;
 `render_deferred` returns planes on either device (`gbuffer_planes`).
-On the card every K3 launch, and every K2 / K2t launch at node width 8,
-comes after one launch of K3's pre-pass, `camera_relative`
+On the card every K3 launch, every K2t launch and every K2 launch at node
+width 8 comes after one launch of K3's pre-pass, `camera_relative`
 (csrc/camera_relative.cu): the camera-relative node and triangle tables that
 their camera walk reads (the camera's position taken off every box plane;
 s = o - v0, q = s x e1 and e2 . q per triangle), made from the device
@@ -36,7 +36,7 @@ first launch and again when a rebuild changes the trace tables' shapes
 (tables that never run it hold none). Its plain version is
 `camera_relative_tables`, the same operations in the same order; K3's and
 K2's plain versions stay `render_gbuffer` and `render_chunk`. A width-4 K2
-or K2t launch takes no pre-pass.
+launch takes no pre-pass.
 
 All three loop over every light in light order, or, given `light_u` (one
 uniform per ray), evaluate the one light min(floor(u * L), L - 1) with one
@@ -84,7 +84,7 @@ class RenderTables:
     spheres: torch.Tensor     # [S,8] f32
     fov_scale: float          # the camera's tan(fov/2), evaluated on the host once
     # the camera-relative tables K3's pre-pass writes before every K3 launch
-    # and every width-8 K2 / K2t launch (`camera_relative`, which allocates them)
+    # and every K2t and width-8 K2 launch (`camera_relative`, which allocates them)
     rel_nodes: torch.Tensor | None = None   # [Q,8w] f32, the node records' layout
     rel_tris: torch.Tensor | None = None    # [Tp,16] f32
 
@@ -191,7 +191,7 @@ def relative_buffers(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def camera_relative(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3's pre-pass, also launched before every width-8 K2 / K2t launch:
+    """K3's pre-pass, also launched before every K2t and width-8 K2 launch:
     the camera-relative tables of the tables' current camera written into
     `relative_buffers(tables)`, which it returns. CUDA
     tensors launch csrc/camera_relative.cu on the current stream (counted in
@@ -253,9 +253,10 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     the given order, one launch: K2, or K2t for a textured scene, which needs
     `shade`, the scene's `ops/cuda/texshade.py::pack_shade_tables` (textures
     at the nearest mip of each hit's footprint). `light_u` [N] f32 selects
-    single-sample light selection. CUDA tensors launch the kernel (at node
-    width 8 after K3's pre-pass `camera_relative`, whose tables the width-8
-    camera walk reads), CPU tensors take the plain version."""
+    single-sample light selection. CUDA tensors launch the kernel (K2 at
+    node width 8, and K2t at both widths, after K3's pre-pass
+    `camera_relative`, whose tables their camera walk reads), CPU tensors
+    take the plain version."""
     from ...engine.renderer import render_chunk
 
     N = _check_pixels(tables, px, py, light_u, "render_primary")
@@ -272,9 +273,10 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     sky_r, sky_g, sky_b = (float(c) for c in sky)
     stream = torch.cuda.current_stream(px.device).cuda_stream
     nodes = nodes_ptr(tr)
-    # width 8: the camera walk reads the pre-pass's tables of this camera,
-    # made anew for every launch (every camera move rewrites the camera row)
-    rel = (tuple(x.data_ptr() for x in camera_relative(tables)) if tr.width == 8
+    # width 8 and K2t: the camera walk reads the pre-pass's tables of this
+    # camera, made anew for every launch (every camera move rewrites the
+    # camera row)
+    rel = (tuple(x.data_ptr() for x in camera_relative(tables)) if tr.width == 8 or textured
            else (0, 0))
     scene_args = (tables.camera.data_ptr(), tables.materials.data_ptr(),
                   tables.materials.shape[0], tables.lights.data_ptr(), tables.lights.shape[0],

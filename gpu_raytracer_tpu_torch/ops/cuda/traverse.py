@@ -8,9 +8,10 @@ fused render kernel calls too) and csrc/traverse.cu (the standalone
 launch). Its plain version is `ops/trace.py::traverse_triangles`.
 `trace` is the closest hit of a ray batch (ops/trace.py::Hit) with the
 triangles through K1: the path tracer's G-buffer and temporal warp.
-`traverse_threaded` is K1's unordered walk (csrc/traverse_threaded.cu), the
-counterpart of `pallas_packet_traverse(..., ordered=False)`, over its own
-binary node table (`pack_threaded_tables`); no main path calls it.
+`traverse_threaded` is K1's unordered walk (csrc/traverse_threaded.cu, the
+walk csrc/threaded_walk.cuh), the counterpart of
+`pallas_packet_traverse(..., ordered=False)`, over its own binary node table
+of 32-byte records (`pack_threaded_tables`); no main path calls it.
 
 The scene tables are laid out for the GPU here, once per scene:
 
@@ -300,35 +301,57 @@ traverse.w8_launches = 0   # width 8
 
 @dataclass
 class ThreadedTables:
-    """The tables of K1's unordered walk (csrc/traverse_threaded.cu)."""
+    """The tables of K1's unordered walk (csrc/threaded_walk.cuh)."""
     scene: Scene            # the scene the tables were packed from (plain path)
-    nodes: torch.Tensor     # [Nn,12] f32 binary nodes, 16-byte aligned on the card
+    nodes: torch.Tensor     # [Nn,8] f32 binary nodes, 32-byte aligned on the card
     tris: torch.Tensor      # [Tp,12] f32, `triangle_rows`
+    lean: bool = False      # no box plane is NaN: tame rays take the lean box test
 
     @property
     def device(self) -> torch.device:
         return self.nodes.device
 
 
-THREADED_WORDS = 12   # f32 words of a binary node record: three float4
+THREADED_WORDS = 8   # f32 words of a binary node record: two float4, one 32-byte sector
+LEAF_COUNT_BITS = 4  # a leaf code holds first slot << 4 | count
 
 
 def pack_threaded_tables(scene: Scene) -> ThreadedTables:
-    """The binary BVH as [Nn,12] f32 records: min.xyz, max.xyz, then as
-    int32 bits hit_link, miss_link, the first slot and the leaf's triangle
-    count (0 for an internal node), 0, 0; with K1's triangle rows."""
+    """The binary BVH as [Nn,8] f32 records: min.xyz, max.xyz, then as int32
+    bits `enter` (the left child of an internal node; a leaf's code -1 -
+    (first slot << 4 | count)) and the miss link; with K1's triangle rows.
+    Raises for a tree whose leaves' hit and miss links differ, whose leaf
+    does not fit its code, or where a child box does not lie inside its
+    parent's (the walk's postponed leaves need nested boxes). Reads back
+    whether the box planes are free of NaN (`lean`)."""
     bvh = scene.bvh
-    leaf_count = torch.where(bvh.left < 0, bvh.tri_count, torch.zeros_like(bvh.tri_count))
-    zero = torch.zeros_like(leaf_count)
-    ints = torch.stack([bvh.hit_link, bvh.miss_link, bvh.tri_start, leaf_count, zero, zero],
-                       dim=1)
-    nodes = torch.cat([bvh.node_min.float(), bvh.node_max.float(), _bits(ints)],
+    leaf = bvh.left < 0
+    first, count = bvh.tri_start.long(), bvh.tri_count.long()
+    if not torch.equal(bvh.hit_link[leaf], bvh.miss_link[leaf]):
+        raise ValueError("pack_threaded_tables: a leaf's hit link differs from its miss link")
+    if leaf.any() and (int(count[leaf].min()) < 0
+                       or int(count[leaf].max()) >= 1 << LEAF_COUNT_BITS
+                       or int(first[leaf].min()) < 0
+                       or int(first[leaf].max()) >= 1 << (31 - LEAF_COUNT_BITS)):
+        raise ValueError("pack_threaded_tables: a leaf's first slot or count does not fit "
+                         "its code")
+    enter = torch.where(leaf, -1 - (first << LEAF_COUNT_BITS | count), bvh.hit_link.long())
+    nodes = torch.cat([bvh.node_min.float(), bvh.node_max.float(),
+                       _bits(torch.stack([enter, bvh.miss_link.long()], dim=1))],
                       dim=1).contiguous()
-    return ThreadedTables(scene, nodes, triangle_rows(scene))
+    lo, hi = bvh.node_min, bvh.node_max
+    inner = torch.nonzero(~leaf).squeeze(1)
+    # a box with a NaN plane is never entered, whatever best_t: it passes
+    if any(bool(((lo[c] < lo[inner]) | (hi[c] > hi[inner])).any())
+           for c in (bvh.left[inner].long(), bvh.right[inner].long())):
+        raise ValueError("pack_threaded_tables: a child box does not lie inside its parent's")
+    lean = not bool(torch.isnan(lo).any() or torch.isnan(hi).any())
+    return ThreadedTables(scene, nodes, triangle_rows(scene), lean)
 
 
 def traverse_threaded(tables: ThreadedTables, orig: torch.Tensor, dirn: torch.Tensor,
-                      max_t: torch.Tensor, any_hit: bool = False):
+                      max_t: torch.Tensor, any_hit: bool = False,
+                      past: torch.Tensor | None = None):
     """K1's unordered walk: triangle closest hit (or, with any_hit, the
     closest slot of the first leaf that blocks) below max_t in the binary
     tree's left-first order over its threaded hit / miss links -> what
@@ -336,9 +359,17 @@ def traverse_threaded(tables: ThreadedTables, orig: torch.Tensor, dirn: torch.Te
     [N] bool; unit normal [N,3] f32, 0 on a miss; material [N] or -1). CUDA
     tensors launch csrc/traverse_threaded.cu (counted in `launches`), CPU
     tensors take its plain version, ops/bvh_traverse.py::bvh_traverse_threaded.
-    No main path calls it."""
+    With `past` (int32 [N] on the card) the kernel's counting instance runs
+    and also writes there each ray's node visits made with a leaf pending
+    (the plain walk makes none, so the CPU has nothing to count). No main
+    path calls it."""
     N = _check_rays(tables, orig, dirn, max_t)
     scene = tables.scene
+    if past is not None and (past.device != orig.device or orig.device.type != "cuda"
+                             or past.dtype != torch.int32 or tuple(past.shape) != (N,)
+                             or not past.is_contiguous()):
+        raise ValueError(f"past: want contiguous int32 [{N}] on the rays' card, got "
+                         f"{past.dtype} {tuple(past.shape)} on {past.device}")
     if orig.device.type == "cpu":
         t, slot, hit = bvh_traverse_threaded(scene.bvh, scene.tri_v0, scene.tri_e1,
                                              scene.tri_e2, orig, dirn, max_t,
@@ -348,8 +379,8 @@ def traverse_threaded(tables: ThreadedTables, orig: torch.Tensor, dirn: torch.Te
         raise ValueError(f"traverse_threaded: unsupported device {orig.device}")
     nodes = tables.nodes
     if (nodes.dtype != torch.float32 or nodes.dim() != 2 or nodes.shape[1] != THREADED_WORDS
-            or not nodes.is_contiguous() or nodes.data_ptr() % 16):
-        raise ValueError(f"nodes: want contiguous float32 [Nn,{THREADED_WORDS}] on a 16-byte "
+            or not nodes.is_contiguous() or nodes.data_ptr() % 32):
+        raise ValueError(f"nodes: want contiguous float32 [Nn,{THREADED_WORDS}] on a 32-byte "
                          f"boundary, got {nodes.dtype} {tuple(nodes.shape)}")
     k = load_kernels()
     t = torch.empty((N,), dtype=torch.float32, device=orig.device)
@@ -358,10 +389,12 @@ def traverse_threaded(tables: ThreadedTables, orig: torch.Tensor, dirn: torch.Te
     mat = torch.empty((N,), dtype=torch.int32, device=orig.device)
     stream = torch.cuda.current_stream(orig.device).cuda_stream
     traverse_threaded.launches += 1
-    check(k.lib.rt_traverse_threaded(nodes.data_ptr(), nodes.shape[0], tables.tris.data_ptr(),
+    check(k.lib.rt_traverse_threaded(nodes.data_ptr(), nodes.shape[0], int(tables.lean),
+                                     tables.tris.data_ptr(),
                                      orig.data_ptr(), dirn.data_ptr(), max_t.data_ptr(), N,
                                      int(any_hit), t.data_ptr(), slot.data_ptr(),
-                                     normal.data_ptr(), mat.data_ptr(), stream),
+                                     normal.data_ptr(), mat.data_ptr(),
+                                     None if past is None else past.data_ptr(), stream),
           "rt_traverse_threaded")
     return t, slot, slot >= 0, normal, mat
 

@@ -199,9 +199,10 @@ FUSED_TEXTURED = dict(TEXTURED,
 @pytest.mark.parametrize("shadows", [False, True])
 @pytest.mark.parametrize("name", sorted(FUSED_TEXTURED))
 def test_textured_primary_kernel_matches_plain(cuda, name, shadows):
-    """K2t: `render_primary` on a textured scene is one launch of the
-    textured kernel and matches the plain `render_chunk` (live spheres,
-    every wrap mode and map slot, 48 materials, mip chains)."""
+    """K2t: `render_primary` on a textured scene is one launch of K3's
+    pre-pass and one of the textured kernel, and matches the plain
+    `render_chunk` (live spheres, every wrap mode and map slot, 48
+    materials, mip chains)."""
     scene = FUSED_TEXTURED[name](device=cuda)
     W, H = 160, 120
     tables, shade = pack_render_tables(scene), pack_shade_tables(scene)
@@ -210,7 +211,7 @@ def test_textured_primary_kernel_matches_plain(cuda, name, shadows):
     near = mip_boundary_mask(shade, render_deferred(tables, r.px, r.py, W, H))
     reset_launches()
     stats, frame = primary_compare(tables, shade, r.px, r.py, W, H, shadows, ties | near, sky=SKY)
-    assert read_launches() == dict(ZERO_LAUNCHES, k2t=1)
+    assert read_launches() == dict(ZERO_LAUNCHES, k2t=1, k3_pre=1)
     assert stats["err"] <= 1e-5 and stats["mean"] > 0.01
     untextured = render_chunk(dataclasses.replace(scene, textures=type(scene.textures).empty()),
                               r.px, r.py, W, H, shadows=shadows, sky=SKY)
@@ -831,9 +832,9 @@ def test_width8_fused_render_matches_plain_after_a_camera_move(cuda, textured):
 @pytest.mark.cuda
 @pytest.mark.parametrize("textured", [False, True], ids=["k2", "k2t"])
 @pytest.mark.parametrize("width", [4, 8])
-def test_render_primary_launches_the_pre_pass_at_width8_only(cuda, width, textured):
-    """One render_primary call: at width 8 one launch of K3's pre-pass
-    beside the K2 w8 / K2t w8 launch, at width 4 the kernel alone."""
+def test_render_primary_launches_the_pre_pass_for_k2t_and_width8(cuda, width, textured):
+    """One render_primary call: one launch of K3's pre-pass beside a K2 w8,
+    K2t w8 or width-4 K2t launch; K2 at width 4 alone."""
     from chip_smoke import frame_pixels
     from gpu_raytracer_tpu_torch.config import RaytracerConfig
 
@@ -845,9 +846,79 @@ def test_render_primary_launches_the_pre_pass_at_width8_only(cuda, width, textur
     reset_launches()
     render_primary(tables, px, py, 64, 48, shadows=True, shade=shade)
     kernel = ("k2t" if textured else "k2") + ("_w8" if width == 8 else "")
-    want = {kernel: 1, "k3_pre": 1} if width == 8 else {kernel: 1}
+    want = {kernel: 1, "k3_pre": 1} if width == 8 or textured else {kernel: 1}
     assert read_launches() == dict(ZERO_LAUNCHES, **want)
-    assert (tables.rel_nodes is None) == (width == 4)
+    assert (tables.rel_nodes is None) == (width == 4 and not textured)
+
+
+@pytest.mark.cuda
+def test_width4_k2t_matches_plain_after_a_camera_move(cuda):
+    """K2t at width 4 after a camera move (the camera row rewritten in
+    place, so the pre-pass's tables must be made anew), shadows off and on:
+    one launch of K3's pre-pass and one of K2t each, the frame 0.0 from
+    render_chunk outside counted exact-t and order ties and mip-boundary
+    lanes."""
+    from chip_smoke import frame_pixels, order_ties
+    from gpu_raytracer_tpu_torch.ops.cuda.render import set_camera
+
+    scene = make_courtyard_scene(2000, seed=1, textured=True, device=cuda)
+    tables, shade = pack_render_tables(scene), pack_shade_tables(scene)
+    W, H = 160, 120
+    px, py = frame_pixels(W, H, cuda)
+    render_primary(tables, px, py, W, H, shade=shade)   # the scene camera's tables
+    ctl = CameraController(scene.camera)
+    ctl.move(forward=1.0)
+    ctl.move(strafe=1.0)
+    set_camera(tables, ctl.camera())
+    exclude, _ = order_ties(tables, W, H, px, py)
+    exclude = exclude | mip_boundary_mask(shade, render_deferred(tables, px, py, W, H))
+    for shadows in (False, True):
+        reset_launches()
+        stats, got = primary_compare(tables, shade, px, py, W, H, shadows, exclude, sky=SKY)
+        assert read_launches() == dict(ZERO_LAUNCHES, k2t=1, k3_pre=1)
+        assert stats["err"] == 0.0 and torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+def test_k2t_entry_refuses_a_launch_without_the_relative_tables(cuda, width):
+    """rt_render_primary_textured returns cudaErrorInvalidValue (1), and
+    launches nothing, without the camera-relative tables at either node
+    width; with them it launches."""
+    from chip_smoke import frame_pixels
+    from gpu_raytracer_tpu_torch.config import RaytracerConfig
+    from gpu_raytracer_tpu_torch.ops.cuda.build import load_kernels
+    from gpu_raytracer_tpu_torch.ops.cuda.render import camera_relative
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import nodes_ptr
+    from gpu_raytracer_tpu_torch.ops.shading import pixel_footprint_scale
+
+    scene = make_courtyard_scene(2000, seed=1, textured=True, device=cuda,
+                                 config=RaytracerConfig(bvh_width=width))
+    tables, shade = pack_render_tables(scene), pack_shade_tables(scene)
+    tr = tables.trace
+    W, H = 64, 48
+    px, py = frame_pixels(W, H, cuda)
+    rgb = torch.full((W * H, 3), -1.0, device=cuda)
+    rel = tuple(x.data_ptr() for x in camera_relative(tables))
+    lib = load_kernels().lib
+
+    def launch(rel_nodes, rel_tris):
+        return lib.rt_render_primary_textured(
+            nodes_ptr(tr), tr.tris.data_ptr(), tr.attrs.data_ptr(), rel_nodes, rel_tris,
+            tr.width, tr.stack, tables.camera.data_ptr(), tables.materials.data_ptr(),
+            tables.materials.shape[0], tables.lights.data_ptr(), tables.lights.shape[0],
+            tables.spheres.data_ptr(), tables.spheres.shape[0], shade.maps.data_ptr(),
+            shade.atlas.data_ptr(), shade.present, shade.n_levels,
+            pixel_footprint_scale(tables.fov_scale, H), px.data_ptr(), py.data_ptr(), W * H, W,
+            H, 0, 0.0, 0.0, 0.0, 0, rgb.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    assert launch(0, rel[1]) == 1 and launch(rel[0], 0) == 1 and launch(0, 0) == 1
+    torch.cuda.synchronize()
+    assert (rgb == -1.0).all()
+    assert launch(*rel) == 0
+    torch.cuda.synchronize()
+    want = render_primary(tables, px, py, W, H, shade=shade)
+    assert torch.equal(rgb, want)
 
 
 @pytest.mark.cuda
@@ -933,6 +1004,8 @@ def test_traverse_threaded_kernel_matches_plain(cuda, name, any_hit, monkeypatch
 
     scene = SCENES[name](device=cuda)
     tt = k1.pack_threaded_tables(scene)
+    # 32-byte records; the lean box test allowed
+    assert tt.nodes.shape[1] == 8 and tt.nodes.data_ptr() % 32 == 0 and tt.lean
     rng = np.random.default_rng(7)
     n = 8192
     # from random points toward jittered triangle centroids of the scene
@@ -961,6 +1034,15 @@ def test_traverse_threaded_kernel_matches_plain(cuda, name, any_hit, monkeypatch
     assert int(hit.sum()) > 100
     for g, w in zip(got, want):
         assert torch.equal(g if g.dtype != torch.int32 else g.long(), w)
+    # the counting instance: the same outputs, and, closest hit on a tree of
+    # more than one leaf, lanes that walked past a pending leaf while others
+    # of their warp still looked for one
+    past = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    counted = k1.traverse_threaded(tt, o, d, mt, any_hit=any_hit, past=past)
+    for g, w in zip(counted, want):
+        assert torch.equal(g if g.dtype != torch.int32 else g.long(), w)
+    assert int(past.min()) >= 0
+    assert any_hit or scene.bvh.num_nodes == 1 or int(past.sum()) > 0
 
 
 @pytest.mark.cuda

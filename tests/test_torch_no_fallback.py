@@ -91,7 +91,7 @@ def test_port_never_imports_jax():
         "o = c.camera.position.expand(8, 3).contiguous()\n"
         "d = c.camera.direction.expand(8, 3).contiguous()\n"
         "assert shard.trace_geometry_sharded_ring(c, o, d, m2, gs).t.shape == (8,)\n"
-        "assert pack_threaded_tables(c).nodes.shape == (c.bvh.num_nodes, 12)\n"
+        "assert pack_threaded_tables(c).nodes.shape == (c.bvh.num_nodes, 8)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib',"
         " 'gpu_raytracer_tpu.')) or m == 'gpu_raytracer_tpu')\n"
         "print('LOADED', bad)\n"

@@ -9,17 +9,18 @@ functions (render_common.cuh) and the texture sampler (texsample.cuh), and
 a harness renders every pixel of a frame with it. Built with
 -ffp-contract=off, as the kernels are with -fmad=false.
 
-At node width 8 the pixel's camera walk reads the camera-relative tables
-(`camera_relative_tables`, the plain version of K3's pre-pass) and its
-material step is split around the light loop. Each frame must equal
-`engine/renderer.py::render_chunk` bit for bit: the untextured courtyard
-(K2 w8) and the multi-slot zoo (K2t w8: base-colour, metallic-roughness,
-occlusion and emissive maps, so both halves of the split sample), shadows
-off and on, every light or one sampled light (`light_u`), at the scene's
-camera and at a moved one. The same frame must come out of the pixel over
-the ordinary tables and with the material step whole (the width-8 choices
-change no bit), and the width-4 pixel (which takes neither) is held to the
-same plain frame.
+At node width 8, and for K2t at width 4, the pixel's camera walk reads the
+camera-relative tables (`camera_relative_tables`, the plain version of K3's
+pre-pass) and its material step is split around the light loop. Each frame
+must equal `engine/renderer.py::render_chunk` bit for bit: the untextured
+courtyard (K2), the textured courtyard (K2t, base-colour maps) and the
+multi-slot zoo (K2t: base-colour, metallic-roughness, occlusion and
+emissive maps, so both halves of the split sample), at both widths,
+shadows off and on, every light or one sampled light (`light_u`), at the
+scene's camera and at a moved one. The same frame must come out of a K2t
+or width-8 pixel over the ordinary tables and with the material step whole
+(those choices change no bit), and K2's width-4 pixel (which takes
+neither) is held to the same plain frame.
 
 One deviation is declared: PyTorch's vectorised CPU sqrt is not correctly
 rounded (an ulp off on ~0.6% of inputs, e.g. sqrt(60.375534) gives
@@ -150,21 +151,21 @@ static int run() {
 }
 
 // pixel <width> <textured 0|1> <variant: kernel | ordinary | whole>
-//   kernel: the instance the kernel takes; ordinary: width 8's camera walk
-//   over the ordinary tables; whole: width 8's material step unsplit
+//   kernel: the instance the kernel takes; ordinary: its camera walk over
+//   the ordinary tables; whole: its material step unsplit
+template <int W, bool T>
+static int variant(const char* v) {
+  constexpr bool rel = kPrimaryRel<W, T>, split = kPrimarySplit<W, T>;
+  if (!std::strcmp(v, "kernel")) return run<W, T, rel, split>();
+  if (!std::strcmp(v, "ordinary")) return run<W, T, false, split>();
+  if (!std::strcmp(v, "whole")) return run<W, T, rel, false>();
+  return 2;
+}
+
 int main(int argc, char** argv) {
   const int width = std::atoi(argv[1]), textured = std::atoi(argv[2]);
-  const char* v = argv[3];
-#define RT_VARIANTS(T)                                                           \
-  if (width == 4 && !std::strcmp(v, "kernel")) return run<4, T, false, false>(); \
-  if (width == 8 && !std::strcmp(v, "kernel")) return run<8, T, true, true>();   \
-  if (width == 8 && !std::strcmp(v, "ordinary")) return run<8, T, false, true>(); \
-  if (width == 8 && !std::strcmp(v, "whole")) return run<8, T, true, false>();
-  if (textured) {
-    RT_VARIANTS(true)
-  } else {
-    RT_VARIANTS(false)
-  }
+  if (width == 4) return textured ? variant<4, true>(argv[3]) : variant<4, false>(argv[3]);
+  if (width == 8) return textured ? variant<8, true>(argv[3]) : variant<8, false>(argv[3]);
   return 2;
 }
 """
@@ -202,6 +203,9 @@ def scenes():
             cfg = RaytracerConfig(bvh_width=width)
             if name == "courtyard":
                 scene = make_courtyard_scene(TRIANGLES, seed=0, config=cfg, device="cpu")
+            elif name == "textured_courtyard":   # base-colour maps on the floor and boxes
+                scene = make_courtyard_scene(TRIANGLES, seed=0, config=cfg, textured=True,
+                                             device="cpu")
             else:   # every map kind of the sampler, glass and emission
                 scene = make_zoo_scene(TRIANGLES, n_mats=12, n_texs=8, seed=0, multi_slot=True,
                                        config=cfg, device="cpu")
@@ -266,7 +270,7 @@ def correctly_rounded_sqrt(x, *args, **kwargs):
 @pytest.mark.parametrize("shadows", [False, True], ids=["no_shadows", "shadows"])
 @pytest.mark.parametrize("camera", ["scene", "moved"])
 @pytest.mark.parametrize("width", [4, 8])
-@pytest.mark.parametrize("name", ["courtyard", "zoo_multi_slot"])
+@pytest.mark.parametrize("name", ["courtyard", "textured_courtyard", "zoo_multi_slot"])
 def test_host_pixel_matches_render_chunk_bit_for_bit(pixel_host, scenes, name, width, camera,
                                                      shadows, light_u):
     tables, shade = scenes(name, width)
@@ -284,7 +288,7 @@ def test_host_pixel_matches_render_chunk_bit_for_bit(pixel_host, scenes, name, w
         mp.setattr(torch, "sqrt", correctly_rounded_sqrt)
         want = plain()
     assert (want != np.float32(SKY[0])).any() and np.isfinite(want).all()
-    variants = ("kernel", "ordinary", "whole") if width == 8 else ("kernel",)
+    variants = ("kernel", "ordinary", "whole") if width == 8 or shade is not None else ("kernel",)
     for variant in variants:
         got = pixel_frame(pixel_host, tables, shade, px, py, shadows, u, variant)
         off = (got.view(np.int32) != want.view(np.int32)).any(axis=1)

@@ -9,8 +9,8 @@ Tolerances: both walk the binary tree left first, so hit and winner slot
 are equal (no exact-t ties on this fixture); t within 1e-5 relative and
 normals within 1e-5 (XLA:CPU contracts multiply-adds), materials equal.
 Any hit on shadow rays toward the point light: the hit masks equal. The
-node table holds the tree's links, first slots and leaf counts as they
-are."""
+node table's 32-byte records hold the tree's boxes and links, and each
+leaf's first slot and count in its code."""
 
 import numpy as np
 import pytest
@@ -59,20 +59,28 @@ def _port(ps, o, d, mt, any_hit=False):
 
 
 def test_node_table_holds_the_threaded_links(courtyard):
+    """32-byte records: the box, then `enter` (the left child, or a leaf's
+    code -1 - (first slot << 4 | count)) and the miss link; a leaf's hit
+    link is its miss link."""
     _, ps = courtyard
     tables = pack_threaded_tables(ps)
     bvh = ps.bvh
+    assert THREADED_WORDS == 8
     assert tables.nodes.shape == (bvh.num_nodes, THREADED_WORDS)
     assert tables.nodes.dtype == torch.float32 and tables.nodes.is_contiguous()
     assert torch.equal(tables.nodes[:, 0:3], bvh.node_min)
     assert torch.equal(tables.nodes[:, 3:6], bvh.node_max)
-    ints = tables.nodes[:, 6:12].contiguous().view(torch.int32)
+    ints = tables.nodes[:, 6:8].contiguous().view(torch.int32)
     leaf = bvh.left < 0
-    assert torch.equal(ints[:, 0], bvh.hit_link.to(torch.int32))
+    assert torch.equal(bvh.hit_link[leaf], bvh.miss_link[leaf])
+    assert torch.equal(ints[~leaf, 0], bvh.hit_link[~leaf].to(torch.int32))
+    assert torch.equal(ints[~leaf, 0], bvh.left[~leaf].to(torch.int32))
+    packed = -1 - ints[leaf, 0]
+    assert (ints[leaf, 0] < 0).all() and (ints[~leaf, 0] > 0).all()
+    assert torch.equal(packed >> 4, bvh.tri_start[leaf].to(torch.int32))
+    assert torch.equal(packed & 15, bvh.tri_count[leaf].to(torch.int32))
     assert torch.equal(ints[:, 1], bvh.miss_link.to(torch.int32))
-    assert torch.equal(ints[:, 2], bvh.tri_start.to(torch.int32))
-    assert torch.equal(ints[:, 3], torch.where(leaf, bvh.tri_count, 0).to(torch.int32))
-    assert not ints[:, 4:].any()
+    assert tables.lean
     # the triangle rows are K1's
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import pack_trace_tables
 
