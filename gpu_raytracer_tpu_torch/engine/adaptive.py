@@ -150,7 +150,6 @@ class AdaptivePathTracer(PathTracer):
         self.accum_sq.index_add_(0, rows, contrib.mean(dim=-1) ** 2)
         self.counts.index_add_(0, rows, torch.ones_like(rows, dtype=torch.int32))
         self._steps += 1
-        self.perf.update_frame_count()
 
     def image(self) -> np.ndarray:
         n = np.maximum(self.counts.cpu().numpy(), 1)[:, None]

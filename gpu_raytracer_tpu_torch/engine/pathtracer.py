@@ -57,7 +57,7 @@ from ..ops.shading import material_textures
 from ..ops.wavefront import (RGB_CHANNEL, WavefrontCounters, camera_wavefront_rays,
                              path_trace_pool)
 from ..utils.image import linear_to_srgb
-from .perf import PerformanceState, ProgressiveTiming, Timer
+from .perf import ProgressiveTiming, Timer, span
 from .renderer import light_seed, resolve_device, tiled_pixel_order
 
 JITTER_STREAM = -1       # the independent stream's "depth" of the pixel jitter
@@ -81,23 +81,24 @@ def _sample_chunk(tables, px: torch.Tensor, py: torch.Tensor, width: int, height
     index sample_base + lane // C, for its jitter here and its bounce
     uniforms in the pool."""
     n = px.shape[0] * spp
-    if spp > 1:
-        px, py = px.repeat(spp), py.repeat(spp)
-    jitter = None
-    if antialias and qmc:
-        from ..ops.sampler import qmc_jitter
+    with span("pathtracer.camera_pool"):
+        if spp > 1:
+            px, py = px.repeat(spp), py.repeat(spp)
+        jitter = None
+        if antialias and qmc:
+            from ..ops.sampler import qmc_jitter
 
-        lane = torch.arange(n, dtype=torch.int64, device=px.device)
-        C = n // spp
-        jitter = qmc_jitter(int(qmc_pid_base) + lane % C, int(sample_base) + lane // C,
-                            qmc_seed)
-    elif antialias:
-        from ..ops.rng import bounce_key, sample_uniform
+            lane = torch.arange(n, dtype=torch.int64, device=px.device)
+            C = n // spp
+            jitter = qmc_jitter(int(qmc_pid_base) + lane % C, int(sample_base) + lane // C,
+                                qmc_seed)
+        elif antialias:
+            from ..ops.rng import bounce_key, sample_uniform
 
-        jitter = sample_uniform(bounce_key(rng_seed, sample_base, JITTER_STREAM,
-                                           device=px.device), (n,), 2)
-    rays = camera_wavefront_rays(tables.scene.camera, width, height, px, py, channel,
-                                 jitter=jitter, fov_scale=fov_scale)
+            jitter = sample_uniform(bounce_key(rng_seed, sample_base, JITTER_STREAM,
+                                               device=px.device), (n,), 2)
+        rays = camera_wavefront_rays(tables.scene.camera, width, height, px, py, channel,
+                                     jitter=jitter, fov_scale=fov_scale)
     contrib, counts = path_trace_pool(tables, rays, max_depth=max_depth, rr_start=rr_start,
                                       shadows=shadows, qmc=qmc, qmc_pid_base=qmc_pid_base,
                                       sample_base=sample_base, qmc_seed=qmc_seed,
@@ -259,7 +260,6 @@ class PathTracer:
         # _gbuf row-major planes, made on demand
         self._gbuf = None
         self._gbuf_tile = None
-        self.perf = PerformanceState(config.performance_stats_interval, verbose=False)
 
     def set_camera(self, camera, temporal: bool = False) -> None:
         """Move the camera. The camera row of the tables is rewritten in
@@ -328,17 +328,18 @@ class PathTracer:
 
     def step(self) -> None:
         """Trace samples_per_step samples per pixel and accumulate."""
-        self._last_seed = self.samples
-        contrib, self._last_counts = _sample_chunk(
-            self.tables, self._px, self._py, self.width, self.height,
-            RGB_CHANNEL if self.spectral else 1, self.config.max_bounce_depth,
-            self.config.russian_roulette_start, self.shadows, self.antialias,
-            spp=self.samples_per_step, qmc=self.qmc, sample_base=self.samples,
-            qmc_seed=self._qmc_seed, tex_lod_bias=self.config.bounce_lod_bias,
-            rng_seed=self.seed, fov_scale=self.tables.render.fov_scale)
-        self.accum += contrib
-        self.samples += self.samples_per_step
-        self.perf.update_frame_count()
+        with span("pathtracer.step"):
+            self._last_seed = self.samples
+            contrib, self._last_counts = _sample_chunk(
+                self.tables, self._px, self._py, self.width, self.height,
+                RGB_CHANNEL if self.spectral else 1, self.config.max_bounce_depth,
+                self.config.russian_roulette_start, self.shadows, self.antialias,
+                spp=self.samples_per_step, qmc=self.qmc, sample_base=self.samples,
+                qmc_seed=self._qmc_seed, tex_lod_bias=self.config.bounce_lod_bias,
+                rng_seed=self.seed, fov_scale=self.tables.render.fov_scale)
+            with span("pathtracer.accumulate"):
+                self.accum += contrib
+            self.samples += self.samples_per_step
 
     def render(self, spp: int, progress: bool = False) -> np.ndarray:
         """`spp` steps, each timed to its device completion -> image()."""
@@ -490,7 +491,6 @@ class PathTracer:
         self.accum.index_add_(0, idx, contrib)
         self._count_base.index_add_(0, idx, torch.full(idx.shape, float(spp),
                                                        dtype=torch.float32, device=self.device))
-        self.perf.update_frame_count()
 
     def step_interleaved(self, m: int = 4) -> None:
         """Trace one sample for 1/m of the pixels (the next coset of a

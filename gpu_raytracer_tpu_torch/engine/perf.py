@@ -1,18 +1,29 @@
 """Performance observability: a frame counter with an FPS line every N
-frames, per-frame phase times, per-step times with P50/P95/P99 and Mrays/s,
-a wall-clock timer that waits for the device, a completion fence, and a
-device trace (torch.profiler).
+frames, per-step times with P50/P95/P99 and Mrays/s, a wall-clock timer
+that waits for the device, a completion fence, a device trace
+(torch.profiler), and the program's own spans and counters.
 
 Mrays/s keeps the reference's definition by default: one tile is
 128 x 128 pixels x 3 wavelength passes = 49,152 primary rays.
+
+Spans and counters (`span`, `count`) are on only while a torch profiler
+runs (`torch.profiler.profile`, `DeviceProfiler`). Then a span is a
+`record_function`, a nested `user_annotation` on the device trace's clock,
+and the recorder keeps each name's calls and host nanoseconds and each
+counter's values; `snapshot()` reads them, `reset()` clears them. With no
+profiler a span is one shared null context: it allocates nothing, reads no
+clock and issues no device work. A counter's device tensor is kept by
+reference and read only in `snapshot()`, never inside a step or frame.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 RAYS_PER_TILE = 128 * 128 * 3
 
@@ -22,15 +33,6 @@ def percentile(sorted_vals: list[float], p: float) -> float:
         return 0.0
     idx = min(int(len(sorted_vals) * p), len(sorted_vals) - 1)
     return sorted_vals[idx]
-
-
-@dataclass
-class TimingBreakdown:
-    """Per-frame phase times."""
-
-    scene_update_ms: float = 0.0
-    compute_ms: float = 0.0
-    total_frame_ms: float = 0.0
 
 
 @dataclass
@@ -121,6 +123,92 @@ def block_on(x):
     return x
 
 
+class Recorder:
+    """What the program's spans and counters gathered while a profiler ran:
+    name -> [calls, host ns] of each span, name -> the values counted."""
+
+    def __init__(self):
+        self.spans = {}
+        self.counters = {}
+
+    def add_span(self, name: str, ns: int) -> None:
+        s = self.spans.get(name)
+        if s is None:
+            self.spans[name] = [1, ns]
+        else:
+            s[0] += 1
+            s[1] += ns
+
+    def snapshot(self) -> dict:
+        """{"spans": {name: {"calls", "ns"}}, "counters": {name: total}}. A
+        counter's device tensors are summed on their device and read with
+        one synchronise."""
+        counters = {}
+        for name, values in self.counters.items():
+            total, by_device = 0, {}
+            for v in values:
+                if isinstance(v, torch.Tensor):
+                    by_device.setdefault(v.device, []).append(v.reshape(()))
+                else:
+                    total += int(v)
+            for ts in by_device.values():
+                total += int(torch.stack(ts).sum())
+            counters[name] = total
+        return {"spans": {n: {"calls": c, "ns": ns} for n, (c, ns) in self.spans.items()},
+                "counters": counters}
+
+    def reset(self) -> None:
+        self.spans.clear()
+        self.counters.clear()
+
+
+RECORDER = Recorder()
+_NULL_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        RECORDER.add_span(self.name, time.perf_counter_ns() - self._t0)
+        self._rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager around one phase of the program: with a torch
+    profiler running, a `record_function(name)` whose calls and host time
+    the recorder keeps; otherwise one shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return _Span(name)
+
+
+def count(name: str, value) -> None:
+    """Add `value` (a Python int, or a 0-d tensor kept by reference, not
+    read) to counter `name` while a torch profiler runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        RECORDER.counters.setdefault(name, []).append(value)
+
+
+def snapshot() -> dict:
+    """The recorder's spans and counters (`Recorder.snapshot`)."""
+    return RECORDER.snapshot()
+
+
+def reset() -> None:
+    RECORDER.reset()
+
+
 class DeviceProfiler:
     """torch.profiler over a block, CPU and CUDA activities; on exit the
     trace goes to `log_dir` as a Chrome trace (Perfetto), and `profile`
@@ -128,6 +216,16 @@ class DeviceProfiler:
 
         with DeviceProfiler("trace_dir"):
             renderer.render_device()
+
+    The trace carries the program's spans (`span`) as nested
+    `user_annotation` events on the kernels' clock: `viewer.input` (a
+    camera move, around `renderer.set_camera`), `viewer.run_compute` (around
+    `renderer.render`, the frame's kernel wrappers), `pathtracer.step`
+    (around `pathtracer.camera_pool`, each depth's `pool.order` and
+    `pool.bounce`, and `pathtracer.accumulate`); the camera pool and the
+    `pool.*` spans also inside a fly frame and an interleaved step. The
+    recorder counts `pool.lanes` and `pool.live`, the lanes handed to the
+    bounce kernel and the live ones among them (`snapshot()`).
     """
 
     def __init__(self, log_dir: str):

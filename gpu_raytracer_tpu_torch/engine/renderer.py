@@ -36,6 +36,7 @@ from ..ops.linalg import dot, normalize
 from ..ops.shading import (hit_footprint, light_rows, light_sum, sample_light_index, shade,
                            shade_deferred)
 from ..ops.trace import Hit, occluded, trace
+from .perf import span
 
 TILE = 64  # tile edge of the tile-major pixel order
 MASK32 = 0xFFFFFFFF
@@ -244,8 +245,9 @@ class Renderer:
     def set_camera(self, camera: Camera) -> None:
         """Move the camera: the camera row of the tables is rewritten in
         place (ops/cuda/render.py::set_camera); nothing else is repacked."""
-        set_camera(self.tables, camera)
-        self.scene = self.tables.scene
+        with span("renderer.set_camera"):
+            set_camera(self.tables, camera)
+            self.scene = self.tables.scene
 
     def set_geometry(self, scene: Scene) -> None:
         """Take `scene`, a refit of this renderer's scene
@@ -274,15 +276,17 @@ class Renderer:
         lights each (light_frame, light_salt) draws its own light choices."""
         W, H = self.width, self.height
         trilinear = self.config.texture_trilinear
-        if self.device.type == "cpu":
-            return render_chunk(self.scene, px, py, W, H, shadows=self.shadows, sky=self.sky,
-                                trilinear=trilinear)
-        light_u = self._light_u(px.shape[0], light_salt)
-        if not self.textured:
-            return render_primary(self.tables, px, py, W, H, shadows=self.shadows, sky=self.sky,
-                                  light_u=light_u)
-        gbuf = render_deferred(self.tables, px, py, W, H, shadows=self.shadows, light_u=light_u)
-        return texture_shade(self.shade_tables, gbuf, sky=self.sky, trilinear=trilinear)
+        with span("renderer.render"):
+            if self.device.type == "cpu":
+                return render_chunk(self.scene, px, py, W, H, shadows=self.shadows,
+                                    sky=self.sky, trilinear=trilinear)
+            light_u = self._light_u(px.shape[0], light_salt)
+            if not self.textured:
+                return render_primary(self.tables, px, py, W, H, shadows=self.shadows,
+                                      sky=self.sky, light_u=light_u)
+            gbuf = render_deferred(self.tables, px, py, W, H, shadows=self.shadows,
+                                   light_u=light_u)
+            return texture_shade(self.shade_tables, gbuf, sky=self.sky, trilinear=trilinear)
 
     def render_device(self) -> torch.Tensor:
         """The full frame, left on the device: f32 [W*H,3] in the order of

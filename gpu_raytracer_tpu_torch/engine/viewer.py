@@ -33,7 +33,7 @@ from ..models.camera import CameraController
 from ..models.scene import Scene, refit_scene
 from ..ops.cuda.render import MAX_LIGHTS
 from ..utils.image import to_u8
-from .perf import PerformanceState, ProgressiveTiming, Timer, block_on
+from .perf import PerformanceState, ProgressiveTiming, Timer, block_on, span
 from .progressive import ProgressiveState
 from .renderer import Renderer, resolve_device, tiled_pixel_order
 
@@ -66,6 +66,11 @@ class HostFrame:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+# WASD: the camera controller's move of each key
+_MOVES = {"w": dict(forward=1.0), "s": dict(forward=-1.0), "a": dict(strafe=-1.0),
+          "d": dict(strafe=1.0)}
 
 
 class Viewer:
@@ -135,43 +140,31 @@ class Viewer:
 
     def handle_key(self, key: str) -> None:
         key = key.lower()
-        if key == "w":
-            self.controller.move(forward=1.0)
-        elif key == "s":
-            self.controller.move(forward=-1.0)
-        elif key == "a":
-            self.controller.move(strafe=-1.0)
-        elif key == "d":
-            self.controller.move(strafe=1.0)
-        elif key in (" ", "space"):
-            pass   # render again below
-        elif key == "p":
+        if key in _MOVES or key in (" ", "space"):    # space: render again
+            with span("viewer.input"):
+                if key in _MOVES:
+                    self.controller.move(**_MOVES[key])
+                self._apply_camera()
+            return
+        if key == "p":
             self.pathtrace = not self.pathtrace
             if self.pathtrace:
                 self._ensure_pathtracer()
-            return
         elif key == "n":
             self.denoise = not self.denoise
-            return
         elif key == "t":
             self.temporal = not self.temporal
-            return
         elif key == "i":
             self.fly_interleave = {1: 2, 2: 4, 4: 8, 8: 1}.get(self.fly_interleave, 4)
-            return
         elif key == "l":
             self.load_gltf("model.gltf")
-            return
         elif key == "escape":
             self.should_quit = True
-            return
-        else:
-            return
-        self._apply_camera()
 
     def handle_mouse_drag(self, dx: float, dy: float) -> None:
-        self.controller.rotate(dx, dy)
-        self._apply_camera()
+        with span("viewer.input"):
+            self.controller.rotate(dx, dy)
+            self._apply_camera()
 
     def _apply_camera(self) -> None:
         """The controller's camera into the renderer (its camera row
@@ -295,6 +288,10 @@ class Viewer:
         """Render this frame's tiles into the framebuffer -> the number of
         tiles rendered (0 once the frame is complete: an idle frame, which
         above MAX_LIGHTS lights refines the light estimate instead)."""
+        with span("viewer.run_compute"):
+            return self._run_compute()
+
+    def _run_compute(self) -> int:
         if self.pathtrace:
             self._ensure_pathtracer()
             self._pathtrace_frame()
@@ -307,14 +304,17 @@ class Viewer:
             if tiles:
                 self.renderer.light_frame = self._light_frame_no
                 self._light_frame_no += 1
-                with Timer() as timer:   # the enqueue: frames pipeline, nothing waits
+                if self.verbose:    # the timing's only reader is the verbose summary
+                    with Timer() as timer:   # the enqueue: frames pipeline, nothing waits
+                        self._fb_dev = self.renderer.render_device()
+                    self.timing.record_tile(timer.ms)
+                    if self.progressive.complete:
+                        self.timing.print_summary()
+                else:
                     self._fb_dev = self.renderer.render_device()
                 self._fb_rowmajor = False
                 self._fb_host_dirty = True
                 self._nee_samples = 1
-                self.timing.record_tile(timer.ms)
-                if self.progressive.complete and self.verbose:
-                    self.timing.print_summary()
             elif self._nee_accum_pending():
                 # an idle frame: one more single-sample frame into the mean
                 self.renderer.light_frame = self._light_frame_no

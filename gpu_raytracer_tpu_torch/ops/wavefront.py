@@ -453,6 +453,7 @@ def path_trace_pool(tables, rays: WavefrontRays, max_depth: int = 4, rr_start: i
     tex_lod_bias * d and `last` at max_depth. With `qmc` the uniforms follow
     each lane's identity (the kernel computes them); otherwise they are an
     independent stream drawn by position in the order."""
+    from ..engine.perf import count, span
     from .cuda.bounce import fused_bounce_
     from .sampler import QmcStream
 
@@ -468,12 +469,18 @@ def path_trace_pool(tables, rays: WavefrontRays, max_depth: int = 4, rr_start: i
         n_live = r.active.sum()
         counts.append(n_live)
         if depth > 0:
-            order = coherence_order(scene, r, order)
+            with span("pool.order"):
+                order = coherence_order(scene, r, order)
         u = None if qmc else stream_uniforms(rng_seed, sample_base, depth, N, dev)
-        # only an order puts the live lanes first
-        fused_bounce_(tables, r, radiance, depth=depth, order=order,
-                      n_live=None if order is None else n_live, u=u, qmc=stream,
-                      **bounce_flags(scene, depth, max_depth, rr_start, shadows, tex_lod_bias))
+        with span("pool.bounce"):
+            # the bounce's attempts and its useful work: lanes handed over, live lanes
+            count("pool.lanes", N)
+            count("pool.live", n_live)
+            # only an order puts the live lanes first
+            fused_bounce_(tables, r, radiance, depth=depth, order=order,
+                          n_live=None if order is None else n_live, u=u, qmc=stream,
+                          **bounce_flags(scene, depth, max_depth, rr_start, shadows,
+                                         tex_lod_bias))
     return radiance, torch.stack(counts)
 
 

@@ -18,8 +18,7 @@ from gpu_raytracer_tpu.engine.progressive import TileHelper as JaxTileHelper
 from gpu_raytracer_tpu.utils import packing as jpacking
 from gpu_raytracer_tpu_torch.config import RaytracerConfig
 from gpu_raytracer_tpu_torch.engine.perf import (DeviceProfiler, PerformanceState,
-                                                 ProgressiveTiming, TimingBreakdown, block_on,
-                                                 percentile)
+                                                 ProgressiveTiming, block_on, percentile)
 from gpu_raytracer_tpu_torch.engine.progressive import ProgressiveState, TileHelper
 from gpu_raytracer_tpu_torch.utils import packing
 
@@ -91,9 +90,6 @@ def test_timing_matches_jax():
     for k in ("tiles", "p50_ms", "p95_ms", "p99_ms"):
         assert g[k] == w[k]
     assert percentile([], 0.5) == 0.0
-    assert TimingBreakdown() == TimingBreakdown(0.0, 0.0, 0.0)
-    assert ([f for f in TimingBreakdown.__dataclass_fields__]
-            == [f for f in jperf.TimingBreakdown.__dataclass_fields__])
     ps = PerformanceState(interval=2, verbose=False)
     ps.update_frame_count()
     ps.update_frame_count()
