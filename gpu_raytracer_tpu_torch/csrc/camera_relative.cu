@@ -26,9 +26,24 @@
 // word. One thread per float4 of the node records, then one per triangle
 // slot, so that neighbouring threads load and store neighbouring 16-byte
 // words; one launch for both tables.
+//
+// The camera row itself is written here too, by a second kernel that
+// replaces no TPU kernel (the JAX package rebuilds the row with XLA ops): a
+// camera move (ops/cuda/render.py::set_camera). Its plain version, PyTorch's
+// eager ops (two cross products, a fill, a concatenation, a copy, and an
+// upload of the host camera), is ~20 small device operations, whose host
+// dispatch took most of an interactive frame (PERF.md, "Where the time
+// goes"). What bounds the kernel is its launch alone: one thread writes 26
+// words. So a move is one launch and nothing else on the device: the fields
+// of a camera on the host come in as arguments by value, those of a camera
+// on the card through their device pointers, and the thread writes the row
+// (camera_row.cuh) in place and the camera's 10 fields into a fresh buffer,
+// which the scene's camera then views.
 #include <climits>
 
 #include <cuda_runtime.h>
+
+#include "camera_row.cuh"
 
 namespace {
 
@@ -72,7 +87,49 @@ camera_relative_kernel(const float* __restrict__ cam, const float4* __restrict__
   out[3] = make_float4(qx, qy, qz, 0.0f);
 }
 
+// The new camera: position, direction, up and fov, each read from its device
+// words where `field` gives them (a camera on the card), else from `value`
+// (a camera on the host, passed with the launch).
+struct CameraSource {
+  const float* field[4];
+  float value[rt::kCameraFields];
+};
+
+// One thread: every source word read before any word is written (a source
+// may be a view of the row it replaces), then the row and the fields.
+__global__ void __launch_bounds__(1) camera_row_kernel(CameraSource src, float fov_scale,
+                                                       float* row, float* fields) {
+  float cam[rt::kCameraFields];
+#pragma unroll
+  for (int k = 0; k < rt::kCameraFields; ++k) {
+    const int f = k < 9 ? k / 3 : 3;
+    const float* p = src.field[f];
+    cam[k] = p != nullptr ? p[k - 3 * f] : src.value[k];
+  }
+  rt::camera_row(cam, fov_scale, row);
+#pragma unroll
+  for (int k = 0; k < rt::kCameraFields; ++k) fields[k] = cam[k];
+}
+
 }  // namespace
+
+// The camera row ([16] f32, `row`, rewritten in place) and the camera's
+// fields ([10] f32, `fields`) of a camera whose position, direction, up
+// and fov lie at the device pointers `position`, `direction`, `up`, `fov`,
+// or, where a pointer is null, are the values p0-p2, d0-d2, u0-u2, fov_deg;
+// `fov_scale` is the row's tan(fov/2), evaluated on the host. One launch
+// of one thread. Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int rt_camera_row(const void* position, const void* direction, const void* up,
+                             const void* fov, float p0, float p1, float p2, float d0, float d1,
+                             float d2, float u0, float u1, float u2, float fov_deg,
+                             float fov_scale, void* row, void* fields, void* stream) {
+  CameraSource src{{static_cast<const float*>(position), static_cast<const float*>(direction),
+                    static_cast<const float*>(up), static_cast<const float*>(fov)},
+                   {p0, p1, p2, d0, d1, d2, u0, u1, u2, fov_deg}};
+  camera_row_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      src, fov_scale, static_cast<float*>(row), static_cast<float*>(fields));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The camera-relative tables of the camera row `cam` (position in words
 // 0-2) for `n_nodes` node records of `node_width` children and `n_slots`

@@ -225,7 +225,8 @@ class DeviceProfiler:
     `pool.bounce`, and `pathtracer.accumulate`); the camera pool and the
     `pool.*` spans also inside a fly frame and an interleaved step. The
     recorder counts `pool.lanes` and `pool.live`, the lanes handed to the
-    bounce kernel and the live ones among them (`snapshot()`).
+    bounce kernel and the live ones among them, and `camera.row_launches`,
+    the camera moves written by one launch on CUDA tables (`snapshot()`).
     """
 
     def __init__(self, log_dir: str):

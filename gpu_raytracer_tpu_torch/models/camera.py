@@ -48,23 +48,21 @@ class Camera:
                       up=_f32(up), fov=_f32(fov))
 
     def to(self, device) -> "Camera":
-        """The camera on `device`. Host float32 fields bound for a CUDA device
-        go in one pinned, non-blocking copy: a pageable copy would make the
-        host wait for the card, and a camera moves while frames are queued."""
-        dev = torch.device(device)
-        fields = (self.position, self.direction, self.up, self.fov)
-        if dev.type != "cuda" or any(f.device.type != "cpu" or f.dtype != torch.float32
-                                     for f in fields):
-            return Camera(*(f.to(dev) for f in fields))
-        flat = torch.cat([f.detach().reshape(-1) for f in fields]).pin_memory()
-        flat = flat.to(dev, non_blocking=True)
-        return Camera(flat[0:3], flat[3:6], flat[6:9], flat[9])
+        """The camera on `device`. A camera move on CUDA tables takes no copy
+        (ops/cuda/render.py::set_camera writes the fields on the card)."""
+        return Camera(*(f.to(device) for f in (self.position, self.direction, self.up, self.fov)))
 
     def fov_scale(self) -> float:
         """tan(fov/2) as a float32 value, evaluated once on the host so that
         every device and kernel scales rays by the same number."""
-        fov = self.fov.detach().to("cpu", torch.float32)
-        return float(torch.tan(fov * 0.5 * math.pi / 180.0))
+        return tan_half_fov(self.fov)
+
+
+def tan_half_fov(fov) -> float:
+    """tan(fov/2) of a field of view in degrees (a tensor on any device, read
+    back to the host, or a number), evaluated in float32 on the host."""
+    fov = torch.as_tensor(fov).detach().to("cpu", torch.float32)
+    return float(torch.tan(fov * 0.5 * math.pi / 180.0))
 
 
 class CameraController:

@@ -36,7 +36,7 @@ SOURCES = ("traverse.cu", "render_primary.cu", "render_primary_textured.cu",
            "bounce_textured_w8.cu", "traverse_threaded.cu", "camera_relative.cu")
 HEADERS = ("traverse.cuh", "traverse_kernels.cuh", "render_common.cuh", "render_primary.cuh",
            "primary_pixel.cuh", "render_deferred.cuh", "texsample.cuh", "bounce.cuh",
-           "threaded_walk.cuh")
+           "threaded_walk.cuh", "camera_row.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -79,6 +79,10 @@ ARGTYPES = {
     # camera, nodes, node width, n_nodes, tris, n_slots, rel_nodes_out,
     # rel_tris_out, stream
     "rt_camera_relative": [_p, _p, _i, _i, _p, _i, _p, _p, _p],
+    # position, direction, up, fov (device words, or null: the values
+    # p0-p2, d0-d2, u0-u2, fov that follow), fov_scale, row_out, fields_out,
+    # stream
+    "rt_camera_row": [_p, _p, _p, _p, _f, _f, _f, _f, _f, _f, _f, _f, _f, _f, _f, _p, _p, _p],
     # gbuf, n, materials, n_mats, maps, atlas, present, n_levels, trilinear,
     # sky_r, sky_g, sky_b, rgb_out, stream
     "rt_texture_shade": [_p, _i, _p, _i, _p, _p, _i, _i, _i, _f, _f, _f, _p, _p],

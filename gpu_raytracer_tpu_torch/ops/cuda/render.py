@@ -48,7 +48,10 @@ The small per-scene rows are packed here with the same PyTorch ops the
 plain path evaluates, on the scene's device, so both read identical values:
 
   * camera [16] f32: position, forward, right = forward x up,
-    true_up = right x forward, tan(fov/2), 3 pad;
+    true_up = right x forward, tan(fov/2), 3 pad; after a camera move on
+    CUDA tables written by one launch of the camera row kernel
+    (csrc/camera_relative.cu rt_camera_row, csrc/camera_row.cuh), the same
+    operations in the same order (`set_camera`);
   * materials [M,16] f32: albedo, emission, metallic, IOR, transmission,
     roughness (the f16 fields unpacked; roughness only for the bounce
     kernel), 6 pad;
@@ -59,11 +62,13 @@ plain path evaluates, on the scene's device, so both read identical values:
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
-from ...models.camera import Camera
+from ...engine.perf import count
+from ...models.camera import Camera, tan_half_fov
 from ...models.scene import Scene
 from ..f16 import unpack_f16_high, unpack_f16_low
 from ..linalg import cross, normalize
@@ -83,6 +88,7 @@ class RenderTables:
     lights: torch.Tensor      # [L,16] f32
     spheres: torch.Tensor     # [S,8] f32
     fov_scale: float          # the camera's tan(fov/2), evaluated on the host once
+    fov: float                # the field of view (degrees) `fov_scale` was evaluated for
     # the camera-relative tables K3's pre-pass writes before every K3 launch
     # and every K2t and width-8 K2 launch (`camera_relative`, which allocates them)
     rel_nodes: torch.Tensor | None = None   # [Q,8w] f32, the node records' layout
@@ -123,19 +129,77 @@ def set_camera(tables: RenderTables, camera: Camera) -> None:
     """Point the tables at a moved camera: the camera row is rewritten in
     place (its address stays valid for a launch captured earlier),
     `fov_scale` and the tables' scene follow; no other table is repacked.
-    Nothing is read back from the device where the new camera's field of
-    view lies on the host (CameraController.camera()) or is the old one's
-    tensor."""
-    old = tables.scene.camera
-    fov_scale = tables.fov_scale if camera.fov is old.fov else camera.fov_scale()
-    scene = tables.scene.with_camera(camera)
-    tables.camera.copy_(camera_row(scene.camera, fov_scale))
-    tables.fov_scale = fov_scale
+
+    CUDA tables take one launch of the camera row kernel and nothing else on
+    the device (`write_camera_row`); the scene's camera then views a fresh
+    buffer, so a camera held from before the move keeps its values. Other
+    tables take the plain version: `camera_row` of `Scene.with_camera`.
+    tan(fov/2) is evaluated again only when the field of view's value
+    changed (`_fov_scale`)."""
+    fov, fov_scale = _fov_scale(tables, camera.fov)
+    if tables.trace.device.type == "cuda":
+        scene = dataclasses.replace(tables.scene,
+                                    camera=write_camera_row(tables, camera, fov_scale))
+    else:
+        scene = tables.scene.with_camera(camera)
+        tables.camera.copy_(camera_row(scene.camera, fov_scale))
+    tables.fov, tables.fov_scale = fov, fov_scale
     tables.trace.scene = scene
 
 
+def _fov_scale(tables: RenderTables, fov: torch.Tensor) -> tuple[float, float]:
+    """(field of view, tan(fov/2)) of a new camera's `fov`: the tables' own
+    where `fov` is their camera's tensor (a device fov is then never read
+    back) or has the value they were evaluated for; else tan is evaluated
+    again. A host fov is read on the host; a device fov of another camera
+    is read back."""
+    if fov is tables.scene.camera.fov:
+        return tables.fov, tables.fov_scale
+    value = float(fov)
+    if value == tables.fov:
+        return tables.fov, tables.fov_scale
+    return value, tan_half_fov(value)
+
+
+CAMERA_FIELDS = (3, 3, 3, 1)   # words of position, direction, up, fov
+
+
+def write_camera_row(tables: RenderTables, camera: Camera, fov_scale: float) -> Camera:
+    """The camera row kernel on CUDA tables -> the new camera, views of a
+    fresh [10] f32 device buffer that the same launch fills with its fields
+    (position, direction, up, fov). The row `tables.camera` is rewritten in
+    place. A field on the host goes in as launch arguments by value (nothing
+    is staged in memory a later move could overwrite); a field on the card
+    is read there through its pointer, never on the host. Counted in
+    `launches` and in the counter `camera.row_launches`."""
+    dev = tables.camera.device
+    ptrs, values = [], []
+    for f, n in zip((camera.position, camera.direction, camera.up, camera.fov), CAMERA_FIELDS):
+        if f.numel() != n:
+            raise ValueError(f"a camera field of {f.numel()} words, want {n}")
+        if f.device.type == "cpu":
+            ptrs.append(None)
+            values += f.reshape(n).tolist()
+        else:
+            f = f.to(dev, torch.float32).contiguous()
+            ptrs.append(f.data_ptr())
+            values += [0.0] * n
+    fields = torch.empty(sum(CAMERA_FIELDS), dtype=torch.float32, device=dev)
+    k = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    write_camera_row.launches += 1
+    count("camera.row_launches", 1)
+    check(k.lib.rt_camera_row(*ptrs, *values, fov_scale, tables.camera.data_ptr(),
+                              fields.data_ptr(), stream), "rt_camera_row")
+    return Camera(fields[0:3], fields[3:6], fields[6:9], fields[9])
+
+
+write_camera_row.launches = 0
+
+
 def pack_render_tables(scene: Scene) -> RenderTables:
-    fov_scale = scene.camera.fov_scale()
+    fov = float(scene.camera.fov)
+    fov_scale = tan_half_fov(fov)
     camera = camera_row(scene.camera, fov_scale).contiguous()
     materials = material_rows(scene)
     L = scene.lights
@@ -145,7 +209,8 @@ def pack_render_tables(scene: Scene) -> RenderTables:
     S = scene.spheres
     mat_bits = S.material_id.to(torch.int32).view(torch.float32)[:, None]
     spheres = _pad(torch.cat([S.center, S.radius[:, None], mat_bits], dim=1), 8)
-    return RenderTables(pack_trace_tables(scene), camera, materials, lights, spheres, fov_scale)
+    return RenderTables(pack_trace_tables(scene), camera, materials, lights, spheres, fov_scale,
+                        fov)
 
 
 def camera_relative_tables(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
