@@ -26,28 +26,13 @@ import time          # noqa: E402
 
 
 def control_numbers(config: dict, mix: dict, seed: int, device) -> dict:
-    import torch
-
-    from benchmark import checks, generator
+    """The cell's numbers of its driver kind's control (`Driver.control`)."""
     from benchmark.drivers.common import Spans
     from benchmark.run import load_module
 
     drv = load_module("drivers", mix["driver"]).Driver(config, mix, seed, device, Spans())
     drv.plan()
-    if drv.unit == "frame":
-        frames = sorted(generator.frame_picks(seed, mix["warm_frames"], mix["expected_frames"],
-                                            mix["check_frames"]))
-        ref, _, _ = checks.frame_references(drv, checks.scene_for(drv, device), frames, seed,
-                                            device, drv.present)
-        ctl, _, _ = checks.frame_references(drv, checks.scene_for(drv, device, torch.bfloat16),
-                                            frames, seed, device, drv.present)
-        nums = checks.compare_frames(ctl, ref, mix, drv.present)
-        nums.pop("frames")
-        return nums
-    ref, var, _, _ = checks.image_reference(drv, checks.scene_for(drv, device), seed, device)
-    ctl, _, _, _ = checks.image_reference(drv, checks.scene_for(drv, device, torch.bfloat16),
-                                          seed, device, stream=generator.CONTROL)
-    return checks.compare_images(ctl, mix["check_spp"], ref, var, mix)
+    return drv.control(device)
 
 
 def main(argv=None) -> int:

@@ -63,6 +63,15 @@ def program_scene(inputs: scenes.CourtyardInputs, rt_config, device,
                          textures=textures, config=rt_config, device=device)
 
 
+def scene_tables(inputs: scenes.CourtyardInputs, tree_bytes: int) -> dict:
+    """What the rooflines charge for the scene's tables: the reference tree's
+    bytes, the material and light rows, and the maps' texels with their mips."""
+    return {"tree_bytes": tree_bytes,
+            "materials": len(inputs.materials), "lights": len(inputs.lights),
+            "texel_bytes": sum(int(im.shape[0]) * int(im.shape[1]) * 4 * 4 // 3
+                               for im in inputs.images)}
+
+
 @dataclass
 class Spans:
     """Host spans of the window, kept in memory: name -> durations (s)."""

@@ -10,8 +10,8 @@ import contextlib
 
 import torch
 
-from .. import reference
-from .common import make_inputs, now, program_config, program_scene
+from .. import checks, generator, reference, roofline
+from .common import make_inputs, now, program_config, program_scene, scene_tables
 
 
 class Driver:
@@ -93,3 +93,25 @@ class Driver:
     def camera(self) -> reference.CameraState:
         return reference.start_camera(self.inputs.camera_position,
                                       self.inputs.camera_direction, self.inputs.fov)
+
+    # ---- the check, the rooflines and the control ----
+
+    def check(self, image, device):
+        """The accumulated image against the reference's estimate (checks.py)."""
+        return checks.pathtracer_check(self, image, device)
+
+    def least_ms(self, work: dict, tree_bytes: int) -> dict:
+        """Least ms a step: K6 at every depth."""
+        tables = scene_tables(self.inputs, tree_bytes)
+        depth = self.config["program"]["max_bounce_depth"] + 1
+        return {"k6": roofline.path_step(work, tables, self.width * self.height,
+                                         depth)["least_ms"]}
+
+    def control(self, device) -> dict:
+        """The reference's estimate in bfloat16 in the program's place, with
+        random numbers of its own, against the float32 reference's."""
+        ref, var, _, _ = checks.image_reference(self, checks.scene_for(self, device), self.seed,
+                                                device)
+        ctl, _, _, _ = checks.image_reference(self, checks.scene_for(self, device, torch.bfloat16),
+                                              self.seed, device, stream=generator.CONTROL)
+        return checks.compare_images(ctl, self.mix["check_spp"], ref, var, self.mix)

@@ -20,8 +20,9 @@ import contextlib
 import numpy as np
 import torch
 
-from .. import reference, generator
-from .common import make_inputs, now, percentile, program_config, program_scene
+from .. import checks, generator, reference, roofline
+from .common import (make_inputs, now, percentile, program_config, program_scene,
+                     scene_tables)
 
 
 RING = 4
@@ -71,6 +72,7 @@ class Driver:
         self.viewer = Viewer(scene, self.width, self.height, config=rt,
                              shadows=self.config["shadows"], verbose=False, device=self.device)
         self._wrap_renderer()
+        self._enter_mode()
         if self.cuda:
             self.ring = [torch.cuda.Event(enable_timing=True) for _ in range(RING)]
         # warm-up: the cell's own frames, each held as the check holds its
@@ -99,6 +101,10 @@ class Driver:
 
         r.render_device = render_device
 
+    def _enter_mode(self) -> None:
+        """The Viewer's mode for the cell, before the warm-up (a kind that
+        draws another mode sets it here): the Whitted frame, as it starts."""
+
     def _sync(self):
         if self.cuda:
             torch.cuda.synchronize(self.device)
@@ -122,8 +128,7 @@ class Driver:
         self.spans.add("host_enqueue", t_rc - t_in)
         self.t_in[i] = t_in
         if keep:
-            self.held[i] = (None if self.present else self._last if self.cuda
-                            else self.viewer.framebuffer.copy())   # CPU: the tile path's frame
+            self.held[i] = self._hold()
         if self.present:
             with self._span("present"):
                 h = self.viewer.present_frame_packed()
@@ -137,6 +142,13 @@ class Driver:
         else:
             self.done[i] = now()
         self.index += 1
+
+    def _hold(self):
+        """What the check keeps of the frame just made: on CUDA the device
+        frame itself (nothing copied or waited for), on the CPU the tile
+        path's frame; a presented frame is kept when it is materialised."""
+        return (None if self.present else self._last if self.cuda
+                else self.viewer.framebuffer.copy())
 
     def _resolve(self, upto: int) -> None:
         """Wait for every pending frame up to `upto` and note when each
@@ -186,8 +198,7 @@ class Driver:
                 break
         last = self.index - 1
         if last not in self.held:                       # the window's last frame is compared too
-            self.held[last] = None if self.present else self._last if self.cuda else \
-                self.viewer.framebuffer.copy()
+            self.held[last] = self._hold()
         self._drain()
         t_end = now()
         lat = [self.done[i] - self.t_in[i] for i in range(first, self.index) if i in self.done]
@@ -233,3 +244,31 @@ class Driver:
             if k in want:
                 out[k] = ctl.state()
         return out
+
+    # ---- the check, the rooflines and the control ----
+
+    def check(self, outputs: dict, device):
+        """The frames against the reference's Whitted frames (checks.py)."""
+        return checks.viewer_check(self, outputs, device)
+
+    def least_ms(self, work: dict, tree_bytes: int) -> dict:
+        """Least ms a frame: K2, or on a textured scene the pre-pass, K3 and K4."""
+        tables = scene_tables(self.inputs, tree_bytes)
+        pixels, lights = self.width * self.height, len(self.inputs.lights)
+        if self.inputs.images:
+            return {"k3k4": roofline.textured_frame(work, tables, pixels, lights)["least_ms"]}
+        return {"k2": roofline.whitted_frame(work, tables, pixels, lights)["least_ms"]}
+
+    def control(self, device) -> dict:
+        """The reference in bfloat16 in the program's place, on the frames a
+        window of the mix would compare."""
+        mix, seed = self.mix, self.seed
+        frames = sorted(generator.frame_picks(seed, mix["warm_frames"], mix["expected_frames"],
+                                              mix["check_frames"]))
+        ref, _, _ = checks.frame_references(self, checks.scene_for(self, device), frames, seed,
+                                            device, self.present)
+        ctl, _, _ = checks.frame_references(self, checks.scene_for(self, device, torch.bfloat16),
+                                            frames, seed, device, self.present)
+        nums = checks.compare_frames(ctl, ref, mix, self.present)
+        nums.pop("frames")
+        return nums

@@ -22,7 +22,9 @@ ops/wavefront.py, ops/sampling.py, models/camera.py of the port):
     light count; cosine, fuzzed mirror or Fresnel glass continuations (a full
     RGB ray collapses to one wavelength at glass, throughput x3 one-hot);
     Russian roulette on continuations entering depth >= 2, p = clamp(max
-    throughput, 0.05, 0.95); depths 0-4, the last one not continued.
+    throughput, 0.05, 0.95); depths 0-4, the last one not continued;
+  * fly frame: the G-buffer of the primary hits at pixel centres, and the
+    à-trous filter as ops/denoise.py's header states it (`atrous`).
 Its random numbers are its own (a torch.Generator), so a path-traced image is
 compared by its statistics (checks.py), not pixel for pixel.
 """
@@ -431,19 +433,26 @@ def _reflect(d, n):
     return d - (2.0 * bvh._dot(d, n))[:, None] * n
 
 
-def path_trace(rs: RefScene, cam: CameraState, width, height, px, py, spp: int,
-               gen: torch.Generator, max_depth=4, rr_start=2, work: Work | None = None):
-    """`spp` spectral paths through each pixel px, py (jittered, uniform) ->
-    (the mean RGB [P,3] in float32, the variance of a sample's luminance
-    R + G + B about each pixel's mean [P])."""
+def path_trace(rs: RefScene, views, width, height, spp: int, gen: torch.Generator,
+               max_depth=4, rr_start=2, work: Work | None = None):
+    """`spp` spectral paths through each pixel of `views`, a list of (camera,
+    px, py), jittered uniformly, traced together -> (the mean RGB [P,3] in
+    float32, the variance of a sample's luminance R + G + B about each
+    pixel's mean [P]), the views' pixels in order. Each view draws its
+    jitter in turn, sample-major (sample s of pixel i at s P_view + i)."""
     work = Work() if work is None else work
-    dev, dt = px.device, rs.dtype
-    P = px.shape[0]
-    N = P * spp
+    dev, dt = views[0][1].device, rs.dtype
     rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev, dtype=torch.float32).to(dt)
-    qx, qy = px.repeat(spp), py.repeat(spp)
-    o, d = camera_rays(cam, width, height, qx, qy, jitter=rnd(N, 2), dtype=dt)
-    o, d = o.contiguous(), d.contiguous()
+    starts = []
+    for cam, px, py in views:
+        n = px.shape[0]
+        o, d = camera_rays(cam, width, height, px.repeat(spp), py.repeat(spp),
+                           jitter=rnd(n * spp, 2), dtype=dt)
+        starts.append((o.reshape(spp, n, 3), d.reshape(spp, n, 3)))
+    o = torch.cat([x[0] for x in starts], dim=1).reshape(-1, 3).contiguous()
+    d = torch.cat([x[1] for x in starts], dim=1).reshape(-1, 3).contiguous()
+    P = sum(px.shape[0] for _, px, _ in views)
+    N = P * spp
     thr = torch.ones((N, 3), dtype=dt, device=dev)
     medium = torch.ones((N,), dtype=dt, device=dev)
     chan = torch.full((N,), 3, dtype=torch.int64, device=dev)
@@ -540,6 +549,92 @@ def path_trace(rs: RefScene, cam: CameraState, width, height, px, py, spp: int,
         alive[idx] = live
     rad = radiance.float().reshape(spp, P, 3)
     return rad.mean(dim=0), rad.sum(dim=2).var(dim=0)
+
+
+# ---- the fly frame: G-buffer and edge-avoiding à-trous filter ----
+
+B3 = (1.0 / 16.0, 1.0 / 4.0, 3.0 / 8.0, 1.0 / 4.0, 1.0 / 16.0)   # the B3 spline's taps
+LUMINANCE = (0.2126, 0.7152, 0.0722)                            # Rec. 709
+
+
+def gbuffer(rs: RefScene, o, d, work: Work | None = None):
+    """The primary hits of rays o, d through pixel centres -> (unit
+    geometric normal [N,3], 0 on a miss; depth [N], the ray's t, +inf on a
+    miss; albedo [N,3], the material's times its base-colour map at level
+    0, 1 on a miss)."""
+    work = Work() if work is None else work
+    h = trace(rs, o, d)
+    work.rays += o.shape[0]
+    work.hits += int(h.hit.sum())
+    work.slots += h.slots
+    work.tests += h.tests
+    albedo = rs.albedo[h.mat]
+    if rs.maps:
+        tex = torch.where(h.hit, rs.base_map[h.mat], torch.full_like(h.mat, -1))
+        albedo = albedo * sample_base(rs, tex, hit_uv(rs, o, d, h), torch.zeros_like(h.t))
+    depth = torch.where(h.hit, h.t, torch.full_like(h.t, float("inf")))
+    return h.normal, depth, torch.where(h.hit[:, None], albedo, torch.ones_like(albedo))
+
+
+def percentile99(x: torch.Tensor) -> torch.Tensor:
+    """The 99th percentile of the values of `x`, linearly interpolated
+    between the order statistics around rank 0.99 (n - 1)."""
+    v = torch.sort(x.reshape(-1)).values
+    pos = 0.99 * (v.numel() - 1)
+    lo = int(math.floor(pos))
+    hi = min(lo + 1, v.numel() - 1)
+    return v[lo] + (v[hi] - v[lo]) * (pos - lo)
+
+
+def atrous(color, normal, depth, albedo, iterations: int, sigma_color: float = 0.45,
+           sigma_normal: float = 64.0, sigma_depth: float = 0.02):
+    """The edge-avoiding à-trous wavelet filter (Dammertz et al. 2010) with
+    albedo demodulation (Schied et al. 2017) of a radiance image [H,W,3]
+    along its G-buffer (normal [H,W,3], 0 on a miss; depth [H,W]; albedo
+    [H,W,3]), in the colour's dtype, one tap after another:
+      * a pixel is a hit where n.n > 0.25; colour is divided by
+        max(albedo, 1e-2) before the passes and multiplied back after;
+      * depth is taken in units of the 99th percentile of the hit depths
+        (misses as 0) on every (H // 256)-th row and (W // 256)-th column;
+      * pass k (from 0) takes the 5 x 5 B3 taps at a spacing of 2^k, each
+        tap's pixel clamped to the frame's edge, weighted by
+        max(n.n_q, 0)^sigma_normal (1 where both pixels are misses) times
+        exp(-(dz / sigma_depth)^2 - (dl / (sigma_color / 2^k))^2), dl the
+        demodulated luminance's difference; the pass is the weighted mean."""
+    H, W = color.shape[:2]
+    dt, dev = color.dtype, color.device
+    hit = (normal * normal).sum(dim=-1) > 0.25
+    demod = torch.clamp(albedo.to(dt), min=1e-2)
+    c = color / demod
+    zs = torch.where(hit, depth, torch.zeros_like(depth))[::max(1, H // 256), ::max(1, W // 256)]
+    zscale = percentile99(zs) + 1e-6
+    z = torch.where(hit, depth / zscale, torch.zeros_like(depth)).to(dt)
+    n = normal.to(dt)
+    for k in range(iterations):
+        spacing = 1 << k
+        r = 2 * spacing
+        lum = c[..., 0] * LUMINANCE[0] + c[..., 1] * LUMINANCE[1] + c[..., 2] * LUMINANCE[2]
+        # every field with a border of r copies of its edge pixels: a tap
+        # is then a window of the bordered field
+        ry = torch.clamp(torch.arange(-r, H + r, device=dev), 0, H - 1)[:, None]
+        rx = torch.clamp(torch.arange(-r, W + r, device=dev), 0, W - 1)[None, :]
+        bn, bhit, bz, blum, bc = (x[ry, rx] for x in (n, hit, z, lum, c))
+        acc = torch.zeros_like(c)
+        wsum = torch.zeros_like(lum)
+        for j in range(5):
+            y0 = r + (j - 2) * spacing
+            for i in range(5):
+                x0 = r + (i - 2) * spacing
+                tap = lambda b: b[y0:y0 + H, x0:x0 + W]
+                cos = torch.clamp(bvh._dot(n, tap(bn)), min=0.0)
+                w_n = torch.where(~hit & ~tap(bhit), torch.ones_like(cos), cos ** sigma_normal)
+                dz = (z - tap(bz)) / sigma_depth
+                dl = (lum - tap(blum)) / (sigma_color / (1 << k))
+                w = (B3[j] * B3[i]) * w_n * torch.exp(-(dz * dz + dl * dl))
+                acc = acc + tap(bc) * w[..., None]
+                wsum = wsum + w
+        c = acc / wsum[..., None]
+    return c * demod
 
 
 # ---- present ----

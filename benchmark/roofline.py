@@ -81,3 +81,32 @@ def path_step(work: dict, tables: dict, paths: int, launches: int) -> dict:
     flops = (walk_flops(work) + work["hits"] * SHADE_FLOPS + continued * SAMPLE_FLOPS
              + work.get("texel_hits", 0) * TEXEL_FLOPS)
     return {"bytes": bytes_moved, "flops": flops, "least_ms": least_ms(bytes_moved, flops)}
+
+
+# the fly frame's filter: a 5 x 5 tap's operations (the normal weight's dot
+# product and 6 squarings, the depth and luminance terms, their exponential,
+# the weights' product and the weighted sums)
+TAP_FLOPS = 30
+GBUFFER_BYTES = 28            # normal, depth, albedo
+FIELD_BYTES = 36              # a pass's packed field: colour, normal, depth, luminance, hit
+
+
+def fly_frame(primary: dict, paths: dict, tables: dict, pixels: int, interleave: int,
+              launches: int, passes: int) -> dict:
+    """One moving path-traced frame (PathTracer.fly_frame), the sum of three
+    stages' least times:
+      * the warp: the primary walk of every pixel (`primary`), the pixel
+        coordinates read, the G-buffer written, the history (mean, weight,
+        old depth) read and the new one written;
+      * the coset step: `paths` (the reference's path work scaled to the
+        coset's pixels / interleave paths), as path_step;
+      * the filter: each pass reads the packed field once and writes the
+        colour; the demodulation and remodulation read colour and albedo
+        and write colour; 25 taps a pixel and pass."""
+    warp_bytes = pixels * (8 + GBUFFER_BYTES + 20 + 16) + scene_bytes(tables)
+    warp = least_ms(warp_bytes, walk_flops(primary))
+    coset = path_step(paths, tables, pixels // interleave, launches)["least_ms"]
+    filter_bytes = pixels * (passes * (FIELD_BYTES + 12) + 2 * (12 + 12 + 12))
+    filt = least_ms(filter_bytes, pixels * passes * 25 * TAP_FLOPS)
+    return {"warp_ms": warp, "coset_ms": coset, "filter_ms": filt,
+            "least_ms": warp + coset + filt}

@@ -5,9 +5,12 @@
 
 The cell is an entry of `workloads` in BENCHMARK.json; its configuration is
 benchmark/configs/<config>.json, its traffic mix benchmark/traffic/<mix>.json,
-which names a driver kind, benchmark/drivers/<kind>.py. Per-layer metrics are
-benchmark/metrics/<name>.py, each a `read(trace)` found by its name. Nothing
-here names a cell, a mix or a metric: adding one adds files and entries.
+which names a driver kind, benchmark/drivers/<kind>.py. The driver kind owns
+its loop, its check against the plain reference (`check`), the least times
+of its rooflines (`least_ms`) and its lower-precision control (`control`).
+Per-layer metrics are benchmark/metrics/<name>.py, each a `read(trace)`
+found by its name. Nothing here names a cell, a mix, a metric, a driver kind
+or a unit: adding any of them adds files and entries only.
 
 A run: set-up (the program's scene, its Viewer or PathTracer, the warm-up of
 the cell's own shapes; `setup_s` runs from the process's start to the first
@@ -259,14 +262,11 @@ def run_cell(args, manifest, cell, config, mix, device) -> int:
     burst = profile_burst(driver, mix["trace_count"]) if args.trace else None
 
     # the check, once the program's state is freed
-    if driver.unit == "frame":
-        outputs = driver.outputs()
-        free(driver, device)
-        nums, work, compared, tree_bytes = checks.viewer_check(driver, outputs, device)
-    else:
-        image = driver.outputs()
-        free(driver, device)
-        nums, work, compared, tree_bytes = checks.pathtracer_check(driver, image, device)
+    t_check = time.perf_counter()
+    outputs = driver.outputs()
+    free(driver, device)
+    nums, work, compared, tree_bytes = driver.check(outputs, device)
+    check_s = time.perf_counter() - t_check
     correct, rows = checks.judge(nums, mix["limits"])
 
     bad = forbidden_modules()
@@ -274,7 +274,7 @@ def run_cell(args, manifest, cell, config, mix, device) -> int:
         print(f"the process holds {', '.join(bad)}: no result", file=sys.stderr)
         return 4
 
-    least = roofline_work(driver, config, work, tree_bytes)
+    least = driver.least_ms(work, tree_bytes)
     result_metrics = {}
     if args.trace:
         tr = Trace(driver.unit, spans.times, burst, least, setup,
@@ -301,7 +301,8 @@ def run_cell(args, manifest, cell, config, mix, device) -> int:
         out["breakdown"] = breakdown(tr)
     out["checks"] = {name: {"value": v, "limit": lim} for name, v, lim in rows}
     print("run " + json.dumps({"setup_s": setup_s, **{k: float(v) for k, v in setup.items()},
-                               "window": window, "compared": compared, "least_ms": least},
+                               "window": window, "compared": compared, "check_s": check_s,
+                               "least_ms": least},
                               default=_jsonable), file=sys.stderr)
     for name, v, lim in rows:
         print(f"check {name} = {v!r} (limit {lim!r})", file=sys.stderr)
@@ -318,26 +319,6 @@ def free(driver, device) -> None:
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-
-
-def roofline_work(driver, config, work: dict, tree_bytes: int) -> dict:
-    """Least ms per frame or step by kernel group, from the reference's work."""
-    from benchmark import roofline
-
-    inputs = driver.inputs
-    tables = {"tree_bytes": tree_bytes,
-              "materials": len(inputs.materials), "lights": len(inputs.lights),
-              "texel_bytes": sum(int(im.shape[0]) * int(im.shape[1]) * 4 * 4 // 3
-                                 for im in inputs.images)}
-    lights = len(inputs.lights)
-    if driver.unit == "step":
-        paths = driver.width * driver.height
-        depth = config["program"]["max_bounce_depth"] + 1
-        return {"k6": roofline.path_step(work, tables, paths, depth)["least_ms"]}
-    pixels = driver.width * driver.height
-    if inputs.images:
-        return {"k3k4": roofline.textured_frame(work, tables, pixels, lights)["least_ms"]}
-    return {"k2": roofline.whitted_frame(work, tables, pixels, lights)["least_ms"]}
 
 
 def _jsonable(x):

@@ -21,8 +21,19 @@ TINY_MIX = {"viewer": dict(warm_frames=2, expected_frames=6, check_frames=3,
             # a window of some hundred steps beside 256 paths of the reference,
             # so that a gap of a tenth of a pixel's brightness stands out
             "pathtracer": dict(warm_steps=0, check_pixels=256, check_spp=256, trace_count=2,
-                               limits={"outlier_share": 0.03})}
-TINY_SECONDS = {"viewer": 0.5, "pathtracer": 6.0}     # a tiny run's window
+                               limits={"outlier_share": 0.03}),
+            "fly": dict(still_frames=2, warm_frames=2, expected_frames=6, check_frames=2,
+                        check_pixels=256, path_pixels=128, check_spp=64, trace_count=2,
+                        # at 16^2 a pixel spans so much depth that the warp
+                        # rejects about half of the history (0.40-0.57 read
+                        # on sound runs); a dropped history leaves 0.75
+                        limits={"gbuffer_off_share": 0.002, "filter_off_share": 0.002,
+                                "filter_mean_abs": 0.0002, "empty_share": 0.66,
+                                "outlier_share": 0.05, "luminance_gap": 0.1})}
+# a kind's own sizes where the shared ones take the CPU too long: the fly
+# frame's plain walk at 32^2 takes seconds a frame
+TINY_KIND_CONFIG = {"fly": {"pathtracer_size": [16, 16]}}
+TINY_SECONDS = {"viewer": 0.5, "pathtracer": 6.0, "fly": 3.0}     # a tiny run's window
 
 
 def pytest_configure(config):
@@ -51,6 +62,7 @@ def tiny_cell(workload: str):
         else:
             config[k] = v
     mix.update(TINY_MIX[mix["driver"]])
+    config.update(TINY_KIND_CONFIG.get(mix["driver"], {}))
     return manifest, cell, config, mix
 
 

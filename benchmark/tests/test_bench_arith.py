@@ -28,6 +28,28 @@ def test_frame_and_step_counts():
     assert s["flops"] == 200 * 25 + 10 * 54 + 5 * 120 + 20 * 150
 
 
+def test_fly_frame_counts():
+    tables = {"tree_bytes": 1000, "materials": 2, "lights": 1}
+    primary = {"slots": 400, "tests": 20, "hits": 16, "rays": 16}
+    paths = {"slots": 200, "tests": 10, "hits": 5, "rays": 12}
+    f = roofline.fly_frame(primary, paths, tables, pixels=16, interleave=4, launches=5, passes=3)
+    assert f["warp_ms"] == roofline.least_ms(16 * (8 + 28 + 20 + 16) + 1096, 400 * 25 + 20 * 54)
+    assert f["coset_ms"] == roofline.path_step(paths, tables, 4, 5)["least_ms"]
+    assert f["filter_ms"] == roofline.least_ms(16 * (3 * 48 + 72), 16 * 3 * 25 * 30)
+    assert f["least_ms"] == f["warp_ms"] + f["coset_ms"] + f["filter_ms"]
+
+
+def test_fly_readers_count_the_burst_a_frame():
+    t = _trace([("k", 10.0, 20.0, "kernel"), ("c", 50.0, 10.0, "gpu_memcpy"),
+                ("m", 55.0, 10.0, "gpu_memset")])
+    t.work = {"fly": 0.0075}                  # ms a frame, over 35 busy us / 2 frames
+    assert run.load_module("metrics", "launches_per_frame").read(t) == 1.5
+    assert run.load_module("metrics", "fly_roofline").read(t) == pytest.approx(
+        100.0 * 0.0075 / 0.0175)
+    t.work = {"k2": 0.01}                     # another cell's least time: nothing to read
+    assert run.load_module("metrics", "fly_roofline").read(t) is None
+
+
 def test_percentile_interpolates():
     assert percentile(range(1, 101), 95) == pytest.approx(95.05)
     assert percentile([3.0], 95) == 3.0
@@ -157,3 +179,31 @@ def test_sah_tree_beats_a_median_split():
     two = torch.where(counts > 0, -1, 0)[:, None].expand(-1, 2)
     med = cost(torch.from_numpy(np.array(lo)), torch.from_numpy(np.array(hi)), two, counts)
     assert cost(tree.lo, tree.hi, tree.child, tree.count) < 0.9 * med
+
+
+@pytest.mark.parametrize("shape,iterations", [((48, 72), 3), ((520, 40), 4)])
+def test_plain_filter_is_the_programs_to_rounding(shape, iterations):
+    """reference.atrous, tap after tap, against the program's stacked
+    atrous_denoise on a G-buffer of flat patches with misses: the same to
+    rounding (1e-5 of the colour's scale), the strided depth scale included
+    (520 rows take every second one). test_bench_imports holds that the
+    reference loads nothing of the program."""
+    from benchmark import reference
+    from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise
+
+    H, W = shape
+    g = torch.Generator().manual_seed(iterations)
+    n = torch.nn.functional.normalize(torch.randn(H // 8 + 1, W // 8 + 1, 3, generator=g), dim=-1)
+    n = n.repeat_interleave(8, 0).repeat_interleave(8, 1)[:H, :W].contiguous()
+    miss = torch.rand(H, W, generator=g) < 0.1
+    n[miss] = 0.0
+    depth = torch.rand(H, W, generator=g) * 0.2 + 4.0
+    depth[miss] = 3.4e38
+    albedo = torch.rand(H, W, 3, generator=g)
+    color = torch.rand(H, W, 3, generator=g) * 2.0
+    want = atrous_denoise(color, n, depth, albedo, iterations=iterations)
+    got = reference.atrous(color, n, depth, albedo, iterations)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    # one pass fewer is another filter
+    assert float((reference.atrous(color, n, depth, albedo, iterations - 1) - want)
+                 .abs().max()) > 1e-2

@@ -1,7 +1,8 @@
 """A run with the timed path broken underneath comes out not correct: each
 fault that a cell can have, planted in the program for the run, on the CPU
 at a tiny size (the harness's look for a card skipped). The cells run on
-one chip, so no fault of an exchange between chips applies."""
+one chip, so no fault of an exchange between chips applies. A fly cell's
+faults are benchmark/faults.py's, which reads them on the card too."""
 
 import pytest
 import torch
@@ -10,26 +11,19 @@ from gpu_raytracer_tpu_torch.engine import pathtracer as pt_mod
 from gpu_raytracer_tpu_torch.engine import renderer as rd_mod
 from gpu_raytracer_tpu_torch.engine import viewer as vw_mod
 
+from benchmark import faults
+
 from .test_bench_run import CELLS, run_tiny
 
-FRAME_CELLS = [c for c in CELLS if "progressive" not in c]
-
-
-def _after(n, broken, real):
-    """Call `real` for the first n calls, then `broken`."""
-    calls = {"n": 0}
-
-    def f(*a, **k):
-        calls["n"] += 1
-        return real(*a, **k) if calls["n"] <= n else broken(*a, **k)
-    return f
+FLY_CELLS = [c for c in CELLS if ".fly-" in c]
+FRAME_CELLS = [c for c in CELLS if "progressive" not in c and c not in FLY_CELLS]
 
 
 def frame_faults(monkeypatch, fault):
     real_compute, real_rays = vw_mod.Viewer.run_compute, rd_mod.Renderer.render_rays
     if fault == "unchanged":       # frames stop following the inputs
         monkeypatch.setattr(vw_mod.Viewer, "run_compute",
-                            _after(2, lambda self: 0, real_compute))
+                            faults._after(2, lambda self: 0, real_compute))
     elif fault == "half":          # half of each frame's pixels left out
         def half(self, px, py, light_salt=0):
             rgb = real_rays(self, px, py, light_salt)
@@ -64,7 +58,9 @@ def step_faults(monkeypatch, fault):
 @pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
 @pytest.mark.parametrize("workload", CELLS)
 def test_a_broken_timed_path_is_not_correct(workload, fault, monkeypatch, capsys):
-    if workload in FRAME_CELLS:
+    if workload in FLY_CELLS:
+        faults.plant_fly(fault, monkeypatch.setattr)
+    elif workload in FRAME_CELLS:
         frame_faults(monkeypatch, fault)
     else:
         step_faults(monkeypatch, fault)
@@ -72,7 +68,18 @@ def test_a_broken_timed_path_is_not_correct(workload, fault, monkeypatch, capsys
     assert rc == 0 and line["correct"] is False, line["checks"]
 
 
-@pytest.mark.parametrize("workload", FRAME_CELLS)
+@pytest.mark.parametrize("fault", ["history_dropped", "coset_skipped", "filter_skipped",
+                                   "stale_gbuffer"])
+@pytest.mark.parametrize("workload", FLY_CELLS)
+def test_a_broken_fly_frame_is_not_correct(workload, fault, monkeypatch, capsys):
+    """The fly frame's own faults (benchmark/faults.py): its history, its
+    coset step, its filter and the G-buffer the filter runs along."""
+    faults.plant_fly(fault, monkeypatch.setattr)
+    rc, line, _ = run_tiny(workload, 0, capsys)
+    assert rc == 0 and line["correct"] is False, line["checks"]
+
+
+@pytest.mark.parametrize("workload", FRAME_CELLS + FLY_CELLS)
 def test_the_lower_precision_control_is_not_correct(workload):
     """The control (control.py): the reference in bfloat16 in the program's
     place fails the cell's limits, here at the CPU's size."""

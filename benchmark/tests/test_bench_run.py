@@ -19,7 +19,8 @@ from .conftest import ROOT, TINY_SECONDS, tiny_cell
 # the cells of BENCHMARK.json, and the present mix the benchmark keeps for
 # a later cell (PERF.md, Open questions)
 CELLS = ["courtyard-100k.orbit-1080p", "courtyard-100k.progressive-1024",
-         "courtyard-100k-tex.orbit-1080p", "courtyard-100k-tex.present-1080p"]
+         "courtyard-100k-tex.orbit-1080p", "courtyard-100k-tex.present-1080p",
+         "courtyard-100k.fly-1024"]
 
 
 def run_tiny(workload, trace, capsys, seed=2 ** 31 + 99, patch=None):
