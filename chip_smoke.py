@@ -193,7 +193,14 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      pathtrace_step_sharded at 1024x1024 within 1e-5 of PathTracer.step(),
      counts equal; per mesh size the ms per call, launches per call by
      kernel and the collectives' share (one card's numbers: no multi-card
-     speed-up is measured).
+     speed-up is measured);
+ 26. the million-triangle courtyard (the benchmark's courtyard-1m), whose
+     11-level wide tree takes the 64-entry stack: Renderer frames at
+     1920x1080, shadows off and on, one K2 launch each and only the
+     `render_primary_kernel<4, 64, false>` instance on the device trace,
+     held to the plain render_chunk outside counted ties; K2's device time
+     with shadows, back to back and L2 flushed, beside the 100k courtyard's
+     on its 32-entry instance and on the 64-entry one (the same frame).
 K4, K5 (alone and inside textured K6) and K2t are held to 0.0 from their
 plain versions (SAMPLER_TOL), nearest and trilinear, all three wraps.
 Then the frame kernels' roofline bounds with the SIMT efficiency of the
@@ -1377,32 +1384,34 @@ PROFILE_SESSIONS = 3         # profiler sessions kernel_device_ms tries before i
 PROFILER_SESSIONS = {}       # kernel name -> sessions each kernel_device_ms call needed
 
 
-def kernel_device_ms(fn, words, calls: int, device) -> float:
+def kernel_device_ms(fn, words, calls: int, device, flush: bool = True) -> float:
     """Device time per call of fn spent in the kernels whose names hold one
     of `words`, each launched once a call (torch.profiler): a kernel's own
     time. Between CUDA events around one call, a kernel shorter than its
     wrapper's host time reads the host's time instead. The L2 is flushed (a
     256 MB write) before each call, so every call reads its inputs from
-    memory, as its roofline bound counts them; back to back, a call finds
-    the last one's inputs in the L2. Each word's time is the mean over the
-    launches the profiler recorded (it has been seen to drop one of a
-    session's kernels, and once to record none of a first session's); a
-    session that recorded none of a word's, or more than one a call, is
-    profiled again, and after PROFILE_SESSIONS such sessions it raises. The
-    sessions each call needed are listed in PROFILER_SESSIONS (the run
-    prints them), so that a recurring drop shows."""
+    memory, as its roofline bound counts them; back to back (`flush`
+    false), a call finds what of the last one's inputs the L2 kept. Each
+    word's time is the mean over the launches the profiler recorded (it has
+    been seen to drop one of a session's kernels, and once to record none
+    of a first session's); a session that recorded none of a word's, or
+    more than one a call, is profiled again, and after PROFILE_SESSIONS
+    such sessions it raises. The sessions each call needed are listed in
+    PROFILER_SESSIONS (the run prints them), so that a recurring drop
+    shows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     words = (words,) if isinstance(words, str) else tuple(words)
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    scratch = torch.empty(L2_FLUSH_BYTES if flush else 0, dtype=torch.uint8, device=device)
     fn()
     torch.cuda.synchronize(device)
     seen = []
     for _ in range(PROFILE_SESSIONS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
-                flush.zero_()
+                if flush:
+                    scratch.zero_()
                 fn()
             torch.cuda.synchronize(device)
         us, counts = dict.fromkeys(words, 0.0), dict.fromkeys(words, 0)
@@ -4199,6 +4208,111 @@ def phase_multidevice(scene, tables, tscene, width, height, pt_size, device, car
     return out
 
 
+DEEP_TRIANGLES = 1_000_000   # the benchmark's courtyard-1m: an 11-level wide tree, stack 64
+DEEP_CALLS = 20              # K2 launches per device-time reading of phase 26
+
+
+def phase_deep(scene, width, height, device, card):
+    """Phase 26: the million-triangle courtyard, whose 11-level wide tree
+    takes the kernels' 64-entry stack. Renderer frames at full size, shadows
+    off and on, launched under torch.profiler with the launch counts reset
+    just before: one K2 launch a frame, and on the device trace only
+    `render_primary_kernel<4, 64, false>`; each frame held to the plain
+    render_chunk outside counted ties (order_ties). Then K2's device time
+    with shadows, back to back and with the L2 flushed before each launch,
+    on these tables, on `scene`'s (the 100k courtyard, stack 32) and on
+    `scene`'s launched through the 64-entry instance, whose frame must equal
+    the 32-entry one's bit for bit: the stack instance's cost apart from
+    the tables' size."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_chunk
+    from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
+
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    deep = make_courtyard_scene(DEEP_TRIANGLES, seed=0, device=device)
+    out = dict(triangles=deep.num_triangles, build_s=time.perf_counter() - t0)
+    instance = "render_primary_kernel<4, 64, false>"
+    ties = None
+    for shadows in (False, True):
+        key = "shadows" if shadows else "no_shadows"
+        r = Renderer(deep, width, height, shadows=shadows, device=device)
+        tr = r.tables.trace
+        if (tr.width, tr.depth, tr.stack) != (4, 11, 64):
+            raise AssertionError(f"the {DEEP_TRIANGLES} courtyard's tables: width {tr.width}, "
+                                 f"depth {tr.depth}, stack {tr.stack}; want 4, 11, 64")
+        if ties is None:
+            ties, counts = order_ties(r.tables, width, height, r.px, r.py)
+            out["ties"] = counts
+            out["tables_mb"] = 4 * (tr.nodes.numel() + tr.tris.numel()) / 1e6
+        first = r.render_device()
+        if cuda:
+            torch.cuda.synchronize(device)
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
+            for _ in range(FRAMES):
+                got = r.render_device()
+            if cuda:
+                torch.cuda.synchronize(device)
+        launches = read_launches()
+        seen = {}
+        for e in prof.key_averages():
+            if "render_primary_kernel" in e.key:
+                name = e.key[e.key.index("render_primary_kernel"):].split(">")[0] + ">"
+                seen[name] = seen.get(name, 0) + e.count
+        if cuda and (launches != dict(ZERO_LAUNCHES, k2=FRAMES) or set(seen) != {instance}
+                     or not 0 < seen[instance] <= FRAMES):
+            raise AssertionError(f"{FRAMES} frames launched {launches}; the trace holds {seen}, "
+                                 f"want only {instance}")
+        if not torch.equal(got, first) or not torch.isfinite(got).all():
+            raise AssertionError("the deep courtyard's frames differ between runs or are "
+                                 "not finite")
+        ref = render_chunk(r.scene, r.px, r.py, width, height, shadows=shadows)
+        diff = (got - ref).abs().amax(dim=1)
+        err = diff[~ties].max().item()
+        if err > RGB_TOL:
+            raise AssertionError(f"deep courtyard K2 max |diff| {err:.3g} > {RGB_TOL} outside "
+                                 f"{int(ties.sum())} ties")
+        out[key] = dict(err=err, err_with_ties=diff.max().item(), mean=got.mean().item(),
+                        k2_launches=launches["k2"], instances_traced=seen)
+    if cuda:
+        small = Renderer(scene, width, height, shadows=True, device=device)
+        small_tr = small.tables.trace
+        if small_tr.stack != 32:
+            raise AssertionError(f"the 100k courtyard's stack {small_tr.stack}, want 32")
+        frame32 = small.render_device()
+        forced = Renderer(scene, width, height, shadows=True, device=device)
+        forced.tables = dataclasses.replace(
+            small.tables, trace=dataclasses.replace(small_tr, stack=64))
+        frame64 = forced.render_device()
+        if not torch.equal(frame32, frame64):
+            raise AssertionError("the 100k courtyard's frame through the 64-entry instance "
+                                 "differs from the 32-entry one's")
+        ms = {}
+        for label, rr in (("1m_stack64", r), ("100k_stack32", small),
+                          ("100k_stack64", forced)):
+            for flush in (False, True):
+                ms[f"{label}_{'flushed' if flush else 'warm'}"] = kernel_device_ms(
+                    rr.render_device, "render_primary_kernel", DEEP_CALLS, device, flush=flush)
+        out["k2_device_ms"] = ms
+        out["ratios"] = {f"{a}_over_{b}_{w}": ms[f"{a}_{w}"] / ms[f"{b}_{w}"]
+                         for a, b in (("1m_stack64", "100k_stack32"),
+                                      ("100k_stack64", "100k_stack32"),
+                                      ("1m_stack64", "100k_stack64"))
+                         for w in ("warm", "flushed")}
+        out["flushed_over_warm"] = {label: ms[f"{label}_flushed"] / ms[f"{label}_warm"]
+                                    for label in ("1m_stack64", "100k_stack32", "100k_stack64")}
+        out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    out["card"] = card
+    log(f"phase 26 the {DEEP_TRIANGLES:,}-triangle courtyard (64-entry stack): "
+        f"{json.dumps(out)}")
+    return out
+
+
 def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTURE_SIZE,
         pt_size=PT_SIZE, synth_size=SYNTH_SIZE, zoo_triangles=ZOO_TRIANGLES, crop=CROP):
     import tempfile
@@ -4360,6 +4474,9 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     k4_launches += mt["k4"]
     k6_launches += mt["k6"]
     k1_standalone += mt["k1_standalone"]
+    deep = phase_deep(scene, width, height, device, card)
+    k2_launches += deep["no_shadows"]["k2_launches"] + deep["shadows"]["k2_launches"]
+    k2_err = max(k2_err, deep["no_shadows"]["err"], deep["shadows"]["err"])
 
     w8l, w8e, w8b = w8["launches"], w8["max_abs_err"], w8.get("bounds", {})
     k3_pre_launches += w8l["k3_pre"]

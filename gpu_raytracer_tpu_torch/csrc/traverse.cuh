@@ -202,13 +202,20 @@ __device__ __forceinline__ bool is_nan(float x) { return x != x; }
 // visit also tests its empty slots, which the bound does not charge). Summed
 // over a launch, nodes / (32 * warp_nodes) is the SIMT efficiency of the
 // node body (the share of a warp's lanes at work in it), and the same for
-// tris.
+// tris. `deepest`: the most entries this ray's stack held at once, which
+// STACK must not fall below (ops/cuda/traverse.py::stack_capacity bounds it).
 struct Work {
   int nodes, tris, warp_nodes, warp_tris, slots;
   // width 8, where not null: ahead[k] += 1 for each visit with k children
   // ahead (0 .. 8), summed over every ray of the launch
   unsigned* ahead = nullptr;
+  int deepest = 0;
 };
+
+// After a push: the stack's height `sp` into Work::deepest.
+__device__ __forceinline__ void count_depth(Work* work, int sp) {
+  work->deepest = sp > work->deepest ? sp : work->deepest;
+}
 
 // One more iteration of a body: `mine` counts the lane, `led` the warp.
 __device__ __forceinline__ void count_iteration(int& mine, int& led) {
@@ -455,6 +462,7 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
           if (c3 < kInf) stack[sp++] = Entry{k3, c3};
           if (c2 < kInf) stack[sp++] = Entry{k2, c2};
           if (c1 < kInf) stack[sp++] = Entry{k1, c1};
+          if constexpr (COUNT) count_depth(work, sp);
           continue;
         }
       } else {
@@ -535,6 +543,7 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
               if (e[c] < kInf && c != near_c) stack[sp++] = code[c];
               if (c == near_c) cur = code[c];
             }
+            if constexpr (COUNT) count_depth(work, sp);
             continue;
           }
         } else if (live > 1) {
@@ -569,6 +578,7 @@ __device__ __forceinline__ TriHit walk_bvh(const Node<W>* __restrict__ nodes,
             }
           }
           sp += live - 1;
+          if constexpr (COUNT) count_depth(work, sp);
           continue;
         }
       }

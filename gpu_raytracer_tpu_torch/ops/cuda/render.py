@@ -285,6 +285,19 @@ def camera_relative(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
 camera_relative.launches = 0
 
 
+def count_walk(tables: RenderTables, rel: bool) -> None:
+    """Count `render.table_bytes` while a profiler runs: at a frame kernel's
+    launch (K2, K2t, K3), the bytes of the node records and triangle rows
+    its walks read, the camera-relative tables too where `rel` (the launch
+    reading them in its camera walk). A host integer from the tables'
+    shapes: no device read."""
+    tr = tables.trace
+    words = tr.nodes.numel() + tr.tris.numel()
+    if rel:
+        words += tables.rel_nodes.numel() + tables.rel_tris.numel()
+    count("render.table_bytes", 4 * words)
+
+
 def _check_pixels(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
                   light_u: torch.Tensor | None, name: str) -> int:
     """Validate the pixel coordinates and the light uniforms -> N; raise for
@@ -341,13 +354,14 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     # width 8 and K2t: the camera walk reads the pre-pass's tables of this
     # camera, made anew for every launch (every camera move rewrites the
     # camera row)
-    rel = (tuple(x.data_ptr() for x in camera_relative(tables)) if tr.width == 8 or textured
-           else (0, 0))
+    use_rel = tr.width == 8 or textured
+    rel = tuple(x.data_ptr() for x in camera_relative(tables)) if use_rel else (0, 0)
     scene_args = (tables.camera.data_ptr(), tables.materials.data_ptr(),
                   tables.materials.shape[0], tables.lights.data_ptr(), tables.lights.shape[0],
                   tables.spheres.data_ptr(), tables.spheres.shape[0])
     frame_args = (px.data_ptr(), py.data_ptr(), N, width, height, int(shadows), sky_r, sky_g,
                   sky_b, _light_u_ptr(tables, light_u), rgb.data_ptr(), stream)
+    count_walk(tables, use_rel)
     if textured:
         count_launch(render_primary, tr, "textured_launches")
         check(k.lib.rt_render_primary_textured(
@@ -392,6 +406,7 @@ def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     nodes = nodes_ptr(tr)
     rel_nodes, rel_tris = (x.data_ptr() for x in camera_relative(tables))
     count_launch(render_deferred, tr)
+    count_walk(tables, True)
     check(k.lib.rt_render_deferred(
         nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), rel_nodes, rel_tris, tr.width, tr.stack,
         tables.camera.data_ptr(), tables.lights.data_ptr(), tables.lights.shape[0],

@@ -660,6 +660,41 @@ def test_viewer_frames_and_refit_never_wait(cuda, textured):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("textured", [False, True])
+def test_frame_kernels_count_their_tables_without_waiting(cuda, textured):
+    """Under a profiler and set_sync_debug_mode("error"), Viewer frames
+    count at each K2 (or K3) launch the bytes of the tables it walks (K3:
+    the camera-relative ones too); without a profiler nothing is counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpu_raytracer_tpu_torch.engine import perf
+    from gpu_raytracer_tpu_torch.engine.viewer import Viewer
+
+    scene = make_courtyard_scene(2000, seed=1, textured=textured, device=cuda)
+    v = Viewer(scene, 96, 64, shadows=True, verbose=False, device=cuda)
+    perf.reset()
+    v.run_compute()
+    torch.cuda.synchronize()
+    assert perf.snapshot()["counters"] == {}
+    frames = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(frames):
+                v.handle_key("w")
+                v.run_compute()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    rt = v.renderer.tables
+    words = rt.trace.nodes.numel() + rt.trace.tris.numel()
+    if textured:
+        words += rt.rel_nodes.numel() + rt.rel_tris.numel()
+    got = perf.snapshot()["counters"]
+    perf.reset()
+    assert got["render.table_bytes"] == frames * 4 * words
+
+
+@pytest.mark.cuda
 def test_viewer_present_reads_back_through_pinned_memory(cuda):
     """A path-traced present on the card enqueues its read-back (a
     non-blocking copy into pinned memory, then an event) without a host

@@ -1,7 +1,8 @@
 """The program's spans and counters (engine/perf.py: `span`, `count`,
 `snapshot`) on the CPU: off without a profiler, and under a CPU-only
 torch.profiler nested in the exported trace as the calls nest, with the
-bounce's lane counters equal to the step's own counts."""
+bounce's lane counters equal to the step's own counts, and the frame
+kernels' table counters read from shapes alone."""
 
 import json
 
@@ -128,6 +129,40 @@ def test_snapshot_sums_tensors_and_ints_and_reset_clears():
     assert snap["spans"]["s"]["calls"] == 1
     perf.reset()
     assert perf.snapshot() == {"spans": {}, "counters": {}}
+
+
+def _meta_render_tables(q, slots, stack):
+    """Render tables of q width-4 node records and `slots` triangle slots
+    on the meta device: shapes without data, so any read of a value raises."""
+    from gpu_raytracer_tpu_torch.ops.cuda.render import RenderTables
+    from gpu_raytracer_tpu_torch.ops.cuda.traverse import TraceTables
+
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    trace = TraceTables(scene=None, nodes=meta(q, 32), tris=meta(slots, 12),
+                        attrs=meta(slots, 8), depth=11, stack=stack)
+    return RenderTables(trace, meta(16), meta(5, 16), meta(2, 16), meta(0, 8), 0.4, 45.0,
+                        rel_nodes=meta(q, 32), rel_tris=meta(slots, 16))
+
+
+@pytest.mark.parametrize("rel", [False, True], ids=["k2", "camera_relative"])
+def test_walk_counters_only_under_a_profiler(rel):
+    """`count_walk`, called at every K2, K2t and K3 launch: under a profiler
+    the bytes of the node and triangle tables the launch walks (the
+    camera-relative ones too where it reads them); nothing without one. The tables live on the meta device, where a value
+    cannot be read: the counts come from shapes alone, so they cannot make
+    the host wait for the device."""
+    from gpu_raytracer_tpu_torch.ops.cuda.render import count_walk
+
+    tables = _meta_render_tables(96_290, 1_000_000, 64)
+    count_walk(tables, rel)
+    assert perf.snapshot()["counters"] == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            count_walk(tables, rel)
+    words = 96_290 * 32 + 1_000_000 * 12 + (96_290 * 32 + 1_000_000 * 16 if rel else 0)
+    assert perf.snapshot()["counters"] == {"render.table_bytes": 3 * 4 * words}
+    count_walk(tables, rel)                  # the profiler has stopped: not counted
+    assert perf.snapshot()["counters"] == {"render.table_bytes": 3 * 4 * words}
 
 
 def test_whole_frame_timing_only_when_verbose(scene, capsys):

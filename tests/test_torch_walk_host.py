@@ -100,8 +100,9 @@ static void write_row(FILE* out, const TriHit& h, const Work& w) {
   std::fwrite(row, 4, 4, out);
 }
 
-// Writes t, slot, nodes, triangles, live slots per ray to out.bin, and the
-// visits by children ahead (Work::ahead, width 8) to ahead.bin.
+// Writes t, slot, nodes, triangles, live slots per ray to out.bin, the
+// visits by children ahead (Work::ahead, width 8) to ahead.bin, and the most
+// entries each ray's stack held (Work::deepest) to deep.bin.
 template <int W, int S, bool ANY>
 static int run(const std::vector<float>& raw, const std::vector<float>& tris,
                const std::vector<float>& rays) {
@@ -110,6 +111,7 @@ static int run(const std::vector<float>& raw, const std::vector<float>& tris,
   const Node<W>* nodes = static_cast<const Node<W>*>(mem);
   const float4* tr = reinterpret_cast<const float4*>(tris.data());
   FILE* out = std::fopen("out.bin", "wb");
+  FILE* deep = std::fopen("deep.bin", "wb");
   unsigned ahead[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
   for (size_t i = 0; i < rays.size() / 7; ++i) {
     const float* q = &rays[7 * i];
@@ -123,8 +125,10 @@ static int run(const std::vector<float>& raw, const std::vector<float>& tris,
       if ((c.slot >= 0) != (a.slot >= 0)) return 5;
     }
     write_row(out, a, w);
+    std::fwrite(&w.deepest, 4, 1, deep);
   }
   std::fclose(out);
+  std::fclose(deep);
   out = std::fopen("ahead.bin", "wb");
   std::fwrite(ahead, 4, 9, out);
   std::fclose(out);
@@ -343,6 +347,11 @@ def walk(build, tables, o, d, max_t, any_hit, mode="walk"):
 def walk_ahead(build) -> np.ndarray:
     """The last walk's visits by children ahead, [9] (width 8; zeros at 4)."""
     return np.fromfile(build[0] / "ahead.bin", dtype=np.uint32).astype(np.int64)
+
+
+def walk_deepest(build) -> np.ndarray:
+    """The most entries each ray's stack held in the last walk, [N] int32."""
+    return np.fromfile(build[0] / "deep.bin", dtype=np.int32)
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
