@@ -86,8 +86,19 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      material_textures on the same card tensors (hit masks equal, depth
      within T_REL_TOL, normal 1e-6 and albedo 0.0 off exact-t ties), and
      the à-trous filter (4 passes) on the card against the same call on a
-     CPU copy, within DENOISE_TOL x max(1, max |ref|): its ms, device time,
-     host enqueue time and launches;
+     CPU copy, within DENOISE_TOL x max(1, max |ref|), its launches
+     counted from 0 (DENOISE_ITERS + 1 of the filter's kernels); its ms,
+     device time and host enqueue time;
+ 18b. the à-trous filter's kernels (csrc/atrous.cu) at 1024x1024, 3 and 4
+     passes, on a path-traced frame of the 100k courtyard: the frame within
+     DENOISE_TOL x max(1, max |ref|) of the plain version on the same card
+     tensors, under sync debug "error"; the call's device time with the L2
+     flushed (events behind a spin kernel), its kernels' own device time
+     (torch.profiler: the prepare launch, torch.sort's kernels, the passes;
+     any other kernel named apart), launches (counted from 0: passes + 1)
+     and host enqueue,
+     beside its bound (the filter term of benchmark/roofline.py::fly_frame)
+     and the plain version's time on the card;
  19. the fly-through on both courtyards at 1024x1024: 8 steps, then
      PathTracer.fly_frame(camera, m=8, iterations=4, u8=True) along a
      strafe / forward / turn path, under sync debug mode "error": ms per
@@ -95,7 +106,8 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      time, the per-stage device time (torch.profiler: warp trace, history
      gather, coset step, G-buffer reorder, image, denoise, encode),
      launches per frame
-     (K1 and K5 alone once each), the share of pixels whose history is
+     (K1 and K5 alone once each, the filter's iterations + 1), the share of
+     pixels whose history is
      accepted; one coset step held against the plain bounce on the same
      pool (PT_IMAGE_SHARE);
  20. AdaptivePathTracer(tiles_per_step=16) at 1024x1024: adaptive_from + 4
@@ -153,15 +165,16 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
      kernels once per served frame: K2, or K3 + K4), a /key and /drag, the
      settled PNG part decoded to exactly framebuffer_u8 and the served frame
      (K2, or K3 + K4) held to the plain path, still-camera frames,
-     path-traced frames after 'p' (K6 five times a frame, the pinned YUV
-     present) and one served frame's five K6 launches held to the plain
+     path-traced frames after 'p' (K6 five times a frame, the still
+     preview's filter PREVIEW_ITERS + 1 launches, the pinned YUV present) and one served frame's five K6 launches held to the plain
      bounce on their pools, /resize, stop() and no server thread left; served frames per
      second, the producer's frame split (compute between CUDA events;
      present, quantise, materialise and PNG encode in host ms), launches per
      frame and the device's busy share (torch.profiler);
  23b. NativeWindow (engine/window.py) on a CUDA Viewer through the tests'
      stand-in Tk (tests/fake_tk.py): K2 a tick, the settled PPM equal to
-     framebuffer_u8 and its K2 frame held to the plain path, a resize, K6 five times a path-traced tick;
+     framebuffer_u8 and its K2 frame held to the plain path, a resize, K6 five times a path-traced tick
+     and the still preview's filter PREVIEW_ITERS + 1 launches;
      window_available() of the machine;
  23c. K2's frame (Renderer at 48x48, the default scene and the 2,000-triangle
      courtyard) against the port's NumPy oracle (reference/cpu_tracer.py,
@@ -1557,6 +1570,7 @@ def bounce_bound(tables, record):
 
 def _launch_counters():
     from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce_, sample_materials
+    from gpu_raytracer_tpu_torch.ops.cuda.denoise import atrous_denoise
     from gpu_raytracer_tpu_torch.ops.cuda.render import (camera_relative, render_deferred,
                                                          render_primary)
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import texture_shade
@@ -1576,7 +1590,9 @@ def _launch_counters():
                 k2t_w8=(render_primary, "w8_textured_launches"),
                 k3_w8=(render_deferred, "w8_launches"), k1_standalone_w8=(traverse, "w8_launches"),
                 # K1's unordered walk (phase 24)
-                k1_threaded=(traverse_threaded, "launches"))
+                k1_threaded=(traverse_threaded, "launches"),
+                # the à-trous filter's prepare and pass launches (phases 18-19, 23)
+                denoise=(atrous_denoise, "launches"))
 
 
 def reset_launches():
@@ -1591,7 +1607,7 @@ def read_launches() -> dict:
 ZERO_LAUNCHES = dict(k6=0, k5=0, k5_standalone=0, k2=0, k2t=0, k3=0, k3_pre=0, k4=0,
                      k1_standalone=0,
                      k6_w8=0, k5_w8=0, k2_w8=0, k2t_w8=0, k3_w8=0, k1_standalone_w8=0,
-                     k1_threaded=0)
+                     k1_threaded=0, denoise=0)
 
 
 def phase_pathtracer(scene, label, device, card, size, keep=None):
@@ -2080,6 +2096,7 @@ def phase_zoo_pathtrace(scene, size, device, card):
 # ---- the interactive stack: G-buffer, à-trous, fly-through, adaptive (phases 18-20) ----
 
 DENOISE_ITERS = 4
+PREVIEW_ITERS = 4        # PathTracer.denoised_frame's default: the Viewer's still preview
 DENOISE_TOL = 1e-5       # the filter on the card against the CPU copy, x max(1, max |ref|)
 DENOISE_CALLS = 8        # profiled filter calls
 FLY_WARMUP_STEPS = 8     # full steps before the fly-through
@@ -2160,8 +2177,13 @@ def phase_gbuffer_denoise(scene, size, device, card):
     for _ in range(2):
         pt.step()
     img = pt.image_device()
+    reset_launches()
     den = no_host_sync(lambda: atrous_denoise(img, normal, depth, albedo,
                                               iterations=DENOISE_ITERS), device)
+    den_launches = read_launches()
+    want = dict(ZERO_LAUNCHES, denoise=DENOISE_ITERS + 1)
+    if cuda and den_launches != want:
+        raise AssertionError(f"atrous_denoise launched {den_launches}, want {want}")
     t0 = time.perf_counter()
     ref = atrous_denoise(img.cpu(), normal.cpu(), depth.cpu(), albedo.cpu(),
                          iterations=DENOISE_ITERS)
@@ -2178,10 +2200,117 @@ def phase_gbuffer_denoise(scene, size, device, card):
                             launches=launches, ms=timed(gbuf, FRAMES, device),
                             plain_trace_ms=plain_ms),
                denoise=dict(iterations=DENOISE_ITERS, max_abs_diff_to_cpu=d_err, bar=bar,
+                            launches=den_launches,
                             ms=timed(denoise, DENOISE_CALLS, device), cpu_ms=cpu_ms,
                             **(device_profile(denoise, DENOISE_CALLS, device) if cuda else {})),
                card=card)
     log(f"phase 18 G-buffer and à-trous {size}x{size}: {json.dumps(out)}")
+    return out
+
+
+FLY_ITERS = 3             # the Viewer's moving frames' passes (Viewer.fly_denoise_iters)
+ATROUS_ITERS = (FLY_ITERS, PREVIEW_ITERS)   # phase 18b: a moving frame's, the still preview's
+ATROUS_CALLS = 8          # timed calls of each reading
+FILTER_FIELD_BYTES = 36   # benchmark/roofline.py fly_frame: a pass's field, read once
+FILTER_TAP_FLOPS = 30     # and one tap's operations
+
+
+def filter_bound(pixels: int, passes: int) -> tuple[float, str]:
+    """The filter term of benchmark/roofline.py::fly_frame: each pass reads
+    the packed field once and writes the colour; demodulation and
+    remodulation read colour and albedo and write colour; 25 taps a pixel
+    and pass."""
+    return bound_ms(pixels * (passes * (FILTER_FIELD_BYTES + 12) + 2 * (12 + 12 + 12)),
+                    pixels * passes * 25 * FILTER_TAP_FLOPS)
+
+
+def flushed_device_ms(fn, calls: int, device) -> float:
+    """Median device milliseconds of one call of fn, the L2 flushed (a 256 MB
+    write) before each, timed between events enqueued behind a spin kernel
+    (torch.cuda._sleep), so that they time the device's work for the call
+    and not the host's launches."""
+    import torch
+
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    fn()
+    times = []
+    for _ in range(calls):
+        scratch.zero_()
+        torch.cuda._sleep(20_000_000)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_atrous(scene, size, device, card):
+    """Phase 18b: the à-trous filter's kernels at size^2 on a path-traced
+    frame of `scene` (8 samples) and its G-buffer, against the plain
+    version on the same tensors, and timed beside its bound and the plain
+    version's time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
+    from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise, plain_atrous_denoise
+
+    cuda = device.type == "cuda"
+    pt = PathTracer(scene, size, size, device=device)
+    for _ in range(8):
+        pt.step()
+    img, planes = pt.image_device(), pt.gbuffer()
+    out = dict(size=size, card=card)
+    for iters in ATROUS_ITERS:
+        call = lambda: atrous_denoise(img, *planes, iterations=iters)
+        plain = lambda: plain_atrous_denoise(img, *planes, iterations=iters)
+        reset_launches()
+        got = no_host_sync(call, device)
+        launches = read_launches()
+        ref = plain()
+        err = (got - ref).abs().max().item()
+        bar = DENOISE_TOL * max(1.0, ref.abs().max().item())
+        if not torch.isfinite(got).all() or err > bar:
+            raise AssertionError(f"à-trous kernels ({iters} passes) off the plain version by "
+                                 f"{err:.3g} (bar {bar:.3g})")
+        if cuda and launches != dict(ZERO_LAUNCHES, denoise=iters + 1):
+            raise AssertionError(f"à-trous ({iters} passes) launched {launches}, want "
+                                 f"{iters + 1} of the filter's kernels")
+        bound, bound_by = filter_bound(size * size, iters)
+        r = dict(passes=iters, max_abs_diff_to_plain=err, bar=bar, launches=launches["denoise"],
+                 bound_ms=bound, bound_by=bound_by, plain_ms=timed(plain, 2, device))
+        if cuda:
+            r["device_ms"] = flushed_device_ms(call, ATROUS_CALLS, device)
+            r["device_ms_back_to_back"] = device_batch_ms(call, ATROUS_CALLS, device)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(ATROUS_CALLS):
+                    call()
+                torch.cuda.synchronize(device)
+            # the kernels of the call: the two hand-written ones, torch.sort's
+            # (cub's radix sort) and any other, by name
+            split, others = dict(prepare=0.0, sort=0.0, passes=0.0), {}
+            for e in prof.key_averages():
+                t = getattr(e, "self_device_time_total", None)
+                t = (e.self_cuda_time_total if t is None else t) / ATROUS_CALLS / 1e3
+                key = e.key.lower()
+                part = ("prepare" if "atrous_prepare" in key else "passes" if "atrous_pass" in key
+                        else "sort" if "sort" in key or "radix" in key else None)
+                if part is not None:
+                    split[part] += t
+                elif t > 0:
+                    others[e.key[:120]] = e.count / ATROUS_CALLS
+            other = sum(others.values())
+            r.update(kernels_device_ms=sum(split.values()), kernels_split_ms=split,
+                     hand_written_device_ms=split["prepare"] + split["passes"],
+                     other_kernels_per_call=other, other_kernels=others,
+                     roofline_pct=100.0 * bound / r["device_ms"],
+                     host_enqueue_ms=device_profile(call, ATROUS_CALLS, device)[
+                         "host_enqueue_ms"],
+                     plain_device_ms=device_profile(plain, 2, device)["device_ms"])
+        out[f"passes_{iters}"] = r
+    log(f"phase 18b à-trous kernels {size}x{size}: {json.dumps(out)}")
     return out
 
 
@@ -2319,7 +2448,8 @@ def phase_fly(scene, label, size, device, card):
     textured = pt.tables.shade is not None
     n_k6 = FLY_FRAMES * (MAX_DEPTH + 1)
     want = dict(ZERO_LAUNCHES, k6=n_k6, k5=n_k6 if textured else 0, k1_standalone=FLY_FRAMES,
-                k5_standalone=FLY_FRAMES if textured else 0)
+                k5_standalone=FLY_FRAMES if textured else 0,
+                denoise=FLY_FRAMES * (DENOISE_ITERS + 1))
     if cuda and launches != want:
         raise AssertionError(f"{label}: fly frames launched {launches}, want {want}")
     last = frames[-1]
@@ -3597,7 +3727,7 @@ def serve_reading(scene, width, height, device, pathtrace: bool) -> dict:
             http(s, "POST", "/key?k=p")
             w = probe.window(clients, frames=SERVE_PT_FRAMES)
             # the denoised preview traces its camera's G-buffer once (K1 alone)
-            check("pathtrace", w, dict(k6=5), free=("k1_standalone",))
+            check("pathtrace", w, dict(k6=5, denoise=PREVIEW_ITERS + 1), free=("k1_standalone",))
             yuv = f"{'HostFrame' if cuda else 'Tensor'}({height * 3 // 2}, {width})"
             if w["handles"] != [yuv]:
                 raise AssertionError(f"path-traced presents {w['handles']}, want {yuv}")
@@ -3697,7 +3827,8 @@ def phase_window(scene, device, card):
         win.tick()
     out["pathtrace_launches"] = read_launches()
     k6 = out["pathtrace_launches"]["k6"]
-    if cuda and k6 != 5 * WINDOW_TICKS:
+    if cuda and (k6 != 5 * WINDOW_TICKS
+                 or out["pathtrace_launches"]["denoise"] != (PREVIEW_ITERS + 1) * WINDOW_TICKS):
         raise AssertionError(f"path-traced window ticks launched {out['pathtrace_launches']}")
     key("Escape")
     if not (win.closed and win.root.destroyed):
@@ -3705,7 +3836,8 @@ def phase_window(scene, device, card):
     out["frames"] = v.perf.frame_count
     log(f"phase 23b window: {json.dumps(out)}")
     return dict(k2=out["moving_launches"]["k2"], k6=k6,
-                k5=out["pathtrace_launches"]["k5"])
+                k5=out["pathtrace_launches"]["k5"],
+                denoise=out["pathtrace_launches"]["denoise"])
 
 
 def oracle_rows(args):
@@ -4212,6 +4344,14 @@ DEEP_TRIANGLES = 1_000_000   # the benchmark's courtyard-1m: an 11-level wide tr
 DEEP_CALLS = 20              # K2 launches per device-time reading of phase 26
 
 
+# Profiler sessions phase 26 tries for a trace that holds its frames. In a
+# process older than a minute or two the profiler records anything from
+# none to all of a session's 8 K2 frames, while the launch counters count
+# every one (PERF.md section 7): a session that recorded none is profiled
+# again, as kernel_device_ms does, and the sessions needed are printed.
+DEEP_PROFILE_SESSIONS = 5
+
+
 def phase_deep(scene, width, height, device, card):
     """Phase 26: the million-triangle courtyard, whose 11-level wide tree
     takes the kernels' 64-entry stack. Renderer frames at full size, shadows
@@ -4252,22 +4392,26 @@ def phase_deep(scene, width, height, device, card):
         first = r.render_device()
         if cuda:
             torch.cuda.synchronize(device)
-        reset_launches()
-        with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
-            for _ in range(FRAMES):
-                got = r.render_device()
-            if cuda:
-                torch.cuda.synchronize(device)
-        launches = read_launches()
-        seen = {}
-        for e in prof.key_averages():
-            if "render_primary_kernel" in e.key:
-                name = e.key[e.key.index("render_primary_kernel"):].split(">")[0] + ">"
-                seen[name] = seen.get(name, 0) + e.count
+        for session in range(1, DEEP_PROFILE_SESSIONS + 1):
+            reset_launches()
+            with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
+                for _ in range(FRAMES):
+                    got = r.render_device()
+                if cuda:
+                    torch.cuda.synchronize(device)
+            launches = read_launches()
+            seen = {}
+            for e in prof.key_averages():
+                if "render_primary_kernel" in e.key:
+                    name = e.key[e.key.index("render_primary_kernel"):].split(">")[0] + ">"
+                    seen[name] = seen.get(name, 0) + e.count
+            if seen or not cuda:
+                break
+        PROFILER_SESSIONS.setdefault(f"phase 26 {key}", []).append(session)
         if cuda and (launches != dict(ZERO_LAUNCHES, k2=FRAMES) or set(seen) != {instance}
                      or not 0 < seen[instance] <= FRAMES):
-            raise AssertionError(f"{FRAMES} frames launched {launches}; the trace holds {seen}, "
-                                 f"want only {instance}")
+            raise AssertionError(f"{FRAMES} frames launched {launches}; the trace holds {seen} "
+                                 f"after {session} sessions, want only {instance}")
         if not torch.equal(got, first) or not torch.isfinite(got).all():
             raise AssertionError("the deep courtyard's frames differ between runs or are "
                                  "not finite")
@@ -4415,6 +4559,7 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     phase_many_lights(triangles, texture_size, width, height, crop, device, card, ms_2_lights)
     phase_zoo_pathtrace(zoos["zoo_multi_slot"], pt_size, device, card)
     gd = phase_gbuffer_denoise(tscene, pt_size, device, card)
+    atrous = phase_atrous(scene, pt_size, device, card)
     fly = {label: phase_fly(sc, label, pt_size, device, card)
            for label, sc in (("courtyard", scene), ("textured_courtyard", tscene))}
     ada = phase_adaptive(scene, pt_size, device, card)
@@ -4459,6 +4604,10 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
     k5_launches += served["k5"]
     k1_standalone += served["k1_standalone"]
     windowed = phase_window(scene, device, card)
+    # the filter through the port's entry points: phase 18's call, the fly
+    # frames, the served and the windowed still previews
+    denoise_launches = (gd["denoise"]["launches"]["denoise"] + windowed["denoise"]
+                        + served["denoise"] + sum(v["launches"]["denoise"] for v in fly.values()))
     k2_launches += windowed["k2"]
     k6_launches += windowed["k6"]
     k5_launches += windowed["k5"]
@@ -4587,6 +4736,20 @@ def run(device, width, height, triangles, shadow_rays, card, texture_size=TEXTUR
              ms=ptc["profile"].get("k6_device_ms"), plain_ms=ptc["k6_plain_ms_per_spp"],
              bound_ms=kb.get("bound_ms"), bound_by=kb.get("bound_by"), library_ms=None),
     ]
+    a3 = atrous[f"passes_{FLY_ITERS}"]
+    kernels.append(dict(
+        name=f"Filter atrous (no TPU kernel: the JAX package's filter is plain JAX; a prepare "
+             f"launch and one a pass, torch.sort between; launches: phases 18, 19, 23 and "
+             f"23b; ms: device time of a {FLY_ITERS}-pass call at {pt_size}^2, the L2 flushed "
+             f"before each, phase 18b; plain_ms: the plain version on the card, events; "
+             f"plain_device_ms: its kernels' device time)",
+        route="cuda", source="gpu_raytracer_tpu_torch/csrc/atrous.cu", replaces=None,
+        launches=denoise_launches,
+        max_abs_err=max([gd["denoise"]["max_abs_diff_to_cpu"]]
+                        + [v["max_abs_diff_to_plain"] for v in atrous.values()
+                           if isinstance(v, dict)]),
+        ms=a3.get("device_ms"), plain_ms=a3["plain_ms"], bound_ms=a3["bound_ms"],
+        bound_by=a3["bound_by"], library_ms=None, plain_device_ms=a3.get("plain_device_ms")))
     kernels.append(dict(
         name="K1 unordered traverse_threaded (the stackless walk over the binary tree's "
              "threaded hit / miss links, one ray per thread; no entry point calls it, as in "

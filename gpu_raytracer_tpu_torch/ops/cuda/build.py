@@ -33,10 +33,11 @@ SOURCES = ("traverse.cu", "render_primary.cu", "render_primary_textured.cu",
            "render_deferred.cu", "texshade.cu", "bounce.cu", "bounce_textured.cu",
            "materials.cu", "qmc.cu", "traverse_w8.cu", "render_primary_w8.cu",
            "render_primary_textured_w8.cu", "render_deferred_w8.cu", "bounce_w8.cu",
-           "bounce_textured_w8.cu", "traverse_threaded.cu", "camera_relative.cu")
+           "bounce_textured_w8.cu", "traverse_threaded.cu", "camera_relative.cu",
+           "atrous.cu")
 HEADERS = ("traverse.cuh", "traverse_kernels.cuh", "render_common.cuh", "render_primary.cuh",
            "primary_pixel.cuh", "render_deferred.cuh", "texsample.cuh", "bounce.cuh",
-           "threaded_walk.cuh", "camera_row.cuh")
+           "threaded_walk.cuh", "camera_row.cuh", "atrous.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -95,6 +96,14 @@ ARGTYPES = {
                   _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _i, _p],
     # qmc (host words), n, u_out, stream
     "rt_qmc_uniforms": [_p, _i, _p, _p],
+    # color, its pixel stride, normal, stride, depth, stride, albedo (null:
+    # none), stride, height, width, sub_y, sub_x, c_plane, g_plane,
+    # sub_depth, out (null unless no pass follows), stream
+    "rt_atrous_prepare": [_p, _i, _p, _i, _p, _i, _p, _i, _i, _i, _i, _i, _p, _p, _p, _p, _p],
+    # c_in, g_plane, sorted sub_depth, its length, height, width, step,
+    # sigma_color, sigma_depth, sigma_normal, power, c_out, albedo, albedo
+    # stride, out (null but on the last pass), stream
+    "rt_atrous_pass": [_p, _p, _p, _i, _i, _i, _i, _f, _f, _f, _i, _p, _p, _i, _p, _p],
     # materials, n_mats, maps, atlas, present, n_levels, mat_id, uv, lod, n,
     # out, stream
     "rt_sample_materials": [_p, _i, _p, _p, _i, _i, _p, _p, _f, _i, _p, _p],

@@ -18,18 +18,21 @@ edge-clamped taps, the miss/miss rule (w_n = 1 where both pixels are
 misses), the integral cosine power as repeated squaring, one fused
 exp(-(dz^2 + dl^2)), acc / wsum, remodulation.
 
-One thing differs, the batching: each pass stacks its 25 edge-clamped
-shifted views of one packed field [H,W,9] (colour, normal, depth,
-luminance, hit) and computes the weights and the weighted sums over the
-stack, about 25 launches a pass on a CUDA device instead of ~300 for a
-tap-by-tap loop, which would make the filter host-bound. The JAX sum runs
-over the taps one after another; the stacked reduction adds them in
-another order, so the result moves by rounding only.
+CUDA tensors take the hand-written kernels (ops/cuda/denoise.py: a prepare
+launch and one launch a pass, the taps summed in the JAX package's order);
+CPU tensors take the plain version, `plain_atrous_denoise`. One thing in it
+differs from the JAX package, the batching: each pass stacks its 25
+edge-clamped shifted views of one packed field [H,W,9] (colour, normal,
+depth, luminance, hit) and computes the weights and the weighted sums over
+the stack. The JAX sum runs over the taps one after another; the stacked
+reduction adds them in another order, so the result moves by rounding only.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .cuda import denoise as cuda_denoise
 
 # 1D B3-spline coefficients; the 5x5 kernel is their outer product
 # (Dammertz Sec. 3). Sum = 1.
@@ -83,6 +86,22 @@ def atrous_denoise(color: torch.Tensor, normal: torch.Tensor, depth: torch.Tenso
                    albedo: torch.Tensor | None = None, *, iterations: int = 4,
                    sigma_color: float = 0.45, sigma_normal: float = 64.0,
                    sigma_depth: float = 0.02) -> torch.Tensor:
+    """Filter a noisy radiance image along G-buffer edges
+    (`plain_atrous_denoise` states the contract): the kernels for CUDA
+    tensors, the plain version for CPU tensors."""
+    kw = dict(iterations=iterations, sigma_color=sigma_color, sigma_normal=sigma_normal,
+              sigma_depth=sigma_depth)
+    if color.device.type == "cuda":
+        return cuda_denoise.atrous_denoise(color, normal, depth, albedo, **kw)
+    if color.device.type != "cpu":
+        raise ValueError(f"atrous_denoise: unsupported device {color.device}")
+    return plain_atrous_denoise(color, normal, depth, albedo, **kw)
+
+
+def plain_atrous_denoise(color: torch.Tensor, normal: torch.Tensor, depth: torch.Tensor,
+                         albedo: torch.Tensor | None = None, *, iterations: int = 4,
+                         sigma_color: float = 0.45, sigma_normal: float = 64.0,
+                         sigma_depth: float = 0.02) -> torch.Tensor:
     """Filter a noisy radiance image along G-buffer edges.
 
     color  [H,W,3] linear radiance (the PathTracer accumulator mean)

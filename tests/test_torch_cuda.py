@@ -532,7 +532,9 @@ def test_gbuffer_and_warp_trace_through_k1_and_k5(cuda, textured, monkeypatch):
 @pytest.mark.cuda
 def test_denoise_on_the_card_matches_the_cpu(cuda):
     """atrous_denoise on the card against the same call on a CPU copy:
-    within 1e-5 x max(1, max |ref|)."""
+    within 1e-5 x max(1, max |ref|), through the kernels: a prepare launch
+    and one launch a pass (ops/cuda/denoise.py)."""
+    from gpu_raytracer_tpu_torch.ops.cuda import denoise as cuda_denoise
     from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise
 
     pt = PathTracer(make_courtyard_scene(2000, seed=1, textured=True, device=cuda), 96, 64,
@@ -541,10 +543,136 @@ def test_denoise_on_the_card_matches_the_cpu(cuda):
         pt.step()
     img, planes = pt.image_device(), pt.gbuffer()
     for iterations in (1, 4):
+        before = cuda_denoise.atrous_denoise.launches
         got = atrous_denoise(img, *planes, iterations=iterations).cpu()
+        assert cuda_denoise.atrous_denoise.launches == before + iterations + 1
         ref = atrous_denoise(img.cpu(), *(x.cpu() for x in planes), iterations=iterations)
         assert torch.isfinite(got).all()
         assert (got - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+def _denoise_inputs(seed, H, W, device):
+    """A noisy frame and its G-buffer shaped like a path tracer's (flat walls
+    of smoothly varying depth, a patch of random normals, rows, columns and
+    a scatter of misses with normal 0, depth f32::MAX and albedo 1)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    normal = np.zeros((H, W, 3), np.float32)
+    normal[...] = [0.0, 0.0, 1.0]
+    normal[:, W // 2:] = [0.6, 0.0, 0.8]
+    rand = rng.normal(size=(H, W, 3)).astype(np.float32)
+    normal[2 * H // 3:, : W // 3] = (rand / np.linalg.norm(rand, axis=-1, keepdims=True))[
+        2 * H // 3:, : W // 3]
+    depth = (4.0 + 0.01 * x + 0.02 * y + rng.uniform(0.0, 0.01, (H, W))).astype(np.float32)
+    miss = rng.random((H, W)) < 0.1
+    miss[0] = miss[H // 2] = True
+    miss[:, W - 1] = miss[:, W // 4] = True
+    normal[miss] = 0.0
+    depth[miss] = np.float32(3.4028235e38)
+    albedo = rng.uniform(0.0, 1.0, (H, W, 3)).astype(np.float32)
+    albedo[miss] = 1.0
+    color = (albedo * rng.exponential(0.5, (H, W, 3))).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (color, normal, depth, albedo))
+
+
+@pytest.mark.cuda
+def test_denoise_kernel_at_1024_matches_the_cpu(cuda):
+    """The fly frame's filter, 1024^2 and 3 passes, on the card against the
+    plain call on a CPU copy, within 1e-5 x max(1, max |ref|); the
+    G-buffer as strided views of one [C,7] tensor, as the path tracer's
+    warp leaves it. The prepare launch's depth subsample is the plain
+    version's strided one, bit for bit."""
+    from gpu_raytracer_tpu_torch.ops.cuda import denoise as cuda_denoise
+    from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise
+
+    color, normal, depth, albedo = _denoise_inputs(7, 1024, 1024, cuda)
+    pack = torch.cat([normal.reshape(-1, 3), depth.reshape(-1, 1), albedo.reshape(-1, 3)], 1)
+    planes = (pack[:, 0:3].reshape(1024, 1024, 3), pack[:, 3].reshape(1024, 1024),
+              pack[:, 4:7].reshape(1024, 1024, 3))
+    before = cuda_denoise.atrous_denoise.launches
+    got = atrous_denoise(color, *planes, iterations=3).cpu()
+    assert cuda_denoise.atrous_denoise.launches == before + 4
+    hit = (normal * normal).sum(-1) > 0.25
+    sub = torch.where(hit, depth, torch.zeros_like(depth))[::4, ::4].reshape(-1)
+    assert torch.equal(_filter_subsample(color, *planes), sub)
+    ref = atrous_denoise(*(t.cpu() for t in (color, normal, depth, albedo)), iterations=3)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+def _filter_subsample(color, normal, depth, albedo=None):
+    """The filter's prepare launch alone on CUDA tensors -> the depth
+    subsample it writes (ops/cuda/denoise.py::_prepare)."""
+    from gpu_raytracer_tpu_torch.ops.cuda import denoise as cuda_denoise
+
+    H, W = color.shape[:2]
+    rows = [cuda_denoise._pixel_rows(t, H * W, ch, name) for t, ch, name in
+            ((color, 3, "color"), (normal, 3, "normal"), (depth, 0, "depth"))]
+    rows.append((None, 0) if albedo is None else cuda_denoise._pixel_rows(albedo, H * W, 3, "a"))
+    prepare = cuda_denoise._entries("rt_atrous_prepare")[0]
+    return cuda_denoise._prepare(prepare, rows, H, W, color.device)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 101, 4097, 65536, 261121])
+def test_depth_scale_on_the_card_is_torch_quantile(cuda, n):
+    """The depth scale the passes take from torch.sort's order of the
+    subsample on the card is torch.quantile(depths, 0.99)'s: one pass with
+    a depth sigma of 1e-4 (every tap's weight turns on the scale) on frames
+    of n hit pixels under 512 an edge (the subsample is every pixel), held
+    to the plain call on a CPU copy at 1e-5 x max(1, max |ref|): depths with
+    ties and misses' 0, spread magnitudes with negative values and -0, one
+    value repeated, and a NaN of either sign (the frame NaN where the plain
+    one is, the card's sort putting a negative NaN first)."""
+    from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise
+
+    shape = {1: (1, 1), 2: (1, 2), 101: (1, 101), 4097: (17, 241), 65536: (256, 256),
+             261121: (511, 511)}[n]
+    normal = torch.zeros(shape + (3,), device=cuda)
+    normal[..., 2] = 1.0
+    rng = np.random.default_rng(n)
+    color = torch.from_numpy(rng.uniform(0.0, 1.0, shape + (3,)).astype(np.float32)).to(cuda)
+    x = rng.uniform(1.0, 40.0, n).astype(np.float32)
+    x[rng.random(n) < 0.3] = 0.0
+    x[rng.random(n) < 0.2] = np.float32(7.25)
+    y = (rng.standard_normal(n) * 10.0 ** rng.integers(-6, 6, n)).astype(np.float32)
+    y[rng.random(n) < 0.1] = -0.0
+    z = np.full(n, 3.5, np.float32)
+    cases = [x, y, z]
+    for sign in (1.0, -1.0):
+        v = x.copy()
+        v[n // 2] = np.copysign(np.float32(np.nan), sign)
+        cases.append(v)
+    for a in cases:
+        depth = torch.from_numpy(a.reshape(shape)).to(cuda)
+        kw = dict(iterations=1, sigma_depth=1e-4)
+        got = atrous_denoise(color, normal, depth, **kw).cpu()
+        ref = atrous_denoise(color.cpu(), normal.cpu(), depth.cpu(), **kw)
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        fin = ~torch.isnan(ref)
+        if fin.any():
+            bar = 1e-5 * max(1.0, ref[fin].abs().max().item())
+            assert (got[fin] - ref[fin]).abs().max().item() <= bar
+
+
+@pytest.mark.cuda
+def test_denoise_kernel_allocates_no_tap_stack(cuda):
+    """The kernels' call at 1024^2 with 4 passes allocates its planes and
+    frame, no [25,H,W,...] stack: the peak above what was allocated before
+    stays under 4 x the inputs' bytes (the plain version's stack alone is
+    25 x 9 floats a pixel, 22.5 x)."""
+    from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise
+
+    inputs = _denoise_inputs(8, 1024, 1024, cuda)
+    in_bytes = sum(t.numel() * t.element_size() for t in inputs)
+    atrous_denoise(*inputs, iterations=4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = atrous_denoise(*inputs, iterations=4)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 4 * in_bytes
+    assert out.shape == (1024, 1024, 3) and torch.isfinite(out).all()
 
 
 @pytest.mark.cuda
@@ -574,7 +702,7 @@ def test_fly_frame_on_the_card_matches_the_plain_path(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     n = tracers[0].config.max_bounce_depth + 1
-    assert read_launches() == dict(ZERO_LAUNCHES, k6=2 * n, k1_standalone=3)
+    assert read_launches() == dict(ZERO_LAUNCHES, k6=2 * n, k1_standalone=3, denoise=2 * (4 + 1))
     want = [tracers[1].fly_frame(c, m=4, u8=True) for c in cams]
     for got, ref in zip(frames, want):
         assert got.dtype == torch.uint8 and got.shape == (64, 64, 3)

@@ -289,10 +289,47 @@ def test_source_hash_follows_the_sources():
 
 def test_wrapper_sources_have_no_fallback():
     """The kernel wrappers hold no try/except that could fall back."""
-    for name in ("traverse.py", "render.py", "texshade.py", "bounce.py", "build.py"):
+    for name in ("traverse.py", "render.py", "texshade.py", "bounce.py", "build.py",
+                 "denoise.py"):
         with open(os.path.join(REPO, "gpu_raytracer_tpu_torch", "ops", "cuda", name)) as f:
             src = f.read()
         assert "try:" not in src and "except" not in src, name
+
+
+def test_denoise_on_cuda_raises_without_the_filter_kernels(monkeypatch):
+    """atrous_denoise on a CUDA tensor launches the filter's kernels or
+    raises: a library without their entry points is an error, nothing is
+    launched or counted, and the plain filter is never taken."""
+    from types import SimpleNamespace
+
+    from gpu_raytracer_tpu_torch.ops import denoise
+    from gpu_raytracer_tpu_torch.ops.cuda import denoise as cuda_denoise
+
+    class CudaTyped(torch.Tensor):
+        """A CPU tensor that says it lies on a CUDA device."""
+        device = torch.device("cuda", 0)
+
+    color, albedo = torch.rand(12, 16, 3), torch.rand(12, 16, 3)
+    normal = torch.nn.functional.normalize(torch.randn(12, 16, 3), dim=-1)
+    depth = torch.rand(12, 16) + 1.0
+    args = [t.as_subclass(CudaTyped) for t in (color, normal, depth, albedo)]
+    refuse = lambda *a, **k: pytest.fail("the plain filter was taken")
+    monkeypatch.setattr(denoise, "plain_atrous_denoise", refuse)
+    monkeypatch.setattr(denoise, "_cos_power", refuse)
+    monkeypatch.setattr(cuda_denoise, "load_kernels",
+                        lambda: SimpleNamespace(lib=SimpleNamespace(rt_atrous_prepare=refuse)))
+    launches = cuda_denoise.atrous_denoise.launches
+    for alb in (args[3], None):
+        with pytest.raises(RuntimeError, match="rt_atrous_pass"):   # prepare alone is there
+            denoise.atrous_denoise(*args[:3], alb, iterations=3)
+    assert cuda_denoise.atrous_denoise.launches == launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        denoise.atrous_denoise(*(t.to("meta") for t in (color, normal, depth)))
+    # the CPU keeps the plain filter
+    monkeypatch.undo()
+    out = denoise.atrous_denoise(color, normal, depth, albedo, iterations=2)
+    assert torch.equal(out, denoise.plain_atrous_denoise(color, normal, depth, albedo,
+                                                         iterations=2))
 
 
 def test_textured_render_primary_never_renders_untextured(monkeypatch):
