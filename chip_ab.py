@@ -4,7 +4,7 @@ repository, or one tree built with different compile-time settings, measured
 in turn inside one run so that they share a card.
 
     python3 chip_ab.py --parent build/parent                # parent, change, change, parent
-    python3 chip_ab.py --variants "RT_SHARED_STACK=0" "RT_RENDER_MIN_BLOCKS=8 RT_RENDER_BLOCK=64"
+    python3 chip_ab.py --variants "RT_SAMPLER_OFF=1" "RT_RENDER_MIN_BLOCKS=8 RT_RENDER_BLOCK=64"
     python3 chip_ab.py --variants "kShadeMinBlocks=12"      # a csrc constant rewritten
     python3 chip_ab.py --one [--root DIR] [--defines "A=1 B=2"]   # one measurement, one JSON line
     python3 chip_ab.py --sass                               # SASS size of K1's, K3's loops (widths 4, 8)
@@ -182,15 +182,20 @@ SHADOW_RAYS = 262_144          # phase 3's shadow rays, per light
 
 def pre_pass_before_k2(tables, px, py, shade=None) -> bool:
     """Whether the tree on sys.path launches K3's pre-pass (camera_relative)
-    before the fused render of these tables (one call, counted)."""
+    before the fused render of these tables (one call, its calls of the
+    pre-pass's wrapper recorded)."""
     from gpu_raytracer_tpu_torch.ops.cuda import render as render_mod
 
     pre = getattr(render_mod, "camera_relative", None)
     if pre is None:
         return False
-    before = pre.launches
-    render_mod.render_primary(tables, px, py, 64, 64, shade=shade)
-    return pre.launches > before
+    calls = []
+    render_mod.camera_relative = lambda t: calls.append(t) or pre(t)
+    try:
+        render_mod.render_primary(tables, px, py, 64, 64, shade=shade)
+    finally:
+        render_mod.camera_relative = pre
+    return bool(calls)
 
 
 def measure_w8(out: dict, device, ptxas: dict, width: int = WIDTH, height: int = HEIGHT,
@@ -466,7 +471,6 @@ def measure(root: str, defines: list[str], label: str, k3_only: bool = False,
     from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
     from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
     from gpu_raytracer_tpu_torch.ops.cuda import build
-    from gpu_raytracer_tpu_torch.engine.renderer import split_gbuffer
     from gpu_raytracer_tpu_torch.ops.cuda.bounce import (fused_bounce_, pack_bounce_tables,
                                                          sample_materials)
     from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
@@ -475,6 +479,10 @@ def measure(root: str, defines: list[str], label: str, k3_only: bool = False,
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
     from gpu_raytracer_tpu_torch.ops.trace import trace
     from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene, make_zoo_scene
+    try:   # the plain G-buffer split: ops.render, or engine.renderer in an older tree
+        from gpu_raytracer_tpu_torch.ops.render import split_gbuffer
+    except ImportError:
+        from gpu_raytracer_tpu_torch.engine.renderer import split_gbuffer
 
     build.NVCC_FLAGS = (*build.NVCC_FLAGS, *(f"-D{d}" for d in defines))
     k = build.load_kernels()

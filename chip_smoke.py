@@ -225,6 +225,7 @@ The card line, then the per-kernel JSON summary, then the last line
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -234,8 +235,12 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.append(os.path.join(ROOT, "tests"))
+from torch_scenes import light_shadow_rays, random_gbuffer, synthetic_textured_scene  # noqa: E402
+
 WIDTH, HEIGHT = 1920, 1080
 TRIANGLES = 100_000
 TEXTURE_SIZE = 4096    # the textured courtyard's floor map edge (bench.py section 4)
@@ -399,35 +404,6 @@ def k1_compare(tables, o, d, max_t, ref=None):
                 t_rel=t_rel, t_abs=t_abs, normal_abs=n_err), ties
 
 
-def light_shadow_rays(scene, o, d, t, h, n, n_shadow, directional=False):
-    """Shadow rays from n_shadow of the camera rays' hits (a seeded choice,
-    in the frame's order): from p + n * 1e-3 toward the first point light,
-    max_t its distance - 1e-3, or with `directional` against the first
-    directional light's direction, max_t 3e38, as the frame kernels cast
-    them (render_common.cuh::light_intensity) -> (origin, direction, max_t)."""
-    import numpy as np
-    import torch
-
-    from gpu_raytracer_tpu_torch.ops.linalg import dot
-
-    hits = torch.nonzero(h).squeeze(1).cpu().numpy()
-    pick = np.sort(np.random.default_rng(0).choice(hits, min(n_shadow, hits.shape[0]),
-                                                   replace=False))
-    pick = torch.from_numpy(pick).to(o.device)
-    L = scene.lights
-    p = o[pick] + d[pick] * t[pick, None]
-    so = (p + n[pick] * 1e-3).contiguous()
-    if directional:
-        li = int(torch.nonzero(L.light_type == 0)[0])
-        sd = (-L.direction[li]).expand_as(so).contiguous()
-        return so, sd, torch.full((so.shape[0],), 3.0e38, device=o.device)
-    li = int(torch.nonzero(L.light_type == 1)[0])
-    to_light = L.position[li][None, :] - p
-    dist = torch.sqrt(dot(to_light, to_light))
-    sd = (to_light / dist[:, None]).contiguous()
-    return so, sd, (dist - 1e-3).contiguous()
-
-
 def phase_k1(scene, tables, width, height, n_shadow, device, card, phase="3", ref=None):
     """K1 against the plain traversal on every camera ray of the frame (in
     the main path's order) and on n_shadow shadow rays from
@@ -480,7 +456,8 @@ def k2_compare(scene, width, height, shadows, device, ties=None, ref=None):
     kept under `ref` (a scene's name, plain_ref)."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_chunk
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.ops.render import render_chunk
 
     r = Renderer(scene, width, height, shadows=shadows, device=device)
     got = r.render_device()
@@ -505,18 +482,17 @@ def phase_main(scene, width, height, device, card):
     """The main path: Renderer.render_device() at full size, warm, timed."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_chunk
-    from gpu_raytracer_tpu_torch.ops.cuda.render import render_primary
-    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.ops.render import render_chunk
 
     out = {}
     for shadows in (False, True):
         r = Renderer(scene, width, height, shadows=shadows, device=device)
         first = r.render_device()
-        render_primary.launches = 0
-        traverse.launches = 0
+        launch_tally().clear()
         ms = timed(r.render_device, FRAMES, device)
-        k2, k1 = render_primary.launches, traverse.launches
+        launches = frame_launches()
+        k2, k1 = launches["k2"], launches["k1_standalone"]
         frame = r.render_device()
         if not torch.equal(frame, first) or not torch.isfinite(frame).all():
             raise AssertionError("main-path frames differ between runs or are not finite")
@@ -604,59 +580,6 @@ def phase_camera_move(scene, width, height, pt_size, device, card):
     return out
 
 
-def synthetic_textured_scene(seed: int = 0, n_mats: int = 6, mips: int = 1,
-                             degenerate_glass: bool = False, device="cpu"):
-    """The default scene's geometry (spheres and triangles) with n_mats
-    random materials over three random RGBA8 textures, one per wrap mode:
-    every second material has a base-colour map, every third metallic-
-    roughness, occlusion and emissive maps. With mips=1 it is, draw for
-    draw, the JAX package's texture-shade test scene
-    (tests/test_texshade.py::_textured_scene)."""
-    import numpy as np
-
-    from gpu_raytracer_tpu_torch.models.geometry import Textures
-    from gpu_raytracer_tpu_torch.models.material import MaterialBuilder
-    from gpu_raytracer_tpu_torch.models.scene import build_default_scene, prepare_scene
-
-    rng = np.random.default_rng(seed)
-    mb = MaterialBuilder()
-    imgs = [rng.integers(0, 256, size=(5 + 3 * i, 9 + 11 * i, 4), dtype=np.uint8)
-            for i in range(3)]
-    for i in range(n_mats):
-        ti = np.full(8, 0xFFFFFFFF, np.uint32)
-        if i % 2 == 0:
-            ti[0] = i % 3
-        if i % 3 == 0:
-            ti[1] = (i + 1) % 3
-            ti[3] = (i + 2) % 3
-            ti[4] = i % 3
-        ior = 1.0 + 0.5 * (i % 3)
-        trans = 0.5 * (i % 2)
-        if not degenerate_glass and trans > 0.0 and ior == 1.0:
-            ior = 1.3   # ior 1 with transmission is 0/0 in the dispersion blend
-        mb.add(albedo=rng.uniform(0.2, 1.0, 3), metallic=float(i % 2), roughness=0.5,
-               emission=rng.uniform(0, 0.3, 3), ior=ior, transmission=trans,
-               texture_indices=ti)
-    tex = Textures.from_images(imgs, wrap=[0, 1, 2], mips=mips)
-    base = build_default_scene()
-    return prepare_scene(base.camera, base.spheres, base.mesh, mb.build(), base.lights,
-                         textures=tex, device=device)
-
-
-def random_gbuffer(rng, n: int, n_mats: int, mips: bool = False):
-    """[n,8] f32 G-buffer of random rays: light sums in [0, 3), material ids
-    from -1 (a miss) to n_mats + 1 (invalid), uvs in [-1.5, 2.5) (every wrap
-    period), mip footprints 0 or (mips) from 2^-10 to 1."""
-    import numpy as np
-
-    light = rng.uniform(0, 3, (n, 3)).astype(np.float32)
-    mat = rng.integers(-1, n_mats + 2, n).astype(np.int32)
-    uv = rng.uniform(-1.5, 2.5, (n, 2)).astype(np.float32)
-    lam = (np.exp2(rng.uniform(-10.0, 0.0, n)) if mips else np.zeros(n)).astype(np.float32)
-    return np.concatenate([light, mat.view(np.float32)[:, None], uv, lam[:, None],
-                           np.zeros((n, 1), np.float32)], axis=1)
-
-
 def phase_textured_scene(device, triangles, texture_size):
     """Phase 6: the textured courtyard and its tables on the card."""
     import torch
@@ -692,7 +615,7 @@ def gbuffer_compare(tables, px, py, width, height, shadows, ties, ref=None):
     scene's name, plain_ref) -> (stats, K3's G-buffer)."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import render_gbuffer, split_gbuffer
+    from gpu_raytracer_tpu_torch.ops.render import render_gbuffer, split_gbuffer
     from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred
 
     got = render_deferred(tables, px, py, width, height, shadows=shadows)
@@ -721,7 +644,7 @@ def shade_compare(shade, gbuf, sky, trilinear, keep=None):
     """K4 against the plain deferred shade on one G-buffer -> max |diff|."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import split_gbuffer
+    from gpu_raytracer_tpu_torch.ops.render import split_gbuffer
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import texture_shade
     from gpu_raytracer_tpu_torch.ops.shading import shade_deferred
 
@@ -751,7 +674,7 @@ def mip_boundary_mask(shade, gbuf, rel: float = 1e-6):
     there."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import split_gbuffer
+    from gpu_raytracer_tpu_torch.ops.render import split_gbuffer
 
     _, mat, _, lam = split_gbuffer(gbuf)
     hit = mat >= 0
@@ -816,7 +739,7 @@ def phase_k3(scene, tables, width, height, device, card, ref=None):
     and on, and on the synthetic scene (live spheres, so sphere uvs)."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import render_gbuffer
+    from gpu_raytracer_tpu_torch.ops.render import render_gbuffer
     from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables, render_deferred
 
     px, py = frame_pixels(width, height, device)
@@ -922,7 +845,7 @@ def phase_k4(shade, gbuf, ties, device, card):
     import numpy as np
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import gbuffer_planes, split_gbuffer
+    from gpu_raytracer_tpu_torch.ops.render import gbuffer_planes, split_gbuffer
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
     from gpu_raytracer_tpu_torch.ops.shading import shade_deferred
 
@@ -960,22 +883,18 @@ def phase_textured_main(scene, width, height, device, card, ties, ref=None):
     size (K3 then K4 on a CUDA device), warm, timed."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_deferred_chunk
-    from gpu_raytracer_tpu_torch.ops.cuda.render import (camera_relative, render_deferred,
-                                                         render_primary)
-    from gpu_raytracer_tpu_torch.ops.cuda.texshade import texture_shade
-    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.ops.render import render_deferred_chunk
 
     out = {}
     for shadows in (False, True):
         r = Renderer(scene, width, height, shadows=shadows, device=device)
         first = r.render_device()
-        for fn in (render_deferred, camera_relative, texture_shade, render_primary, traverse):
-            fn.launches = 0
+        launch_tally().clear()
         ms = timed(r.render_device, FRAMES, device)
-        k3, k4 = render_deferred.launches, texture_shade.launches
-        k3_pre = camera_relative.launches
-        k2, k1 = render_primary.launches, traverse.launches
+        launches = frame_launches()
+        k3, k4, k3_pre = launches["k3"], launches["k4"], launches["k3_pre"]
+        k2, k1 = launches["k2"], launches["k1_standalone"]
         frame = r.render_device()
         if not torch.equal(frame, first) or not torch.isfinite(frame).all():
             raise AssertionError("textured frames differ between runs or are not finite")
@@ -1085,7 +1004,8 @@ def pools(tables, width, height, depths, tex_lod_bias=0.0):
     import torch
 
     from gpu_raytracer_tpu_torch.ops.sampler import QmcStream
-    from gpu_raytracer_tpu_torch.ops.wavefront import bounce_, bounce_flags, coherence_order
+    from gpu_raytracer_tpu_torch.ops.pool import bounce_flags
+    from gpu_raytracer_tpu_torch.ops.wavefront import bounce_, coherence_order
 
     scene = tables.scene
     r = camera_pool(tables, width, height)
@@ -1289,28 +1209,38 @@ class _swap:
         return False
 
 
+BOUNCE_KERNELS = ("k5", "k5_w8", "k6", "k6_w8")
+
+
+@contextlib.contextmanager
 def plain_bounces():
-    """Within the block the path tracer runs the plain bounce on the card."""
-    from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
+    """Within the block the path tracer runs the plain bounce on the card
+    (the name path_trace_pool calls, ops.pool.fused_bounce_, is swapped);
+    it raises if K5 or K6 launched inside the block all the same."""
+    from gpu_raytracer_tpu_torch.ops import pool
     from gpu_raytracer_tpu_torch.ops.wavefront import bounce_
 
-    return _swap(bounce_mod, "fused_bounce_",
-                 lambda tables, r, radiance, **kw: bounce_(tables.scene, r, radiance, **kw))
+    before = {k: launch_tally()[k] for k in BOUNCE_KERNELS}
+    with _swap(pool, "fused_bounce_",
+               lambda tables, r, radiance, **kw: bounce_(tables.scene, r, radiance, **kw)):
+        yield
+    moved = {k: launch_tally()[k] - n for k, n in before.items() if launch_tally()[k] != n}
+    if moved:
+        raise AssertionError(f"the plain bounce launched kernels: {moved}")
 
 
 def recorded_bounces(record: list):
     """Within the block every K6 call also appends a copy of its pool as it
     was before the bounce, and its arguments, to `record`."""
-    from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
+    from gpu_raytracer_tpu_torch.ops import pool
 
-    kernel = bounce_mod.fused_bounce_
+    kernel = pool.fused_bounce_
 
     def rec(tables, r, radiance, **kw):
         record.append((r.clone(), kw))
-        with _swap(bounce_mod, "fused_bounce_", kernel):   # its launch counter
-            return kernel(tables, r, radiance, **kw)
+        return kernel(tables, r, radiance, **kw)
 
-    return _swap(bounce_mod, "fused_bounce_", rec)
+    return _swap(pool, "fused_bounce_", rec)
 
 
 class StageTimer:
@@ -1347,25 +1277,21 @@ class StageTimer:
         def wrapper(*args, **kw):
             if stage_in:
                 self.mark(stage_in)
-            with _swap(module, name, fn):   # a kernel wrapper's launch counter stays its own
-                out = fn(*args, **kw)
+            out = fn(*args, **kw)
             self.mark(stage_out)
             return out
 
         return _swap(module, name, wrapper)
 
     def __enter__(self):
-        import contextlib
-
         from gpu_raytracer_tpu_torch.engine import pathtracer
-        from gpu_raytracer_tpu_torch.ops import wavefront
-        from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
+        from gpu_raytracer_tpu_torch.ops import pool
 
         self.stack = contextlib.ExitStack()
         for swap in (self._wrap(pathtracer, "path_trace_pool", "camera", "counts"),
-                     self._wrap(wavefront, "coherence_order", stage_out="sort"),
-                     self._wrap(wavefront, "stream_uniforms", stage_out="uniforms"),
-                     self._wrap(bounce_mod, "fused_bounce_", stage_out="bounce")):
+                     self._wrap(pool, "coherence_order", stage_out="sort"),
+                     self._wrap(pool, "stream_uniforms", stage_out="uniforms"),
+                     self._wrap(pool, "fused_bounce_", stage_out="bounce")):
             self.stack.enter_context(swap)
         return self
 
@@ -1568,46 +1494,19 @@ def bounce_bound(tables, record):
                 old_design=dict(bound_ms=old_ms, bound_by=old_by, bytes=old_bytes))
 
 
-def _launch_counters():
-    from gpu_raytracer_tpu_torch.ops.cuda.bounce import fused_bounce_, sample_materials
-    from gpu_raytracer_tpu_torch.ops.cuda.denoise import atrous_denoise
-    from gpu_raytracer_tpu_torch.ops.cuda.render import (camera_relative, render_deferred,
-                                                         render_primary)
-    from gpu_raytracer_tpu_torch.ops.cuda.texshade import texture_shade
-    from gpu_raytracer_tpu_torch.ops.cuda.traverse import traverse, traverse_threaded
+def launch_tally() -> Counter:
+    """The package's launch tally, build.LAUNCHES (imported at the call:
+    chip_ab.py puts another tree's package on sys.path first)."""
+    from gpu_raytracer_tpu_torch.ops.cuda.build import LAUNCHES
 
-    return dict(k6=(fused_bounce_, "launches"), k5=(fused_bounce_, "material_launches"),
-                k5_standalone=(sample_materials, "launches"),
-                k2=(render_primary, "launches"), k2t=(render_primary, "textured_launches"),
-                k3=(render_deferred, "launches"),
-                # K3's pre-pass, one launch before each K3 launch of either width
-                k3_pre=(camera_relative, "launches"),
-                k4=(texture_shade, "launches"), k1_standalone=(traverse, "launches"),
-                # the width-8 instances (phase 22)
-                k6_w8=(fused_bounce_, "w8_launches"),
-                k5_w8=(fused_bounce_, "w8_material_launches"),
-                k2_w8=(render_primary, "w8_launches"),
-                k2t_w8=(render_primary, "w8_textured_launches"),
-                k3_w8=(render_deferred, "w8_launches"), k1_standalone_w8=(traverse, "w8_launches"),
-                # K1's unordered walk (phase 24)
-                k1_threaded=(traverse_threaded, "launches"),
-                # the à-trous filter's prepare and pass launches (phases 18-19, 23)
-                denoise=(atrous_denoise, "launches"))
+    return LAUNCHES
 
 
-def reset_launches():
-    for fn, attr in _launch_counters().values():
-        setattr(fn, attr, 0)
-
-
-def read_launches() -> dict:
-    return {k: getattr(fn, attr) for k, (fn, attr) in _launch_counters().items()}
-
-
-ZERO_LAUNCHES = dict(k6=0, k5=0, k5_standalone=0, k2=0, k2t=0, k3=0, k3_pre=0, k4=0,
-                     k1_standalone=0,
-                     k6_w8=0, k5_w8=0, k2_w8=0, k2t_w8=0, k3_w8=0, k1_standalone_w8=0,
-                     k1_threaded=0, denoise=0)
+def frame_launches() -> Counter:
+    """The launches tallied since `launch_tally().clear()` by kernel id,
+    without camera_row: a camera move's own launch, which these checks
+    leave to tests/test_torch_camera_row.py."""
+    return Counter({k: n for k, n in launch_tally().items() if k != "camera_row"})
 
 
 def phase_pathtracer(scene, label, device, card, size, keep=None):
@@ -1619,7 +1518,7 @@ def phase_pathtracer(scene, label, device, card, size, keep=None):
     import torch
 
     from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
-    from gpu_raytracer_tpu_torch.ops import wavefront
+    from gpu_raytracer_tpu_torch.ops import pool
 
     def tracer():
         return PathTracer(scene, size, size, spectral=True, shadows=True,
@@ -1632,15 +1531,15 @@ def phase_pathtracer(scene, label, device, card, size, keep=None):
         pt.step()
         torch.cuda.set_sync_debug_mode("default")
     pt.reset()
-    reset_launches()
+    launch_tally().clear()
     ms = timed(pt.step, PT_STEPS, device)
-    launches = read_launches()
+    launches = frame_launches()
     frame = pt.image_device()
     if frame.shape != (size, size, 3) or not torch.isfinite(frame).all():
         raise AssertionError(f"{label}: frame {tuple(frame.shape)} not finite")
     textured = pt.tables.shade is not None
-    want = dict(ZERO_LAUNCHES, k6=PT_STEPS * (MAX_DEPTH + 1),
-                k5=PT_STEPS * (MAX_DEPTH + 1) if textured else 0)
+    want = Counter(k6=PT_STEPS * (MAX_DEPTH + 1),
+                   k5=PT_STEPS * (MAX_DEPTH + 1) if textured else 0)
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     counts = pt.counters().rays_per_bounce[:MAX_DEPTH + 1]
@@ -1665,7 +1564,7 @@ def phase_pathtracer(scene, label, device, card, size, keep=None):
         del record
 
     profile = device_profile(pt.step, PT_STEPS, device) if cuda else {}
-    with _swap(wavefront, "coherence_order", lambda scene, r, previous=None: None):
+    with _swap(pool, "coherence_order", lambda scene, r, previous=None: None):
         ms_unsorted = timed(pt.step, PT_STEPS, device)
         unsorted_stages = stages_of(pt, PT_STEPS)
         unsorted_profile = device_profile(pt.step, PT_STEPS, device) if cuda else {}
@@ -1726,7 +1625,7 @@ def primary_compare(tables, shade, px, py, width, height, shadows, exclude, ligh
     their count is bounded too."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import render_chunk
+    from gpu_raytracer_tpu_torch.ops.render import render_chunk
     from gpu_raytracer_tpu_torch.ops.cuda.render import render_primary
 
     got = render_primary(tables, px, py, width, height, shadows=shadows, sky=sky,
@@ -1787,7 +1686,7 @@ def phase_glb_round_trip(tscene, texture_size, tmp, width, height, device, card)
     if loaded.num_triangles != tscene.num_triangles:
         raise AssertionError(f"GLB scene has {loaded.num_triangles} triangles, the "
                              f"procedural one {tscene.num_triangles}")
-    reset_launches()
+    launch_tally().clear()
     for shadows in (False, True):
         want = Renderer(tscene, width, height, shadows=shadows, device=device).render_device()
         r = Renderer(loaded, width, height, shadows=shadows, device=device)
@@ -1799,7 +1698,7 @@ def phase_glb_round_trip(tscene, texture_size, tmp, width, height, device, card)
         out[f"gltf_parity_{'shadows' if shadows else 'no_shadows'}"] = parity
         out[f"ms_{'shadows' if shadows else 'no_shadows'}"] = timed(r.render_device, FRAMES,
                                                                     device)
-    out["launches"] = read_launches()
+    out["launches"] = frame_launches()
     out["card"] = card
     log(f"phase 13 GLB round trip {width}x{height}: {json.dumps(out)}")
     return loaded, out
@@ -1813,7 +1712,8 @@ def phase_zoo(multi_slot, triangles, tmp, width, height, crop, device, card):
     import torch
 
     from gpu_raytracer_tpu_torch.config import RaytracerConfig
-    from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_deferred_chunk
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.ops.render import render_deferred_chunk
     from gpu_raytracer_tpu_torch.ops.cuda.render import pack_render_tables, render_deferred
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
     from gpu_raytracer_tpu_torch.utils.procgen import make_zoo_scene, zoo_source_images
@@ -1844,9 +1744,9 @@ def phase_zoo(multi_slot, triangles, tmp, width, height, crop, device, card):
             r = Renderer(loaded, width, height, config=config, shadows=shadows,
                          sky=(0.1, 0.2, 0.3), device=device)
             first = r.render_device()
-            reset_launches()
+            launch_tally().clear()
             ms = timed(r.render_device, FRAMES, device)
-            launches = read_launches()
+            launches = frame_launches()
             if first.shape != (width * height, 3) or not torch.isfinite(first).all():
                 raise AssertionError("zoo frame not finite or misshapen")
             if device.type == "cuda" and (launches["k3"] != FRAMES or launches["k4"] != FRAMES
@@ -1884,7 +1784,7 @@ def phase_k2t(scenes, width, height, device, card):
     frames."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import render_chunk
+    from gpu_raytracer_tpu_torch.ops.render import render_chunk
     from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
                                                          render_primary)
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables, texture_shade
@@ -1905,11 +1805,10 @@ def phase_k2t(scenes, width, height, device, card):
             stats["max_abs_diff_to_k3_k4"] = (frame - two_phase()).abs().max().item()
             fused = lambda: render_primary(tables, px, py, width, height, shadows=shadows,
                                            sky=sky, shade=shade)
-            reset_launches()
+            launch_tally().clear()
             stats["ms"] = timed(fused, FRAMES, device)
-            launches = read_launches()
-            if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, k2t=FRAMES,
-                                                          k3_pre=FRAMES):
+            launches = frame_launches()
+            if device.type == "cuda" and launches != Counter(k2t=FRAMES, k3_pre=FRAMES):
                 raise AssertionError(f"K2t frames launched {launches} in {FRAMES} frames")
             launches_total += launches["k2t"]
             pre_total += launches["k3_pre"]
@@ -1935,8 +1834,8 @@ def phase_many_lights(triangles, texture_size, width, height, crop, device, card
     LIGHT_DRAWS draws against the loop over every light."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, render_chunk, render_gbuffer,
-                                                         split_gbuffer)
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.ops.render import render_chunk, render_gbuffer, split_gbuffer
     from gpu_raytracer_tpu_torch.ops.cuda.render import (MAX_LIGHTS, pack_render_tables,
                                                          render_deferred, render_primary)
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables
@@ -2011,13 +1910,13 @@ def phase_many_lights(triangles, texture_size, width, height, crop, device, card
         res.update(loop_max_abs_err_crop=err, sampled_mean_rel_err=rel)
         # Renderer's own route draws light_u itself; another frame number, other choices
         r = Renderer(scene, width, height, shadows=True, device=device)
-        reset_launches()
+        launch_tally().clear()
         f0 = r.render_device()
         r.light_frame = 1
         f1 = r.render_device()
-        launches = read_launches()
-        want = (dict(ZERO_LAUNCHES, k3=2, k3_pre=2, k4=2) if textured
-                else dict(ZERO_LAUNCHES, k2=2))
+        launches = frame_launches()
+        want = (Counter(k3=2, k3_pre=2, k4=2) if textured
+                else Counter(k2=2))
         if device.type == "cuda" and (launches != want or torch.equal(f0, f1)):
             raise AssertionError(f"Renderer under {MANY_LIGHTS} lights: launches {launches}, "
                                  f"frames equal {torch.equal(f0, f1)}")
@@ -2077,11 +1976,11 @@ def phase_zoo_pathtrace(scene, size, device, card):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     pt.reset()
-    reset_launches()
+    launch_tally().clear()
     ms = timed(pt.step, ZOO_PT_SAMPLES, device)
-    launches = read_launches()
+    launches = frame_launches()
     n = ZOO_PT_SAMPLES * (MAX_DEPTH + 1)
-    if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, k6=n, k5=n):
+    if device.type == "cuda" and launches != Counter(k6=n, k5=n):
         raise AssertionError(f"zoo path tracer launched {launches}")
     frame = pt.image_device()
     if frame.shape != (size, size, 3) or not torch.isfinite(frame).all():
@@ -2140,11 +2039,11 @@ def phase_gbuffer_denoise(scene, size, device, card):
 
     cuda = device.type == "cuda"
     pt = PathTracer(scene, size, size, device=device)
-    reset_launches()
+    launch_tally().clear()
     normal, depth, albedo = no_host_sync(pt.gbuffer, device)
-    launches = read_launches()
+    launches = frame_launches()
     textured = pt.tables.shade is not None
-    want = dict(ZERO_LAUNCHES, k1_standalone=1, k5_standalone=1 if textured else 0)
+    want = Counter(k1_standalone=1, k5_standalone=1 if textured else 0)
     if cuda and launches != want:
         raise AssertionError(f"gbuffer() launched {launches}, want {want}")
 
@@ -2177,11 +2076,11 @@ def phase_gbuffer_denoise(scene, size, device, card):
     for _ in range(2):
         pt.step()
     img = pt.image_device()
-    reset_launches()
+    launch_tally().clear()
     den = no_host_sync(lambda: atrous_denoise(img, normal, depth, albedo,
                                               iterations=DENOISE_ITERS), device)
-    den_launches = read_launches()
-    want = dict(ZERO_LAUNCHES, denoise=DENOISE_ITERS + 1)
+    den_launches = frame_launches()
+    want = Counter(denoise=DENOISE_ITERS + 1)
     if cuda and den_launches != want:
         raise AssertionError(f"atrous_denoise launched {den_launches}, want {want}")
     t0 = time.perf_counter()
@@ -2266,16 +2165,16 @@ def phase_atrous(scene, size, device, card):
     for iters in ATROUS_ITERS:
         call = lambda: atrous_denoise(img, *planes, iterations=iters)
         plain = lambda: plain_atrous_denoise(img, *planes, iterations=iters)
-        reset_launches()
+        launch_tally().clear()
         got = no_host_sync(call, device)
-        launches = read_launches()
+        launches = frame_launches()
         ref = plain()
         err = (got - ref).abs().max().item()
         bar = DENOISE_TOL * max(1.0, ref.abs().max().item())
         if not torch.isfinite(got).all() or err > bar:
             raise AssertionError(f"à-trous kernels ({iters} passes) off the plain version by "
                                  f"{err:.3g} (bar {bar:.3g})")
-        if cuda and launches != dict(ZERO_LAUNCHES, denoise=iters + 1):
+        if cuda and launches != Counter(denoise=iters + 1):
             raise AssertionError(f"à-trous ({iters} passes) launched {launches}, want "
                                  f"{iters + 1} of the filter's kernels")
         bound, bound_by = filter_bound(size * size, iters)
@@ -2353,8 +2252,6 @@ def fly_stage_device_ms(fly, frames: int, device) -> dict:
     (history: reprojection, gather, depth test), and `other` for what the
     frame runs outside the stages (the camera row's rewrite, the weights'
     fold, the jitter)."""
-    import contextlib
-
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2432,7 +2329,7 @@ def phase_fly(scene, label, size, device, card):
     for _ in range(FLY_WARMUP_FRAMES):
         no_host_sync(fly, device)
 
-    reset_launches()
+    launch_tally().clear()
     t0 = time.perf_counter()
     if cuda:
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2444,12 +2341,12 @@ def phase_fly(scene, label, size, device, card):
         burst_ms = a.elapsed_time(b) / FLY_FRAMES
     else:
         burst_ms = (time.perf_counter() - t0) * 1e3 / FLY_FRAMES
-    launches = read_launches()
+    launches = frame_launches()
     textured = pt.tables.shade is not None
     n_k6 = FLY_FRAMES * (MAX_DEPTH + 1)
-    want = dict(ZERO_LAUNCHES, k6=n_k6, k5=n_k6 if textured else 0, k1_standalone=FLY_FRAMES,
-                k5_standalone=FLY_FRAMES if textured else 0,
-                denoise=FLY_FRAMES * (DENOISE_ITERS + 1))
+    want = Counter(k6=n_k6, k5=n_k6 if textured else 0, k1_standalone=FLY_FRAMES,
+                   k5_standalone=FLY_FRAMES if textured else 0,
+                   denoise=FLY_FRAMES * (DENOISE_ITERS + 1))
     if cuda and launches != want:
         raise AssertionError(f"{label}: fly frames launched {launches}, want {want}")
     last = frames[-1]
@@ -2522,10 +2419,10 @@ def phase_adaptive(scene, size, device, card):
                             device=device)
     warm = pt.adaptive_from + ADAPTIVE_EXTRA_STEPS
     no_host_sync(pt.step, device)
-    reset_launches()
+    launch_tally().clear()
     ms_warm = timed(pt.step, warm - 1, device)
-    launches = read_launches()
-    if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, k6=(warm - 1) * (MAX_DEPTH + 1)):
+    launches = frame_launches()
+    if device.type == "cuda" and launches != Counter(k6=(warm - 1) * (MAX_DEPTH + 1)):
         raise AssertionError(f"adaptive steps launched {launches}")
     g = pt._steps
     args = (g, pt.K, pt.T, pt.adaptive_from)
@@ -2622,7 +2519,7 @@ def refit_frame_compare(r, label, frame=None, ref=None, ties=None):
     pick differently at the same t (or outside `ties`, a mask the caller
     made). `ref` (a scene's name) reads the plain frame and hits that phases
     3-9 kept for the scene's frame pixels."""
-    from gpu_raytracer_tpu_torch.engine.renderer import render_chunk, render_deferred_chunk
+    from gpu_raytracer_tpu_torch.ops.render import render_chunk, render_deferred_chunk
 
     if frame is None:
         frame = r.render_device()
@@ -2678,11 +2575,11 @@ def phase_viewer_refit(scene, tscene, width, height, device, card):
         v.run_compute()
 
     move_frame()
-    reset_launches()
+    launch_tally().clear()
     ms = [pipelined_ms(move_frame, VIEWER_FRAMES, device) for _ in range(VIEWER_REPS)]
-    launches = read_launches()
+    launches = frame_launches()
     frames = VIEWER_FRAMES * VIEWER_REPS
-    if cuda and launches != dict(ZERO_LAUNCHES, k2=frames):
+    if cuda and launches != Counter(k2=frames):
         raise AssertionError(f"camera-moving Viewer frames launched {launches}, want K2 {frames}")
     no_host_sync(move_frame, device)
     out["camera_moving"] = dict(ms_per_frame=ms, frames=VIEWER_FRAMES, reps=VIEWER_REPS,
@@ -2707,11 +2604,11 @@ def phase_viewer_refit(scene, tscene, width, height, device, card):
     refit_frame()
     kept = (v.renderer.tables.trace.nodes, v.renderer.tables.trace.tris,
             v.renderer.tables.trace.attrs)
-    reset_launches()
+    launch_tally().clear()
     ms = [pipelined_ms(refit_frame, REFIT_FRAMES, device) for _ in range(VIEWER_REPS)]
-    launches = read_launches()
+    launches = frame_launches()
     frames = REFIT_FRAMES * VIEWER_REPS
-    if cuda and launches != dict(ZERO_LAUNCHES, k2=frames):
+    if cuda and launches != Counter(k2=frames):
         raise AssertionError(f"refit frames launched {launches}, want K2 {frames}")
     if any(a is not b for a, b in zip(kept, (v.renderer.tables.trace.nodes,
                                              v.renderer.tables.trace.tris,
@@ -2760,11 +2657,11 @@ def phase_viewer_refit(scene, tscene, width, height, device, card):
     # K2 on a rebuilt scene, through the Viewer's renderer and path tracer
     r = Renderer(scene, width, height, shadows=True, device=device)
     r.set_geometry(rebuilt)
-    reset_launches()
+    launch_tally().clear()
     out["rebuilt_frame"] = refit_frame_compare(r, "K2 on a rebuilt scene")
-    out["rebuilt_frame"]["k2_launches"] = read_launches()["k2"]
+    out["rebuilt_frame"]["k2_launches"] = frame_launches()["k2"]
     if cuda and out["rebuilt_frame"]["k2_launches"] != 1:
-        raise AssertionError(f"rebuilt frame launched {read_launches()}")
+        raise AssertionError(f"rebuilt frame launched {frame_launches()}")
     pt = PathTracer(scene, 256, 256, device=device)
     pt.set_geometry(rebuilt)
     if tables_equal(pt.tables.render.trace, pack_bounce_tables(pt.scene).render.trace):
@@ -2787,10 +2684,10 @@ def phase_viewer_refit(scene, tscene, width, height, device, card):
         against the plain G-buffer, bit for bit, outside the exact-t ties
         (and, with `order`, the order ties: order_ties) of K1 and the plain
         walk."""
-        reset_launches()
+        launch_tally().clear()
         frame = r.render_device() if frame is None else frame()
-        tl = read_launches()
-        if cuda and tl != dict(ZERO_LAUNCHES, k3=1, k3_pre=1, k4=1):
+        tl = frame_launches()
+        if cuda and tl != Counter(k3=1, k3_pre=1, k4=1):
             raise AssertionError(f"textured frame {label} launched {tl}")
         ties, counts = (order_ties(r.tables, width, height, r.px, r.py) if order else
                         (primary_ties(r.tables, width, height, r.px, r.py), None))
@@ -2849,7 +2746,8 @@ def frame_bounds(tables, width, height, shade=None):
     the pre-pass's operations (its own bound: camera_relative_bound)."""
     import torch
 
-    from gpu_raytracer_tpu_torch.engine.renderer import split_gbuffer, tiled_pixel_order
+    from gpu_raytracer_tpu_torch.engine.renderer import tiled_pixel_order
+    from gpu_raytracer_tpu_torch.ops.render import split_gbuffer
     from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import traversal_work, traverse
     from gpu_raytracer_tpu_torch.ops.linalg import dot
@@ -2982,13 +2880,12 @@ def w8_registers(ptxas: dict) -> dict:
 
 
 def main_path_launches(fn, n: int, device, want: dict, label: str) -> tuple[float, dict]:
-    """Median ms of n calls of fn with every launch count set to 0 before
-    and read after; on the card the counts must be `want` (ZERO_LAUNCHES
-    elsewhere)."""
-    reset_launches()
+    """Median ms of n calls of fn with the launch tally cleared before and
+    read after; on the card the counts must be `want` (none elsewhere)."""
+    launch_tally().clear()
     ms = timed(fn, n, device)
-    launches = read_launches()
-    if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, **want):
+    launches = frame_launches()
+    if device.type == "cuda" and launches != Counter(want):
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     return ms, launches
 
@@ -3041,11 +2938,10 @@ def moved_camera_compare(cases, width, height, device) -> dict:
             exclude = exclude | mip_boundary_mask(sh, render_deferred(tab, px, py, width, height))
         out[label] = dict(ties=ties, camera=tab.camera[:6].tolist(), frames={})
         for shadows in (False, True):
-            reset_launches()
+            launch_tally().clear()
             stats, _ = primary_compare(tab, sh, px, py, width, height, shadows, exclude)
-            launches = read_launches()
-            if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, **{label: 1,
-                                                                            "k3_pre": 1}):
+            launches = frame_launches()
+            if device.type == "cuda" and launches != Counter({label: 1, "k3_pre": 1}):
                 raise AssertionError(f"{label} after a camera move launched {launches}")
             if stats["err"] != 0.0:
                 raise AssertionError(f"{label} after a camera move: max |diff| {stats['err']:.3g} "
@@ -3319,9 +3215,9 @@ def phase_width8(scene, tables, tscene, ttables, tshade, width, height, pt_size,
     r.set_geometry(rebuilt)
     if (r.tables.trace.width, r.tables.trace.nodes.shape[1]) != (4, 32):
         raise AssertionError(f"a rebuild left width-{r.tables.trace.width} tables")
-    reset_launches()
+    launch_tally().clear()
     frame = r.render_device()
-    got = read_launches()
+    got = frame_launches()
     if cuda and (got["k2"], got["k2_w8"]) != (1, 0):
         raise AssertionError(f"the rebuilt width-8 scene's frame launched {got}")
     fresh = Renderer(rebuilt, width, height, shadows=True, device=device).render_device()
@@ -3566,8 +3462,6 @@ class ServeProbe:
         every part it is sent: frames per second at the producer, the
         frame's split, the launches of the window (checked per frame by
         the caller), the device's busy share (torch.profiler, `profile`)."""
-        import contextlib
-
         import torch
 
         s = self.server
@@ -3580,7 +3474,7 @@ class ServeProbe:
         with prof if prof is not None else contextlib.nullcontext():
             with s._lock:
                 self.clear()
-                reset_launches()
+                launch_tally().clear()
                 self.moving = moving
                 seq0, t0 = s._seq, time.perf_counter()
             parts = 0
@@ -3591,7 +3485,7 @@ class ServeProbe:
             with s._lock:
                 self.moving = False
                 seq1, t1 = s._seq, time.perf_counter()
-                launches = read_launches()
+                launches = frame_launches()
                 split = {k: list(getattr(self, k)) for k in self.LISTS}
             if cuda:
                 torch.cuda.synchronize(self.device)
@@ -3680,13 +3574,13 @@ def serve_reading(scene, width, height, device, pathtrace: bool) -> dict:
     probe = ServeProbe(s, device)
     out = dict(size=f"{width}x{height}", textured=textured, max_fps=SERVE_MAX_FPS)
     clients = []
-    launches = dict(ZERO_LAUNCHES)
+    launches = Counter()
 
     def check(label, w, per_frame, free=()):
         """The window's launches: per_frame[k] a computed frame of each
         kernel, none of the others outside `free`."""
-        want = {k: per_frame.get(k, 0) * w["computed"] for k in ZERO_LAUNCHES if k not in free}
-        if cuda and {k: c for k, c in w["launches"].items() if k not in free} != want:
+        want = Counter({k: n * w["computed"] for k, n in per_frame.items() if k not in free})
+        if cuda and Counter({k: c for k, c in w["launches"].items() if k not in free}) != want:
             raise AssertionError(f"{label}: {w['launches']} for {w['computed']} frames, "
                                  f"want {want}")
         for k, c in w["launches"].items():
@@ -3764,7 +3658,7 @@ def phase_server(scene, tscene, device, card):
     w, h = SERVE_SIZES[0]
     out[f"textured_courtyard_{w}x{h}"] = serve_reading(tscene, w, h, device, pathtrace=False)
     log(f"phase 23 server: {json.dumps(out)}")
-    total = dict(ZERO_LAUNCHES)
+    total = Counter()
     for r in out.values():
         if isinstance(r, dict):
             for k, c in r["launches_total"].items():
@@ -3800,12 +3694,12 @@ def phase_window(scene, device, card):
     win.tick()
     key = lambda k: win.root.bindings["<KeyPress>"](SimpleNamespace(keysym=k))
     out = dict(card=card, window_available=window_available())
-    reset_launches()
+    launch_tally().clear()
     for i in range(WINDOW_TICKS):
         key("ws"[i % 2])
         win.tick()
-    out["moving_launches"] = read_launches()
-    if cuda and out["moving_launches"] != dict(ZERO_LAUNCHES, k2=WINDOW_TICKS):
+    out["moving_launches"] = frame_launches()
+    if cuda and out["moving_launches"] != Counter(k2=WINDOW_TICKS):
         raise AssertionError(f"window ticks launched {out['moving_launches']}")
     win.tick()
     win.tick()
@@ -3822,10 +3716,10 @@ def phase_window(scene, device, card):
     if ppm_pixels().shape != (height // 2, width // 2, 3):
         raise AssertionError(f"after a resize the window shows {ppm_pixels().shape}")
     key("p")
-    reset_launches()
+    launch_tally().clear()
     for _ in range(WINDOW_TICKS):
         win.tick()
-    out["pathtrace_launches"] = read_launches()
+    out["pathtrace_launches"] = frame_launches()
     k6 = out["pathtrace_launches"]["k6"]
     if cuda and (k6 != 5 * WINDOW_TICKS
                  or out["pathtrace_launches"]["denoise"] != (PREVIEW_ITERS + 1) * WINDOW_TICKS):
@@ -3887,12 +3781,12 @@ def phase_oracle(device, card):
         t0 = time.perf_counter()
         want = oracle_frame(cpu_tracer.scene_dict_from(scene), size, size)
         oracle_s = time.perf_counter() - t0
-        reset_launches()
+        launch_tally().clear()
         plain, shadowed = (Renderer(scene, size, size, shadows=s, device=device).render()
                            for s in (False, True))
-        launches = read_launches()
+        launches = frame_launches()
         k2 += launches["k2"]
-        if device.type == "cuda" and launches != dict(ZERO_LAUNCHES, k2=2):
+        if device.type == "cuda" and launches != Counter(k2=2):
             raise AssertionError(f"oracle frames launched {launches}")
         lit = (shadowed == plain).all(axis=-1)
         r = dict(rmse_no_shadows=rmse(plain, want),
@@ -4157,8 +4051,6 @@ class CollectiveTimer:
         return timed_fn
 
     def __enter__(self):
-        import contextlib
-
         from gpu_raytracer_tpu_torch.parallel import shard
 
         self.stack = contextlib.ExitStack()
@@ -4182,9 +4074,9 @@ def sharded_reading(fn, device, want: dict) -> dict:
     """One call of fn with its launches counted (on the card exactly `want`,
     by kernel), then MESH_CALLS timed calls (median ms between events) and
     the collectives' share of one more."""
-    reset_launches()
+    launch_tally().clear()
     out = fn()
-    launches = {k: v for k, v in read_launches().items() if v}
+    launches = {k: v for k, v in frame_launches().items() if v}
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"a sharded call launched {launches}, want {want}")
     ms = timed(fn, MESH_CALLS, device)
@@ -4281,7 +4173,7 @@ def phase_multidevice(scene, tables, tscene, width, height, pt_size, device, car
     pt = PathTracer(scene, pt_size, pt_size, device=device)
     pt.step()
     step_ref, counts_ref = pt.accum.clone(), pt._last_counts.clone()
-    totals = dict(ZERO_LAUNCHES)
+    totals = Counter()
     out = {}
     for D in MESH_SIZES:
         mesh = make_mesh(D, device=device)
@@ -4369,7 +4261,8 @@ def phase_deep(scene, width, height, device, card):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from gpu_raytracer_tpu_torch.engine.renderer import Renderer, render_chunk
+    from gpu_raytracer_tpu_torch.engine.renderer import Renderer
+    from gpu_raytracer_tpu_torch.ops.render import render_chunk
     from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
 
     cuda = device.type == "cuda"
@@ -4393,13 +4286,13 @@ def phase_deep(scene, width, height, device, card):
         if cuda:
             torch.cuda.synchronize(device)
         for session in range(1, DEEP_PROFILE_SESSIONS + 1):
-            reset_launches()
+            launch_tally().clear()
             with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
                 for _ in range(FRAMES):
                     got = r.render_device()
                 if cuda:
                     torch.cuda.synchronize(device)
-            launches = read_launches()
+            launches = frame_launches()
             seen = {}
             for e in prof.key_averages():
                 if "render_primary_kernel" in e.key:
@@ -4408,7 +4301,7 @@ def phase_deep(scene, width, height, device, card):
             if seen or not cuda:
                 break
         PROFILER_SESSIONS.setdefault(f"phase 26 {key}", []).append(session)
-        if cuda and (launches != dict(ZERO_LAUNCHES, k2=FRAMES) or set(seen) != {instance}
+        if cuda and (launches != Counter(k2=FRAMES) or set(seen) != {instance}
                      or not 0 < seen[instance] <= FRAMES):
             raise AssertionError(f"{FRAMES} frames launched {launches}; the trace holds {seen} "
                                  f"after {session} sessions, want only {instance}")

@@ -43,23 +43,14 @@ namespace rt {
 // --variants kName=VALUE` reads the other one.
 constexpr int kPrimaryNearAnyW8 = 0;
 constexpr int kPrimaryNearAnyTexturedW8 = 1;
-// The width-8 camera walk over the camera-relative tables (1), or over the
-// ordinary ones (0, for an A/B: the wrapper still launches the pre-pass).
-constexpr int kPrimaryCameraRelW8 = 1;
-// The width-8 material step split around the light loop (1), or taken
-// whole before it (0, for an A/B).
-constexpr int kPrimarySplitW8 = 1;
-// The same two choices for K2t at width 4 (the wrapper launches the
-// pre-pass before every width-4 K2t launch either way).
-constexpr int kPrimaryCameraRelTexturedW4 = 1;
-constexpr int kPrimarySplitTexturedW4 = 1;
-// Whether instance (W, TEXTURED) takes REL, SPLIT (the pixel's defaults).
+// Whether instance (W, TEXTURED) takes REL, SPLIT (the pixel's defaults):
+// K2 w8 and K2t at both widths walk the camera-relative tables, which the
+// wrapper's pre-pass writes before each of their launches, and split their
+// material step around the light loop; K2 at width 4 does neither.
 template <int W, bool TEXTURED>
-constexpr bool kPrimaryRel =
-    W == 8 ? kPrimaryCameraRelW8 != 0 : TEXTURED && kPrimaryCameraRelTexturedW4 != 0;
+constexpr bool kPrimaryRel = W == 8 || TEXTURED;
 template <int W, bool TEXTURED>
-constexpr bool kPrimarySplit =
-    W == 8 ? kPrimarySplitW8 != 0 : TEXTURED && kPrimarySplitTexturedW4 != 0;
+constexpr bool kPrimarySplit = W == 8 || TEXTURED;
 
 // What the textured instance reads beside the untextured one's arguments.
 struct PrimaryTextures {

@@ -10,7 +10,7 @@
 // plus the sphere occluders, and the per-channel dispersion blend.
 //
 // Every formula follows the plain PyTorch version (ops/camera_rays.py,
-// ops/trace.py, ops/shading.py, engine/renderer.py::_shadow_mask) operation
+// ops/trace.py, ops/shading.py, ops/render.py::_shadow_mask) operation
 // for operation, in the same order: IEEE division and sqrt (no rsqrt, no
 // reciprocal multiply), three-term dot products added left to right, and
 // __float2half_rn for the attenuation. Built with -fmad=false the kernels then

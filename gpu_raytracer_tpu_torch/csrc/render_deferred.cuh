@@ -12,7 +12,7 @@
 // planes of one float4 per ray, [2, n, 4]:
 //   plane 0: (S.r, S.g, S.b, material id as int bits),
 //   plane 1: (u, v, mip footprint, 0),
-// with material -1 and zeros for a miss (engine/renderer.py::split_gbuffer
+// with material -1 and zeros for a miss (ops/render.py::split_gbuffer
 // reads both layouts). Each store of a warp is one contiguous 512-byte run,
 // and K4 (texshade.cu), which applies the materials and textures, reads
 // plane 1 for hits only.

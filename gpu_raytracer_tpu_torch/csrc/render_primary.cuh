@@ -30,7 +30,7 @@
 // (render_common.cuh::sampled_light): the TPU kernel's branch above 16
 // lights (:410-423). Null loops over every light.
 //
-// Every formula follows the plain PyTorch version (engine/renderer.py::
+// Every formula follows the plain PyTorch version (ops/render.py::
 // render_chunk and ops/shading.py) operation for operation, in the same order
 // (render_common.cuh holds the parts shared with the deferred trace, K3), and
 // the light sum accumulates in light order. Built with -fmad=false the kernel

@@ -53,10 +53,10 @@ from ..ops.cuda.render import set_camera
 from ..ops.cuda.traverse import refit_trace_tables, trace
 from ..ops.denoise import atrous_denoise
 from ..ops.linalg import cross, dot
+from ..ops.pool import path_trace_pool
 from ..ops.shading import material_textures
-from ..ops.wavefront import (RGB_CHANNEL, WavefrontCounters, camera_wavefront_rays,
-                             path_trace_pool)
-from ..utils.image import linear_to_srgb
+from ..ops.wavefront import RGB_CHANNEL, WavefrontCounters, camera_wavefront_rays
+from ..utils.image import quantize_u8
 from .perf import ProgressiveTiming, Timer, span
 from .renderer import light_seed, resolve_device, tiled_pixel_order
 
@@ -204,7 +204,7 @@ def warp_jitter(seed: int, warp_no: int, n: int, device) -> torch.Tensor:
 
 def to_u8(img: torch.Tensor) -> torch.Tensor:
     """Linear [H,W,3] f32 -> sRGB-encoded u8 on the image's device."""
-    return (torch.clamp(linear_to_srgb(img), 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    return quantize_u8(img)
 
 
 class PathTracer:

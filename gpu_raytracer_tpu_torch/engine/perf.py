@@ -225,10 +225,9 @@ class DeviceProfiler:
     `pool.bounce`, and `pathtracer.accumulate`); the camera pool and the
     `pool.*` spans also inside a fly frame and an interleaved step. The
     recorder counts `pool.lanes` and `pool.live`, the lanes handed to the
-    bounce kernel and the live ones among them, and `camera.row_launches`,
-    the camera moves written by one launch on CUDA tables, and at every K2,
-    K2t and K3 launch `render.table_bytes`, the bytes of the node and
-    triangle tables the launch walks (`snapshot()`).
+    bounce kernel and the live ones among them, and at every K2, K2t and K3
+    launch `render.table_bytes`, the bytes of the node and triangle tables
+    the launch walks (`snapshot()`).
     """
 
     def __init__(self, log_dir: str):

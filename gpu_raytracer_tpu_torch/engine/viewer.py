@@ -32,7 +32,7 @@ from ..config import DEFAULT_CONFIG, RaytracerConfig
 from ..models.camera import CameraController
 from ..models.scene import Scene, refit_scene
 from ..ops.cuda.render import MAX_LIGHTS
-from ..utils.image import to_u8
+from ..utils.image import quantize_u8, to_u8
 from .perf import PerformanceState, ProgressiveTiming, Timer, block_on, span
 from .progressive import ProgressiveState
 from .renderer import Renderer, resolve_device, tiled_pixel_order
@@ -375,9 +375,7 @@ class Viewer:
         holds the handle and materialises it a frame later, so the read-back
         of frame N-1 overlaps frame N's work."""
         if self._fb_dev is not None and self._fb_host_dirty and self._fb_rowmajor:
-            from .pathtracer import to_u8 as device_u8
-
-            return self._enqueue_read(device_u8(self._fb_dev))
+            return self._enqueue_read(quantize_u8(self._fb_dev))
         return to_u8(self.framebuffer)
 
     def present_frame_packed(self):

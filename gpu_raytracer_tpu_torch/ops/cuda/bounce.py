@@ -40,11 +40,13 @@ from dataclasses import dataclass
 import torch
 
 from ...models.scene import Scene
-from .build import check, load_kernels
 from ..sampler import MASK32, QmcStream, lattice_words, mul32, pcg_hash
+from ..shading import sample_materials as plain_sample_materials
+from ..wavefront import bounce, bounce_
+from .build import check, load_kernels, tally
 from .render import RenderTables, pack_render_tables
 from .texshade import ShadeTables, pack_shade_tables
-from .traverse import count_launch, nodes_ptr
+from .traverse import nodes_ptr
 
 # lighting modes and continuations of the kernel (csrc/bounce.cuh)
 NEE_NONE, NEE_ALL, NEE_SAMPLED = 0, 1, 2
@@ -134,8 +136,6 @@ def fused_bounce_(tables: BounceTables, r, radiance: torch.Tensor, *, depth: int
             lane's identity: on the card the kernel computes them itself.
 
     CUDA tensors launch the kernel, CPU tensors take the plain version."""
-    from ..wavefront import bounce_
-
     if (u is None) == (qmc is None):
         raise ValueError("fused_bounce_: give the uniforms `u` or the QMC stream `qmc`")
     N = _check_pool(tables, r, order, n_live, u, radiance)
@@ -161,9 +161,9 @@ def fused_bounce_(tables: BounceTables, r, radiance: torch.Tensor, *, depth: int
     stream = torch.cuda.current_stream(dev).cuda_stream
     tr = rt.trace
     nodes = nodes_ptr(tr)
-    count_launch(fused_bounce_, tr)
-    if textured:
-        count_launch(fused_bounce_, tr, "material_launches")
+    tally("k6", tr.width)
+    if textured:   # each runs K5 per hit
+        tally("k5", tr.width)
     check(k.lib.rt_bounce(
         nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), tr.width, tr.stack,
         rt.materials.data_ptr(), rt.materials.shape[0], rt.lights.data_ptr(), n_lights,
@@ -175,12 +175,6 @@ def fused_bounce_(tables: BounceTables, r, radiance: torch.Tensor, *, depth: int
         ptr(n_live), ptr(u), words, nee, cont, stream), "rt_bounce")
 
 
-fused_bounce_.launches = 0               # K6 launches at width 4
-fused_bounce_.material_launches = 0      # of which textured: each runs K5 per hit
-fused_bounce_.w8_launches = 0            # K6 launches at width 8
-fused_bounce_.w8_material_launches = 0   # of which textured
-
-
 def fused_bounce(tables: BounceTables, r, u: torch.Tensor, *, shadows: bool, do_rr: bool,
                  light_sample: bool = False, tex_lod: float = 0.0, last: bool = False):
     """The functional form: one bounce of pool `r` with uniforms u [N,7] f32
@@ -188,8 +182,6 @@ def fused_bounce(tables: BounceTables, r, u: torch.Tensor, *, shadows: bool, do_
     of `ops/wavefront.py::bounce`; `r` is left as it was. On CUDA tensors it
     is `fused_bounce_` (the kernel) on a copy of the pool; CPU tensors take
     the plain `bounce`."""
-    from ..wavefront import bounce
-
     flags = dict(shadows=shadows, do_rr=do_rr, light_sample=light_sample, tex_lod=tex_lod,
                  last=last)
     if tables.device.type == "cpu":
@@ -212,23 +204,18 @@ def qmc_uniforms_kernel(qmc: QmcStream, depth: int, n: int, device) -> torch.Ten
     k = load_kernels()
     out = torch.empty((n, 7), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    qmc_uniforms_kernel.launches += 1
+    tally("qmc")
     check(k.lib.rt_qmc_uniforms(qmc_words(qmc, depth, n // qmc.spp), n, out.data_ptr(), stream),
           "rt_qmc_uniforms")
     return out
-
-
-qmc_uniforms_kernel.launches = 0
 
 
 def material_channels(scene: Scene, mat_id: torch.Tensor, uv: torch.Tensor,
                       lod: float = 0.0) -> torch.Tensor:
     """The plain version of the K5 launch below: ops/shading.py's
     `sample_materials` as [N,11] f32 channels, occlusion 1 without a map."""
-    from ..shading import sample_materials as plain
-
     mid = torch.clamp(mat_id.long(), 0, scene.materials.count - 1)
-    m = plain(scene, mid, uv, lod=lod if lod > 0.0 else None)
+    m = plain_sample_materials(scene, mid, uv, lod=lod if lod > 0.0 else None)
     occ = m.occlusion if m.occlusion is not None else torch.ones_like(m.metallic)
     return torch.cat([m.albedo, m.emission, torch.stack(
         [m.metallic, m.roughness, m.ior, m.transmission, occ], dim=1)], dim=1)
@@ -254,12 +241,9 @@ def sample_materials(tables: BounceTables, mat_id: torch.Tensor, uv: torch.Tenso
     k = load_kernels()
     out = torch.empty((N, MATERIAL_CHANNELS), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    sample_materials.launches += 1
+    tally("k5_standalone")
     check(k.lib.rt_sample_materials(
         sh.materials.data_ptr(), sh.materials.shape[0], sh.maps.data_ptr(), sh.atlas.data_ptr(),
         sh.present, sh.n_levels, mat_id.data_ptr(), uv.data_ptr(), float(lod), N,
         out.data_ptr(), stream), "rt_sample_materials")
     return out
-
-
-sample_materials.launches = 0

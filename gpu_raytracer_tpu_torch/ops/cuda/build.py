@@ -15,6 +15,7 @@ division and sqrt).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -42,6 +43,13 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 LIB_NAME = "librt_kernels.so"
+# Kernel launches by kernel id, added to at every launch (`tally`) and
+# cleared by whoever reads them: k1_standalone, k1_threaded, k2, k2t, k3,
+# k3_pre (K3's pre-pass), k4, k5 (inside K6's textured launches),
+# k5_standalone, k6, the width-8 instances as k1_standalone_w8, k2_w8,
+# k2t_w8, k3_w8, k5_w8 and k6_w8, camera_row, qmc, and denoise (the à-trous
+# filter's prepare and pass launches).
+LAUNCHES: collections.Counter = collections.Counter()
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -178,6 +186,12 @@ def load_kernels() -> KernelLibrary:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return KernelLibrary(lib, path, seconds, log)
+
+
+def tally(kernel: str, width: int = 4) -> None:
+    """Count one launch of `kernel` in LAUNCHES; at node width 8 as
+    `kernel` + "_w8", the instance of that width."""
+    LAUNCHES[kernel if width == 4 else f"{kernel}_w8"] += 1
 
 
 def check(status: int, name: str) -> None:

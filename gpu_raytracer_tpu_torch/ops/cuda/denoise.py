@@ -18,18 +18,18 @@ Per call:
      the next pass's colour plane; the last pass remodulates into the
      [H,W,3] frame.
 So a call launches `iterations + 1` hand-written kernels (the prepare launch
-alone for no pass), counted in `atrous_denoise.launches` and, under a
-profiler, in the counter `denoise.launches`; the call is the program span
-`denoise.atrous`. The colour, normal, depth and albedo may be strided views
-whose pixels lie a fixed number of floats apart (the path tracer's G-buffer
-planes are views of one [C,7] tensor); other layouts are copied first."""
+alone for no pass), counted in build.py's LAUNCHES as denoise; the call is
+the program span `denoise.atrous`. The colour, normal, depth and albedo may
+be strided views whose pixels lie a fixed number of floats apart (the path
+tracer's G-buffer planes are views of one [C,7] tensor); other layouts are
+copied first."""
 
 from __future__ import annotations
 
 import torch
 
-from ...engine.perf import count, span
-from .build import check, load_kernels
+from ...engine.perf import span
+from .build import check, load_kernels, tally
 
 SUBSAMPLE_EDGE = 256        # frames above this many pixels an edge take every k-th row / column
 MAX_ITERATIONS = 24         # the kernel's dilation 2^it is at most 2^23
@@ -97,8 +97,6 @@ def atrous_denoise(color: torch.Tensor, normal: torch.Tensor, depth: torch.Tenso
                 _pixel_rows(depth, n, 0, "depth"),
                 (None, 0) if albedo is None else _pixel_rows(albedo, n, 3, "albedo")]
         out = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
-        atrous_denoise.launches += iterations + 1
-        count("denoise.launches", iterations + 1)
         if iterations == 0:
             _prepare(kernels[0], rows, H, W, dev, out=out)
             return out
@@ -109,6 +107,7 @@ def atrous_denoise(color: torch.Tensor, normal: torch.Tensor, depth: torch.Tenso
         stream = torch.cuda.current_stream(dev).cuda_stream
         for it in range(iterations):
             last = it == iterations - 1
+            tally("denoise")
             check(kernels[1](planes[it % 2].data_ptr(), planes[2].data_ptr(), sub.data_ptr(),
                              sub.numel(), H, W, 1 << it, sigma_color / (1 << it), sigma_depth,
                              float(sigma_normal), power,
@@ -127,6 +126,7 @@ def _prepare(prepare, rows, H: int, W: int, dev, out=None):
     ptrs = [(None if t is None else t.data_ptr(), stride) for t, stride in rows]
     args = [v for pair in ptrs for v in pair] + [H, W]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    tally("denoise")
     if out is not None:
         check(prepare(*args, 1, 1, None, None, None, out.data_ptr(), stream),
               "rt_atrous_prepare")
@@ -138,6 +138,3 @@ def _prepare(prepare, rows, H: int, W: int, dev, out=None):
     check(prepare(*args, sy, sx, planes[0].data_ptr(), planes[2].data_ptr(), sub.data_ptr(),
                   None, stream), "rt_atrous_prepare")
     return planes, sub
-
-
-atrous_denoise.launches = 0

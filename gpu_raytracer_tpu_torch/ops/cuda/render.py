@@ -5,7 +5,7 @@ K2 replaces the TPU kernel `gpu_raytracer_tpu/ops/pallas/render.py`
 (`pallas_render_primary` -> `_kernel`, untextured branch). Kernel source:
 csrc/render_primary.cuh, instantiated in csrc/render_primary.cu, which calls
 K1's device function (csrc/traverse.cuh) for the primary ray and for one
-shadow ray per light. Its plain version is `engine/renderer.py::render_chunk`.
+shadow ray per light. Its plain version is `ops/render.py::render_chunk`.
 
 K2t replaces the textured branch of the same TPU kernel: the same kernel
 template with the hit's uv, its mip footprint and the material sampled from
@@ -15,8 +15,8 @@ Its plain version is `render_chunk` on the textured scene (`trilinear=False`).
 `render_primary` launches it for a textured scene.
 
 Every launch takes the instance of the node table's width (4 or 8,
-`TraceTables.width`), counted apart: `launches` at width 4, `w8_launches`
-at width 8 (and `w8_textured_launches` beside `textured_launches`).
+`TraceTables.width`), counted apart in build.py's LAUNCHES: k2 and k2t at
+width 4, k2_w8 and k2t_w8 at width 8.
 
 K3 replaces `pallas_render_deferred` -> `_kernel_deferred` of the same file:
 the first phase of the textured render. Kernel source:
@@ -24,7 +24,7 @@ csrc/render_deferred.cu, which shares K2's camera ray, sphere pass and
 per-light shadowed intensity (csrc/render_common.cuh) and writes the
 G-buffer as two planes [2,N,4]: (S rgb, material id) for every ray, then
 (uv, mip footprint, 0). Its plain version is
-`engine/renderer.py::render_gbuffer`, whose rows [N,8] hold the same words;
+`ops/render.py::render_gbuffer`, whose rows [N,8] hold the same words;
 `render_deferred` returns planes on either device (`gbuffer_planes`).
 On the card every K3 launch, every K2t launch and every K2 launch at node
 width 8 comes after one launch of K3's pre-pass, `camera_relative`
@@ -72,9 +72,10 @@ from ...models.camera import Camera, tan_half_fov
 from ...models.scene import Scene
 from ..f16 import unpack_f16_high, unpack_f16_low
 from ..linalg import cross, normalize
+from ..render import gbuffer_planes, render_chunk, render_gbuffer
 from ..shading import pixel_footprint_scale
-from .build import check, load_kernels
-from .traverse import TraceTables, count_launch, nodes_ptr, pack_trace_tables
+from .build import check, load_kernels, tally
+from .traverse import TraceTables, nodes_ptr, pack_trace_tables
 
 MAX_LIGHTS = 16   # above this `Renderer` hands the kernels a `light_u`, as the JAX package
 REL_TRI_WORDS = 16   # f32 words of a camera-relative triangle row: (e1, e2.q), (e2, 0), (s, 0), (q, 0)
@@ -171,7 +172,7 @@ def write_camera_row(tables: RenderTables, camera: Camera, fov_scale: float) -> 
     place. A field on the host goes in as launch arguments by value (nothing
     is staged in memory a later move could overwrite); a field on the card
     is read there through its pointer, never on the host. Counted in
-    `launches` and in the counter `camera.row_launches`."""
+    LAUNCHES as camera_row."""
     dev = tables.camera.device
     ptrs, values = [], []
     for f, n in zip((camera.position, camera.direction, camera.up, camera.fov), CAMERA_FIELDS):
@@ -187,14 +188,10 @@ def write_camera_row(tables: RenderTables, camera: Camera, fov_scale: float) -> 
     fields = torch.empty(sum(CAMERA_FIELDS), dtype=torch.float32, device=dev)
     k = load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    write_camera_row.launches += 1
-    count("camera.row_launches", 1)
+    tally("camera_row")
     check(k.lib.rt_camera_row(*ptrs, *values, fov_scale, tables.camera.data_ptr(),
                               fields.data_ptr(), stream), "rt_camera_row")
     return Camera(fields[0:3], fields[3:6], fields[6:9], fields[9])
-
-
-write_camera_row.launches = 0
 
 
 def pack_render_tables(scene: Scene) -> RenderTables:
@@ -258,10 +255,10 @@ def relative_buffers(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
 def camera_relative(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
     """K3's pre-pass, also launched before every K2t and width-8 K2 launch:
     the camera-relative tables of the tables' current camera written into
-    `relative_buffers(tables)`, which it returns. CUDA
-    tensors launch csrc/camera_relative.cu on the current stream (counted in
-    `launches`; the camera's position is read on the device), CPU tensors
-    take the plain `camera_relative_tables`."""
+    `relative_buffers(tables)`, which it returns. CUDA tensors launch
+    csrc/camera_relative.cu on the current stream (counted in LAUNCHES as
+    k3_pre; the camera's position is read on the device), CPU tensors take
+    the plain `camera_relative_tables`."""
     tr = tables.trace
     dev = tr.device
     if dev.type not in ("cpu", "cuda"):
@@ -275,14 +272,11 @@ def camera_relative(tables: RenderTables) -> tuple[torch.Tensor, torch.Tensor]:
     nodes = nodes_ptr(tr)
     k = load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    camera_relative.launches += 1
+    tally("k3_pre")
     check(k.lib.rt_camera_relative(tables.camera.data_ptr(), nodes, tr.width, tr.nodes.shape[0],
                                    tr.tris.data_ptr(), tr.tris.shape[0], rel_nodes.data_ptr(),
                                    rel_tris.data_ptr(), stream), "rt_camera_relative")
     return rel_nodes, rel_tris
-
-
-camera_relative.launches = 0
 
 
 def count_walk(tables: RenderTables, rel: bool) -> None:
@@ -335,8 +329,6 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     node width 8, and K2t at both widths, after K3's pre-pass
     `camera_relative`, whose tables their camera walk reads), CPU tensors
     take the plain version."""
-    from ...engine.renderer import render_chunk
-
     N = _check_pixels(tables, px, py, light_u, "render_primary")
     if px.device.type == "cpu":
         return render_chunk(tables.scene, px, py, width, height, shadows=shadows, sky=sky,
@@ -363,23 +355,17 @@ def render_primary(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
                   sky_b, _light_u_ptr(tables, light_u), rgb.data_ptr(), stream)
     count_walk(tables, use_rel)
     if textured:
-        count_launch(render_primary, tr, "textured_launches")
+        tally("k2t", tr.width)
         check(k.lib.rt_render_primary_textured(
             nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), *rel, tr.width, tr.stack, *scene_args,
             shade.maps.data_ptr(), shade.atlas.data_ptr(), shade.present, shade.n_levels,
             pixel_footprint_scale(tables.fov_scale, height), *frame_args),
             "rt_render_primary_textured")
     else:
-        count_launch(render_primary, tr)
+        tally("k2", tr.width)
         check(k.lib.rt_render_primary(nodes, tr.tris.data_ptr(), *rel, tr.width, tr.stack,
                                       *scene_args, *frame_args), "rt_render_primary")
     return rgb
-
-
-render_primary.launches = 0               # K2
-render_primary.textured_launches = 0      # K2t
-render_primary.w8_launches = 0            # K2, width 8
-render_primary.w8_textured_launches = 0   # K2t, width 8
 
 
 def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
@@ -390,10 +376,8 @@ def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     footprint, 0). `light_u` [N] f32 selects single-sample light selection.
     CUDA tensors launch K3's pre-pass (`camera_relative`) and then K3,
     whose camera walk reads its tables; CPU tensors take the plain version
-    (engine/renderer.py::render_gbuffer, whose rows [N,8] hold the same
+    (ops/render.py::render_gbuffer, whose rows [N,8] hold the same
     words, laid out as planes)."""
-    from ...engine.renderer import gbuffer_planes, render_gbuffer
-
     N = _check_pixels(tables, px, py, light_u, "render_deferred")
     if px.device.type == "cpu":
         return gbuffer_planes(render_gbuffer(tables.scene, px, py, width, height,
@@ -405,8 +389,8 @@ def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
     stream = torch.cuda.current_stream(px.device).cuda_stream
     nodes = nodes_ptr(tr)
     rel_nodes, rel_tris = (x.data_ptr() for x in camera_relative(tables))
-    count_launch(render_deferred, tr)
     count_walk(tables, True)
+    tally("k3", tr.width)
     check(k.lib.rt_render_deferred(
         nodes, tr.tris.data_ptr(), tr.attrs.data_ptr(), rel_nodes, rel_tris, tr.width, tr.stack,
         tables.camera.data_ptr(), tables.lights.data_ptr(), tables.lights.shape[0],
@@ -414,7 +398,3 @@ def render_deferred(tables: RenderTables, px: torch.Tensor, py: torch.Tensor,
         N, width, height, int(shadows), pix, _light_u_ptr(tables, light_u), gbuf.data_ptr(),
         stream), "rt_render_deferred")
     return gbuf
-
-
-render_deferred.launches = 0      # width 4
-render_deferred.w8_launches = 0   # width 8

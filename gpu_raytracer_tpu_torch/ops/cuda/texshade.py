@@ -4,7 +4,7 @@ Replaces the TPU kernel `gpu_raytracer_tpu/ops/pallas/texshade.py`
 (`pallas_texture_shade` -> `_kernel`): the second phase of the textured
 render. Kernel source: csrc/texshade.cu, with the sampler in
 csrc/texsample.cuh. Its plain version is `ops/shading.py::shade_deferred`
-over the split G-buffer (`engine/renderer.py::split_gbuffer`).
+over the split G-buffer (`ops/render.py::split_gbuffer`).
 
 The tables are laid out once per scene, on the scene's device:
 
@@ -43,8 +43,10 @@ from ...models.material import (TEX_BASE_COLOR, TEX_EMISSIVE, TEX_METALLIC_ROUGH
                                 TEX_OCCLUSION)
 from ...models.geometry import TEX_CHUNK
 from ...models.scene import Scene
+from ..render import split_gbuffer
+from ..shading import shade_deferred
 from ..texture import NO_TEXTURE
-from .build import check, load_kernels
+from .build import check, load_kernels, tally
 from .render import material_rows
 
 # map slots in the kernel's table order (csrc/texsample.cuh kMap*)
@@ -125,9 +127,6 @@ def texture_shade(tables: ShadeTables, gbuf: torch.Tensor, sky=(0.0, 0.0, 0.0),
     planes [2,N,4] f32 that `render_deferred` returns (the plain
     `render_gbuffer`'s rows go through `gbuffer_planes` first). CUDA tensors
     launch the kernel, CPU tensors take the plain version."""
-    from ...engine.renderer import split_gbuffer
-    from ..shading import shade_deferred
-
     N = gbuf.shape[1] if gbuf.dim() == 3 else -1
     if gbuf.dtype != torch.float32 or tuple(gbuf.shape) != (2, N, 4) or not gbuf.is_contiguous():
         raise ValueError(f"gbuf: want contiguous float32 (2, N, 4) planes, got {gbuf.dtype} "
@@ -144,12 +143,9 @@ def texture_shade(tables: ShadeTables, gbuf: torch.Tensor, sky=(0.0, 0.0, 0.0),
     rgb = torch.empty((N, 3), dtype=torch.float32, device=gbuf.device)
     sky_r, sky_g, sky_b = (float(c) for c in sky)
     stream = torch.cuda.current_stream(gbuf.device).cuda_stream
-    texture_shade.launches += 1
+    tally("k4")
     check(k.lib.rt_texture_shade(
         gbuf.data_ptr(), N, tables.materials.data_ptr(), tables.materials.shape[0],
         tables.maps.data_ptr(), tables.atlas.data_ptr(), tables.present, tables.n_levels,
         int(trilinear), sky_r, sky_g, sky_b, rgb.data_ptr(), stream), "rt_texture_shade")
     return rgb
-
-
-texture_shade.launches = 0

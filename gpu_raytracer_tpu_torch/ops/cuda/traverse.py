@@ -60,7 +60,7 @@ from ..texture import den_decode
 from ..bvh_traverse import bvh_traverse_threaded
 from ..trace import Hit, slot_attributes, traverse_triangles
 from ..trace import trace as plain_trace
-from .build import check, load_kernels
+from .build import check, load_kernels, tally
 
 STACK_SIZES = (16, 32, 64, 128)   # stack capacities compiled at width 4 (csrc/traverse.cu)
 # and at width 8, where 16 entries would hold only a two-level tree
@@ -272,9 +272,9 @@ def traverse(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
     miss; material [N] or -1). With any_hit the ray stops at the first
     blocker found: only hit (and the blocker's t and slot) are defined, and
     which blocker is found depends on the traversal order. CUDA tensors
-    launch the kernel instance of the tables' width (counted in `launches`
-    at width 4, `w8_launches` at width 8), CPU tensors take the plain
-    version."""
+    launch the kernel instance of the tables' width (counted in LAUNCHES as
+    k1_standalone, or k1_standalone_w8 at width 8), CPU tensors take the
+    plain version."""
     N = _check_rays(tables, orig, dirn, max_t)
     if orig.device.type == "cpu":
         return traverse_triangles(tables.scene, orig, dirn, max_t, any_hit=any_hit)
@@ -287,16 +287,12 @@ def traverse(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor,
     mat = torch.empty((N,), dtype=torch.int32, device=orig.device)
     stream = torch.cuda.current_stream(orig.device).cuda_stream
     nodes = nodes_ptr(tables)
-    count_launch(traverse, tables)
+    tally("k1_standalone", tables.width)
     check(k.lib.rt_traverse(nodes, tables.tris.data_ptr(), tables.width, tables.stack,
                             orig.data_ptr(), dirn.data_ptr(), max_t.data_ptr(), N,
                             int(any_hit), t.data_ptr(), slot.data_ptr(),
                             normal.data_ptr(), mat.data_ptr(), stream), "rt_traverse")
     return t, slot, slot >= 0, normal, mat
-
-
-traverse.launches = 0      # width 4
-traverse.w8_launches = 0   # width 8
 
 
 @dataclass
@@ -357,8 +353,9 @@ def traverse_threaded(tables: ThreadedTables, orig: torch.Tensor, dirn: torch.Te
     tree's left-first order over its threaded hit / miss links -> what
     `traverse` returns: (t [N] f32, MISS_T on a miss; slot [N] or -1; hit
     [N] bool; unit normal [N,3] f32, 0 on a miss; material [N] or -1). CUDA
-    tensors launch csrc/traverse_threaded.cu (counted in `launches`), CPU
-    tensors take its plain version, ops/bvh_traverse.py::bvh_traverse_threaded.
+    tensors launch csrc/traverse_threaded.cu (counted in LAUNCHES as
+    k1_threaded), CPU tensors take its plain version,
+    ops/bvh_traverse.py::bvh_traverse_threaded.
     With `past` (int32 [N] on the card) the kernel's counting instance runs
     and also writes there each ray's node visits made with a leaf pending
     (the plain walk makes none, so the CPU has nothing to count). No main
@@ -388,7 +385,7 @@ def traverse_threaded(tables: ThreadedTables, orig: torch.Tensor, dirn: torch.Te
     normal = torch.empty((N, 3), dtype=torch.float32, device=orig.device)
     mat = torch.empty((N,), dtype=torch.int32, device=orig.device)
     stream = torch.cuda.current_stream(orig.device).cuda_stream
-    traverse_threaded.launches += 1
+    tally("k1_threaded")
     check(k.lib.rt_traverse_threaded(nodes.data_ptr(), nodes.shape[0], int(tables.lean),
                                      tables.tris.data_ptr(),
                                      orig.data_ptr(), dirn.data_ptr(), max_t.data_ptr(), N,
@@ -397,16 +394,6 @@ def traverse_threaded(tables: ThreadedTables, orig: torch.Tensor, dirn: torch.Te
                                      None if past is None else past.data_ptr(), stream),
           "rt_traverse_threaded")
     return t, slot, slot >= 0, normal, mat
-
-
-traverse_threaded.launches = 0
-
-
-def count_launch(wrapper, tables: TraceTables, kind: str = "launches") -> None:
-    """Add one to the wrapper's count of launches of the instance of the
-    tables' width: `kind` at width 4, "w8_" + `kind` at width 8."""
-    name = kind if tables.width == 4 else f"w8_{kind}"
-    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def trace(tables: TraceTables, orig: torch.Tensor, dirn: torch.Tensor, max_t=None) -> Hit:

@@ -17,12 +17,11 @@ glass pay for dispersion.
 (pool in, new pool and radiance out); `bounce_` is the plain version of
 the kernel's own contract (ops/cuda/bounce.py::fused_bounce_): the pool and
 the radiance updated in place, only the live lanes of a coherence order
-worked on. `path_trace_pool` drives `fused_bounce_` from a static loop over
-the depths, the same way on either device. Between depths the live lanes
-are ordered by (direction octant | dominant axis | coarse origin Morton
-code) for traversal coherence, dead lanes last; the pool itself never
-moves, the kernel goes to its lanes through the order. No step of the loop
-reads a value back to the host.
+worked on. `coherence_order` orders the live lanes between depths by
+(direction octant | dominant axis | coarse origin Morton code) for
+traversal coherence, dead lanes last; the pool itself never moves, the
+kernel goes to its lanes through the order. The loop over the depths is
+ops/pool.py::path_trace_pool.
 """
 
 from __future__ import annotations
@@ -37,10 +36,13 @@ from ..models.scene import Scene
 from .camera_rays import generate_rays
 from .intersect import MISS_T
 from .linalg import dot, normalize
+from .rng import bounce_key, sample_uniform
+from .sampler import qmc_uniforms
 from .sampling import (RAY_CAMERA, RAY_REFLECT, RAY_TRANSMIT, cosine_hemisphere,
                        ior_for_channel, reflect, refract, schlick_fresnel)
-from .shading import (MAGENTA, MaterialSample, _brdf_scale, dispersion_blend, light_intensity,
-                      lit_by_all_lights, sample_light_index, sample_materials)
+from .shading import (MAGENTA, MaterialSample, _brdf_scale, apply_dispersion, direct_lighting,
+                      dispersion_blend, light_intensity, lit_by_all_lights, sample_light_index,
+                      sample_materials)
 from .trace import Hit, occluded, trace
 
 SKY_WAVEFRONT = (0.1, 0.2, 0.3)
@@ -227,8 +229,6 @@ def pool_uniforms(qmc, depth: int, lane: torch.Tensor, count: int) -> torch.Tens
     sample_base + lane // C, so a lane's numbers do not depend on where a
     coherence order puts it. The plain version of the bounce kernel's own
     stream."""
-    from .sampler import qmc_uniforms
-
     C = count // qmc.spp
     lane = lane.to(torch.int64)
     return qmc_uniforms(int(qmc.pid_base) + lane % C, int(qmc.sample_base) + lane // C, depth,
@@ -239,8 +239,6 @@ def stream_uniforms(rng_seed: int, sample_base: int, depth: int, count: int,
                     device) -> torch.Tensor:
     """The [count,7] uniform block of bounce `depth` from the independent
     stream (sampler "rng"), one row per position of the coherence order."""
-    from .rng import bounce_key, sample_uniform
-
     return sample_uniform(bounce_key(rng_seed, sample_base, depth, device=device), (count,), 7)
 
 
@@ -424,73 +422,11 @@ def bounce_(scene: Scene, r: WavefrontRays, radiance: torch.Tensor, *, depth: in
     radiance.add_(rad)
 
 
-def bounce_flags(scene: Scene, depth: int, max_depth: int = 4, rr_start: int = 2,
-                 shadows: bool = True, tex_lod_bias: float = 0.0) -> dict:
-    """The bounce arguments of `depth` in a loop to `max_depth`: Russian
-    roulette on the continuations entering depth >= rr_start, single-light
-    NEE with shadows and several lights, the textures at level
-    tex_lod_bias * depth, and `last` at max_depth."""
-    return dict(shadows=shadows, do_rr=max_depth >= rr_start and depth + 1 >= rr_start,
-                light_sample=shadows and scene.lights.count > 1,
-                tex_lod=tex_lod_bias * depth, last=depth == max_depth)
-
-
-def path_trace_pool(tables, rays: WavefrontRays, max_depth: int = 4, rr_start: int = 2,
-                    shadows: bool = True, qmc: bool = False, qmc_pid_base=0, sample_base=0,
-                    qmc_seed=0, qmc_spp: int = 1, tex_lod_bias: float = 0.0,
-                    rng_seed: int = 0):
-    """Trace a pool to termination -> (radiance [N,3] in the pool's lane
-    order, per-depth active counts [max_depth + 1] int64, on the device).
-    The pool `rays` is consumed: its tensors are updated in place.
-
-    `tables` are the bounce tables of the scene (ops/cuda/bounce.py
-    `pack_bounce_tables`): a CUDA pool runs the bounce kernel, a CPU pool its
-    plain version, through the same calls. Depth d: count the live lanes,
-    order them for coherence (not at depth 0: camera rays arrive in
-    tile-major order), then one `fused_bounce_` over the first `count`
-    positions of the order, with Russian roulette
-    when the continuation enters depth >= rr_start, the textures at level
-    tex_lod_bias * d and `last` at max_depth. With `qmc` the uniforms follow
-    each lane's identity (the kernel computes them); otherwise they are an
-    independent stream drawn by position in the order."""
-    from ..engine.perf import count, span
-    from .cuda.bounce import fused_bounce_
-    from .sampler import QmcStream
-
-    scene = tables.scene
-    N = rays.count
-    dev = rays.origin.device
-    r = rays
-    radiance = torch.zeros((N, 3), dtype=torch.float32, device=dev)
-    stream = QmcStream(int(qmc_pid_base), int(sample_base), int(qmc_seed), qmc_spp) if qmc else None
-    order = None
-    counts = []
-    for depth in range(max_depth + 1):
-        n_live = r.active.sum()
-        counts.append(n_live)
-        if depth > 0:
-            with span("pool.order"):
-                order = coherence_order(scene, r, order)
-        u = None if qmc else stream_uniforms(rng_seed, sample_base, depth, N, dev)
-        with span("pool.bounce"):
-            # the bounce's attempts and its useful work: lanes handed over, live lanes
-            count("pool.lanes", N)
-            count("pool.live", n_live)
-            # only an order puts the live lanes first
-            fused_bounce_(tables, r, radiance, depth=depth, order=order,
-                          n_live=None if order is None else n_live, u=u, qmc=stream,
-                          **bounce_flags(scene, depth, max_depth, rr_start, shadows,
-                                         tex_lod_bias))
-    return radiance, torch.stack(counts)
-
-
 def wavefront_single_bounce(scene: Scene, px: torch.Tensor, py: torch.Tensor, width: int,
                             height: int, channel: int = 0) -> torch.Tensor:
     """The reference's shipped wavefront behaviour: one camera ray per pixel,
     one processed bounce, forced termination -> the full RGB before channel
     filtering."""
-    from .shading import apply_dispersion, direct_lighting
-
     rays = camera_wavefront_rays(scene.camera, width, height, px, py, channel)
     hit = trace(scene, rays.origin, rays.direction)
     shaded = apply_dispersion(scene, hit, direct_lighting(scene, hit))

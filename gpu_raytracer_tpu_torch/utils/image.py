@@ -34,14 +34,19 @@ def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x <= _SRGB_CUT_ENC, lo, hi)
 
 
-def to_u8(img: np.ndarray, srgb: bool = True) -> np.ndarray:
-    """[H,W,3] linear float -> u8, round to nearest; sRGB-encoded by default."""
-    if img.dtype == np.uint8:
-        return img
-    x = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+def quantize_u8(x: torch.Tensor, srgb: bool = True) -> torch.Tensor:
+    """Linear float tensor -> u8 on its device, round to nearest;
+    sRGB-encoded by default."""
     if srgb:
         x = linear_to_srgb(x)
-    return (torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).numpy()
+    return (torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+def to_u8(img: np.ndarray, srgb: bool = True) -> np.ndarray:
+    """[H,W,3] linear float -> u8 (`quantize_u8`); u8 input as it is."""
+    if img.dtype == np.uint8:
+        return img
+    return quantize_u8(torch.from_numpy(np.ascontiguousarray(img, np.float32)), srgb).numpy()
 
 
 def encode_png(img: np.ndarray, level: int = 6, srgb: bool = True) -> bytes:

@@ -30,6 +30,7 @@ from gpu_raytracer_tpu_torch.engine import perf
 from gpu_raytracer_tpu_torch.models.camera import Camera, CameraController, tan_half_fov
 from gpu_raytracer_tpu_torch.models.scene import build_default_scene
 from gpu_raytracer_tpu_torch.ops.cuda import render
+from gpu_raytracer_tpu_torch.ops.cuda.build import LAUNCHES
 from gpu_raytracer_tpu_torch.ops.cuda.render import camera_row, pack_render_tables, set_camera
 from gpu_raytracer_tpu_torch.utils.procgen import make_courtyard_scene
 
@@ -185,18 +186,14 @@ def test_fov_scale_is_evaluated_again_only_when_the_fov_changes(monkeypatch):
 
 
 def test_cpu_tables_take_the_plain_row():
-    """CPU tables: the row rewritten in place by the plain ops, no launch
-    and no counter; the scene's camera is the new camera's fields."""
+    """CPU tables: the row rewritten in place by the plain ops, no launch;
+    the scene's camera is the new camera's fields."""
     tables = pack_render_tables(build_default_scene())
     row = tables.camera
-    launches = render.write_camera_row.launches
-    perf.reset()
+    launches = LAUNCHES.copy()
     cam = _orbit_cameras(3, 4)[-1]
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        set_camera(tables, cam)
-    assert "camera.row_launches" not in perf.snapshot()["counters"]
-    perf.reset()
-    assert render.write_camera_row.launches == launches
+    set_camera(tables, cam)
+    assert LAUNCHES == launches
     assert tables.camera is row
     assert torch.equal(_bits(row), _bits(camera_row(cam, cam.fov_scale())))
     assert all(torch.equal(a, b) for a, b in zip(_fields(tables.scene.camera), _fields(cam)))
@@ -206,12 +203,12 @@ def test_kernel_wrapper_refuses_a_camera_field_of_another_size():
     """A field the kernel would read past is refused before any launch."""
     tables = pack_render_tables(build_default_scene())
     cam = Camera.default()
-    launches = render.write_camera_row.launches
+    launches = LAUNCHES["camera_row"]
     for bad in (dict(position=torch.zeros(4)), dict(up=torch.zeros(2)),
                 dict(fov=torch.full((2,), 45.0))):
         with pytest.raises(ValueError, match="camera field"):
             render.write_camera_row(tables, dataclasses.replace(cam, **bad), 1.0)
-    assert render.write_camera_row.launches == launches
+    assert LAUNCHES["camera_row"] == launches
 
 
 # ---- on the card ----
@@ -250,10 +247,10 @@ def test_set_camera_kernel_writes_the_plain_row_in_place(cuda, textured, source)
     for i, cam in enumerate(_orbit_cameras(11, 12) + [CASES["fov"]()[3]]):
         held = r.scene.camera
         held_values = _flat(held)
-        launches = render.write_camera_row.launches
+        launches = LAUNCHES["camera_row"]
         new = cam if source == "host" else _device_camera(cam, cuda)
         r.set_camera(new)
-        assert render.write_camera_row.launches == launches + 1
+        assert LAUNCHES["camera_row"] == launches + 1
         assert r.tables.camera is row and row.data_ptr() == ptr
         want = camera_row(_device_camera(cam, cuda), cam.fov_scale())
         assert torch.equal(_bits(row), _bits(want)), i
@@ -308,9 +305,9 @@ def test_device_camera_into_the_temporal_warp_equals_the_plain_path(cuda, monkey
         pt.step()
         return pt.image_device(), pt.accum.clone(), pt.tables.render.camera.clone()
 
-    launches = render.write_camera_row.launches
+    launches = LAUNCHES["camera_row"]
     got = run()
-    assert render.write_camera_row.launches == launches + len(cams) + 1
+    assert LAUNCHES["camera_row"] == launches + len(cams) + 1
     monkeypatch.setattr(render, "write_camera_row", _plain_write_camera_row)
     want = run()
     for g, w in zip(got, want):
@@ -331,7 +328,7 @@ def _device_ops(prof) -> list:
 def test_a_camera_move_is_one_kernel_launch(cuda):
     """Under torch.profiler: one kernel on the device a move, no copy, no
     memset and no PyTorch kernel; no pinned allocation or copy on the host;
-    `camera.row_launches` counts every move, also through the Viewer."""
+    LAUNCHES counts every move as camera_row, also through the Viewer."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -348,6 +345,7 @@ def test_a_camera_move_is_one_kernel_launch(cuda):
         v.controller.move(forward=0.5)
         moves.append(v.controller.camera())
     perf.reset()
+    launches = LAUNCHES["camera_row"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for cam in moves:
             v.renderer.set_camera(cam)
@@ -358,8 +356,9 @@ def test_a_camera_move_is_one_kernel_launch(cuda):
     host_ops = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
     assert not any(w in n for n in host_ops for w in ("pin_memory", "HostAlloc", "Memcpy",
                                                       "aten::to", "copy_")), host_ops
-    assert perf.snapshot()["counters"]["camera.row_launches"] == len(moves)
+    assert LAUNCHES["camera_row"] == launches + len(moves)
     perf.reset()
+    launches = LAUNCHES["camera_row"]
     # a traced burst of Viewer frames: one row launch a frame
     frames = 6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -372,7 +371,7 @@ def test_a_camera_move_is_one_kernel_launch(cuda):
         torch.cuda.synchronize()
     kernels = _device_ops(prof)
     assert sum("camera_row_kernel" in n for n in kernels) == frames, kernels
-    assert perf.snapshot()["counters"]["camera.row_launches"] == frames
+    assert LAUNCHES["camera_row"] == launches + frames
     perf.reset()
 
 

@@ -10,24 +10,26 @@ where two triangles share the exact same t and the two traversal orders
 keep different ones (counted, and bounded)."""
 
 import dataclasses
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
 
 import torch_bridge  # noqa: F401  (thread cap)
-from chip_smoke import (ZERO_LAUNCHES, bounce_compare, gbuffer_compare, k1_compare, k5_compare,
+from chip_smoke import (bounce_compare, gbuffer_compare, k1_compare, k5_compare,
                         mip_boundary_mask, plain_bounces, pools, primary_compare, primary_ties,
-                        random_gbuffer, read_launches, reset_launches, seeded_light_u,
-                        shade_compare, synthetic_textured_scene)
+                        seeded_light_u, shade_compare)
+from torch_scenes import light_shadow_rays, random_gbuffer, synthetic_textured_scene
 
 from gpu_raytracer_tpu_torch.engine.pathtracer import PathTracer
-from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, light_uniforms, render_chunk,
-                                                     render_deferred_chunk, render_gbuffer,
-                                                     gbuffer_planes, split_gbuffer)
+from gpu_raytracer_tpu_torch.engine.renderer import Renderer, light_uniforms
+from gpu_raytracer_tpu_torch.ops.render import (gbuffer_planes, render_chunk, render_deferred_chunk,
+                                                render_gbuffer, split_gbuffer)
 from gpu_raytracer_tpu_torch.models.camera import CameraController
 from gpu_raytracer_tpu_torch.models.scene import build_default_scene
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
+from gpu_raytracer_tpu_torch.ops.cuda.build import LAUNCHES
 from gpu_raytracer_tpu_torch.ops.cuda.bounce import (fused_bounce, fused_bounce_,
                                                      pack_bounce_tables, qmc_uniforms_kernel)
 from gpu_raytracer_tpu_torch.ops.cuda.render import (camera_relative, pack_render_tables,
@@ -95,9 +97,9 @@ def test_render_kernel_matches_plain(cuda, name, shadows):
     scene = SCENES[name](device=cuda)
     W, H = 160, 120
     r = Renderer(scene, W, H, shadows=shadows, sky=(0.1, 0.2, 0.3), device=cuda)
-    launches = render_primary.launches
+    launches = LAUNCHES["k2"]
     got = r.render_device()
-    assert render_primary.launches == launches + 1
+    assert LAUNCHES["k2"] == launches + 1
     want = render_chunk(r.scene, r.px, r.py, W, H, shadows=shadows, sky=(0.1, 0.2, 0.3))
     o, d = generate_rays(r.scene.camera, W, H, r.px, r.py)
     far = torch.full((W * H,), 3.4028234663852886e38, device=cuda)
@@ -122,8 +124,7 @@ def test_deferred_kernels_match_plain(cuda, name, shadows):
     scene = TEXTURED[name](device=cuda)
     W, H = 160, 120
     r = Renderer(scene, W, H, shadows=shadows, sky=SKY, device=cuda)
-    counts = lambda: (camera_relative.launches, render_deferred.launches,
-                      texture_shade.launches, render_primary.launches)
+    counts = lambda: (LAUNCHES["k3_pre"], LAUNCHES["k3"], LAUNCHES["k4"], LAUNCHES["k2"])
     before = counts()
     got = r.render_device()
     assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
@@ -151,9 +152,9 @@ def test_camera_relative_kernel_matches_plain_and_k3_follows_the_camera(cuda, wi
     tables = pack_render_tables(scene)
     if moved:
         set_camera(tables, moved_camera(scene.camera))
-    launches = camera_relative.launches
+    launches = LAUNCHES["k3_pre"]
     assert camera_relative_compare(tables)["max_abs_err"] == 0.0
-    assert camera_relative.launches == launches + 1
+    assert LAUNCHES["k3_pre"] == launches + 1
     W, H = 96, 64
     py, px = (a.reshape(-1).to(torch.int32).contiguous()
               for a in torch.meshgrid(torch.arange(H, device=cuda), torch.arange(W, device=cuda),
@@ -209,9 +210,9 @@ def test_textured_primary_kernel_matches_plain(cuda, name, shadows):
     r = Renderer(scene, W, H, device=cuda)
     ties = primary_ties(tables, W, H, r.px, r.py)
     near = mip_boundary_mask(shade, render_deferred(tables, r.px, r.py, W, H))
-    reset_launches()
+    LAUNCHES.clear()
     stats, frame = primary_compare(tables, shade, r.px, r.py, W, H, shadows, ties | near, sky=SKY)
-    assert read_launches() == dict(ZERO_LAUNCHES, k2t=1, k3_pre=1)
+    assert LAUNCHES == Counter(k2t=1, k3_pre=1)
     assert stats["err"] <= 1e-5 and stats["mean"] > 0.01
     untextured = render_chunk(dataclasses.replace(scene, textures=type(scene.textures).empty()),
                               r.px, r.py, W, H, shadows=shadows, sky=SKY)
@@ -354,10 +355,10 @@ def test_misaligned_node_table_raises(cuda):
     o = scene.camera.position[None, :].repeat(4, 1).contiguous()
     d = scene.camera.direction[None, :].repeat(4, 1).contiguous()
     far = torch.full((4,), 3.0e38, device=cuda)
-    launches = traverse.launches
+    launches = LAUNCHES["k1_standalone"]
     with pytest.raises(ValueError, match="128-byte"):
         traverse(bad, o, d, far)
-    assert traverse.launches == launches
+    assert LAUNCHES["k1_standalone"] == launches
     rt = dataclasses.replace(pack_render_tables(scene), trace=bad)
     px = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="128-byte"):
@@ -386,11 +387,11 @@ def test_pathtracer_step_launches_the_bounce_kernel(cuda, name):
     path's on 99.9% of the pixels."""
     scene = BOUNCE[name](device=cuda)
     pt = PathTracer(scene, 64, 64, device=cuda)
-    reset_launches()
+    LAUNCHES.clear()
     pt.step()
     n = pt.config.max_bounce_depth + 1
     textured = name.startswith("textured")
-    assert read_launches() == dict(ZERO_LAUNCHES, k6=n, k5=n if textured else 0)
+    assert LAUNCHES == Counter(k6=n, k5=n if textured else 0)
     torch.cuda.set_sync_debug_mode("error")   # a step never waits for the device
     try:
         pt.step()
@@ -501,10 +502,10 @@ def test_gbuffer_and_warp_trace_through_k1_and_k5(cuda, textured, monkeypatch):
         raise AssertionError("the plain BVH walk ran on the card")
 
     monkeypatch.setattr(plain, "bvh_traverse_threaded", refuse)
-    reset_launches()
+    LAUNCHES.clear()
     normal, depth, albedo = pt.gbuffer()
     k5 = 1 if textured else 0
-    assert read_launches() == dict(ZERO_LAUNCHES, k1_standalone=1, k5_standalone=k5)
+    assert LAUNCHES == Counter(k1_standalone=1, k5_standalone=k5)
     kh = trace(pt.tables.render.trace, o, d)    # gbuffer()'s trace again, for its slots
     assert torch.equal(kh.t, depth.reshape(-1)) and torch.equal(kh.hit, ph.hit)
     ties = kh.hit & (kh.prim_id != ph.prim_id) & (kh.t == ph.t)
@@ -518,14 +519,14 @@ def test_gbuffer_and_warp_trace_through_k1_and_k5(cuda, textured, monkeypatch):
     assert (albedo.reshape(-1, 3) - p_alb)[keep].abs().max().item() == 0.0
     pt.step()
     cam = moved_camera(scene.camera)
-    reset_launches()
+    LAUNCHES.clear()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         pt.set_camera(cam, temporal=True)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert read_launches() == dict(ZERO_LAUNCHES, k1_standalone=1, k5_standalone=k5)
+    assert LAUNCHES == Counter(camera_row=1, k1_standalone=1, k5_standalone=k5)
     assert torch.isfinite(pt.image_device()).all()
 
 
@@ -534,7 +535,6 @@ def test_denoise_on_the_card_matches_the_cpu(cuda):
     """atrous_denoise on the card against the same call on a CPU copy:
     within 1e-5 x max(1, max |ref|), through the kernels: a prepare launch
     and one launch a pass (ops/cuda/denoise.py)."""
-    from gpu_raytracer_tpu_torch.ops.cuda import denoise as cuda_denoise
     from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise
 
     pt = PathTracer(make_courtyard_scene(2000, seed=1, textured=True, device=cuda), 96, 64,
@@ -543,9 +543,9 @@ def test_denoise_on_the_card_matches_the_cpu(cuda):
         pt.step()
     img, planes = pt.image_device(), pt.gbuffer()
     for iterations in (1, 4):
-        before = cuda_denoise.atrous_denoise.launches
+        before = LAUNCHES["denoise"]
         got = atrous_denoise(img, *planes, iterations=iterations).cpu()
-        assert cuda_denoise.atrous_denoise.launches == before + iterations + 1
+        assert LAUNCHES["denoise"] == before + iterations + 1
         ref = atrous_denoise(img.cpu(), *(x.cpu() for x in planes), iterations=iterations)
         assert torch.isfinite(got).all()
         assert (got - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
@@ -582,16 +582,15 @@ def test_denoise_kernel_at_1024_matches_the_cpu(cuda):
     G-buffer as strided views of one [C,7] tensor, as the path tracer's
     warp leaves it. The prepare launch's depth subsample is the plain
     version's strided one, bit for bit."""
-    from gpu_raytracer_tpu_torch.ops.cuda import denoise as cuda_denoise
     from gpu_raytracer_tpu_torch.ops.denoise import atrous_denoise
 
     color, normal, depth, albedo = _denoise_inputs(7, 1024, 1024, cuda)
     pack = torch.cat([normal.reshape(-1, 3), depth.reshape(-1, 1), albedo.reshape(-1, 3)], 1)
     planes = (pack[:, 0:3].reshape(1024, 1024, 3), pack[:, 3].reshape(1024, 1024),
               pack[:, 4:7].reshape(1024, 1024, 3))
-    before = cuda_denoise.atrous_denoise.launches
+    before = LAUNCHES["denoise"]
     got = atrous_denoise(color, *planes, iterations=3).cpu()
-    assert cuda_denoise.atrous_denoise.launches == before + 4
+    assert LAUNCHES["denoise"] == before + 4
     hit = (normal * normal).sum(-1) > 0.25
     sub = torch.where(hit, depth, torch.zeros_like(depth))[::4, ::4].reshape(-1)
     assert torch.equal(_filter_subsample(color, *planes), sub)
@@ -695,14 +694,14 @@ def test_fly_frame_on_the_card_matches_the_plain_path(cuda):
     for strafe, forward in ((1.0, 0.0), (0.0, 1.0)):
         ctrl.move(forward=forward, strafe=strafe)
         cams.append(ctrl.camera())
-    reset_launches()
+    LAUNCHES.clear()
     torch.cuda.set_sync_debug_mode("error")
     try:
         frames = [tracers[0].fly_frame(c, m=4, u8=True) for c in cams]
     finally:
         torch.cuda.set_sync_debug_mode("default")
     n = tracers[0].config.max_bounce_depth + 1
-    assert read_launches() == dict(ZERO_LAUNCHES, k6=2 * n, k1_standalone=3, denoise=2 * (4 + 1))
+    assert LAUNCHES == Counter(camera_row=2, k6=2 * n, k1_standalone=3, denoise=2 * (4 + 1))
     want = [tracers[1].fly_frame(c, m=4, u8=True) for c in cams]
     for got, ref in zip(frames, want):
         assert got.dtype == torch.uint8 and got.shape == (64, 64, 3)
@@ -755,9 +754,9 @@ def test_k2_frame_on_refit_and_rebuilt_scenes_matches_plain(cuda, rebuild):
     scene = make_courtyard_scene(2000, seed=1, device=cuda)
     r = Renderer(scene, 96, 64, shadows=True, device=cuda)
     r.set_geometry(refit_scene(r.scene, _moved_vertices(scene), rebuild=rebuild))
-    render_primary.launches = 0
+    LAUNCHES.clear()
     stats = refit_frame_compare(r, f"K2 rebuild={rebuild}")
-    assert render_primary.launches == 1 and stats["max_abs_err"] <= 1e-5
+    assert LAUNCHES["k2"] == 1 and stats["max_abs_err"] <= 1e-5
 
 
 @pytest.mark.cuda
@@ -874,9 +873,9 @@ def _wide_scene(name, cuda, **kw):
                                 **kw)
 
 
-def _counter(name, wrapper, kind="launches"):
+def _counter(name, kernel):
     """The launch count of the instance `name`'s tables take."""
-    return getattr(wrapper, kind if WIDE[name].get("bvh_width", 4) == 4 else f"w8_{kind}")
+    return LAUNCHES[kernel if WIDE[name].get("bvh_width", 4) == 4 else f"{kernel}_w8"]
 
 
 @pytest.mark.cuda
@@ -894,9 +893,9 @@ def test_wide_and_sbvh_traverse_kernel_matches_plain(cuda, name):
     d = rng.normal(size=(n, 3))
     d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)).to(cuda)
     far = torch.full((n,), 3.4028234663852886e38, device=cuda)
-    before = _counter(name, traverse)
+    before = _counter(name, "k1_standalone")
     ties = k1_compare(tables, o, d, far)[1]
-    assert _counter(name, traverse) == before + 1
+    assert _counter(name, "k1_standalone") == before + 1
     assert ties.sum().item() <= n * 1e-3
     max_t = torch.from_numpy(rng.uniform(0, 20, n).astype(np.float32)).to(cuda)
     blocked = traverse(tables, o, d, max_t, any_hit=True)[2]
@@ -912,9 +911,9 @@ def test_wide_and_sbvh_render_kernel_matches_plain(cuda, name, shadows):
     scene = _wide_scene(name, cuda)
     W, H = 160, 120
     r = Renderer(scene, W, H, shadows=shadows, sky=SKY, device=cuda)
-    before = _counter(name, render_primary)
+    before = _counter(name, "k2")
     got = r.render_device()
-    assert _counter(name, render_primary) == before + 1
+    assert _counter(name, "k2") == before + 1
     want = render_chunk(r.scene, r.px, r.py, W, H, shadows=shadows, sky=SKY)
     o, d = generate_rays(r.scene.camera, W, H, r.px, r.py)
     far = torch.full((W * H,), 3.4028234663852886e38, device=cuda)
@@ -931,12 +930,12 @@ def test_wide_and_sbvh_bounce_kernel_matches_plain(cuda, name, textured):
     """K6 at width 8 and on the spatial-split tree against the plain bounce
     on the path tracer's pools (depths 0, 1 and the last)."""
     tables = pack_bounce_tables(_wide_scene(name, cuda, textured=textured))
-    before = _counter(name, fused_bounce_)
+    before = _counter(name, "k6")
     launches = 0
     for depth, r, order, n_live, qmc, flags in pools(tables, 128, 128, (0, 1, 4)):
         bounce_compare(tables, r, flags, depth=depth, order=order, n_live=n_live, qmc=qmc)
         launches += 1
-    assert _counter(name, fused_bounce_) == before + launches
+    assert _counter(name, "k6") == before + launches
 
 
 @pytest.mark.cuda
@@ -952,13 +951,13 @@ def test_width8_refit_keeps_width8_and_rebuild_drops_to_width4_on_the_card(cuda)
     nodes = r.tables.trace.nodes
     r.set_geometry(refit_scene(r.scene, _moved_vertices(scene)))
     assert r.tables.trace.width == 8 and r.tables.trace.nodes is nodes
-    w4, w8 = render_primary.launches, render_primary.w8_launches
+    w4, w8 = LAUNCHES["k2"], LAUNCHES["k2_w8"]
     assert refit_frame_compare(r, "K2 width-8 refit")["max_abs_err"] <= 1e-5
-    assert (render_primary.launches, render_primary.w8_launches) == (w4, w8 + 1)
+    assert (LAUNCHES["k2"], LAUNCHES["k2_w8"]) == (w4, w8 + 1)
     r.set_geometry(refit_scene(r.scene, _moved_vertices(scene), rebuild=True))
     assert r.tables.trace.width == 4 and r.tables.trace.nodes.shape[1] == 32
     assert refit_frame_compare(r, "K2 after a rebuild")["max_abs_err"] <= 1e-5
-    assert (render_primary.launches, render_primary.w8_launches) == (w4 + 1, w8 + 1)
+    assert (LAUNCHES["k2"], LAUNCHES["k2_w8"]) == (w4 + 1, w8 + 1)
 
 
 @pytest.mark.cuda
@@ -985,10 +984,10 @@ def test_width8_fused_render_matches_plain_after_a_camera_move(cuda, textured):
     exclude, _ = order_ties(tables, W, H, px, py)
     if textured:
         exclude = exclude | mip_boundary_mask(shade, render_deferred(tables, px, py, W, H))
-    reset_launches()
+    LAUNCHES.clear()
     stats, got = primary_compare(tables, shade, px, py, W, H, True, exclude, sky=SKY)
     kernel = "k2t_w8" if textured else "k2_w8"
-    assert read_launches() == dict(ZERO_LAUNCHES, **{kernel: 1, "k3_pre": 1})
+    assert LAUNCHES == Counter({kernel: 1, "k3_pre": 1})
     assert stats["err"] == 0.0 and torch.isfinite(got).all()
 
 
@@ -1006,11 +1005,11 @@ def test_render_primary_launches_the_pre_pass_for_k2t_and_width8(cuda, width, te
     tables = pack_render_tables(scene)
     shade = pack_shade_tables(scene) if textured else None
     px, py = frame_pixels(64, 48, cuda)
-    reset_launches()
+    LAUNCHES.clear()
     render_primary(tables, px, py, 64, 48, shadows=True, shade=shade)
     kernel = ("k2t" if textured else "k2") + ("_w8" if width == 8 else "")
     want = {kernel: 1, "k3_pre": 1} if width == 8 or textured else {kernel: 1}
-    assert read_launches() == dict(ZERO_LAUNCHES, **want)
+    assert LAUNCHES == Counter(want)
     assert (tables.rel_nodes is None) == (width == 4 and not textured)
 
 
@@ -1036,9 +1035,9 @@ def test_width4_k2t_matches_plain_after_a_camera_move(cuda):
     exclude, _ = order_ties(tables, W, H, px, py)
     exclude = exclude | mip_boundary_mask(shade, render_deferred(tables, px, py, W, H))
     for shadows in (False, True):
-        reset_launches()
+        LAUNCHES.clear()
         stats, got = primary_compare(tables, shade, px, py, W, H, shadows, exclude, sky=SKY)
-        assert read_launches() == dict(ZERO_LAUNCHES, k2t=1, k3_pre=1)
+        assert LAUNCHES == Counter(k2t=1, k3_pre=1)
         assert stats["err"] == 0.0 and torch.isfinite(got).all()
 
 
@@ -1124,7 +1123,6 @@ def test_children_ahead_adds_up_to_the_width8_visits(cuda):
     node visits at width 8, closest and any hit (the any-hit walk on shadow
     rays from the camera hits, its mask the plain any-hit's); width-4 tables
     are refused."""
-    from chip_smoke import light_shadow_rays
     from gpu_raytracer_tpu_torch.config import RaytracerConfig
     from gpu_raytracer_tpu_torch.ops.cuda.traverse import children_ahead, traversal_work
 
@@ -1190,10 +1188,10 @@ def test_traverse_threaded_kernel_matches_plain(cuda, name, any_hit, monkeypatch
         raise AssertionError("the plain threaded walk ran for a CUDA tensor")
 
     monkeypatch.setattr(k1, "bvh_traverse_threaded", refuse)
-    before = k1.traverse_threaded.launches
+    before = LAUNCHES["k1_threaded"]
     got = k1.traverse_threaded(tt, o, d, mt, any_hit=any_hit)
     torch.cuda.synchronize()
-    assert k1.traverse_threaded.launches == before + 1
+    assert LAUNCHES["k1_threaded"] == before + 1
     assert int(hit.sum()) > 100
     for g, w in zip(got, want):
         assert torch.equal(g if g.dtype != torch.int32 else g.long(), w)
@@ -1218,8 +1216,11 @@ def test_sharded_paths_launch_their_kernels_never_the_plain_versions(cuda, monke
     from chip_smoke import hold_sharded_hit
 
     from gpu_raytracer_tpu_torch.engine import renderer as renderer_mod
-    from gpu_raytracer_tpu_torch.ops import shading, wavefront
+    from gpu_raytracer_tpu_torch.ops import shading
     from gpu_raytracer_tpu_torch.ops import trace as plain
+    from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
+    from gpu_raytracer_tpu_torch.ops.cuda import render as render_mod
+    from gpu_raytracer_tpu_torch.ops.cuda import texshade as texshade_mod
     from gpu_raytracer_tpu_torch.parallel import shard
     from gpu_raytracer_tpu_torch.parallel.mesh import make_mesh
 
@@ -1245,15 +1246,16 @@ def test_sharded_paths_launch_their_kernels_never_the_plain_versions(cuda, monke
         raise AssertionError("a plain version ran on the card")
 
     for mod, name in ((plain, "bvh_traverse_threaded"), (plain, "_triangles_brute"),
-                      (renderer_mod, "render_chunk"), (renderer_mod, "render_gbuffer"),
-                      (shading, "shade_deferred"), (wavefront, "bounce_")):
+                      (renderer_mod, "render_chunk"), (render_mod, "render_chunk"),
+                      (render_mod, "render_gbuffer"), (texshade_mod, "shade_deferred"),
+                      (bounce_mod, "bounce_")):
         monkeypatch.setattr(mod, name, refuse)
 
     def launched(want, fn):
-        reset_launches()
+        LAUNCHES.clear()
         out = fn()
         torch.cuda.synchronize()
-        assert read_launches() == dict(ZERO_LAUNCHES, **want)
+        assert LAUNCHES == Counter(want)
         return out
 
     for s in (False, True):

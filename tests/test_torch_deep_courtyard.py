@@ -78,7 +78,7 @@ def seeded_rays(scene, extent):
 def shadow_rays(scene, o, d):
     """The shadow rays of every camera-ray hit toward both lights (the
     directional one unbounded, the point one up to 1e-3 short of it)."""
-    from chip_smoke import light_shadow_rays
+    from torch_scenes import light_shadow_rays
 
     far = torch.full((o.shape[0],), F32_MAX)
     t, _, h, n, _ = traverse_triangles(scene, o, d, far)

@@ -1,7 +1,9 @@
 """The port never reaches for JAX, and its CUDA path never quietly carries on
 without the device or the kernel."""
 
+import ast
 import dataclasses
+import glob
 import os
 import subprocess
 import sys
@@ -103,6 +105,47 @@ def test_port_never_imports_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def _imported_modules(node: ast.AST, module: str) -> list[str]:
+    """What an import statement of `module` names: each `a.b` of `import
+    a.b`, each m.x of `from m import x` (x a module or a name in m), a
+    relative m resolved against `module`'s package."""
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    base = node.module or ""
+    if node.level:
+        base = ".".join(module.split(".")[:-node.level] + ([base] if base else []))
+    return [f"{base}.{a.name}" for a in node.names]
+
+
+def test_ops_and_models_import_only_downward():
+    """The layers point one way: no module under ops/ or models/ imports
+    engine (but engine.perf, the spans and counters), parallel or
+    __main__, anywhere in its body; and no module under ops/ imports inside
+    a function (an import there would hide a cycle)."""
+    pkg = "gpu_raytracer_tpu_torch"
+    upward = tuple(f"{pkg}.{m}" for m in ("engine", "parallel", "__main__"))
+    bad = []
+    for layer in ("ops", "models"):
+        for path in sorted(glob.glob(os.path.join(REPO, pkg, layer, "**", "*.py"),
+                                     recursive=True)):
+            rel = os.path.relpath(path, REPO)
+            module = rel[:-3].replace(os.sep, ".")
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for fn in ast.walk(tree):
+                if layer == "ops" and isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    bad += [f"{rel}:{n.lineno} imports inside {fn.name}" for n in ast.walk(fn)
+                            if isinstance(n, (ast.Import, ast.ImportFrom))]
+            for n in ast.walk(tree):
+                if not isinstance(n, (ast.Import, ast.ImportFrom)):
+                    continue
+                for m in _imported_modules(n, module):
+                    if m.startswith(tuple(u + "." for u in upward)) and not m.startswith(
+                            f"{pkg}.engine.perf."):
+                        bad.append(f"{rel}:{n.lineno} imports {m}")
+    assert not bad, "\n".join(sorted(set(bad)))
+
+
 def test_make_mesh_never_falls_back_to_the_cpu(monkeypatch):
     """make_mesh() takes CUDA devices only: with none, or fewer than asked
     for, it raises; virtual shards on one device are asked for by name."""
@@ -154,8 +197,7 @@ def test_wrappers_refuse_other_devices():
 def test_deferred_wrappers_refuse_other_devices_and_take_plain_on_cpu(monkeypatch):
     """K3 and K4's wrappers: the plain versions for CPU tensors, an error
     for other devices, malformed inputs or an atlas past int32 addresses."""
-    from gpu_raytracer_tpu_torch.engine.renderer import (gbuffer_planes, render_gbuffer,
-                                                         split_gbuffer)
+    from gpu_raytracer_tpu_torch.ops.render import gbuffer_planes, render_gbuffer, split_gbuffer
     from gpu_raytracer_tpu_torch.ops.cuda import texshade
     from gpu_raytracer_tpu_torch.ops.cuda.render import render_deferred
     from gpu_raytracer_tpu_torch.ops.shading import shade_deferred
@@ -230,23 +272,22 @@ def test_bounce_wrappers_refuse_other_devices():
 def test_bounce_on_cuda_raises_when_the_kernels_do_not_load(tmp_path, monkeypatch):
     """On a CUDA pool K6's wrapper launches the kernel or raises: with no
     nvcc the library does not build, and the plain bounce is never taken."""
-    from gpu_raytracer_tpu_torch.ops import wavefront
     from gpu_raytracer_tpu_torch.ops.cuda import bounce as bounce_mod
 
     tables, pool, u = _meta_bounce_inputs()
     monkeypatch.setattr(type(tables), "device", property(lambda self: torch.device("cuda")))
     monkeypatch.setattr(bounce_mod, "_check", lambda *args: None)
-    monkeypatch.setattr(wavefront, "bounce",
+    monkeypatch.setattr(bounce_mod, "bounce",
                         lambda *a, **k: pytest.fail("the plain bounce was taken"))
     monkeypatch.setattr(build, "BUILD_ROOT", str(tmp_path / "build"))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("PATH", str(tmp_path / "no-bin"))
     build.load_kernels.cache_clear()
     try:
-        launches = bounce_mod.fused_bounce_.launches
+        launches = build.LAUNCHES.copy()
         with pytest.raises(RuntimeError, match="nvcc"):
             bounce_mod.fused_bounce(tables, pool, u, shadows=True, do_rr=True)
-        assert bounce_mod.fused_bounce_.launches == launches
+        assert build.LAUNCHES == launches
     finally:
         build.load_kernels.cache_clear()
 
@@ -318,11 +359,11 @@ def test_denoise_on_cuda_raises_without_the_filter_kernels(monkeypatch):
     monkeypatch.setattr(denoise, "_cos_power", refuse)
     monkeypatch.setattr(cuda_denoise, "load_kernels",
                         lambda: SimpleNamespace(lib=SimpleNamespace(rt_atrous_prepare=refuse)))
-    launches = cuda_denoise.atrous_denoise.launches
+    launches = build.LAUNCHES.copy()
     for alb in (args[3], None):
         with pytest.raises(RuntimeError, match="rt_atrous_pass"):   # prepare alone is there
             denoise.atrous_denoise(*args[:3], alb, iterations=3)
-    assert cuda_denoise.atrous_denoise.launches == launches
+    assert build.LAUNCHES == launches
     with pytest.raises(ValueError, match="unsupported device"):
         denoise.atrous_denoise(*(t.to("meta") for t in (color, normal, depth)))
     # the CPU keeps the plain filter
@@ -336,18 +377,18 @@ def test_textured_render_primary_never_renders_untextured(monkeypatch):
     """`render_primary` on a textured scene: the textured plain version on
     the CPU; on a CUDA-typed call it asks for the shade tables and then
     builds the kernel or raises: never an untextured frame."""
-    from gpu_raytracer_tpu_torch.engine import renderer
     from gpu_raytracer_tpu_torch.ops.cuda import render as render_mod
     from gpu_raytracer_tpu_torch.ops.cuda.texshade import pack_shade_tables
+    from gpu_raytracer_tpu_torch.ops.render import render_chunk
 
     scene = make_courtyard_scene(500, textured=True)
     rt = pack_render_tables(scene)
     py, px = (a.reshape(-1).to(torch.int32).contiguous()
               for a in torch.meshgrid(torch.arange(12), torch.arange(16), indexing="ij"))
     got = render_primary(rt, px, py, 16, 12, shadows=True)
-    assert torch.equal(got, renderer.render_chunk(scene, px, py, 16, 12, shadows=True))
+    assert torch.equal(got, render_chunk(scene, px, py, 16, 12, shadows=True))
     flat = dataclasses.replace(scene, textures=type(scene.textures).empty())
-    assert not torch.equal(got, renderer.render_chunk(flat, px, py, 16, 12, shadows=True))
+    assert not torch.equal(got, render_chunk(flat, px, py, 16, 12, shadows=True))
 
     class CudaTyped(torch.Tensor):
         """A CPU tensor that says it lies on a CUDA device."""
@@ -356,7 +397,7 @@ def test_textured_render_primary_never_renders_untextured(monkeypatch):
     cpx, cpy = px.as_subclass(CudaTyped), py.as_subclass(CudaTyped)
     cuda_rt = dataclasses.replace(rt, trace=dataclasses.replace(
         rt.trace, nodes=rt.trace.nodes.as_subclass(CudaTyped)))
-    monkeypatch.setattr(renderer, "render_chunk",
+    monkeypatch.setattr(render_mod, "render_chunk",
                         lambda *a, **k: pytest.fail("the plain version was taken"))
     with pytest.raises(ValueError, match="shade tables"):
         render_primary(cuda_rt, cpx, cpy, 16, 12)
@@ -364,10 +405,10 @@ def test_textured_render_primary_never_renders_untextured(monkeypatch):
                         lambda: (_ for _ in ()).throw(RuntimeError("nvcc not found")))
     shade = pack_shade_tables(scene)
     shade.materials = shade.materials.as_subclass(CudaTyped)
-    launches = render_primary.textured_launches
+    launches = build.LAUNCHES["k2t"]
     with pytest.raises(RuntimeError, match="nvcc"):
         render_primary(cuda_rt, cpx, cpy, 16, 12, shade=shade)
-    assert render_primary.textured_launches == launches
+    assert build.LAUNCHES["k2t"] == launches
 
 
 def test_many_lights_are_not_refused():
@@ -452,7 +493,6 @@ def test_unported_inputs_raise(monkeypatch):
     CUDA tensor goes to the width-8 kernel instance or raises: the wrappers
     never take the plain walk or a width-4 instance for it. Only another
     width than 4 or 8 is refused."""
-    from gpu_raytracer_tpu_torch.engine import renderer
     from gpu_raytracer_tpu_torch.ops import trace as plain
     from gpu_raytracer_tpu_torch.ops.cuda import render as render_mod
     from gpu_raytracer_tpu_torch.ops.cuda import traverse as k1
@@ -478,7 +518,7 @@ def test_unported_inputs_raise(monkeypatch):
     refuse = lambda *a, **k: pytest.fail("the plain version was taken")
     monkeypatch.setattr(plain, "bvh_traverse_threaded", refuse)
     monkeypatch.setattr(k1, "traverse_triangles", refuse)
-    monkeypatch.setattr(renderer, "render_chunk", refuse)
+    monkeypatch.setattr(render_mod, "render_chunk", refuse)
     no_nvcc = lambda: (_ for _ in ()).throw(RuntimeError("nvcc not found"))
     monkeypatch.setattr(k1, "load_kernels", no_nvcc)
     monkeypatch.setattr(render_mod, "load_kernels", no_nvcc)
@@ -487,8 +527,8 @@ def test_unported_inputs_raise(monkeypatch):
     far = torch.full((64,), 3.0e38).as_subclass(CudaTyped)
     py, px = (a.reshape(-1).to(torch.int32).contiguous().as_subclass(CudaTyped)
               for a in torch.meshgrid(torch.arange(12), torch.arange(16), indexing="ij"))
-    counts = lambda: (k1.traverse.launches, k1.traverse.w8_launches,
-                      render_primary.launches, render_primary.w8_launches)
+    counts = lambda: (build.LAUNCHES["k1_standalone"], build.LAUNCHES["k1_standalone_w8"],
+                      build.LAUNCHES["k2"], build.LAUNCHES["k2_w8"])
     before = counts()
     with pytest.raises(RuntimeError, match="nvcc"):
         k1.traverse(cuda_trace, o, d, far)
@@ -514,10 +554,10 @@ def test_in_place_bounce_takes_the_plain_version_only_on_cpu(monkeypatch):
     kw = dict(depth=0, qmc=QmcStream(seed=3), shadows=True, do_rr=False, light_sample=True)
     a, b = pool(), pool()
     ra, rb = torch.zeros((192, 3)), torch.zeros((192, 3))
-    launches = bounce_mod.fused_bounce_.launches
+    launches = build.LAUNCHES.copy()
     assert bounce_mod.fused_bounce_(tables, a, ra, **kw) is None
     wavefront.bounce_(scene, b, rb, **kw)
-    assert bounce_mod.fused_bounce_.launches == launches
+    assert build.LAUNCHES == launches
     assert torch.equal(ra, rb) and ra.abs().sum() > 0
     for name in ("origin", "direction", "throughput", "active", "bounce_depth"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
@@ -558,13 +598,13 @@ def test_bounce_on_a_misaligned_node_table_raises_and_touches_nothing():
     r = wavefront.camera_wavefront_rays(scene.camera, 16, 12, px, py, wavefront.RGB_CHANNEL)
     before = r.origin.clone()
     rad = torch.zeros((192, 3), device=cuda)
-    launches = bounce_mod.fused_bounce_.launches
+    launches = build.LAUNCHES["k6"]
     with pytest.raises(ValueError, match="128-byte"):
         bounce_mod.fused_bounce_(bad, r, rad, qmc=QmcStream(), shadows=True, do_rr=False)
-    assert bounce_mod.fused_bounce_.launches == launches
+    assert build.LAUNCHES["k6"] == launches
     assert torch.equal(r.origin, before) and not rad.any()
     bounce_mod.fused_bounce_(tables, r, rad, qmc=QmcStream(), shadows=True, do_rr=False)
-    assert bounce_mod.fused_bounce_.launches == launches + 1 and rad.any()
+    assert build.LAUNCHES["k6"] == launches + 1 and rad.any()
 
 
 def test_refit_and_table_refresh_never_read_the_device():

@@ -12,7 +12,7 @@ a harness renders every pixel of a frame with it. Built with
 At node width 8, and for K2t at width 4, the pixel's camera walk reads the
 camera-relative tables (`camera_relative_tables`, the plain version of K3's
 pre-pass) and its material step is split around the light loop. Each frame
-must equal `engine/renderer.py::render_chunk` bit for bit: the untextured
+must equal `ops/render.py::render_chunk` bit for bit: the untextured
 courtyard (K2), the textured courtyard (K2t, base-colour maps) and the
 multi-slot zoo (K2t: base-colour, metallic-roughness, occlusion and
 emissive maps, so both halves of the split sample), at both widths,
@@ -42,7 +42,7 @@ import pytest
 import torch
 
 from gpu_raytracer_tpu_torch.config import RaytracerConfig
-from gpu_raytracer_tpu_torch.engine.renderer import render_chunk
+from gpu_raytracer_tpu_torch.ops.render import render_chunk
 from gpu_raytracer_tpu_torch.models.camera import Camera
 from gpu_raytracer_tpu_torch.ops.cuda.render import (camera_relative_tables, pack_render_tables,
                                                      set_camera)

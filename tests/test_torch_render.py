@@ -30,7 +30,8 @@ from gpu_raytracer_tpu.models.scene import build_default_scene as jax_default
 from gpu_raytracer_tpu.ops.pallas.render import pallas_render_primary
 from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
 from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, light_seed, light_uniforms,
-                                                     render_chunk, tiled_pixel_order)
+                                                     tiled_pixel_order)
+from gpu_raytracer_tpu_torch.ops.render import render_chunk
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
 from gpu_raytracer_tpu_torch.models.camera import CameraController
 from gpu_raytracer_tpu_torch.ops.cuda.render import MAX_LIGHTS, pack_render_tables, render_primary

@@ -15,11 +15,11 @@ import pytest
 import torch
 
 import torch_bridge  # noqa: F401  (thread cap)
-from chip_smoke import random_gbuffer, synthetic_textured_scene
+from torch_scenes import random_gbuffer, synthetic_textured_scene
 from gltf_fixtures import write_gltf
 from test_torch_gltf import rich_gltf
 
-from gpu_raytracer_tpu_torch.engine.renderer import gbuffer_planes, split_gbuffer
+from gpu_raytracer_tpu_torch.ops.render import gbuffer_planes, split_gbuffer
 from gpu_raytracer_tpu_torch.models.gltf import scene_from_gltf
 from gpu_raytracer_tpu_torch.ops import texture
 from gpu_raytracer_tpu_torch.ops.cuda.texshade import (LEVEL_WORDS, META_WORDS, MAP_SLOTS,

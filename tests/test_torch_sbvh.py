@@ -25,7 +25,7 @@ from gpu_raytracer_tpu.models.bvh import build_bvh as jax_build_bvh
 from gpu_raytracer_tpu.models.bvh import build_bvh_spatial as jax_build_bvh_spatial
 from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
 from gpu_raytracer_tpu_torch.config import RaytracerConfig
-from gpu_raytracer_tpu_torch.engine.renderer import render_chunk
+from gpu_raytracer_tpu_torch.ops.render import render_chunk
 from gpu_raytracer_tpu_torch.models import bvh_native
 from gpu_raytracer_tpu_torch.models.bvh import (BvhBuildResult, build_bvh, build_bvh_spatial,
                                                 scene_tree, validate_bvh)

@@ -84,7 +84,11 @@ def test_scene_moves_between_devices(scene_pair):
 
 
 def test_config_matches():
-    assert ([(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
+    """The port's fields are the JAX package's, in its order and with its
+    defaults, but for the five only its TPU path reads."""
+    tpu_only = {"ray_batch_size", "bvh_stack_depth", "pathtrace_samples_per_step", "dtype",
+                "use_pallas"}
+    assert ([(f.name, f.default) for f in dataclasses.fields(JaxConfig) if f.name not in tpu_only]
             == [(f.name, f.default) for f in dataclasses.fields(port_config.RaytracerConfig)])
 
 

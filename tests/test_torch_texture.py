@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 from torch_bridge import assert_arrays_equal, jax_scene_arrays, port_scene_from_jax, scene_to_arrays
 
-from chip_smoke import synthetic_textured_scene
+from torch_scenes import synthetic_textured_scene
 from gpu_raytracer_tpu.config import RaytracerConfig as JaxConfig
 from gpu_raytracer_tpu.models.geometry import Textures as JaxTextures
 from gpu_raytracer_tpu.ops import texture as jax_texture
@@ -82,7 +82,7 @@ def test_textured_courtyard_bit_equal(texture_size):
 
 
 def test_synthetic_textured_scene_bit_equal():
-    """chip_smoke.py's synthetic scene (all wrap modes and map slots) is,
+    """tests/torch_scenes.py's synthetic scene (all wrap modes and map slots) is,
     draw for draw, the JAX package's texture-shade test scene."""
     from test_texshade import _textured_scene
 

@@ -50,11 +50,10 @@ from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyar
 from gpu_raytracer_tpu.utils.procgen import make_zoo_scene as jax_zoo
 from test_texshade import _random_gbuffer, _textured_scene
 
-from chip_smoke import synthetic_textured_scene
 from gpu_raytracer_tpu_torch.config import RaytracerConfig
-from gpu_raytracer_tpu_torch.engine.renderer import (Renderer, gbuffer_planes,
-                                                     render_deferred_chunk, render_gbuffer,
-                                                     split_gbuffer, tiled_pixel_order)
+from gpu_raytracer_tpu_torch.engine.renderer import Renderer, tiled_pixel_order
+from gpu_raytracer_tpu_torch.ops.render import (gbuffer_planes, render_deferred_chunk,
+                                                render_gbuffer, split_gbuffer)
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays
 from gpu_raytracer_tpu_torch.ops.cuda.render import (pack_render_tables, render_deferred,
                                                      render_primary)

@@ -25,7 +25,8 @@ from gpu_raytracer_tpu.engine.viewer import Viewer as JaxViewer
 from gpu_raytracer_tpu.models.scene import build_default_scene as jax_default
 from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
 from gpu_raytracer_tpu_torch.config import RaytracerConfig
-from gpu_raytracer_tpu_torch.engine.renderer import light_uniforms, render_chunk
+from gpu_raytracer_tpu_torch.engine.renderer import light_uniforms
+from gpu_raytracer_tpu_torch.ops.render import render_chunk
 from gpu_raytracer_tpu_torch.engine.viewer import Viewer
 from gpu_raytracer_tpu_torch.models.scene import build_default_scene
 from gpu_raytracer_tpu_torch.ops.camera_rays import generate_rays

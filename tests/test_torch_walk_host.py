@@ -525,7 +525,7 @@ def test_host_closest_walk_visits_children_in_stable_sorted_order(walk_host, cou
 def camera_shadow_rays(scene, light):
     """The W x H camera rays' hits (plain closest hit) -> shadow rays of every
     hit toward the light, as chip_smoke.py casts them."""
-    from chip_smoke import light_shadow_rays
+    from torch_scenes import light_shadow_rays
 
     ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.int32),
                             torch.arange(W, dtype=torch.int32), indexing="ij")

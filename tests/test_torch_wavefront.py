@@ -32,6 +32,7 @@ from gpu_raytracer_tpu.ops import wavefront as jwf
 from gpu_raytracer_tpu.ops.pallas.bounce import pallas_bounce
 from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene as jax_courtyard
 from gpu_raytracer_tpu_torch.ops import sampling, wavefront
+from gpu_raytracer_tpu_torch.ops.pool import bounce_flags
 from gpu_raytracer_tpu_torch.ops.cuda.bounce import (fused_bounce, fused_bounce_,
                                                      pack_bounce_tables)
 
@@ -434,7 +435,7 @@ def test_pool_after_each_depth_matches_jax(scene):
         jrad = jrad + jr_rad
         # the port, in place from the same pool
         n_live = r.active.sum()
-        flags = wavefront.bounce_flags(tables.scene, depth, max_depth + 1, rr_start, True, bias)
+        flags = bounce_flags(tables.scene, depth, max_depth + 1, rr_start, True, bias)
         if depth > 0:   # (JAX also sorts at depth 0, so equal keys may sit in another order)
             order = wavefront.coherence_order(tables.scene, r, order)
             assert sorted(order[: int(n_live)].tolist()) == torch.nonzero(r.active)[:, 0].tolist()

@@ -143,7 +143,7 @@ def rounding_sensitive_pixels(scene, width, height, shadows=False, sky=(0.0, 0.0
     float64 (sphere silhouettes, where b^2 - 4ac cancels, grazing hits).
     There another f32 evaluation order, such as XLA:CPU's fused
     multiply-adds, can land further than the 1e-5 parity tolerance away."""
-    from gpu_raytracer_tpu_torch.engine.renderer import render_chunk
+    from gpu_raytracer_tpu_torch.ops.render import render_chunk
 
     py, px = torch.meshgrid(torch.arange(height, dtype=torch.int32),
                             torch.arange(width, dtype=torch.int32), indexing="ij")
